@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of superresolution_tpu for one NVIDIA H100.
+
+The JAX package `superresolution_tpu` is the reference; this package
+mirrors its module names (models/, ops/, infer/) so each counterpart is
+easy to find, and keeps its NHWC layout at every public function.
+
+Slice 1 covers the ESRGAN RRDBNet x4 tiled deploy path: the fused-trunk
+dense blocks and the x4 tail run through hand-written CUDA kernels
+(ops/csrc/sr_kernels.cu), built with nvcc at first use. Entry points
+default to the `cuda` device and raise without a GPU unless the caller
+passes device="cpu", where every kernel wrapper runs its plain PyTorch
+version instead.
+"""
+
+from superresolution_tpu_torch.runtime import resolve_device  # noqa: F401

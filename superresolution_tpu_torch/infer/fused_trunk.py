@@ -1,0 +1,87 @@
+"""Deploy-time RRDB trunk through the B1 CUDA kernel.
+
+Counterpart of superresolution_tpu/infer/fused_trunk.py: conv_first and
+trunk_conv stay plain convs (XLA's in the reference); the 23x3 dense
+blocks run as ops/dense_trunk.fused_dense_block, the RRDB residual folded
+into every third block's epilogue. The dense-block kernels are kept in
+bf16, as the reference's proj_weights keeps them; the convs around them
+run in the input's dtype.
+
+The reference's levers chain_rrdb (a whole RRDB per kernel) and fold_ends
+(conv_first / trunk_conv folded into the first / last block) are off by
+default there and are not ported yet: asking for either raises.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from superresolution_tpu_torch.infer.common import (
+    hwio,
+    param_conv,
+    state_tensors,
+)
+from superresolution_tpu_torch.infer.phase_tail import make_phase_tail
+from superresolution_tpu_torch.ops.dense_trunk import (
+    dense_weights,
+    fused_dense_block,
+)
+from superresolution_tpu_torch.ops.pixel_shuffle import space_to_depth
+from superresolution_tpu_torch.runtime import resolve_device
+
+
+def make_fused_trunk(params: Mapping, model, chain_rrdb: bool = False,
+                     fold_ends: bool = False,
+                     device: str | torch.device | None = None):
+    """-> trunk_fn(x [B,H,W,Cin]) equal to model.trunk(x) on the weights
+    of `params` (a BasicSR-keyed state dict; `model` is the port's
+    RRDBNet and gives the configuration)."""
+    if chain_rrdb or fold_ends:
+        raise NotImplementedError(
+            "chain_rrdb and fold_ends are not ported yet")
+    dev = resolve_device(device)
+    p = state_tensors(params, dev)
+    blocks = []
+    for i in range(model.num_blocks):
+        rrdb = []
+        for k in range(1, 4):
+            pre = f"body.{i}.rdb{k}"
+            rrdb.append(dense_weights(
+                [hwio(p[f"{pre}.conv{j}.weight"]) for j in range(1, 6)],
+                [p[f"{pre}.conv{j}.bias"] for j in range(1, 6)],
+                device=dev))
+        blocks.append(rrdb)
+    unshuffle = model.pixel_unshuffle_input
+
+    def trunk_fn(x: torch.Tensor) -> torch.Tensor:
+        if unshuffle > 1:
+            x = space_to_depth(x, unshuffle)
+        x = head = param_conv(x, p, "conv_first")
+        for w0, w1, w2 in blocks:
+            y = fused_dense_block(x, w0)
+            y = fused_dense_block(y, w1)
+            # the RRDB residual rides the third block's epilogue
+            x = fused_dense_block(y, w2, residual=x)
+        return param_conv(x, p, "conv_body") + head
+
+    return trunk_fn
+
+
+def fused_rrdb_model(params: Mapping, model,
+                     device: str | torch.device | None = None):
+    """RRDBNet(pixelshuffle, x4) -> apply_fn(x [B,H,W,Cin]) ->
+    [B,4H,4W,out]: the fused trunk, then the B2/B3 phase tail unclipped
+    (the model's own tail does not clip). Other tail layouts are not
+    ported yet and raise ValueError."""
+    if tuple(model.up_stages) != (2, 2):
+        raise ValueError("fused_rrdb_model takes a x4 pixelshuffle "
+                         f"tail; this model's stages are {model.up_stages}")
+    trunk = make_fused_trunk(params, model, device=device)
+    tail = make_phase_tail(params, clip=False, device=device)
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        return tail(trunk(x))
+
+    return apply_fn

@@ -1,0 +1,163 @@
+"""Build and bind the port's CUDA kernels (ops/csrc/*.cu).
+
+nvcc compiles every source into one shared library with a plain C
+interface (sm_90a), at first use, into superresolution_tpu_torch/_build/
+under a name keyed by a hash of the sources and flags; ctypes loads it.
+Nothing is downloaded, and a build or launch failure raises: no caller
+falls back to a plain version on the card.
+
+The launch helpers take CUDA tensors, pass raw pointers and PyTorch's
+current stream, and raise if the launch returns a CUDA error. Callers
+validate shapes first (require_cuda checks device, dtype, contiguity and
+alignment).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in SRC_DIR.iterdir()
+                  if p.suffix in (".cu", ".cuh"))
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if no library with their hash exists.
+    Returns (library path, build seconds (0 when cached), ptxas report)."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    lib = BUILD_DIR / f"libsr_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, seconds, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    lib.sr_conv3x3.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                               _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
+                               _P]
+    lib.sr_conv3x3.restype = _I
+    lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
+    lib.sr_conv_last.restype = _I
+    lib.sr_error_string.argtypes = [_I]
+    lib.sr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def require_cuda(*tensors: torch.Tensor | None, dtype=torch.bfloat16,
+                 name: str) -> None:
+    """Raise unless every given tensor is a contiguous, 16-byte aligned
+    CUDA tensor of `dtype`, all on one device."""
+    devs = set()
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+        devs.add(t.device)
+    if len(devs) > 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+
+
+def _check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.sr_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
+            bias: torch.Tensor | None, out: torch.Tensor, out_off: int,
+            cout: int, *, geom: tuple[int, int, int],
+            in1: torch.Tensor | None = None, cin1: int = 0,
+            d2s: bool = False, lrelu: bool = False,
+            xres: torch.Tensor | None = None,
+            res: torch.Tensor | None = None) -> None:
+    """One launch of the shared 3x3 SAME conv (see sr_kernels.cu).
+
+    geom = (B, H, W) of the conv's logical input; every tensor is NHWC
+    with its last dim as the channel stride. w: [3, 3, cin0+cin1, cout]
+    bf16; bias: [cout] f32."""
+    lib = library()
+    b, h, wd = geom
+    rc = lib.sr_conv3x3(
+        _ptr(in0), in0.shape[-1], cin0,
+        _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
+        int(d2s), b, h, wd, _ptr(w), _ptr(bias),
+        _ptr(out), out.shape[-1], out_off, cout, int(lrelu),
+        _ptr(xres), 0 if xres is None else xres.shape[-1],
+        _ptr(res), 0 if res is None else res.shape[-1],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _check(lib, rc, "sr_conv3x3")
+
+
+def conv_last(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              out: torch.Tensor) -> None:
+    """One launch of conv_last_kernel: y [B,H,W,cin] -> out [B,H,W,cout]."""
+    lib = library()
+    b, h, wd, cin = y.shape
+    rc = lib.sr_conv_last(_ptr(y), b, h, wd, cin, _ptr(w), _ptr(bias),
+                          out.shape[-1], _ptr(out),
+                          torch.cuda.current_stream(y.device).cuda_stream)
+    _check(lib, rc, "sr_conv_last")
