@@ -22,8 +22,28 @@ is not 0:
              finiteness; trunk features and the unclipped frame against
              the same path through the plain model within 0.03
   5 times    frame MP/s, trunk and tail ms
-Then the kernels line, the card's nvidia-smi line and, last,
-{"ok": true, "device": {...}}.
+Then the hybrid RRDBNet -> HAT x4 deploy path (stage 1 RRDBNet x2, 23
+RRDBs, 1 channel; stage 2 HATLite, embed 96, 4 groups of 6 HABs, 6
+heads, window 8), 128x128 -> 512x512, batch 1, bf16, random weights from
+a second seed:
+  6 hybrid-kernels  kernels 7 (fused_cab_convs), 8 (fused_hab_block) and
+             9 (flash_oca_gathered) against their plain versions at a
+             CHIPEQ-sized geometry, a ragged one and the main path's,
+             within 0.02 (CAB) and 0.03 (HAB, OCA) of max |plain|, timed
+             at the latter; HAB also on out - x - cab, CAB also on its
+             GELU hidden map; at the first geometry each check must also
+             fail on each of six faults planted in the kernels' inputs
+  7 hybrid-path     one frame through fused_hybrid_model, launches counted
+             (exact); shape and finiteness; stage 1, stage 2 and the
+             frame after it (both fed the kernel path's own stage-2
+             input) against the plain HybridSR on the same bf16 weights
+             within 0.03; both paths' distances from the plain model in
+             f32, and the whole frame's, printed
+  8 hybrid-times    ms/frame and MP/s (input MP), stage 1 and 2 ms, the
+             plain model's frame, B1 at stage 1's shape, the device time
+             of a frame (torch.profiler) and its busy share, peak memory
+Then the kernels line (all six kernels), the card's nvidia-smi line and,
+last, {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 /usr/local/cuda/bin or on PATH)
@@ -31,6 +51,7 @@ Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -48,14 +69,27 @@ TOL_PATH = 0.03           # 69 chained bf16 blocks round more than one call
 PEAK_FLOPS = 989e12       # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SRC = "superresolution_tpu_torch/ops/csrc/sr_kernels.cu"
+HAT_SRC = "superresolution_tpu_torch/ops/csrc/hat_kernels.cu"
+TOL_HAB = 0.03            # CHIPEQ's bar for fused_hat_* and flash_oca
+HYBRID_IN = 128           # 128x128 -> stage 1 x2 -> stage 2 x2 -> 512x512
 # multiply-accumulates per pixel of each op (c=64, g=32)
 B1_MACS = 9 * sum((64 + j * 32) * (32 if j < 4 else 64) for j in range(5))
 B2_MACS = 4 * 9 * 64 * 256 + 16 * 9 * 64 * 64     # per LR pixel
 B3_MACS = 9 * 64 * 3                              # per HR pixel
+# hybrid stage 2 (C 96, 6 heads of 16, 8x8 windows, MLP 192, OCAB 12x12)
+CAB_MACS = 2 * 9 * 96 * 32                        # per pixel
+HAB_MACS = 96 * 288 + 96 * 96 + 2 * 96 * 192 + 2 * 64 * 96  # per token
+OCA_MACS = 2 * 144 * 96                           # per query token
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max |ref|, in f32."""
+    g, r = got.float(), ref.float()
+    return float((g - r).abs().max()) / max(float(r.abs().max()), 1e-6)
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -288,6 +322,381 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
     return out
 
 
+def rand(gen: torch.Generator, *shape, scale: float = 1.0,
+         shift: float = 0.0, dtype=torch.float32) -> torch.Tensor:
+    """N(shift, scale) drawn on the CPU from `gen`, on the card."""
+    t = torch.randn(*shape, generator=gen) * scale + shift
+    return t.to("cuda", dtype)
+
+
+def expect_caught(fault: str, check) -> None:
+    """Run `check` on inputs with `fault` planted; raise unless the
+    check fails."""
+    try:
+        check()
+    except AssertionError as e:
+        emit({"planted_fault": fault, "caught": True, "by": str(e)})
+        return
+    raise AssertionError(f"the check passed with {fault} planted")
+
+
+def cab_check_weights(gen: torch.Generator, c: int = 96, mid: int = 32):
+    """Kernel 7's weights for its check: a large LN bias (so a conv that
+    saw LN(0) = ln bias outside the image would differ) and N(0, 0.5)
+    conv biases."""
+    return [rand(gen, c, scale=0.1, shift=1.0), rand(gen, c, scale=0.5),
+            rand(gen, 3, 3, c, mid, scale=(2 / (9 * c)) ** 0.5,
+                 dtype=torch.bfloat16),
+            rand(gen, mid, scale=0.5),
+            rand(gen, 3, 3, mid, c, scale=(2 / (9 * mid)) ** 0.5,
+                 dtype=torch.bfloat16),
+            rand(gen, c, scale=0.5)]
+
+
+def hab_check_weights(gen: torch.Generator, c: int = 96, nh: int = 6,
+                      n: int = 64, mlp: int = 192) -> dict:
+    """Kernel 8's weights for its check: q and k weights and a rel-pos
+    bias large enough that the softmax is far from uniform (logits of
+    about 2-3 standard deviations), nonzero biases and LN parameters."""
+    bf = torch.bfloat16
+    return {"ln1_s": rand(gen, c, scale=0.1, shift=1.0),
+            "ln1_b": rand(gen, c, scale=0.1),
+            "wqkv": torch.cat([rand(gen, c, c, scale=0.15, dtype=bf),
+                               rand(gen, c, c, scale=0.15, dtype=bf),
+                               rand(gen, c, c, scale=c ** -0.5, dtype=bf)],
+                              1).contiguous(),
+            "bqkv": rand(gen, 3 * c, scale=0.1),
+            "rpb": rand(gen, nh, n, n),
+            "wp": rand(gen, c, c, scale=c ** -0.5, dtype=bf),
+            "bp": rand(gen, c, scale=0.1),
+            "ln2_s": rand(gen, c, scale=0.1, shift=1.0),
+            "ln2_b": rand(gen, c, scale=0.1),
+            "w1": rand(gen, c, mlp, scale=c ** -0.5, dtype=bf),
+            "b1": rand(gen, mlp, scale=0.1),
+            "w2": rand(gen, mlp, c, scale=mlp ** -0.5, dtype=bf),
+            "b2": rand(gen, c, scale=0.1)}
+
+
+def check_cab(ws, x: torch.Tensor, tag: str) -> dict:
+    """Kernel 7 against its plain version (in f32 on the bf16 inputs):
+    the output and the GELU hidden map, which starts as NaN so a slice no
+    launch writes fails."""
+    from superresolution_tpu_torch.ops import hab
+
+    b, h, w, _ = x.shape
+    hid = torch.full((b, h, w, ws[2].shape[-1]), float("nan"),
+                     dtype=x.dtype, device=x.device)
+    before = hab.fused_cab_convs.launches
+    got = hab.fused_cab_convs(x, ws, hidden=hid)
+    if hab.fused_cab_convs.launches != before + 3:
+        raise AssertionError("fused_cab_convs: launches did not go up by 3")
+    hid_ref = torch.empty(hid.shape, device=x.device)
+    ref = hab.fused_cab_convs_reference(x.float(), ws, hidden=hid_ref)
+    res = compare(f"fused_cab_convs/{tag}", got, ref, TOL_KERNEL)
+    compare(f"fused_cab_convs/{tag}/hidden", hid, hid_ref, TOL_KERNEL)
+    return res
+
+
+def check_hab(ws, x: torch.Tensor, cab: torch.Tensor, ids, tag: str) -> dict:
+    """Kernel 8 against its plain version on the same bf16 inputs: the
+    output, and out - x - cab (attention + MLP), which the identity
+    terms would hide."""
+    from superresolution_tpu_torch.ops import hab
+
+    before = hab.fused_hab_block.launches
+    got = hab.fused_hab_block(x, cab, 6, ws, ids)
+    if hab.fused_hab_block.launches != before + 1:
+        raise AssertionError("fused_hab_block did not count its launch")
+    ref = hab.hab_body_reference(x, cab, ws, 6, ids)
+    res = compare(f"fused_hab_block/{tag}", got, ref, TOL_HAB)
+    ident = x.float() + cab.float()
+    compare(f"fused_hab_block/{tag}/attn_mlp", got.float() - ident,
+            ref.float() - ident, TOL_HAB)
+    return res
+
+
+def check_oca(q, k_map, v_map, bias, tag: str) -> dict:
+    from superresolution_tpu_torch.ops import flash_oca as fo
+
+    before = fo.flash_oca_gathered.launches
+    got = fo.flash_oca_gathered(q, k_map, v_map, bias, 6, 8, 12)
+    if fo.flash_oca_gathered.launches != before + 1:
+        raise AssertionError("flash_oca_gathered did not count its launch")
+    ref = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6, 8, 12)
+    return compare(f"flash_oca_gathered/{tag}", got, ref, TOL_HAB)
+
+
+def check_hybrid_kernels(gen: torch.Generator) -> dict:
+    """Phase 6: kernels 7, 8, 9 against their plain versions at a
+    CHIPEQ-sized geometry, a ragged one and the main path's shapes, where
+    each is timed; the planted faults at the first."""
+    from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops.unfold import (
+        extract_overlapping_windows)
+
+    bf = torch.bfloat16
+    cab_w, hab_w = cab_check_weights(gen), hab_check_weights(gen)
+    out = {}
+    side = 2 * HYBRID_IN
+    # (CAB [B,H,W]; HAB/OCA image batch and H x W, a multiple of 8)
+    for geom, cab_shape, (b, h, w) in (
+            ("chipeq", (2, 48, 64), (2, 32, 32)),
+            # 39 windows (3 x 13): no multiple of any block size
+            ("ragged", (1, 37, 45), (3, 8, 104)),
+            ("main", (1, side, side), (1, side, side))):
+        x = rand(gen, *cab_shape, 96, dtype=bf)
+        e7 = check_cab(cab_w, x, geom)
+        nw = (h // 8) * (w // 8)
+        xw = rand(gen, b * nw, 64, 96, dtype=bf)
+        cw = rand(gen, b * nw, 64, 96, scale=0.3, dtype=bf)
+        ids = torch.as_tensor(shift_region_ids(h, w, 8, 4), device="cuda")
+        e8 = max((check_hab(hab_w, xw, cw, i, f"{geom}/{name}")
+                  for name, i in (("unmasked", None), ("masked", ids))),
+                 key=lambda e: e["max_rel_err"])
+        q = rand(gen, b * nw, 64, 96, scale=1.5, dtype=bf)
+        k_map, v_map = (F.pad(rand(gen, b, h, w, 96, scale=1.5, dtype=bf),
+                              (0, 0, 2, 2, 2, 2)).contiguous()
+                        for _ in range(2))
+        bias = rand(gen, 6, 64, 144)
+        e9 = check_oca(q, k_map, v_map, bias, geom)
+        if geom == "chipeq":  # each check again, on planted inputs
+            ref7 = hab.fused_cab_convs_reference(x.float(), cab_w)
+            ref8 = hab.hab_body_reference(xw, cw, hab_w, 6, ids)
+            ref9 = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6,
+                                                   8, 12)
+            no_ln_b, no_b1 = list(cab_w), list(cab_w)
+            no_ln_b[1] = torch.zeros_like(cab_w[1])
+            no_b1[3] = torch.zeros_like(cab_w[3])
+            rpb_t = dict(hab_w, rpb=hab_w["rpb"].transpose(1, 2).contiguous())
+            planted = {
+                "cab_ln_bias_zeroed": (lambda: hab.fused_cab_convs(
+                    x, no_ln_b), ref7, TOL_KERNEL),
+                "cab_conv1_bias_zeroed": (lambda: hab.fused_cab_convs(
+                    x, no_b1), ref7, TOL_KERNEL),
+                "hab_region_ids_dropped": (lambda: hab.fused_hab_block(
+                    xw, cw, 6, hab_w, None), ref8, TOL_HAB),
+                "hab_rpb_transposed": (lambda: hab.fused_hab_block(
+                    xw, cw, 6, rpb_t, ids), ref8, TOL_HAB),
+                "oca_bias_zeroed": (lambda: fo.flash_oca_gathered(
+                    q, k_map, v_map, torch.zeros_like(bias), 6, 8, 12),
+                    ref9, TOL_HAB),
+                "oca_k_map_shifted": (lambda: fo.flash_oca_gathered(
+                    q, torch.roll(k_map, 1, 2), v_map, bias, 6, 8, 12),
+                    ref9, TOL_HAB),
+            }
+            for fault, (kern, ref, tol) in planted.items():
+                expect_caught(fault, lambda: compare(
+                    f"planted/{fault}", kern(), ref, tol))
+        if geom != "main":
+            continue
+
+        px, tok = side * side, b * nw * 64
+        map_bytes = 2 * k_map.numel() * 2
+        sdpa_q = q.reshape(-1, 64, 6, 16).transpose(1, 2)
+        kw, vw = (extract_overlapping_windows(m, 8, 12, h // 8, w // 8)
+                  .reshape(-1, 144, 6, 16).transpose(1, 2)
+                  for m in (k_map, v_map))
+        rows = [
+            ("fused_cab_convs", "superresolution_tpu/ops/pallas_hab.py:462",
+             e7, lambda: hab.fused_cab_convs(x, cab_w),
+             lambda: hab.fused_cab_convs_reference(x, cab_w), None,
+             2 * px * CAB_MACS, px * 96 * 2 * 2 + 2 * 9 * 96 * 32 * 2,
+             list(x.shape), [HAT_SRC, SRC]),
+            ("fused_hab_block", "superresolution_tpu/ops/pallas_hab.py:265",
+             e8, lambda: hab.fused_hab_block(xw, cw, 6, hab_w, ids),
+             lambda: hab.hab_body_reference(xw, cw, hab_w, 6, ids), None,
+             2 * tok * HAB_MACS,
+             tok * 96 * 2 * 3 + ids.numel() * 4
+             + 2 * (96 * 288 + 96 * 96 + 2 * 96 * 192),
+             list(xw.shape), [HAT_SRC]),
+            ("flash_oca_gathered",
+             "superresolution_tpu/ops/pallas_flash_oca.py:165", e9,
+             lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 6, 8, 12),
+             lambda: fo.flash_oca_gathered_reference(q, k_map, v_map, bias,
+                                                     6, 8, 12),
+             # the same attention on the pre-gathered windows (the gather
+             # itself is not in this call)
+             lambda: F.scaled_dot_product_attention(
+                 sdpa_q, kw, vw, attn_mask=bias.to(bf)),
+             2 * tok * OCA_MACS, tok * 96 * 2 * 2 + map_bytes
+             + bias.numel() * 4, list(q.shape), [HAT_SRC]),
+        ]
+        for name, tpu, err, kern, plain, lib, flops, nbytes, shape, srcs \
+                in rows:
+            b_ms, b_by = bound(flops, nbytes)
+            out[name] = {
+                "name": name, "route": "cuda", "source": srcs[0],
+                "sources": srcs, "replaces": tpu, "shape": shape,
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"],
+                "tol": TOL_KERNEL if name == "fused_cab_convs" else TOL_HAB,
+                "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib is None else time_ms(lib, 20)}
+            emit({"phase": "kernel_time", **out[name]})
+    return out
+
+
+def hybrid_model(gen: torch.Generator):
+    """bench_hybrid's HybridSR at full width, bf16, on the card, random
+    weights with N(0, 0.02) biases."""
+    from superresolution_tpu_torch.models.hat_lite import HATLite
+    from superresolution_tpu_torch.models.hybrid import HybridSR
+    from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+
+    model = HybridSR(
+        stage1=RRDBNet(scale=2, in_channels=1, out_channels=1, features=64,
+                       num_blocks=23, growth=32, upsampler="pixelshuffle",
+                       generator=gen),
+        stage2=HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=96,
+                       depths=(6,) * 4, num_heads=(6,) * 4, window_size=8,
+                       generator=gen),
+        output_size=4 * HYBRID_IN, smoothing="balanced")
+    model = model.to(torch.bfloat16).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model
+
+
+def hybrid_path(gen: torch.Generator, card: str) -> dict:
+    """Phases 7 and 8: one frame through fused_hybrid_model with every
+    launch counted, checked against the plain HybridSR; then times.
+    Returns the launches per frame."""
+    from superresolution_tpu_torch.infer.fused_hat import (
+        fused_hybrid_model, make_fused_hat)
+    from superresolution_tpu_torch.infer.common import hwio
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+    from superresolution_tpu_torch.ops.dense_trunk import (
+        dense_weights, fused_dense_block)
+    from superresolution_tpu_torch.ops.phase_tail import (
+        conv_last_phase, up2_hr)
+
+    model = hybrid_model(gen)
+    params = model.state_dict()
+    x = torch.rand((1, HYBRID_IN, HYBRID_IN, 1), generator=gen).to(
+        "cuda", torch.bfloat16)
+    fused = fused_hybrid_model(params, model)
+    ops = {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
+           "conv_last_phase": conv_last_phase,
+           "fused_cab_convs": hab.fused_cab_convs,
+           "fused_hab_block": hab.fused_hab_block,
+           "flash_oca_gathered": fo.flash_oca_gathered}
+    with torch.inference_mode():
+        for op in ops.values():
+            op.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        y = fused(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {k: op.launches for k, op in ops.items()}
+        n_hab = sum(model.stage2.depths)
+        expected = {"fused_dense_block": 69 * 5, "up2_hr": 0,
+                    "conv_last_phase": 0, "fused_cab_convs": 3 * n_hab,
+                    "fused_hab_block": n_hab,
+                    "flash_oca_gathered": len(model.stage2.depths)}
+        if launches != expected:
+            raise AssertionError(f"hybrid launches {launches} != "
+                                 f"expected {expected}")
+        side = 4 * HYBRID_IN
+        if tuple(y.shape) != (1, side, side, 1):
+            raise AssertionError(f"hybrid output shape {tuple(y.shape)}")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("hybrid: non-finite output")
+        emit({"phase": "hybrid_path", "output_shape": list(y.shape),
+              "dtype": str(y.dtype), "first_run_s": first_s,
+              "launches_per_frame": launches,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+        # Each stage, and the frame, against the plain HybridSR on the
+        # same bf16 weights (f32 attention logits) within TOL_PATH. Stage
+        # 2 and the frame get the kernel path's own stage-2 input: stage
+        # 2 amplifies a relative change of its input several times. Each
+        # line also gives both paths' distance from the plain model run
+        # in f32: with random weights at this depth the bf16 plain model
+        # itself strays 0.03-0.05 from it.
+        sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
+                   if n.startswith(k + ".")} for k in ("stage1", "stage2")}
+        s1 = fused_rrdb_model(sub["stage1"], model.stage1)
+        s2 = make_fused_hat(sub["stage2"], model.stage2)
+        model32 = copy.deepcopy(model).float()
+
+        def finish(stage2, z):  # stage 2 and the smoothing after it
+            z = anti_checkerboard(stage2(z), "balanced")
+            return anti_checkerboard(z, "light")
+
+        y1 = s1(x)
+        z = anti_checkerboard(y1, "balanced")
+        for name, got, plain, ref in (
+                ("stage1", y1, model.stage1(x), model32.stage1(x.float())),
+                ("stage2", s2(z), model.stage2(z), model32.stage2(z.float())),
+                ("frame", y, finish(model.stage2, z),
+                 finish(model32.stage2, z.float()))):
+            compare(f"hybrid/{name}", got, plain, TOL_PATH,
+                    rel_err_vs_f32=rel_err(got, ref),
+                    plain_rel_err_vs_f32=rel_err(plain, ref))
+        # the whole frame from x through both paths and in f32 (printed)
+        frame_plain, frame_32 = model(x), model32(x.float())
+        emit({"check": "hybrid/frame_end_to_end",
+              "rel_err": rel_err(y, frame_plain),
+              "rel_err_vs_f32": rel_err(y, frame_32),
+              "plain_rel_err_vs_f32": rel_err(frame_plain, frame_32)})
+        del model32, frame_32, frame_plain
+
+        def host_s(fn, runs=3):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / runs
+
+        frame_s = host_s(lambda: fused(x))
+        s1_s = host_s(lambda: s1(x))
+        s2_s = host_s(lambda: s2(z))
+        plain_s = host_s(lambda: model(x))
+        # B1 at stage 1's shape (its kernel_time row is the ESRGAN one's)
+        feat = rand(gen, 1, HYBRID_IN, HYBRID_IN, 64, scale=0.2,
+                    dtype=torch.bfloat16)
+        b1_w = dense_weights(
+            [hwio(params[f"stage1.body.0.rdb1.conv{j}.weight"])
+             for j in range(1, 6)],
+            [params[f"stage1.body.0.rdb1.conv{j}.bias"] for j in range(1, 6)],
+            device="cuda")
+        b1_ms = time_ms(lambda: fused_dense_block(feat, b1_w), 20)
+        # device time of one frame by kernel, from the profiler
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fused(x)
+            torch.cuda.synchronize()
+        on_card = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        device_us = sum(e.self_device_time_total for e in on_card)
+        top = [{"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+                "count": e.count} for e in on_card[:10]]
+    emit({"phase": "hybrid_times", "card": card, "frame_ms": frame_s * 1e3,
+          "mp_per_s": HYBRID_IN ** 2 / 1e6 / frame_s,
+          "stage1_ms": s1_s * 1e3, "stage2_ms": s2_s * 1e3,
+          "plain_frame_ms": plain_s * 1e3, "b1_ms_stage1_shape": b1_ms,
+          # None when the profiler saw no device time
+          "device_ms_per_frame": device_us / 1e3 if device_us else None,
+          "device_busy_share": (device_us / 1e3 / (frame_s * 1e3)
+                                if device_us else None),
+          "top_device_kernels": top,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -407,6 +816,19 @@ def main() -> int:
           "frame_bound_ms": 2 * frame_macs / PEAK_FLOPS * 1e3,
           "frame_tflop_per_s": 2 * frame_macs / frame_s / 1e12,
           "total_s": time.perf_counter() - t_start})
+
+    del img, out, feats, fused, runner, run_trunk, run_tail, plain_trunk, \
+        plain_tail, model, params
+    torch.cuda.empty_cache()
+
+    # ---- 6-8: the hybrid RRDBNet -> HAT path ----
+    gen = torch.Generator().manual_seed(SEED + 1)
+    kernels.update(check_hybrid_kernels(gen))
+    torch.cuda.empty_cache()
+    hybrid_launches = hybrid_path(gen, card)
+    for k in ("fused_cab_convs", "fused_hab_block", "flash_oca_gathered"):
+        kernels[k]["launches"] = hybrid_launches[k]
+    emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})
     print(card, flush=True)

@@ -6,7 +6,10 @@ easy to find, and keeps its NHWC layout at every public function.
 
 Slice 1 covers the ESRGAN RRDBNet x4 tiled deploy path: the fused-trunk
 dense blocks and the x4 tail run through hand-written CUDA kernels
-(ops/csrc/sr_kernels.cu), built with nvcc at first use. Entry points
+(ops/csrc/sr_kernels.cu), built with nvcc at first use. Slice 2 covers
+the hybrid RRDBNet -> HAT x4 deploy path (infer/fused_hat.py): the HAT
+stage's CAB convs, HAB block bodies and OCAB attention run through
+ops/csrc/hat_kernels.cu, stage 1 through the slice-1 trunk. Entry points
 default to the `cuda` device and raise without a GPU unless the caller
 passes device="cpu", where every kernel wrapper runs its plain PyTorch
 version instead.

@@ -1,0 +1,233 @@
+"""Deploy-time HATLite and HybridSR through the hand-written kernels.
+
+Counterpart of superresolution_tpu/infer/fused_hat.py. Every HAB runs its
+CAB conv stack as kernel 7 (ops/hab.fused_cab_convs) and its window body
+as kernel 8 (ops/hab.fused_hab_block); every group-end OCAB runs its
+attention as kernel 9 (ops/flash_oca.flash_oca_gathered), fed the padded
+key and value maps. The rest is plain PyTorch, as the reference leaves
+it to XLA: the squeeze-excite tail, rolls and window partitions, the
+OCAB's dense layers and MLP, and the convs. fused_hybrid_model runs
+stage 1 through infer/fused_trunk.fused_rrdb_model (B1).
+
+Weights come from the port's HAT-keyed state dict (models/convert.py
+bridges the JAX trees) and are cast per input dtype, as the reference
+casts its params at the call: bf16 on the card, f32 in the CPU tests.
+
+Not ported: the reference's levers SRTPU_LANE_PAD (infer/lane_pad.py),
+SRTPU_STRIP_HAB, SRTPU_XLA_CAB, SRTPU_EINSUM_OCA and SRTPU_GATHER_OCA=0,
+all off by default there. Where the OCAB geometry is one the gathered
+kernel does not cover, the reference takes flash_window_attention
+(row 10 of PERF.md's kernel table, not ported yet): on the card
+make_fused_hat raises; on the CPU it runs the plain attention.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from superresolution_tpu_torch.infer.common import param_conv, state_tensors
+from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+from superresolution_tpu_torch.models.common import pixel_shuffle_stages
+from superresolution_tpu_torch.models.hat_lite import (
+    HATLite,
+    relative_position_index_oca,
+    shift_region_ids,
+    window_merge,
+    window_partition,
+)
+from superresolution_tpu_torch.models.hybrid import check_output_size
+from superresolution_tpu_torch.ops.blur import anti_checkerboard
+from superresolution_tpu_torch.ops.flash_oca import (
+    flash_oca_gathered,
+    flash_oca_gathered_reference,
+    oca_gather_supported,
+)
+from superresolution_tpu_torch.ops.hab import (
+    cab_weights,
+    fused_cab_convs,
+    fused_hab_block,
+    hab_weights,
+    layer_norm,
+)
+from superresolution_tpu_torch.ops.pixel_shuffle import depth_to_space
+from superresolution_tpu_torch.runtime import resolve_device
+
+
+def _ln(x: torch.Tensor, p: Mapping, name: str) -> torch.Tensor:
+    return layer_norm(x, p[f"{name}.weight"], p[f"{name}.bias"])
+
+
+def _dense(x: torch.Tensor, p: Mapping, name: str) -> torch.Tensor:
+    """A Linear (or 1x1 conv) of the state dict on the last axis, with
+    f32 accumulation and f32 bias, in x's dtype (the reference's
+    _dense)."""
+    w = p[f"{name}.weight"]
+    w = w.reshape(w.shape[0], -1)
+    return (x.float() @ w.to(x.dtype).float().t()
+            + p[f"{name}.bias"].float()).to(x.dtype)
+
+
+def _se_scale(y: torch.Tensor, p: Mapping, pre: str) -> torch.Tensor:
+    """Squeeze-excite tail of the CAB, on the kernel's pre-SE output."""
+    s = y.float().mean((1, 2), keepdim=True).to(y.dtype)
+    s = torch.relu(_dense(s, p, f"{pre}.conv_block.cab.3.attention.1"))
+    s = torch.sigmoid(_dense(s, p, f"{pre}.conv_block.cab.3.attention.3"))
+    return y * s
+
+
+def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
+         ws: int, nh: int, conv_scale: float,
+         ids: torch.Tensor | None) -> torch.Tensor:
+    """One HABlock: the CAB branch (kernel 7 + SE), then the window body
+    (kernel 8) on the rolled, partitioned x and cab."""
+    _, h, w, _ = x.shape
+    cw, hw = weights
+    cab = (_se_scale(fused_cab_convs(x, cw), p, pre)
+           * torch.tensor(conv_scale, dtype=x.dtype))
+    if shift:
+        x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+        cab = torch.roll(cab, (-shift, -shift), dims=(1, 2))
+    out = fused_hab_block(window_partition(x, ws).contiguous(),
+                          window_partition(cab, ws).contiguous(), nh, hw,
+                          ids)
+    out = window_merge(out, ws, (h, w))
+    if shift:
+        out = torch.roll(out, (shift, shift), dims=(1, 2))
+    return out.contiguous()
+
+
+def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
+          nh: int, bias: torch.Tensor) -> torch.Tensor:
+    """OverlappingCrossAttention: LN, q and kv denses, the kv maps
+    zero-padded after the dense (asymmetric tail pad for odd ows - ws),
+    attention through kernel 9, proj, MLP."""
+    _, h, w, c = x.shape
+    pad = (ows - ws) // 2
+    y = _ln(x, p, f"{pre}.norm1")
+    qkv = _dense(y, p, f"{pre}.qkv")  # q | k | v, as HAT packs them
+    q = window_partition(qkv[..., :c], ws).contiguous()
+    k_map, v_map = (F.pad(qkv[..., i * c:(i + 1) * c],
+                          (0, 0, pad, ows - ws - pad, pad, ows - ws - pad)
+                          ).contiguous() for i in (1, 2))
+    if oca_gather_supported(ws, ows, h, w):
+        out = flash_oca_gathered(q, k_map, v_map, bias, nh, ws, ows)
+    else:  # the reference's row-10 path; make_fused_hat keeps it off-card
+        out = flash_oca_gathered_reference(q, k_map, v_map, bias, nh, ws,
+                                           ows)
+    x = x + window_merge(_dense(out, p, f"{pre}.proj"), ws, (h, w))
+    z = F.gelu(_dense(_ln(x, p, f"{pre}.norm2"), p, f"{pre}.mlp.fc1"))
+    return x + _dense(z, p, f"{pre}.mlp.fc2")
+
+
+def make_fused_hat(params: Mapping, model: HATLite,
+                   device: str | torch.device | None = None):
+    """-> apply_fn(x [B,H,W,Cin]) -> [B,H*scale,W*scale,Cout], equal to
+    `model` (the port's HATLite, which gives the configuration) applied
+    with the weights of `params`, a HAT-keyed state dict, with its HABs
+    and OCABs through kernels 7-9. Sides that are not multiples of the
+    window are edge-padded and the output cropped, as in the model."""
+    dev = resolve_device(device)
+    p = state_tensors(params, dev)
+    ws, scale = model.window_size, model.scale
+    ows = int(ws * (1 + model.overlap_ratio))
+    if dev.type == "cuda" and not oca_gather_supported(ws, ows, ws, ws):
+        raise NotImplementedError(
+            f"the OCAB geometry ws={ws} ows={ows} needs flash_window_"
+            "attention (ops/pallas_attn.py, row 10), not ported yet")
+    n = ws * ws
+    layers = []
+    for g, (depth, nh) in enumerate(zip(model.depths, model.num_heads)):
+        blocks = [f"layers.{g}.residual_group.blocks.{i}"
+                  for i in range(depth)]
+        pre = f"layers.{g}.overlap_attn"
+        if model.hat_compat:
+            idx = torch.as_tensor(relative_position_index_oca(ws, ows),
+                                  device=dev).long().reshape(-1)
+            bias = p[f"{pre}.relative_position_bias_table"][idx].reshape(
+                n, ows * ows, nh).permute(2, 0, 1).float().contiguous()
+        else:
+            bias = torch.zeros((nh, n, ows * ows), device=dev)
+        layers.append((g, blocks, nh, bias))
+    cast: dict = {}
+    ids_at: dict = {}
+
+    def weights(dtype: torch.dtype):
+        """Kernel weights of every HAB, cast to `dtype` once."""
+        if dtype not in cast:
+            cast[dtype] = {
+                pre: (cab_weights(p, pre, dtype),
+                      hab_weights(p, pre, nh, ws, dtype))
+                for _, blocks, nh, _ in layers for pre in blocks}
+        return cast[dtype]
+
+    def region_ids(h: int, w: int) -> torch.Tensor:
+        if (h, w) not in ids_at:
+            ids_at[h, w] = torch.as_tensor(
+                shift_region_ids(h, w, ws, ws // 2), device=dev)
+        return ids_at[h, w]
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        _, h0, w0, _ = x.shape
+        ph, pw = (ws - h0 % ws) % ws, (ws - w0 % ws) % ws
+        if ph or pw:
+            x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph),
+                      mode="replicate").permute(0, 2, 3, 1)
+        wts = weights(x.dtype)
+        ids = region_ids(h0 + ph, w0 + pw)
+        feat = param_conv(x, p, "conv_first")
+        y = _ln(feat, p, "patch_embed.norm") if model.hat_compat else feat
+        for g, blocks, nh, bias in layers:
+            y0 = y
+            for i, pre in enumerate(blocks):
+                shift = 0 if i % 2 == 0 else ws // 2
+                y = _hab(y, p, pre, wts[pre], shift=shift, ws=ws, nh=nh,
+                         conv_scale=model.conv_scale,
+                         ids=ids if shift else None)
+            y = _ocab(y, p, f"layers.{g}.overlap_attn", ws=ws, ows=ows,
+                      nh=nh, bias=bias)
+            y = y0 + param_conv(y, p, f"layers.{g}.conv")
+        if model.hat_compat:
+            y = _ln(y, p, "norm")
+        y = param_conv(y, p, "conv_after_body") + feat
+        if model.hat_compat:
+            y = F.leaky_relu(param_conv(y, p, "conv_before_upsample.0"),
+                             0.01)
+        for j, r in enumerate(pixel_shuffle_stages(scale)):
+            y = depth_to_space(param_conv(y, p, f"upsample.{2 * j}"), r)
+        y = param_conv(y, p, "conv_last")
+        return y[:, :h0 * scale, :w0 * scale]
+
+    return apply_fn
+
+
+def _stage(params: Mapping, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def fused_hybrid_model(params: Mapping, model,
+                       device: str | torch.device | None = None):
+    """HybridSR (the port's; stage 2 a HATLite) -> apply_fn(x) with the
+    HybridSR forward: stage 1 through fused_rrdb_model (B1 + its tail),
+    smooth, stage 2 through make_fused_hat (kernels 7-9), smooth, then
+    the output-size check (the resize is not ported) and the light
+    smooth. `params` holds stage1.* and stage2.* keys
+    (convert.hybrid_state_dict_from_jax)."""
+    if not isinstance(model.stage2, HATLite):
+        raise ValueError("fused hybrid requires a HATLite stage 2")
+    s1 = fused_rrdb_model(_stage(params, "stage1."), model.stage1,
+                          device=device)
+    s2 = make_fused_hat(_stage(params, "stage2."), model.stage2,
+                        device=device)
+    smoothing = model.smoothing
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        y = anti_checkerboard(s1(x), smoothing)
+        y = anti_checkerboard(s2(y), smoothing)
+        check_output_size(y, model.output_size)
+        return anti_checkerboard(y, "light" if smoothing else None)
+
+    return apply_fn

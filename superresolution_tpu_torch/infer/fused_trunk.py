@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 
 from superresolution_tpu_torch.infer.common import (
     hwio,
@@ -28,7 +29,10 @@ from superresolution_tpu_torch.ops.dense_trunk import (
     dense_weights,
     fused_dense_block,
 )
-from superresolution_tpu_torch.ops.pixel_shuffle import space_to_depth
+from superresolution_tpu_torch.ops.pixel_shuffle import (
+    depth_to_space,
+    space_to_depth,
+)
 from superresolution_tpu_torch.runtime import resolve_device
 
 
@@ -69,17 +73,36 @@ def make_fused_trunk(params: Mapping, model, chain_rrdb: bool = False,
     return trunk_fn
 
 
+def make_standard_tail(params: Mapping, model,
+                       device: str | torch.device | None = None):
+    """tail_fn(feat [B,H,W,C]) -> [B,sH,sW,out]: the model's own tail
+    (conv_up{n} + pixel shuffle + lrelu per stage, conv_hr + lrelu,
+    conv_last) as plain convs on the weights of `params`, unclipped."""
+    dev = resolve_device(device)
+    p = state_tensors(params, dev)
+
+    def tail_fn(feat: torch.Tensor) -> torch.Tensor:
+        y = feat
+        for n, r in enumerate(model.up_stages, 1):
+            y = F.leaky_relu(depth_to_space(param_conv(y, p, f"conv_up{n}"),
+                                            r), 0.2)
+        y = F.leaky_relu(param_conv(y, p, "conv_hr"), 0.2)
+        return param_conv(y, p, "conv_last")
+
+    return tail_fn
+
+
 def fused_rrdb_model(params: Mapping, model,
                      device: str | torch.device | None = None):
-    """RRDBNet(pixelshuffle, x4) -> apply_fn(x [B,H,W,Cin]) ->
-    [B,4H,4W,out]: the fused trunk, then the B2/B3 phase tail unclipped
-    (the model's own tail does not clip). Other tail layouts are not
-    ported yet and raise ValueError."""
-    if tuple(model.up_stages) != (2, 2):
-        raise ValueError("fused_rrdb_model takes a x4 pixelshuffle "
-                         f"tail; this model's stages are {model.up_stages}")
+    """RRDBNet(pixelshuffle) -> apply_fn(x [B,H,W,Cin]) -> [B,sH,sW,out]:
+    the fused trunk, then the B2/B3 phase tail when the tail is x4
+    pixelshuffle, else the model's standard tail as plain convs; both
+    unclipped, as the model's own tail."""
     trunk = make_fused_trunk(params, model, device=device)
-    tail = make_phase_tail(params, clip=False, device=device)
+    if tuple(model.up_stages) == (2, 2):
+        tail = make_phase_tail(params, clip=False, device=device)
+    else:
+        tail = make_standard_tail(params, model, device=device)
 
     def apply_fn(x: torch.Tensor) -> torch.Tensor:
         return tail(trunk(x))

@@ -1,8 +1,9 @@
-"""Weight bridge: the JAX package's RRDBNet parameter tree (as numpy) ->
-this port's BasicSR-keyed state dict.
+"""Weight bridge: the JAX package's RRDBNet, HATLite and HybridSR
+parameter trees (as numpy) -> this port's state dicts, BasicSR-keyed for
+RRDBNet and HAT-keyed for HATLite.
 
-Counterpart of superresolution_tpu/models/convert.py:32-141,300-328,
-with its own copies of _fuse_dense, _unfuse_dense and the tree
+Counterpart of superresolution_tpu/models/convert.py:32-141,157-257,
+300-425, with its own copies of _fuse_dense, _unfuse_dense and the tree
 (un)stacking helpers (numpy only; the port imports nothing of the JAX
 package). Every mapping is a transpose, slice or concat, so the bridge
 is exact.
@@ -130,6 +131,119 @@ def rrdbnet_state_dict_from_jax(params: Mapping, *, num_blocks: int,
     put("conv_hr", p["conv_hr"]["Conv_0"])
     put("conv_last", p["conv_last"]["Conv_0"])
     return sd
+
+
+def _put_conv(sd: dict, name: str, node: Mapping) -> None:
+    """A JAX Conv module ({'Conv_0': {kernel HWIO, bias}}) -> OIHW."""
+    sd[f"{name}.weight"] = np.ascontiguousarray(
+        _hwio_to_oihw(np.asarray(node["Conv_0"]["kernel"])))
+    sd[f"{name}.bias"] = np.asarray(node["Conv_0"]["bias"])
+
+
+def _put_linear(sd: dict, name: str, node: Mapping) -> None:
+    """A flax Dense ([in, out] kernel) -> a torch Linear ([out, in])."""
+    sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+    sd[f"{name}.bias"] = np.asarray(node["bias"])
+
+
+def _put_ln(sd: dict, name: str, node: Mapping) -> None:
+    sd[f"{name}.weight"] = np.asarray(node["scale"])
+    sd[f"{name}.bias"] = np.asarray(node["bias"])
+
+
+def _put_hab(sd: dict, pre: str, hb: Mapping) -> None:
+    """One JAX HABlock subtree -> HAT's blocks.{i} keys."""
+    _put_ln(sd, f"{pre}.norm1", hb["LayerNorm_0"])
+    _put_ln(sd, f"{pre}.norm2", hb["LayerNorm_1"])
+    wa = hb["WindowAttention_0"]
+    _put_linear(sd, f"{pre}.attn.qkv", wa["Dense_0"])
+    _put_linear(sd, f"{pre}.attn.proj", wa["Dense_1"])
+    sd[f"{pre}.attn.relative_position_bias_table"] = np.asarray(
+        wa["rel_pos_bias"])
+    cab = hb["ChannelAttentionBlock_0"]
+    _put_conv(sd, f"{pre}.conv_block.cab.0", cab["Conv_0"])
+    _put_conv(sd, f"{pre}.conv_block.cab.2", cab["Conv_1"])
+    for j, dense in ((1, "Dense_0"), (3, "Dense_1")):
+        # squeeze-excite Dense [in, out] <-> 1x1 conv [out, in, 1, 1]
+        sd[f"{pre}.conv_block.cab.3.attention.{j}.weight"] = \
+            np.ascontiguousarray(np.asarray(cab[dense]["kernel"]).T
+                                 [:, :, None, None])
+        sd[f"{pre}.conv_block.cab.3.attention.{j}.bias"] = np.asarray(
+            cab[dense]["bias"])
+    _put_linear(sd, f"{pre}.mlp.fc1", hb["Dense_0"])
+    _put_linear(sd, f"{pre}.mlp.fc2", hb["Dense_1"])
+
+
+def _put_ocab(sd: dict, pre: str, oc: Mapping, use_rpb: bool) -> None:
+    """One JAX OverlappingCrossAttention subtree -> HAT's overlap_attn
+    keys; qkv packs the q dense (Dense_1) first, then kv (Dense_0)."""
+    _put_ln(sd, f"{pre}.norm1", oc["LayerNorm_0"])
+    _put_ln(sd, f"{pre}.norm2", oc["LayerNorm_1"])
+    sd[f"{pre}.qkv.weight"] = np.ascontiguousarray(np.concatenate(
+        [np.asarray(oc["Dense_1"]["kernel"]).T,
+         np.asarray(oc["Dense_0"]["kernel"]).T], axis=0))
+    sd[f"{pre}.qkv.bias"] = np.concatenate(
+        [np.asarray(oc["Dense_1"]["bias"]), np.asarray(oc["Dense_0"]["bias"])])
+    if use_rpb:
+        sd[f"{pre}.relative_position_bias_table"] = np.asarray(
+            oc["rel_pos_bias_oca"])
+    _put_linear(sd, f"{pre}.proj", oc["Dense_2"])
+    _put_linear(sd, f"{pre}.mlp.fc1", oc["Dense_3"])
+    _put_linear(sd, f"{pre}.mlp.fc2", oc["Dense_4"])
+
+
+def hat_state_dict_from_jax(params: Mapping, *, depths: tuple[int, ...],
+                            hat_compat: bool = False
+                            ) -> dict[str, np.ndarray]:
+    """Scan-stacked JAX HATLite tree (groups.ResidualGroup_0 with leading
+    [groups] axes, hab_pairs with [groups, pairs]; even depths) -> numpy
+    state dict with the port's HATLite (HAT) keys. With hat_compat the
+    keys are export_hybrid_numpy's stage2.* keys without the prefix."""
+    p = params["params"] if "params" in params else params
+    if any(d % 2 for d in depths):
+        raise ValueError(f"the scan layout has HAB pairs; depths {depths}")
+    sd: dict[str, np.ndarray] = {}
+    _put_conv(sd, "conv_first", p["Conv_0"])
+    if hat_compat:
+        _put_ln(sd, "patch_embed.norm", p["norm_embed"])
+    groups = _unstack_trees(p["groups"]["ResidualGroup_0"], len(depths))
+    for gi, grp in enumerate(groups):
+        pairs = _unstack_trees(grp["hab_pairs"], depths[gi] // 2)
+        for pi, pair in enumerate(pairs):
+            for half in (0, 1):
+                _put_hab(sd, f"layers.{gi}.residual_group.blocks."
+                         f"{2 * pi + half}", pair[f"HABlock_{half}"])
+        _put_ocab(sd, f"layers.{gi}.overlap_attn",
+                  grp["OverlappingCrossAttention_0"], hat_compat)
+        _put_conv(sd, f"layers.{gi}.conv", grp["Conv_0"])
+    if hat_compat:
+        _put_ln(sd, "norm", p["norm_body"])
+        _put_conv(sd, "conv_before_upsample.0", p["conv_before_upsample"])
+    _put_conv(sd, "conv_after_body", p["Conv_1"])
+    up = p["PixelShuffleUpsampler_0"]
+    j = 0
+    while f"Conv_{j}" in up:
+        _put_conv(sd, f"upsample.{2 * j}", up[f"Conv_{j}"])
+        j += 1
+    _put_conv(sd, "conv_last", p["Conv_2"])
+    return sd
+
+
+def hybrid_state_dict_from_jax(params: Mapping, *, num_blocks: int,
+                               features: int, growth: int,
+                               depths: tuple[int, ...],
+                               hat_compat: bool = False
+                               ) -> dict[str, np.ndarray]:
+    """JAX HybridSR(RRDBNet(pixelshuffle), HATLite) tree -> numpy state
+    dict with stage1.* (BasicSR) and stage2.* (HAT) keys, the layout of
+    the reference ecosystem's hybrid checkpoints."""
+    p = params["params"] if "params" in params else params
+    s1 = rrdbnet_state_dict_from_jax(p["stage1"], num_blocks=num_blocks,
+                                     features=features, growth=growth)
+    s2 = hat_state_dict_from_jax(p["stage2"], depths=depths,
+                                 hat_compat=hat_compat)
+    return {**{f"stage1.{k}": v for k, v in s1.items()},
+            **{f"stage2.{k}": v for k, v in s2.items()}}
 
 
 def to_torch(sd: Mapping[str, np.ndarray],

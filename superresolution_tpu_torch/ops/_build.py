@@ -3,6 +3,8 @@
 nvcc compiles every source into one shared library with a plain C
 interface (sm_90a), at first use, into superresolution_tpu_torch/_build/
 under a name keyed by a hash of the sources and flags; ctypes loads it.
+Each .cu is compiled by its own nvcc process, all started together, and
+one more links the objects.
 Nothing is downloaded, and a build or launch failure raises: no caller
 falls back to a plain version on the card.
 
@@ -29,10 +31,11 @@ import torch
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -65,19 +68,30 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, ""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, seconds, proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in (p for p in srcs if p.suffix == ".cu"):
+            objs.append(str(Path(tmpdir) / f"{src.stem}.o"))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate() for p in procs]  # wait for every one
+        report = []
+        for proc, (out, err) in zip(procs, outs):
+            report.append(err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{out}\n{err}")
+        tmp = str(Path(tmpdir) / lib.name)
+        proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib, seconds, "".join(report)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,6 +105,14 @@ def library() -> ctypes.CDLL:
     lib.sr_conv3x3.restype = _I
     lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
     lib.sr_conv_last.restype = _I
+    lib.hat_layernorm.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+    lib.hat_layernorm.restype = _I
+    lib.hat_hab_block.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                  *[_P] * 13, _P, _I, _F, _P]
+    lib.hat_hab_block.restype = _I
+    lib.hat_oca.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _F, _P]
+    lib.hat_oca.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,28 +149,32 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
             bias: torch.Tensor | None, out: torch.Tensor, out_off: int,
             cout: int, *, geom: tuple[int, int, int],
             in1: torch.Tensor | None = None, cin1: int = 0,
-            d2s: bool = False, lrelu: bool = False,
+            d2s: bool = False, lrelu: bool = False, gelu: bool = False,
             xres: torch.Tensor | None = None,
             res: torch.Tensor | None = None) -> None:
     """One launch of the shared 3x3 SAME conv (see sr_kernels.cu).
 
     geom = (B, H, W) of the conv's logical input; every tensor is NHWC
     with its last dim as the channel stride. w: [3, 3, cin0+cin1, cout]
-    bf16; bias: [cout] f32."""
+    bf16; bias: [cout] f32. The epilogue applies bias, then lrelu(0.2)
+    or exact GELU, then the residuals."""
     lib = library()
     b, h, wd = geom
     rc = lib.sr_conv3x3(
         _ptr(in0), in0.shape[-1], cin0,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
         int(d2s), b, h, wd, _ptr(w), _ptr(bias),
-        _ptr(out), out.shape[-1], out_off, cout, int(lrelu),
+        _ptr(out), out.shape[-1], out_off, cout, 1 if lrelu else 2 * gelu,
         _ptr(xres), 0 if xres is None else xres.shape[-1],
-        _ptr(res), 0 if res is None else res.shape[-1],
-        torch.cuda.current_stream(out.device).cuda_stream)
+        _ptr(res), 0 if res is None else res.shape[-1], _stream(out))
     _check(lib, rc, "sr_conv3x3")
 
 
@@ -158,6 +184,52 @@ def conv_last(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     lib = library()
     b, h, wd, cin = y.shape
     rc = lib.sr_conv_last(_ptr(y), b, h, wd, cin, _ptr(w), _ptr(bias),
-                          out.shape[-1], _ptr(out),
-                          torch.cuda.current_stream(y.device).cuda_stream)
+                          out.shape[-1], _ptr(out), _stream(y))
     _check(lib, rc, "sr_conv_last")
+
+
+def layernorm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
+              out: torch.Tensor) -> None:
+    """One launch of layernorm_kernel (hat_kernels.cu) over the rows of
+    x [..., C] bf16; s, b: [C] f32."""
+    lib = library()
+    c = x.shape[-1]
+    rc = lib.hat_layernorm(_ptr(x), x.numel() // c, c, _ptr(s), _ptr(b),
+                           _ptr(out), _stream(x))
+    _check(lib, rc, "hat_layernorm")
+
+
+# hab_block's weights, in the order of hat_hab_block's C signature
+HAB_WEIGHTS = ("ln1_s", "ln1_b", "wqkv", "bqkv", "rpb", "wp", "bp", "ln2_s",
+               "ln2_b", "w1", "b1", "w2", "b2")
+
+
+def hab_block(x: torch.Tensor, cab: torch.Tensor, weights: dict,
+              num_heads: int, region_ids: torch.Tensor | None,
+              out: torch.Tensor) -> None:
+    """One launch of hab_kernel (hat_kernels.cu): x, cab, out [nb, n, C]
+    bf16; weights by HAB_WEIGHTS (ops/hab.hab_weights); region_ids
+    [nW_img, n] int32 or None."""
+    lib = library()
+    nb, n, c = x.shape
+    rc = lib.hat_hab_block(
+        _ptr(x), _ptr(cab), _ptr(out), nb, c, num_heads, n,
+        weights["w1"].shape[-1], *[_ptr(weights[k]) for k in HAB_WEIGHTS],
+        _ptr(region_ids), 0 if region_ids is None else region_ids.shape[0],
+        float(c // num_heads) ** -0.5, _stream(x))
+    _check(lib, rc, "hat_hab_block")
+
+
+def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
+        bias: torch.Tensor, num_heads: int, ws: int, ows: int,
+        grid: tuple[int, int, int], out: torch.Tensor) -> None:
+    """One launch of oca_kernel (hat_kernels.cu): q, out [nb, n, C]; k_map,
+    v_map [B, hp, wp, C] bf16; bias [nh, n, ows*ows] f32; grid = (B,
+    window rows, window columns)."""
+    lib = library()
+    b, nh_w, nw_w = grid
+    _, hp, wp, c = k_map.shape
+    rc = lib.hat_oca(_ptr(q), _ptr(k_map), _ptr(v_map), _ptr(bias),
+                     _ptr(out), b, nh_w, nw_w, hp, wp, c, num_heads, ws,
+                     ows, float(c // num_heads) ** -0.5, _stream(q))
+    _check(lib, rc, "hat_oca")

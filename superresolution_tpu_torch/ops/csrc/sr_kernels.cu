@@ -1,7 +1,9 @@
 // Hand-written CUDA kernels of the ESRGAN RRDBNet x4 deploy path (sm_90a).
 //
 // One direct NHWC 3x3 SAME convolution routine with fused epilogues
-// carries two of the three ops; conv_last has its own small kernel.
+// carries two of the three ops; conv_last has its own small kernel. The
+// same routine also carries the two convs of the hybrid path's CAB
+// (hat_kernels.cu, kernel 7), through its exact-GELU epilogue.
 //
 //   B1 fused_dense_block  (replaces superresolution_tpu/ops/
 //      pallas_dense_trunk.py:fused_dense_block): five launches of
@@ -61,7 +63,8 @@ struct ConvArgs {
   const float* bias;            // [cout] or null
   __nv_bfloat16* out;           // [B, H, W, out_stride], channels from out_off
   int out_stride, out_off, cout;
-  int lrelu;                    // v = lrelu(acc + bias, 0.2)
+  int act;                      // 1: v = lrelu(acc + bias, 0.2);
+                                // 2: v = gelu(acc + bias), exact erf
   const __nv_bfloat16* xres;    // or null: v = x + 0.2 * v
   int xres_stride;
   const __nv_bfloat16* res;     // or null: v = res + 0.2 * v
@@ -179,7 +182,8 @@ __global__ void __launch_bounds__(NTHREADS)
       if (o >= a.cout) break;
       float v = acc[p][k];
       if (a.bias) v += a.bias[o];
-      if (a.lrelu) v = v < 0.f ? 0.2f * v : v;
+      if (a.act == 1) v = v < 0.f ? 0.2f * v : v;
+      if (a.act == 2) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       if (a.xres)
         v = __bfloat162float(a.xres[pix * a.xres_stride + o]) + 0.2f * v;
       if (a.res)
@@ -262,7 +266,7 @@ extern "C" {
 int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
                int in1_stride, int cin1, int d2s, int B, int H, int W,
                const void* w, const void* bias, void* out, int out_stride,
-               int out_off, int cout, int lrelu, const void* xres,
+               int out_off, int cout, int act, const void* xres,
                int xres_stride, const void* res, int res_stride,
                void* stream) {
   ConvArgs a;
@@ -281,7 +285,7 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
   a.out_stride = out_stride;
   a.out_off = out_off;
   a.cout = cout;
-  a.lrelu = lrelu;
+  a.act = act;
   a.xres = static_cast<const __nv_bfloat16*>(xres);
   a.xres_stride = xres_stride;
   a.res = static_cast<const __nv_bfloat16*>(res);

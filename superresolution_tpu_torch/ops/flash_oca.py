@@ -1,0 +1,106 @@
+"""Kernel 9: the OCAB's overlapping cross-attention with the key/value
+gather inside the kernel, as a hand-written CUDA op.
+
+Replaces superresolution_tpu/ops/pallas_flash_oca.py: flash_oca_gathered
+(_fwd_impl, _kernel). For each ws x ws query window (wr, wc) of q
+[B*nH*nW, ws*ws, C], attention over the ows x ows patch of the padded
+key and value maps [B, H+(ows-ws), W+(ows-ws), C] whose corner is at
+(wr*ws, wc*ws), token order di*ows + dj:
+
+    out = per head softmax(q k^T hd^-1/2 + bias[h]) v
+
+The maps are zero-padded after the kv dense, so the padded keys are
+zero vectors whose logits are the bias alone; they take part in the
+softmax and are not masked. On the card this is one launch of
+oca_kernel (csrc/hat_kernels.cu), one thread block per query window,
+which copies its patch from the maps into shared memory: the gathered
+[nb, ows*ows, C] tensor of the plain version is never written.
+
+Bound on the H100: 27,648 MACs per query token at C 96 and ows 12, for
+384 bytes of q and out plus one read of the two maps: bound by bytes at
+the bf16 tensor rate, by operations at the CUDA cores' f32 rate this
+first form runs at (see the source).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from superresolution_tpu_torch.ops import _build
+from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
+from superresolution_tpu_torch.ops.window_attention import (
+    reference_window_attention,
+)
+
+# the only geometry the hand kernel takes: C, heads, ws, ows
+OCA_GEOMETRY = (96, 6, 8, 12)
+
+__all__ = ["flash_oca_gathered", "flash_oca_gathered_reference",
+           "oca_gather_supported"]
+
+
+def oca_gather_supported(ws: int, ows: int, h: int, w: int) -> bool:
+    """The geometries the gathered form covers (the reference's rule):
+    an even overlap extent no wider than a window, and a map that tiles
+    into whole windows."""
+    return (ws < ows <= 2 * ws and (ows - ws) % 2 == 0
+            and h % ws == 0 and w % ws == 0)
+
+
+def _grid(q: torch.Tensor, k_map: torch.Tensor, ws: int, ows: int):
+    b, hp, wp, c = k_map.shape
+    h, w = hp - (ows - ws), wp - (ows - ws)
+    nh_w, nw_w = h // ws, w // ws
+    if q.shape != (b * nh_w * nw_w, ws * ws, c):
+        raise ValueError(f"flash_oca_gathered: q {tuple(q.shape)} != "
+                         f"{(b * nh_w * nw_w, ws * ws, c)}")
+    if not oca_gather_supported(ws, ows, h, w):
+        raise ValueError(f"flash_oca_gathered: unsupported geometry ws={ws} "
+                         f"ows={ows} map {h}x{w}")
+    return b, nh_w, nw_w
+
+
+def flash_oca_gathered_reference(q: torch.Tensor, k_map: torch.Tensor,
+                                 v_map: torch.Tensor, bias: torch.Tensor,
+                                 num_heads: int, ws: int, ows: int
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 9: the unfold gather, then window
+    attention with f32 logits and softmax."""
+    b, hp, wp, _ = k_map.shape
+    nh_w, nw_w = (hp - (ows - ws)) // ws, (wp - (ows - ws)) // ws
+    kw = extract_overlapping_windows(k_map, ws, ows, nh_w, nw_w)
+    vw = extract_overlapping_windows(v_map, ws, ows, nh_w, nw_w)
+    return reference_window_attention(q, kw, vw, bias, num_heads)
+
+
+def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,
+                       v_map: torch.Tensor, bias: torch.Tensor,
+                       num_heads: int, ws: int, ows: int) -> torch.Tensor:
+    """Kernel 9. q [B*nH*nW, ws*ws, C]; k_map, v_map [B, H+(ows-ws),
+    W+(ows-ws), C]; bias [nh, ws*ws, ows*ows] f32 (zeros when the model
+    has no OCA rel-pos table). Returns [B*nH*nW, ws*ws, C] in q's dtype.
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (C 96, 6 heads, ws 8, ows 12; bf16 q and maps) or raise."""
+    grid = _grid(q, k_map, ws, ows)
+    if v_map.shape != k_map.shape:
+        raise ValueError(f"flash_oca_gathered: v_map {tuple(v_map.shape)} "
+                         f"!= k_map {tuple(k_map.shape)}")
+    if tuple(bias.shape) != (num_heads, ws * ws, ows * ows):
+        raise ValueError(f"flash_oca_gathered: bias {tuple(bias.shape)} != "
+                         f"{(num_heads, ws * ws, ows * ows)}")
+    if q.device.type == "cpu":
+        return flash_oca_gathered_reference(q, k_map, v_map, bias,
+                                            num_heads, ws, ows)
+    if (q.shape[-1], num_heads, ws, ows) != OCA_GEOMETRY:
+        raise ValueError(f"flash_oca_gathered: the kernel takes (C, heads, "
+                         f"ws, ows) = {OCA_GEOMETRY}, got "
+                         f"{(q.shape[-1], num_heads, ws, ows)}")
+    _build.require_cuda(q, k_map, v_map, name="flash_oca_gathered")
+    _build.require_cuda(bias, dtype=torch.float32, name="flash_oca_gathered")
+    out = torch.empty_like(q)
+    _build.oca(q, k_map, v_map, bias, num_heads, ws, ows, grid, out)
+    flash_oca_gathered.launches += 1
+    return out
+
+
+flash_oca_gathered.launches = 0

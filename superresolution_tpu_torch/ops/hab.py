@@ -1,0 +1,262 @@
+"""Kernels 7 and 8: the HAT stage's CAB conv stack and HAB block body as
+hand-written CUDA ops.
+
+Kernel 7, fused_cab_convs, replaces superresolution_tpu/ops/pallas_hab.py:
+fused_cab_convs (_cab_kernel). On NHWC x [B,H,W,C] it computes the CAB's
+conv stack before its squeeze-excite:
+
+    y   = LN(x)                      f32 statistics over C, stored bf16
+    hid = GELU(conv3x3(y) + b1)      C -> C/3, exact erf, stored bf16
+    out = conv3x3(hid) + b2          C/3 -> C
+
+with SAME zero padding on y and on hid (not on x: outside the image
+conv1 sees 0, not LN(0) = ln bias). On the card that is three launches:
+layernorm_kernel (csrc/hat_kernels.cu) and two of the shared conv3x3_kernel
+(csrc/sr_kernels.cu), the first with the GELU epilogue; each conv reads
+its input through a zero halo, so the padding is right by construction.
+
+Kernel 8, fused_hab_block, replaces ops/pallas_hab.py: fused_hab_block /
+fused_hab_block_inference (_fused_fwd_impl, _kernel, _body). On windows
+x, cab [nb, n, C] (cab already scaled by conv_scale, in x's roll and
+partition layout):
+
+    y  = LN1(x); q, k, v = y Wqkv + bqkv
+    a  = per head softmax(q k^T hd^-1/2 + rpb[h] (+ -1e9 off-region)) v
+    x1 = x + (a Wp + bp) + cab
+    out = x1 + (GELU(LN2(x1) W1 + b1) W2 + b2)
+
+one launch of hab_kernel, one thread block per window. Window b uses
+region_ids[b % nW_img]. The kernels round to bf16 where the reference
+rounds; the plain versions here repeat that rounding, with f32
+accumulation, and serve the CPU path and the checks on the card.
+
+Bounds on the H100 (see csrc/hat_kernels.cu): the CAB does 55,296 MACs
+per pixel for 384 bytes of x and out, the HAB 86,016 MACs per token for
+576 bytes of x, cab and out. Both sit at the bf16 ridge: the CAB is
+bound by bytes and the HAB by operations, each by a few percent. These
+first forms run on the CUDA cores in f32, so operations bound them.
+
+Weights: cab_weights and hab_weights read the port's HAT-keyed state
+dict (models/hat_lite.py), as the reference's cab_weights and
+fused_hat._wa_weights read the flax tree.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from superresolution_tpu_torch.infer.common import hwio
+from superresolution_tpu_torch.models.hat_lite import relative_position_index
+from superresolution_tpu_torch.ops import _build
+from superresolution_tpu_torch.ops._build import HAB_WEIGHTS
+from superresolution_tpu_torch.ops.window_attention import (
+    reference_window_attention,
+)
+
+EPS = 1e-5
+# the only geometry the hand kernels take: C, heads, tokens, MLP hidden
+HAB_GEOMETRY = (96, 6, 64, 192)
+
+__all__ = ["HAB_WEIGHTS", "cab_weights", "fused_cab_convs",
+           "fused_cab_convs_reference", "fused_hab_block",
+           "hab_body_reference", "hab_weights", "layer_norm"]
+
+
+def layer_norm(x: torch.Tensor, s: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 statistics (mean of squares
+    minus squared mean, as the reference), returned in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    return ((xf - mu) * torch.rsqrt(var + EPS) * s.float()
+            + b.float()).to(x.dtype)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().contiguous()
+
+
+def cab_weights(params: Mapping[str, torch.Tensor], pre: str,
+                dtype: torch.dtype = torch.bfloat16) -> list[torch.Tensor]:
+    """HAB `pre` (layers.{g}.residual_group.blocks.{i}) of a HAT-keyed
+    state dict -> [ln_s, ln_b, k1, b1, k2, b2]: HWIO kernels in `dtype`,
+    LN parameters and biases in f32."""
+    cab = f"{pre}.conv_block.cab"
+    return [_f32(params[f"{pre}.norm1.weight"]),
+            _f32(params[f"{pre}.norm1.bias"]),
+            hwio(params[f"{cab}.0.weight"].detach()).to(dtype),
+            _f32(params[f"{cab}.0.bias"]),
+            hwio(params[f"{cab}.2.weight"].detach()).to(dtype),
+            _f32(params[f"{cab}.2.bias"])]
+
+
+def _conv_f32(x: torch.Tensor, k: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv of NHWC x with an HWIO kernel, in f32."""
+    y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                 k.float().permute(3, 2, 0, 1), b.float(), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def fused_cab_convs_reference(x: torch.Tensor, weights: list[torch.Tensor],
+                              hidden: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 7: LN -> conv -> GELU -> conv in
+    f32, rounded to x's dtype after LN, after GELU and at the output. A
+    `hidden` [B,H,W,C/3] receives the GELU map, as the kernel's does."""
+    ln_s, ln_b, k1, b1, k2, b2 = weights
+    dt = x.dtype
+    y = layer_norm(x, ln_s, ln_b)
+    hid = F.gelu(_conv_f32(y, k1, b1)).to(dt)
+    if hidden is not None:
+        hidden.copy_(hid)
+    return _conv_f32(hid, k2, b2).to(dt).contiguous()
+
+
+def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
+                    hidden: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 7. CPU tensors run the plain version; CUDA tensors launch
+    the kernels (bf16 x and kernels, f32 LN parameters and biases) or
+    raise. The GELU hidden map goes into `hidden` [B,H,W,C/3] when one
+    is given (so a check can read it), else into a fresh one."""
+    if x.device.type == "cpu":
+        return fused_cab_convs_reference(x, weights, hidden)
+    ln_s, ln_b, k1, b1, k2, b2 = weights
+    b, h, w, c = x.shape
+    mid = k1.shape[-1]
+    if (tuple(k1.shape) != (3, 3, c, mid) or tuple(k2.shape) != (3, 3, mid, c)
+            or ln_s.shape != (c,) or ln_b.shape != (c,)
+            or b1.shape != (mid,) or b2.shape != (c,)):
+        raise ValueError("fused_cab_convs: weight shapes "
+                         f"{[tuple(t.shape) for t in weights]} do not fit "
+                         f"C={c}")
+    _build.require_cuda(x, k1, k2, hidden, name="fused_cab_convs")
+    _build.require_cuda(ln_s, ln_b, b1, b2, dtype=torch.float32,
+                        name="fused_cab_convs")
+    if hidden is None:
+        hidden = torch.empty((b, h, w, mid), dtype=x.dtype, device=x.device)
+    elif hidden.shape != (b, h, w, mid):
+        raise ValueError("fused_cab_convs: hidden shape "
+                         f"{tuple(hidden.shape)} != {(b, h, w, mid)}")
+    y = torch.empty_like(x)
+    _build.layernorm(x, ln_s, ln_b, y)
+    fused_cab_convs.launches += 1
+    _build.conv3x3(y, c, k1, b1, hidden, 0, mid, geom=(b, h, w), gelu=True)
+    fused_cab_convs.launches += 1
+    out = torch.empty_like(x)
+    _build.conv3x3(hidden, mid, k2, b2, out, 0, c, geom=(b, h, w))
+    fused_cab_convs.launches += 1
+    return out
+
+
+fused_cab_convs.launches = 0
+
+
+def hab_weights(params: Mapping[str, torch.Tensor], pre: str,
+                num_heads: int, window_size: int,
+                dtype: torch.dtype = torch.bfloat16
+                ) -> dict[str, torch.Tensor]:
+    """HAB `pre` of a HAT-keyed state dict -> the kernel's weights by
+    HAB_WEIGHTS: dense kernels [in, out] in `dtype` (wqkv's columns q | k
+    | v), the gathered rel-pos bias rpb [nh, n, n], LN parameters and
+    biases in f32."""
+    n = window_size * window_size
+    table = params[f"{pre}.attn.relative_position_bias_table"]
+    idx = torch.as_tensor(relative_position_index(window_size),
+                          device=table.device).long().reshape(-1)
+    rpb = table[idx].reshape(n, n, num_heads).permute(2, 0, 1)
+
+    def dense_t(name):
+        return params[f"{pre}.{name}.weight"].detach().t().to(
+            dtype).contiguous()
+
+    return {
+        "ln1_s": _f32(params[f"{pre}.norm1.weight"]),
+        "ln1_b": _f32(params[f"{pre}.norm1.bias"]),
+        "wqkv": dense_t("attn.qkv"),
+        "bqkv": _f32(params[f"{pre}.attn.qkv.bias"]),
+        "rpb": _f32(rpb),
+        "wp": dense_t("attn.proj"),
+        "bp": _f32(params[f"{pre}.attn.proj.bias"]),
+        "ln2_s": _f32(params[f"{pre}.norm2.weight"]),
+        "ln2_b": _f32(params[f"{pre}.norm2.bias"]),
+        "w1": dense_t("mlp.fc1"), "b1": _f32(params[f"{pre}.mlp.fc1.bias"]),
+        "w2": dense_t("mlp.fc2"), "b2": _f32(params[f"{pre}.mlp.fc2.bias"]),
+    }
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [..., in] @ w [in, out] + b with f32 accumulation, in x's dtype."""
+    return (x.float() @ w.float() + b.float()).to(x.dtype)
+
+
+def hab_body_reference(x_wins: torch.Tensor, cab_wins: torch.Tensor,
+                       weights: Mapping[str, torch.Tensor], num_heads: int,
+                       region_ids: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 8 (the reference's
+    reference_hab_body): f32 accumulation and softmax, rounded to x's
+    dtype where the reference rounds."""
+    w = weights
+    c = x_wins.shape[-1]
+    y = layer_norm(x_wins, w["ln1_s"], w["ln1_b"])
+    q, k, v = _dense(y, w["wqkv"], w["bqkv"]).split(c, dim=-1)
+    attn = reference_window_attention(q, k, v, w["rpb"], num_heads,
+                                      region_ids=region_ids)
+    x1 = x_wins + _dense(attn, w["wp"], w["bp"]) + cab_wins
+    z = layer_norm(x1, w["ln2_s"], w["ln2_b"])
+    hid = F.gelu(z.float() @ w["w1"].float() + w["b1"].float()).to(z.dtype)
+    return x1 + _dense(hid, w["w2"], w["b2"])
+
+
+def fused_hab_block(x_wins: torch.Tensor, cab_wins: torch.Tensor,
+                    num_heads: int, weights: Mapping[str, torch.Tensor],
+                    region_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 8 on x_wins, cab_wins [nb, n, C]; region_ids [nW_img, n]
+    int32 Swin labels or None. CPU tensors run the plain version; CUDA
+    tensors launch the kernel (C 96, 6 heads, 64 tokens, MLP 192; bf16
+    activations and dense kernels, f32 rest) or raise."""
+    nb, n, c = x_wins.shape
+    if cab_wins.shape != x_wins.shape:
+        raise ValueError(f"fused_hab_block: cab {tuple(cab_wins.shape)} != "
+                         f"x {tuple(x_wins.shape)}")
+    if region_ids is not None and (region_ids.shape[-1] != n
+                                   or nb % region_ids.shape[0]):
+        raise ValueError(f"fused_hab_block: region ids "
+                         f"{tuple(region_ids.shape)} do not tile {nb} "
+                         f"windows of {n}")
+    if x_wins.device.type == "cpu":
+        return hab_body_reference(x_wins, cab_wins, weights, num_heads,
+                                  region_ids)
+    mlp = weights["w1"].shape[-1]
+    if (c, num_heads, n, mlp) != HAB_GEOMETRY:
+        raise ValueError(f"fused_hab_block: the kernel takes (C, heads, n, "
+                         f"mlp) = {HAB_GEOMETRY}, got {(c, num_heads, n, mlp)}")
+    want = {"ln1_s": (c,), "ln1_b": (c,), "wqkv": (c, 3 * c),
+            "bqkv": (3 * c,), "rpb": (num_heads, n, n), "wp": (c, c),
+            "bp": (c,), "ln2_s": (c,), "ln2_b": (c,), "w1": (c, mlp),
+            "b1": (mlp,), "w2": (mlp, c), "b2": (c,)}
+    for k in HAB_WEIGHTS:
+        if tuple(weights[k].shape) != want[k]:
+            raise ValueError(f"fused_hab_block: {k} {tuple(weights[k].shape)}"
+                             f" != {want[k]}")
+    _build.require_cuda(x_wins, cab_wins,
+                        *(weights[k] for k in ("wqkv", "wp", "w1", "w2")),
+                        name="fused_hab_block")
+    _build.require_cuda(*(weights[k] for k in HAB_WEIGHTS
+                          if k not in ("wqkv", "wp", "w1", "w2")),
+                        dtype=torch.float32, name="fused_hab_block")
+    if region_ids is not None:
+        _build.require_cuda(region_ids, dtype=torch.int32,
+                            name="fused_hab_block")
+    out = torch.empty_like(x_wins)
+    _build.hab_block(x_wins, cab_wins, weights, num_heads, region_ids, out)
+    fused_hab_block.launches += 1
+    return out
+
+
+fused_hab_block.launches = 0

@@ -3,6 +3,8 @@ JAX RRDBNet trees, scan-stacked or plain, fused or plain dense blocks ->
 the BasicSR-keyed state dict the port's RRDBNet loads with strict=True.
 Every mapping is a transpose, slice or concat, so equality is exact."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,3 +103,63 @@ def test_state_dict_is_oihw():
     with pytest.raises(KeyError):
         convert.rrdbnet_state_dict_from_jax({"params": {}}, num_blocks=1,
                                             features=16, growth=8)
+
+
+# ---- HATLite / HybridSR ----------------------------------------------------
+
+HAT_KW = dict(scale=2, in_channels=3, out_channels=3, embed_dim=12,
+              depths=(2, 2), num_heads=(3, 3), window_size=4,
+              upsample_feat=8)
+# the keys only hat_compat models carry
+COMPAT_ONLY = ("patch_embed.norm.", "norm.", "conv_before_upsample.0.")
+
+
+@functools.lru_cache(maxsize=None)
+def _hybrid_tree(compat, seed=0):
+    from superresolution_tpu.models import HATLite as JaxHATLite
+    from superresolution_tpu.models import HybridSR as JaxHybridSR
+
+    model = JaxHybridSR(
+        stage1=JaxRRDBNet(**KW), stage2=JaxHATLite(**HAT_KW,
+                                                   hat_compat=compat))
+    return jax.jit(model.init)(jax.random.key(seed), jnp.zeros((1, 8, 8, 3)))
+
+
+def _hybrid_sd(tree, compat):
+    return convert.hybrid_state_dict_from_jax(
+        tree, num_blocks=2, features=16, growth=8, depths=(2, 2),
+        hat_compat=compat)
+
+
+def test_hybrid_state_dict_equals_jax_export():
+    """hat_compat: the keys and values of the JAX package's own export
+    (export_hybrid_numpy), stage 1 and stage 2."""
+    tree = _hybrid_tree(True)
+    ref = jconvert.export_hybrid_numpy(tree, num_blocks=2, features=16,
+                                       growth=8, embed_dim=12, depths=(2, 2))
+    _assert_sd_equal(_hybrid_sd(tree, True), ref)
+
+
+def test_hat_state_dict_without_compat_drops_compat_keys():
+    tree = _hybrid_tree(False)
+    sd = _hybrid_sd(tree, False)
+    ref = jconvert.export_hybrid_numpy(
+        _hybrid_tree(True), num_blocks=2, features=16, growth=8,
+        embed_dim=12, depths=(2, 2))
+    want = {k for k in ref
+            if not k.startswith(tuple(f"stage2.{p}" for p in COMPAT_ONLY))
+            and not k.endswith("overlap_attn.relative_position_bias_table")}
+    assert set(sd) == want
+    # and they load strictly into the port's models
+    from superresolution_tpu_torch.models.hat_lite import HATLite
+
+    for compat, tree_ in ((False, tree), (True, _hybrid_tree(True))):
+        s2 = convert.hat_state_dict_from_jax(
+            tree_["params"]["stage2"], depths=(2, 2), hat_compat=compat)
+        HATLite(**HAT_KW, hat_compat=compat, device="cpu").load_state_dict(
+            convert.to_torch(s2), strict=True)
+
+
+def test_hat_state_dict_rejects_odd_depths():
+    with pytest.raises(ValueError, match="pairs"):
+        convert.hat_state_dict_from_jax({"params": {}}, depths=(3, 3))

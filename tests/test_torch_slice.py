@@ -150,3 +150,22 @@ def test_chip_smoke_fails_without_gpu():
         env={**os.environ, "PYTHONPATH": str(REPO)})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and proc.stdout.strip() == ""
+
+
+def test_fused_rrdb_model_x2_standard_tail_matches_jax():
+    """A x2 pixelshuffle tail (the hybrid's stage 1) is not the phase
+    tail's x4 layout: the fused trunk runs, then the model's standard
+    tail as plain convs, as in the reference."""
+    kw = dict(scale=2, in_channels=1, out_channels=1, features=16,
+              num_blocks=1, growth=8, upsampler="pixelshuffle")
+    jm = JaxRRDBNet(**kw)
+    variables = jax.jit(jm.init)(jax.random.key(3), jnp.zeros((1, 8, 8, 1)))
+    sd = convert.rrdbnet_state_dict_from_jax(variables, num_blocks=1,
+                                             features=16, growth=8)
+    x = np.random.default_rng(1).random((2, 10, 12, 1), np.float32)
+    ref = np.asarray(jax_fused_rrdb_model(variables, jm).apply(
+        None, jnp.asarray(x)))
+    got = fused_rrdb_model(sd, RRDBNet(**kw, device="cpu"), device="cpu")(
+        torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape == (2, 20, 24, 1)
+    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-5
