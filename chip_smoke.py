@@ -42,8 +42,35 @@ a second seed:
   8 hybrid-times    ms/frame and MP/s (input MP), stage 1 and 2 ms, the
              plain model's frame, B1 at stage 1's shape, the device time
              of a frame (torch.profiler) and its busy share, peak memory
-Then the kernels line (all six kernels), the card's nvidia-smi line and,
-last, {"ok": true, "device": {...}}.
+Then hybrid_astro training (the preset at full width: RRDBNet x2, 23
+RRDBs; HATLite x2, embed 96, 4 groups of 6; remat; bf16 over f32
+masters; batch 4, 128x128 -> 512x512; star L1; AdamW, clip 1, cosine),
+random weights from the Trainer's seed:
+  9 train-kernels   kernel 13, autograd through the training path's op
+             fused_dense_block_train, against autograd through B1's plain
+             version in f32 (its lrelu slopes pinned to the kernel's
+             forward), at a CHIPEQ-sized geometry, a ragged one and the
+             main shape: value and dx within 0.02, each dW and db within
+             0.03, dres exactly; kernel 14, autograd through
+             star_weighted_l1_cuda, value and gradient within 1e-4 at
+             [4,512,512,1] and a ragged n; each check must fail on each
+             fault planted in it (four in kernel 13's launches, two in
+             kernel 14's inputs); both timed at the main shapes
+ 10 train-path      the port's Trainer fits TRAIN_STEPS steps, evaluates
+             once and writes a checkpoint, launches counted (exact per
+             step: B1 621, kernel 13 69, kernel 14 2, the deploy kernels
+             0); loss, grad norm and PSNR finite; one fixed batch through
+             the kernels against the plain model in bf16 on the same f32
+             masters: loss within 0.01, grad norm within 0.03, and per-leaf
+             gradients (conv_first, the first, middle and last RRDB,
+             conv_body, stage 2's conv_first) within 0.03, each beside
+             both paths' distance from f32
+ 11 train-times     ms/step, samples/s and input MP/s over TIME_STEPS steps
+             on one batch on the card, stage 1 and stage 2 forward +
+             backward, the plain step, device time by kernel
+             (torch.profiler) and its busy share, peak memory
+Then the kernels line (all eight kernels), the card's nvidia-smi line
+and, last, {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 /usr/local/cuda/bin or on PATH)
@@ -53,10 +80,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -74,12 +103,23 @@ TOL_HAB = 0.03            # CHIPEQ's bar for fused_hat_* and flash_oca
 HYBRID_IN = 128           # 128x128 -> stage 1 x2 -> stage 2 x2 -> 512x512
 # multiply-accumulates per pixel of each op (c=64, g=32)
 B1_MACS = 9 * sum((64 + j * 32) * (32 if j < 4 else 64) for j in range(5))
+RECOMPUTE_MACS = 9 * sum((64 + j * 32) * 32 for j in range(4))  # B1's convs 1-4
 B2_MACS = 4 * 9 * 64 * 256 + 16 * 9 * 64 * 64     # per LR pixel
 B3_MACS = 9 * 64 * 3                              # per HR pixel
 # hybrid stage 2 (C 96, 6 heads of 16, 8x8 windows, MLP 192, OCAB 12x12)
 CAB_MACS = 2 * 9 * 96 * 32                        # per pixel
 HAB_MACS = 96 * 288 + 96 * 96 + 2 * 96 * 192 + 2 * 64 * 96  # per token
 OCA_MACS = 2 * 144 * 96                           # per query token
+TRAIN_SRC = "superresolution_tpu_torch/ops/csrc/train_kernels.cu"
+TOL_DW = 0.03             # CHIPEQ's bar for dense_train_dw*
+TOL_STAR = 1e-4           # CHIPEQ's bar for star_l1_*
+TRAIN_BATCH, TRAIN_LR, TRAIN_SCALE = 4, 128, 4   # hybrid_astro: 128 -> 512
+TRAIN_STEPS = 2           # steps of the Trainer's fit in phase 10
+TRAIN_DIR = "outputs/chip_smoke_train"   # .gitignore lists outputs/
+TOL_STEP_LOSS = 0.01      # kernel step vs plain bf16 step
+TOL_STEP_GNORM = 0.03
+TOL_LEAF = 0.03           # per-leaf gradients, of max |plain|
+TIME_STEPS = 3            # steps timed after one warm-up
 
 
 def emit(obj) -> None:
@@ -539,6 +579,254 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
     return out
 
 
+def pinned_dense_block(x, ws, r, slopes):
+    """B1's plain version with each lrelu replaced by a fixed slope map
+    (1 or 0.2 per element, NHWC [B,H,W,4g]): equal to B1 wherever a
+    pre-activation has the sign `slopes` gives it, and differentiable
+    with exactly that lrelu' pattern."""
+    g = ws[0][0].shape[-1]
+    feats = [x.permute(0, 3, 1, 2)]
+    sl = slopes.permute(0, 3, 1, 2)
+    for j, (k, b) in enumerate(ws):
+        y = F.conv2d(torch.cat(feats, 1), k.permute(3, 2, 0, 1), b,
+                     padding=1)
+        if j < 4:
+            feats.append(y * sl[:, j * g:(j + 1) * g])
+    out = feats[0] + 0.2 * y
+    if r is not None:
+        out = r.permute(0, 3, 1, 2) + 0.2 * out
+    return out.permute(0, 2, 3, 1)
+
+
+def check_dense_backward(ws, x: torch.Tensor, res: torch.Tensor,
+                         dout: torch.Tensor, tag: str) -> dict:
+    """Kernel 13 through the training path's own op (autograd through
+    fused_dense_block_train, so DenseBlockTrain's packing of the weights
+    and its gradient order are checked too) against autograd through B1's
+    plain version in f32 on the same (upcast) inputs, without and with
+    `res`: the forward value and dx within TOL_KERNEL, each conv's dW and
+    db within TOL_DW of the plain one's max, dres exactly.
+
+    The f32 forward takes lrelu's slope pattern from the kernel's own
+    bf16 y_1..y_4 (pinned_dense_block). Unpinned, a pre-activation that
+    rounds to the other side of 0 in bf16 flips lrelu' between 1 and 0.2
+    there; with the check's MSRA x 2 weights one such element moved dx
+    by 0.17 of its max (0.0033 pinned), a jump of the function, not an
+    error of the arithmetic. The unpinned distance is printed beside.
+    Returns the worst dx check."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    b, h, w, _ = x.shape
+    g = ws[0][0].shape[-1]
+    y = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
+    dt.fused_dense_block(x, ws, workspace=y)
+    slopes = torch.where(y.float() > 0, 1.0, 0.2)
+    worst = []
+    for suffix, r in (("", None), ("+residual", res)):
+        name = f"dense_block_backward/{tag}{suffix}"
+        kin = [t.detach().requires_grad_()
+               for t in [x, *(t for pair in ws for t in pair)]
+               + ([] if r is None else [r])]
+        before = dtt.dense_block_backward.launches
+        yk = dtt.fused_dense_block_train(
+            kin[0], list(zip(kin[1:11:2], kin[2:11:2])),
+            None if r is None else kin[-1])
+        got = torch.autograd.grad(yk, kin, dout)
+        if dtt.dense_block_backward.launches != before + 1:
+            raise AssertionError(f"{name}: the call was not counted")
+        leaves = [x.float().requires_grad_()]
+        leaves += [t.float().requires_grad_() for pair in ws for t in pair]
+        if r is not None:
+            leaves.append(r.float().requires_grad_())
+        wsf = list(zip(leaves[1:11:2], leaves[2:11:2]))
+        rf = None if r is None else leaves[-1]
+        out = pinned_dense_block(leaves[0], wsf, rf, slopes)
+        ref = torch.autograd.grad(out, leaves, dout.float())
+        unpinned = torch.autograd.grad(
+            dt.fused_dense_block_reference(leaves[0], wsf, rf), leaves[0],
+            dout.float())[0]
+        compare(f"{name}/value", yk.detach(), out.detach(), TOL_KERNEL)
+        worst.append(compare(f"{name}/dx", got[0], ref[0], TOL_KERNEL,
+                             rel_err_unpinned=rel_err(got[0], unpinned)))
+        for j in range(5):
+            compare(f"{name}/dW{j + 1}", got[1 + 2 * j], ref[1 + 2 * j],
+                    TOL_DW)
+            compare(f"{name}/db{j + 1}", got[2 + 2 * j], ref[2 + 2 * j],
+                    TOL_DW)
+        if r is not None:
+            compare(f"{name}/dres", got[-1], ref[-1], 0.0)
+    return max(worst, key=lambda e: e["max_rel_err"])
+
+
+def _planted_launches(fault: str):
+    """Replace one of kernel 13's launch helpers with a faulty one;
+    returns (helper name, replacement)."""
+    from superresolution_tpu_torch.ops import _build
+
+    real = getattr(_build, {"dlrelu_slope_1": "conv3x3",
+                            "dacc5_without_s_acc": "dense_scale"}.get(
+                                fault, "wgrad"))
+    if fault == "dlrelu_slope_1":
+        def planted(*a, gate=None, gate_off=0, **kw):
+            real(*a, **kw)  # the transposed convs lose their lrelu' gate
+        return "conv3x3", planted
+    if fault == "dacc5_without_s_acc":
+        return "dense_scale", lambda src, scale, out: real(src, 1.0, out)
+
+    def planted(in0, cin0, in1, cin1, d, d_off, cout, dw, db):
+        real(in0, cin0, in1, cin1, d, d_off, cout, dw, db)
+        if fault == "wgrad_taps_dy_swapped":
+            dw.copy_(dw.flip(0))
+        else:  # bias_grad_zeroed
+            db.zero_()
+    return "wgrad", planted
+
+
+K13_FAULTS = ("dlrelu_slope_1", "wgrad_taps_dy_swapped",
+              "dacc5_without_s_acc", "bias_grad_zeroed")
+
+
+def check_star_l1(p: torch.Tensor, t: torch.Tensor, tag: str,
+                  p_in=None, t_in=None, thr: float = 0.02) -> dict:
+    """Kernel 14 through the training path's own op (autograd through
+    star_weighted_l1_cuda): its value and gradient, for an upstream
+    gradient of 1.7, against the plain version on p, t within TOL_STAR of
+    its max. The op runs on p_in, t_in (default p, t) and threshold thr,
+    where a fault is planted."""
+    from superresolution_tpu_torch.losses.basic import star_weighted_l1
+    from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
+
+    g = torch.tensor(1.7, device="cuda")
+    pk = (p if p_in is None else p_in).clone().requires_grad_()
+    before = star_weighted_l1_cuda.launches
+    val = star_weighted_l1_cuda(pk, t if t_in is None else t_in, thr, 500.0)
+    (dp,) = torch.autograd.grad(val, pk, g)
+    if star_weighted_l1_cuda.launches != before + 2:
+        raise AssertionError(f"star_l1/{tag}: the passes were not counted")
+    pr = p.clone().requires_grad_()
+    ref = star_weighted_l1(pr, t)
+    (ref_dp,) = torch.autograd.grad(ref, pr, g)
+    res = compare(f"star_l1/{tag}/value", val.detach(), ref.detach(),
+                  TOL_STAR)
+    compare(f"star_l1/{tag}/grad", dp.reshape(-1)[:p.numel()].view_as(p),
+            ref_dp, TOL_STAR)
+    return res
+
+
+def star_inputs(gen: torch.Generator, shape) -> tuple:
+    """pred near target; targets mostly sky below 0.02, 5% stars above
+    it and 2% exactly at the threshold 0.02 (as f32), so a >= compare
+    would change the loss."""
+    t = torch.rand(shape, generator=gen) * 0.018
+    u = torch.rand(shape, generator=gen)
+    t = torch.where(u < 0.05, 0.02 + torch.rand(shape, generator=gen), t)
+    t = torch.where((u >= 0.05) & (u < 0.07), torch.tensor(0.02), t)
+    p = t + torch.randn(shape, generator=gen) * 0.01
+    return p.cuda(), t.cuda()
+
+
+def check_train_kernels(gen: torch.Generator) -> dict:
+    """Phase 9: kernels 13 and 14 against their plain versions, with the
+    planted faults; timed at hybrid_astro's shapes."""
+    from superresolution_tpu_torch.losses.basic import star_weighted_l1
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    bf = torch.bfloat16
+    out = {}
+    for geom, (b, h, w, c, g) in (
+            ("chipeq", (2, 16, 20, 16, 8)), ("ragged", (1, 37, 45, 64, 32)),
+            ("main", (TRAIN_BATCH, TRAIN_LR, TRAIN_LR, 64, 32))):
+        ws = dense_check_weights(gen, c, g)
+        x = rand(gen, b, h, w, c, scale=0.2, dtype=bf)
+        res = rand(gen, b, h, w, c, scale=0.05, dtype=bf)
+        dout = rand(gen, b, h, w, c, dtype=bf)
+        e13 = check_dense_backward(ws, x, res, dout, geom)
+        if geom == "chipeq":
+            for fault in K13_FAULTS:
+                attr, planted = _planted_launches(fault)
+                real = getattr(_build, attr)
+                setattr(_build, attr, planted)
+                try:
+                    expect_caught(fault, lambda: check_dense_backward(
+                        ws, x, res, dout, f"fault:{fault}"))
+                finally:
+                    setattr(_build, attr, real)
+        if geom != "main":
+            continue
+        px = b * h * w
+        flat = [t for pair in ws for t in pair]
+        leaves = [x.detach().requires_grad_()] + [
+            t.detach().requires_grad_() for t in flat]
+        wsl = list(zip(leaves[1::2], leaves[2::2]))
+
+        def plain13():
+            y = dt.fused_dense_block_reference(leaves[0], wsl)
+            return torch.autograd.grad(y, leaves, dout)
+
+        b13, by13 = bound(2 * px * (2 * B1_MACS + RECOMPUTE_MACS),
+                          3 * px * c * 2 + 4 * B1_MACS + 8 * (4 * g + c))
+        out["dense_block_backward"] = {
+            "name": "dense_block_backward", "route": "cuda",
+            "source": TRAIN_SRC, "sources": [TRAIN_SRC, SRC],
+            "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
+            "shape": [b, h, w, c], "max_abs_err": e13["max_abs_err"],
+            "max_rel_err": e13["max_rel_err"], "tol": TOL_KERNEL,
+            "ms": time_ms(lambda: dtt.dense_block_backward(x, ws, None, dout),
+                          10),
+            "plain_ms": time_ms(plain13, 10), "bound_ms": b13,
+            "bound_by": by13, "library_ms": None}
+        emit({"phase": "kernel_time", **out["dense_block_backward"]})
+
+    side = TRAIN_LR * TRAIN_SCALE
+    worst = None
+    for tag, shape in (("main", (TRAIN_BATCH, side, side, 1)),
+                       ("ragged", (1_000_003,))):
+        p, t = star_inputs(gen, shape)
+        e14 = check_star_l1(p, t, tag)
+        worst = e14 if worst is None else max(
+            worst, e14, key=lambda e: e["max_rel_err"])
+        if tag != "ragged":
+            continue
+        n, pad = p.numel(), -p.numel() % 65536
+        planted = {
+            "star_threshold_ge": lambda: check_star_l1(
+                p, t, "fault:star_threshold_ge",
+                thr=float(np.nextafter(np.float32(0.02), np.float32(0)))),
+            "tail_counted_in_n": lambda: check_star_l1(
+                p, t, "fault:tail_counted_in_n",
+                p_in=F.pad(p, (0, pad)), t_in=F.pad(t, (0, pad))),
+        }
+        for fault, check in planted.items():
+            expect_caught(fault, check)
+        emit({"check": "star_l1/ragged_n", "n": n})
+    p, t = star_inputs(gen, (TRAIN_BATCH, side, side, 1))
+    g = torch.ones(1, device="cuda")
+    lo, dp = torch.empty(1, device="cuda"), torch.empty_like(p)
+    pr = p.clone().requires_grad_()
+
+    def kern14():
+        _build.star_l1_value(p, t, 0.02, 500.0, lo)
+        _build.star_l1_grad(p, t, 0.02, 500.0, g, dp)
+
+    def plain14():
+        return torch.autograd.grad(star_weighted_l1(pr, t), pr)
+
+    b14, by14 = bound(5 * p.numel(), 3 * p.numel() * 4)
+    out["star_weighted_l1_cuda"] = {
+        "name": "star_weighted_l1_cuda", "route": "cuda",
+        "source": TRAIN_SRC, "sources": [TRAIN_SRC],
+        "replaces": "superresolution_tpu/ops/pallas_loss.py:73",
+        "shape": list(p.shape), "max_abs_err": worst["max_abs_err"],
+        "max_rel_err": worst["max_rel_err"], "tol": TOL_STAR,
+        "ms": time_ms(kern14, 50), "plain_ms": time_ms(plain14, 50),
+        "bound_ms": b14, "bound_by": by14, "library_ms": None}
+    emit({"phase": "kernel_time", **out["star_weighted_l1_cuda"]})
+    return out
+
+
 def hybrid_model(gen: torch.Generator):
     """bench_hybrid's HybridSR at full width, bf16, on the card, random
     weights with N(0, 0.02) biases."""
@@ -697,6 +985,255 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
     return launches
 
 
+def check_launches(tag: str, launches: dict, expected: dict) -> None:
+    if launches != expected:
+        raise AssertionError(f"{tag} launches {launches} != expected "
+                             f"{expected}")
+
+
+def train_config():
+    """hybrid_astro at full width and depth, cut to a run of TRAIN_STEPS
+    steps and one eval over 2 * TRAIN_BATCH synthetic pairs."""
+    import dataclasses
+
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("hybrid_astro")
+    data = dataclasses.replace(cfg.data, synthetic_len=2 * TRAIN_BATCH,
+                               num_workers=4)
+    train = dataclasses.replace(cfg.train, epochs=1,
+                                steps_per_epoch=TRAIN_STEPS, eval_every=1,
+                                resume=False)
+    return cfg.replace(data=data, train=train)
+
+
+def train_ops() -> dict:
+    """Every kernel wrapper's launch counter holder, by kernel name."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops import phase_tail as pt
+    from superresolution_tpu_torch.ops import star_l1 as sl
+
+    return {"fused_dense_block": dt.fused_dense_block,
+            "up2_hr": pt.up2_hr, "conv_last_phase": pt.conv_last_phase,
+            "fused_cab_convs": hab.fused_cab_convs,
+            "fused_hab_block": hab.fused_hab_block,
+            "flash_oca_gathered": fo.flash_oca_gathered,
+            "dense_block_backward": dtt.dense_block_backward,
+            "star_weighted_l1_cuda": sl.star_weighted_l1_cuda}
+
+
+def step_grads(tr, apply, policy, lr, hr, kernel_loss: bool):
+    """(loss, {name: grad}) of one step on (lr, hr) at the trainer's f32
+    masters, with the forward `apply` under `policy`; the loss is the
+    trainer's own (kernel 14) or the plain star-weighted L1."""
+    from superresolution_tpu_torch.losses.basic import star_weighted_l1
+
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in tr.state.params.items()}
+    pred = apply(policy.cast_to_compute(leaves),
+                 lr.to(policy.compute_dtype)).float()
+    lc = tr.cfg.loss
+    loss = (tr.loss_fn(pred, hr.float())[0] if kernel_loss else
+            star_weighted_l1(pred, hr.float(), lc.star_threshold,
+                             lc.star_weight))
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def check_train_step(tr, lr, hr, tag: str) -> None:
+    """One step through the kernels (the trainer's fused apply and loss)
+    against the same step through the plain model in bf16, on the same
+    f32 masters and batch: the loss within TOL_STEP_LOSS, the global
+    grad norm within TOL_STEP_GNORM, and, for each parameter under
+    leaf_prefixes (conv_first, the first, middle and last RRDB,
+    conv_body, stage 2's conv_first), its gradient within TOL_LEAF of
+    max |plain|. Each line also gives both paths' distance from the
+    plain step in f32."""
+    from torch.func import functional_call
+
+    from superresolution_tpu_torch.train.state import global_norm
+    from superresolution_tpu_torch.utils.precision import get_policy
+
+    def plain(p, x):
+        return functional_call(tr.model, p, (x,))
+
+    bf16, f32 = get_policy("bf16"), get_policy("fp32")
+    lk, gk = step_grads(tr, tr.fused_apply, bf16, lr, hr, True)
+    if not bool(torch.isfinite(lk)) or not all(
+            bool(torch.isfinite(g).all()) for g in gk.values()):
+        raise AssertionError(f"train_step/{tag}: non-finite loss or grads")
+    lp, gp = step_grads(tr, plain, bf16, lr, hr, False)
+    l32, g32 = step_grads(tr, plain, f32, lr, hr, False)
+    compare(f"train_step/{tag}/loss", lk, lp, TOL_STEP_LOSS,
+            rel_err_vs_f32=rel_err(lk, l32),
+            plain_rel_err_vs_f32=rel_err(lp, l32))
+    nk, np_, n32 = global_norm(gk), global_norm(gp), global_norm(g32)
+    compare(f"train_step/{tag}/grad_norm", nk, np_, TOL_STEP_GNORM,
+            rel_err_vs_f32=rel_err(nk, n32),
+            plain_rel_err_vs_f32=rel_err(np_, n32))
+    for pre in leaf_prefixes(tr.model.stage1.num_blocks):
+        # one line per group of leaves: its worst leaf, with the worst
+        # distances from f32 of either path over the group
+        errs = sorted((rel_err(gk[k], gp[k]), k) for k in gk
+                      if k.startswith(pre))
+        worst, k = errs[-1]
+        line = {"check": f"train_step/{tag}/grad/{pre}*",
+                "leaves": len(errs), "worst_leaf": k, "max_rel_err": worst,
+                "tol": TOL_LEAF,
+                "rel_err_vs_f32": max(rel_err(gk[n], g32[n])
+                                      for _, n in errs),
+                "plain_rel_err_vs_f32": max(rel_err(gp[n], g32[n])
+                                            for _, n in errs)}
+        emit(line)
+        if worst > TOL_LEAF:
+            raise AssertionError(f"train_step/{tag}: gradient of {k} is "
+                                 f"{worst} of max |plain| > {TOL_LEAF}")
+
+
+def leaf_prefixes(nb: int) -> tuple:
+    return ("stage1.conv_first.", "stage1.body.0.",
+            f"stage1.body.{nb // 2}.", f"stage1.body.{nb - 1}.",
+            "stage1.conv_body.", "stage2.conv_first.")
+
+
+def train_path(card: str) -> dict:
+    """Phases 10 and 11: the Trainer on hybrid_astro at full width, its
+    launches counted; one step held against the plain model; then times.
+    Returns the launches of the fit."""
+    import shutil
+
+    from superresolution_tpu_torch.data.loader import prefetch_to_device
+    from superresolution_tpu_torch.train.trainer import Trainer
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ops = train_ops()
+    with Trainer(train_config(), TRAIN_DIR) as tr:
+        if tr.fused_apply is None:
+            raise AssertionError("the Trainer did not turn the fused "
+                                 "train apply on")
+        for op in ops.values():
+            op.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: op.launches for k, op in ops.items()}
+        nb = tr.model.stage1.num_blocks
+        per_step = {"fused_dense_block": 3 * nb * (5 + 4),
+                    "dense_block_backward": 3 * nb,
+                    "star_weighted_l1_cuda": 2}
+        check_launches("train", launches,
+                       {k: TRAIN_STEPS * per_step.get(k, 0) for k in ops})
+        if out["final_step"] != TRAIN_STEPS:
+            raise AssertionError(f"fit took {out['final_step']} steps")
+        with open(f"{TRAIN_DIR}/logs/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        train_log = next(r for r in recs if "train/total" in r)
+        val_psnr = out["best"]["psnr"]
+        if not all(np.isfinite([train_log["train/total"],
+                                train_log["train/grad_norm"], val_psnr])):
+            raise AssertionError(f"train: non-finite loss, grad norm or "
+                                 f"PSNR {train_log} {val_psnr}")
+        meta_path = f"{TRAIN_DIR}/checkpoints/meta.json"
+        with open(meta_path) as f:
+            meta = json.load(f)
+        ckpt = f"{TRAIN_DIR}/checkpoints/step_{TRAIN_STEPS:010d}/state.pt"
+        if meta["last_step"] != TRAIN_STEPS or not os.path.exists(ckpt):
+            raise AssertionError(f"no checkpoint at step {TRAIN_STEPS}")
+        emit({"phase": "train_path", "steps": TRAIN_STEPS, "fit_s": fit_s,
+              "launches": launches,
+              "launches_per_step": {k: v // TRAIN_STEPS
+                                    for k, v in launches.items()},
+              "train_loss": train_log["train/total"],
+              "train_grad_norm": train_log["train/grad_norm"],
+              "val_psnr": val_psnr, "val_ssim": out["best"]["ssim"],
+              "checkpoint": ckpt,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+        # one fixed batch (the first validation batch, no augmentation)
+        batch = next(iter(prefetch_to_device(tr.val_loader)))
+        lr, hr = batch["lr"], batch["hr"]
+        check_train_step(tr, lr, hr, f"{nb}_rrdbs")
+        emit({"phase": "train_times", **train_times(tr, lr, hr, card)})
+    return launches
+
+
+def train_times(tr, lr, hr, card: str) -> dict:
+    """Phase 11: per step on one device-resident batch, after a warm-up,
+    over TIME_STEPS steps ending in torch.cuda.synchronize(): the
+    trainer's step, stage 1 and stage 2 forward + backward, the plain
+    step; device time by kernel (torch.profiler) and the busy share of a
+    step; peak memory."""
+    from torch.func import functional_call
+
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+    from superresolution_tpu_torch.train.fused_apply import (
+        make_fused_train_apply)
+    from superresolution_tpu_torch.train.steps import make_train_step
+
+    batch = {"lr": lr, "hr": hr}
+
+    def host_ms(fn, runs=TIME_STEPS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / runs * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: tr._train_step(tr.state, batch, None))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    p = tr.policy.cast_to_compute(
+        {k: v.detach().requires_grad_() for k, v in tr.state.params.items()})
+    s1 = {k[7:]: v for k, v in p.items() if k.startswith("stage1.")}
+    s2 = {k[7:]: v for k, v in p.items() if k.startswith("stage2.")}
+    x = lr.to(torch.bfloat16)
+    s1_apply = make_fused_train_apply(tr.model.stage1)
+    z = anti_checkerboard(s1_apply(s1, x), "balanced").detach()
+
+    def stage1_fb():
+        y = s1_apply(s1, x)
+        torch.autograd.grad(y.float().sum(), list(s1.values()))
+
+    def stage2_fb():
+        y = functional_call(tr.model.stage2, s2, (z,))
+        torch.autograd.grad(y.float().sum(), list(s2.values()))
+
+    s1_ms, s2_ms = host_ms(stage1_fb), host_ms(stage2_fb)
+    plain_step = make_train_step(tr.model, tr.loss_fn, tr.tx, tr.policy,
+                                 tr.eval_input_fn)
+    plain_ms = host_ms(lambda: plain_step(tr.state, batch, None))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr._train_step(tr.state, batch, None)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    on_card = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    top = [{"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+            "count": e.count} for e in on_card[:12]]
+    return {"card": card, "batch": TRAIN_BATCH, "steps_timed": TIME_STEPS,
+            "ms_per_step": step_ms,
+            "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+            "input_mp_per_s": TRAIN_BATCH * TRAIN_LR ** 2 / step_ms / 1e3,
+            "stage1_fwd_bwd_ms": s1_ms, "stage2_fwd_bwd_ms": s2_ms,
+            "plain_step_ms": plain_ms,
+            "profiled_step_ms": prof_ms,
+            "device_ms_per_step": device_ms if device_ms else None,
+            "device_busy_share": device_ms / prof_ms if device_ms else None,
+            "top_device_kernels": top, "peak_mem_gib": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -828,6 +1365,15 @@ def main() -> int:
     hybrid_launches = hybrid_path(gen, card)
     for k in ("fused_cab_convs", "fused_hab_block", "flash_oca_gathered"):
         kernels[k]["launches"] = hybrid_launches[k]
+    torch.cuda.empty_cache()
+
+    # ---- 9-11: hybrid_astro training ----
+    gen = torch.Generator().manual_seed(SEED + 2)
+    kernels.update(check_train_kernels(gen))
+    torch.cuda.empty_cache()
+    train_launches = train_path(card)
+    for k in ("dense_block_backward", "star_weighted_l1_cuda"):
+        kernels[k]["launches"] = train_launches[k]
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

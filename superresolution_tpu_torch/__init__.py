@@ -1,15 +1,19 @@
 """PyTorch/CUDA port of superresolution_tpu for one NVIDIA H100.
 
 The JAX package `superresolution_tpu` is the reference; this package
-mirrors its module names (models/, ops/, infer/) so each counterpart is
-easy to find, and keeps its NHWC layout at every public function.
+mirrors its module names (models/, ops/, infer/, train/, ...) so each
+counterpart is easy to find, and keeps its NHWC layout at every public
+function.
 
 Slice 1 covers the ESRGAN RRDBNet x4 tiled deploy path: the fused-trunk
 dense blocks and the x4 tail run through hand-written CUDA kernels
 (ops/csrc/sr_kernels.cu), built with nvcc at first use. Slice 2 covers
 the hybrid RRDBNet -> HAT x4 deploy path (infer/fused_hat.py): the HAT
 stage's CAB convs, HAB block bodies and OCAB attention run through
-ops/csrc/hat_kernels.cu, stage 1 through the slice-1 trunk. Entry points
+ops/csrc/hat_kernels.cu, stage 1 through the slice-1 trunk. Slice 3
+covers hybrid_astro training on one device (train/trainer.py): the dense
+blocks' backward (kernel 13) and the star-weighted L1 (kernel 14) run
+through ops/csrc/train_kernels.cu, their forwards through B1. Entry points
 default to the `cuda` device and raise without a GPU unless the caller
 passes device="cpu", where every kernel wrapper runs its plain PyTorch
 version instead.

@@ -76,14 +76,20 @@ def make_fused_trunk(params: Mapping, model, chain_rrdb: bool = False,
 def make_standard_tail(params: Mapping, model,
                        device: str | torch.device | None = None):
     """tail_fn(feat [B,H,W,C]) -> [B,sH,sW,out]: the model's own tail
-    (conv_up{n} + pixel shuffle + lrelu per stage, conv_hr + lrelu,
-    conv_last) as plain convs on the weights of `params`, unclipped."""
+    (conv_up{n} + pixel shuffle + lrelu per stage, or nearest x2 +
+    conv_up{n} + lrelu, then conv_hr + lrelu, conv_last) as plain convs
+    on the weights of `params`, unclipped."""
     dev = resolve_device(device)
     p = state_tensors(params, dev)
+    nearest = model.upsampler == "nearest_conv"
 
     def tail_fn(feat: torch.Tensor) -> torch.Tensor:
         y = feat
         for n, r in enumerate(model.up_stages, 1):
+            if nearest:
+                y = y.repeat_interleave(2, 1).repeat_interleave(2, 2)
+                y = F.leaky_relu(param_conv(y, p, f"conv_up{n}"), 0.2)
+                continue
             y = F.leaky_relu(depth_to_space(param_conv(y, p, f"conv_up{n}"),
                                             r), 0.2)
         y = F.leaky_relu(param_conv(y, p, "conv_hr"), 0.2)
@@ -94,12 +100,13 @@ def make_standard_tail(params: Mapping, model,
 
 def fused_rrdb_model(params: Mapping, model,
                      device: str | torch.device | None = None):
-    """RRDBNet(pixelshuffle) -> apply_fn(x [B,H,W,Cin]) -> [B,sH,sW,out]:
-    the fused trunk, then the B2/B3 phase tail when the tail is x4
-    pixelshuffle, else the model's standard tail as plain convs; both
-    unclipped, as the model's own tail."""
+    """RRDBNet -> apply_fn(x [B,H,W,Cin]) -> [B,sH,sW,out]: the fused
+    trunk, then the B2/B3 phase tail when the tail is x4 pixelshuffle,
+    else the model's standard tail as plain convs; both unclipped, as the
+    model's own tail."""
     trunk = make_fused_trunk(params, model, device=device)
-    if tuple(model.up_stages) == (2, 2):
+    if (model.upsampler == "pixelshuffle"
+            and tuple(model.up_stages) == (2, 2)):
         tail = make_phase_tail(params, clip=False, device=device)
     else:
         tail = make_standard_tail(params, model, device=device)

@@ -12,6 +12,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def msra_init_(w: torch.Tensor, scale: float = 1.0,
@@ -72,3 +73,18 @@ def pixel_shuffle_upsample(x: torch.Tensor, convs: Sequence[nn.Module],
         if act is not None:
             x = act(x)
     return x
+
+
+def remat(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """module(x), its activations recomputed in the backward
+    (torch.utils.checkpoint, use_reentrant=False), as the reference's
+    nn.remat does. The module's parameters are inputs of the checkpointed
+    call, so under torch.func.functional_call the recompute sees the same
+    (e.g. bf16-cast) tensors as the forward, not the module's own."""
+    names, params = zip(*module.named_parameters())
+
+    def run(x, *ps):
+        return torch.func.functional_call(module, dict(zip(names, ps)),
+                                          (x,))
+
+    return checkpoint(run, x, *params, use_reentrant=False)

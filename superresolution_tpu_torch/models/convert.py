@@ -213,8 +213,11 @@ def hat_state_dict_from_jax(params: Mapping, *, depths: tuple[int, ...],
             for half in (0, 1):
                 _put_hab(sd, f"layers.{gi}.residual_group.blocks."
                          f"{2 * pi + half}", pair[f"HABlock_{half}"])
-        _put_ocab(sd, f"layers.{gi}.overlap_attn",
-                  grp["OverlappingCrossAttention_0"], hat_compat)
+        # under remat=True flax names the OCAB's module after nn.remat's
+        # wrapper class
+        oc = grp.get("OverlappingCrossAttention_0",
+                     grp.get("CheckpointOverlappingCrossAttention_0"))
+        _put_ocab(sd, f"layers.{gi}.overlap_attn", oc, hat_compat)
         _put_conv(sd, f"layers.{gi}.conv", grp["Conv_0"])
     if hat_compat:
         _put_ln(sd, "norm", p["norm_body"])

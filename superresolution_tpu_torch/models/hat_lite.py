@@ -27,7 +27,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from superresolution_tpu_torch.models.common import Conv, pixel_shuffle_stages
+from superresolution_tpu_torch.models.common import (
+    Conv,
+    pixel_shuffle_stages,
+    remat,
+)
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.ops.window_attention import (
     reference_window_attention,
@@ -280,14 +284,20 @@ class _Blocks(nn.Module):
 
 class ResidualGroup(nn.Module):
     """depth HABs (even ones unshifted, odd ones shifted by ws/2), the
-    group-end OCAB and a conv, around a residual. NHWC."""
+    group-end OCAB and a conv, around a residual. NHWC. With remat, each
+    HAB pair (the reference's scan unit, when scan_blocks and depth >= 2)
+    and the OCAB recompute their activations in the backward; an odd
+    last HAB does not, as in the reference."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float = 2.0,
                  conv_scale: float = 0.01, overlap_ratio: float = 0.5,
                  oca_rpb: bool = False, attn_f32: bool = True,
+                 remat: bool = False, scan_blocks: bool = True,
                  generator=None):
         super().__init__()
+        self.remat = remat
+        self.pairs = depth // 2 if scan_blocks and depth >= 2 else 0
         self.residual_group = _Blocks([
             HABlock(dim, num_heads, window_size,
                     0 if i % 2 == 0 else window_size // 2, mlp_ratio,
@@ -299,9 +309,16 @@ class ResidualGroup(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x
-        for blk in self.residual_group.blocks:
-            y = blk(y)
-        return x + _nchw(self.conv, self.overlap_attn(y))
+        blocks = self.residual_group.blocks
+        for i, blk in enumerate(blocks):
+            if self.remat and i < 2 * self.pairs:
+                if i % 2 == 0:
+                    y = remat(nn.Sequential(blk, blocks[i + 1]), y)
+            else:
+                y = blk(y)
+        y = (remat(self.overlap_attn, y) if self.remat
+             else self.overlap_attn(y))
+        return x + _nchw(self.conv, y)
 
 
 class _PatchEmbed(nn.Module):
@@ -311,10 +328,12 @@ class _PatchEmbed(nn.Module):
 
 
 class HATLite(nn.Module):
-    """The JAX HATLite's fields and forward. scan_blocks only names the
-    JAX tree's layout (models/convert.py reads it); remat is a training
-    option and flash_attn / flash_oca need kernel 10, none of them ported
-    yet. Parameters are made on the CPU from `generator` (MSRA convs, LeCun
+    """The JAX HATLite's fields and forward. scan_blocks names the JAX
+    tree's layout (models/convert.py reads it) and, as there, makes HAB
+    pairs the remat unit; remat recomputes each pair's and each OCAB's
+    activations in the backward (ResidualGroup). flash_attn / flash_oca
+    need kernel 10, not ported yet, and raise. Parameters are made on the
+    CPU from `generator` (MSRA convs, LeCun
     dense layers, zero biases, unit LayerNorms, N(0, 0.02) rel-pos tables
     truncated at 2 sigma) and moved to `device` (default cuda; raises
     without a GPU unless device='cpu')."""
@@ -336,9 +355,6 @@ class HATLite(nn.Module):
             raise NotImplementedError(
                 "flash_attn / flash_oca need kernel 10 (ops/pallas_attn.py "
                 "flash_window_attention), which is not ported yet")
-        if remat:
-            raise NotImplementedError("remat is a training option; the "
-                                      "port's training slice is not done")
         dev = resolve_device(device)
         self.scale, self.window_size = scale, window_size
         self.depths, self.num_heads = tuple(depths), tuple(num_heads)
@@ -348,6 +364,7 @@ class HATLite(nn.Module):
         self.scan_blocks, self.hat_compat = scan_blocks, hat_compat
         self.upsample_feat, self.attn_f32 = upsample_feat, attn_f32
         self.flash_attn, self.flash_oca = flash_attn, flash_oca
+        self.remat = remat
         gen = generator
         c = embed_dim
         self.conv_first = Conv(in_channels, c, generator=gen)
@@ -355,7 +372,8 @@ class HATLite(nn.Module):
             self.patch_embed = _PatchEmbed(c)
         self.layers = nn.ModuleList([
             ResidualGroup(c, d, nh, window_size, mlp_ratio, conv_scale,
-                          overlap_ratio, hat_compat, attn_f32, gen)
+                          overlap_ratio, hat_compat, attn_f32, remat,
+                          scan_blocks, gen)
             for d, nh in zip(depths, num_heads)])
         if hat_compat:
             self.norm = nn.LayerNorm(c, eps=1e-5, device="cpu")

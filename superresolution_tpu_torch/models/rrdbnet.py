@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from superresolution_tpu_torch.models.common import (
     Conv,
     lrelu,
     pixel_shuffle_stages,
     pixel_shuffle_upsample,
+    remat,
 )
 from superresolution_tpu_torch.ops.pixel_shuffle import space_to_depth
 from superresolution_tpu_torch.runtime import resolve_device
@@ -93,11 +95,18 @@ class RRDB(nn.Module):
 
 
 class RRDBNet(nn.Module):
-    """ESRGAN RRDBNet with the sub-pixel (pixelshuffle) upsampler.
+    """ESRGAN RRDBNet with the sub-pixel ('pixelshuffle', conv C -> C r^2
+    + shuffle + lrelu per stage) or the nearest-conv ('nearest_conv',
+    nearest x2 + conv + lrelu per stage) upsampler. The default is the
+    JAX model's, 'nearest_conv'; the deploy paths pass 'pixelshuffle'.
 
     pixel_unshuffle_input: BasicSR's convention for scale < 4 — the input
     is space-to-depth'd by this factor and upsampled by scale * factor.
-    The nearest-conv upsampler waits for a later slice of the port.
+    remat: each RRDB's activations are recomputed in the backward
+    (models/common.remat), the reference's remat per scanned RRDB.
+    scan_blocks and fused_dense name the JAX tree's layout (a scan over
+    RRDBs, FusedDenseBlock projections); this model keeps BasicSR's
+    layout either way and models/convert.py maps both onto it.
     Parameters are initialized on the CPU from `generator` (MSRA x 0.1 in
     the dense blocks, x 1 elsewhere, zero biases) and moved to `device`
     (default cuda; raises without a GPU unless device='cpu')."""
@@ -105,28 +114,35 @@ class RRDBNet(nn.Module):
     def __init__(self, scale: int = 4, in_channels: int = 3,
                  out_channels: int = 3, features: int = 64,
                  num_blocks: int = 23, growth: int = 32,
-                 upsampler: str = "pixelshuffle",
-                 pixel_unshuffle_input: int = 1,
+                 upsampler: str = "nearest_conv",
+                 scan_blocks: bool = True, fused_dense: bool = True,
+                 remat: bool = False, pixel_unshuffle_input: int = 1,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if upsampler != "pixelshuffle":
-            raise ValueError(f"upsampler {upsampler!r} is not ported yet; "
-                             "use 'pixelshuffle'")
+        if upsampler not in ("pixelshuffle", "nearest_conv"):
+            raise ValueError(f"unknown upsampler {upsampler!r}")
         dev = resolve_device(device)
         self.scale, self.num_blocks = scale, num_blocks
         self.features, self.growth = features, growth
         self.in_channels, self.out_channels = in_channels, out_channels
+        self.upsampler, self.remat = upsampler, remat
+        self.scan_blocks, self.fused_dense = scan_blocks, fused_dense
         self.pixel_unshuffle_input = u = pixel_unshuffle_input
         c = features
         self.conv_first = Conv(in_channels * u * u, c, generator=generator)
         self.body = nn.Sequential(*[RRDB(c, growth, generator=generator)
                                     for _ in range(num_blocks)])
         self.conv_body = Conv(c, c, generator=generator)
-        self.up_stages = tuple(pixel_shuffle_stages(scale * u))
+        if upsampler == "nearest_conv":
+            if scale * u not in (2, 4, 8):
+                raise ValueError(f"unsupported scale {scale * u}")
+            self.up_stages = (2,) * ((scale * u).bit_length() - 1)
+        else:
+            self.up_stages = tuple(pixel_shuffle_stages(scale * u))
         for n, r in enumerate(self.up_stages, 1):
-            setattr(self, f"conv_up{n}",
-                    Conv(c, c * r * r, generator=generator))
+            cout = c if upsampler == "nearest_conv" else c * r * r
+            setattr(self, f"conv_up{n}", Conv(c, cout, generator=generator))
         self.conv_hr = Conv(c, c, generator=generator)
         self.conv_last = Conv(c, out_channels, generator=generator)
         self.to(dev)
@@ -136,15 +152,22 @@ class RRDBNet(nn.Module):
         if self.pixel_unshuffle_input > 1:
             x = space_to_depth(x, self.pixel_unshuffle_input)
         x = head = self.conv_first(x.permute(0, 3, 1, 2))
-        x = self.conv_body(self.body(x)) + head
+        for blk in self.body:
+            x = remat(blk, x) if self.remat else blk(x)
+        x = self.conv_body(x) + head
         return x.permute(0, 2, 3, 1)
 
     def tail(self, x: torch.Tensor) -> torch.Tensor:
         """LR features [B, h, w, features] -> [B, h*s, w*s, out]."""
         convs = [getattr(self, f"conv_up{n}")
                  for n in range(1, len(self.up_stages) + 1)]
-        x = pixel_shuffle_upsample(x.permute(0, 3, 1, 2), convs,
-                                   self.up_stages, act=lrelu)
+        x = x.permute(0, 3, 1, 2)
+        if self.upsampler == "nearest_conv":
+            for conv in convs:
+                x = lrelu(conv(F.interpolate(x, scale_factor=2,
+                                             mode="nearest")))
+        else:
+            x = pixel_shuffle_upsample(x, convs, self.up_stages, act=lrelu)
         x = self.conv_last(lrelu(self.conv_hr(x)))
         return x.permute(0, 2, 3, 1)
 

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.c_size_t
 
 
 def _nvcc() -> str:
@@ -101,7 +102,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.sr_conv3x3.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
-                               _P]
+                               _F, _P, _I, _P, _I, _P]
     lib.sr_conv3x3.restype = _I
     lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
     lib.sr_conv_last.restype = _I
@@ -113,6 +114,19 @@ def library() -> ctypes.CDLL:
     lib.hat_oca.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P]
     lib.hat_oca.restype = _I
+    lib.train_star_l1_parts.argtypes = [_S]
+    lib.train_star_l1_parts.restype = _I
+    lib.train_star_l1_value.argtypes = [_P, _P, _S, _F, _F, _P, _P, _P]
+    lib.train_star_l1_value.restype = _I
+    lib.train_star_l1_grad.argtypes = [_P, _P, _S, _F, _F, _P, _P, _P]
+    lib.train_star_l1_grad.restype = _I
+    lib.train_dense_scale.argtypes = [_P, _S, _I, _F, _P, _I, _P]
+    lib.train_dense_scale.restype = _I
+    lib.train_wgrad_chunks.argtypes = [_I] * 5
+    lib.train_wgrad_chunks.restype = _I
+    lib.train_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
+                                _I, _I, _P, _P, _P, _P]
+    lib.train_wgrad.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -158,6 +172,8 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
             cout: int, *, geom: tuple[int, int, int],
             in1: torch.Tensor | None = None, cin1: int = 0,
             d2s: bool = False, lrelu: bool = False, gelu: bool = False,
+            gate: torch.Tensor | None = None, gate_off: int = 0,
+            add: torch.Tensor | None = None, add_scale: float = 1.0,
             xres: torch.Tensor | None = None,
             res: torch.Tensor | None = None) -> None:
     """One launch of the shared 3x3 SAME conv (see sr_kernels.cu).
@@ -165,14 +181,20 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
     geom = (B, H, W) of the conv's logical input; every tensor is NHWC
     with its last dim as the channel stride. w: [3, 3, cin0+cin1, cout]
     bf16; bias: [cout] f32. The epilogue applies bias, then lrelu(0.2)
-    or exact GELU, then the residuals."""
+    or exact GELU, then the lrelu' gate (v *= 0.2 where gate's channel
+    gate_off + o is not > 0), then v += add_scale * add, then the
+    residuals."""
     lib = library()
     b, h, wd = geom
+    gate_ptr = None if gate is None else (
+        gate.data_ptr() + gate_off * gate.element_size())
     rc = lib.sr_conv3x3(
         _ptr(in0), in0.shape[-1], cin0,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
         int(d2s), b, h, wd, _ptr(w), _ptr(bias),
         _ptr(out), out.shape[-1], out_off, cout, 1 if lrelu else 2 * gelu,
+        gate_ptr, 0 if gate is None else gate.shape[-1],
+        _ptr(add), 0 if add is None else add.shape[-1], add_scale,
         _ptr(xres), 0 if xres is None else xres.shape[-1],
         _ptr(res), 0 if res is None else res.shape[-1], _stream(out))
     _check(lib, rc, "sr_conv3x3")
@@ -233,3 +255,60 @@ def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
                      _ptr(out), b, nh_w, nw_w, hp, wp, c, num_heads, ws,
                      ows, float(c // num_heads) ** -0.5, _stream(q))
     _check(lib, rc, "hat_oca")
+
+
+def star_l1_value(p: torch.Tensor, t: torch.Tensor, threshold: float,
+                  weight: float, out: torch.Tensor) -> None:
+    """Launches of kernel 14's forward (train_kernels.cu): out [1] f32 =
+    mean(|p - t| * (t > threshold ? weight : 1)) over p, t (f32, same
+    numel)."""
+    lib = library()
+    n = p.numel()
+    part = torch.empty(lib.train_star_l1_parts(n), dtype=torch.float32,
+                       device=p.device)
+    rc = lib.train_star_l1_value(_ptr(p), _ptr(t), n, threshold, weight,
+                                 _ptr(part), _ptr(out), _stream(p))
+    _check(lib, rc, "train_star_l1_value")
+
+
+def star_l1_grad(p: torch.Tensor, t: torch.Tensor, threshold: float,
+                 weight: float, g: torch.Tensor, dp: torch.Tensor) -> None:
+    """One launch of kernel 14's backward: dp = sign(p - t) * w(t) * g / n,
+    with the upstream gradient g [1] f32 read on the card."""
+    lib = library()
+    rc = lib.train_star_l1_grad(_ptr(p), _ptr(t), p.numel(), threshold,
+                                weight, _ptr(g), _ptr(dp), _stream(p))
+    _check(lib, rc, "train_star_l1_grad")
+
+
+def dense_scale(src: torch.Tensor, scale: float, out: torch.Tensor) -> None:
+    """One launch of dense_scale_kernel: out[..., :c] = bf16(scale * src)
+    for src [B,H,W,c] and out [B,H,W,>=c], both bf16."""
+    lib = library()
+    c = src.shape[-1]
+    rc = lib.train_dense_scale(_ptr(src), src.numel() // c, c, scale,
+                               _ptr(out), out.shape[-1], _stream(src))
+    _check(lib, rc, "train_dense_scale")
+
+
+def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
+          d: torch.Tensor, d_off: int, cout: int, dw: torch.Tensor,
+          db: torch.Tensor | None) -> None:
+    """Two launches (wgrad_kernel, wgrad_reduce_kernel): the weight grad
+    dw [3,3,cin0+cin1,cout] of a 3x3 SAME conv whose input
+    is [in0[..., :cin0], in1[..., :cin1]] and whose output cotangent is
+    d[..., d_off:d_off+cout], and its bias grad db [cout] f32 if given.
+    dw has the weight's type, bf16, as have all activations (NHWC, of one
+    [B,H,W] geometry)."""
+    lib = library()
+    b, h, w = in0.shape[:3]
+    cin = cin0 + cin1
+    nchunk = lib.train_wgrad_chunks(b, h, w, cin, cout)
+    part = torch.empty(nchunk * (9 * cin * cout + cout), dtype=torch.float32,
+                       device=in0.device)
+    rc = lib.train_wgrad(
+        _ptr(in0), in0.shape[-1], cin0,
+        _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
+        d.data_ptr() + d_off * d.element_size(), d.shape[-1], cout,
+        b, h, w, nchunk, _ptr(part), _ptr(dw), _ptr(db), _stream(in0))
+    _check(lib, rc, "train_wgrad")

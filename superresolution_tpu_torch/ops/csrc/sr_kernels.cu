@@ -3,7 +3,9 @@
 // One direct NHWC 3x3 SAME convolution routine with fused epilogues
 // carries two of the three ops; conv_last has its own small kernel. The
 // same routine also carries the two convs of the hybrid path's CAB
-// (hat_kernels.cu, kernel 7), through its exact-GELU epilogue.
+// (hat_kernels.cu, kernel 7), through its exact-GELU epilogue, and the
+// transposed convs of the dense block's backward (train_kernels.cu,
+// kernel 13), through its lrelu' gate and scaled-add epilogues.
 //
 //   B1 fused_dense_block  (replaces superresolution_tpu/ops/
 //      pallas_dense_trunk.py:fused_dense_block): five launches of
@@ -65,6 +67,11 @@ struct ConvArgs {
   int out_stride, out_off, cout;
   int act;                      // 1: v = lrelu(acc + bias, 0.2);
                                 // 2: v = gelu(acc + bias), exact erf
+  const __nv_bfloat16* gate;    // or null: v = gate > 0 ? v : 0.2 * v
+  int gate_stride;              // (lrelu' of the forward's y = lrelu(pre))
+  const __nv_bfloat16* add;     // or null: v = v + add_scale * add
+  int add_stride;
+  float add_scale;
   const __nv_bfloat16* xres;    // or null: v = x + 0.2 * v
   int xres_stride;
   const __nv_bfloat16* res;     // or null: v = res + 0.2 * v
@@ -184,6 +191,10 @@ __global__ void __launch_bounds__(NTHREADS)
       if (a.bias) v += a.bias[o];
       if (a.act == 1) v = v < 0.f ? 0.2f * v : v;
       if (a.act == 2) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      if (a.gate && !(__bfloat162float(a.gate[pix * a.gate_stride + o]) > 0.f))
+        v *= 0.2f;
+      if (a.add)
+        v += a.add_scale * __bfloat162float(a.add[pix * a.add_stride + o]);
       if (a.xres)
         v = __bfloat162float(a.xres[pix * a.xres_stride + o]) + 0.2f * v;
       if (a.res)
@@ -266,9 +277,10 @@ extern "C" {
 int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
                int in1_stride, int cin1, int d2s, int B, int H, int W,
                const void* w, const void* bias, void* out, int out_stride,
-               int out_off, int cout, int act, const void* xres,
-               int xres_stride, const void* res, int res_stride,
-               void* stream) {
+               int out_off, int cout, int act, const void* gate,
+               int gate_stride, const void* add, int add_stride,
+               float add_scale, const void* xres, int xres_stride,
+               const void* res, int res_stride, void* stream) {
   ConvArgs a;
   a.in0 = static_cast<const __nv_bfloat16*>(in0);
   a.in0_stride = in0_stride;
@@ -286,6 +298,11 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
   a.out_off = out_off;
   a.cout = cout;
   a.act = act;
+  a.gate = static_cast<const __nv_bfloat16*>(gate);
+  a.gate_stride = gate_stride;
+  a.add = static_cast<const __nv_bfloat16*>(add);
+  a.add_stride = add_stride;
+  a.add_scale = add_scale;
   a.xres = static_cast<const __nv_bfloat16*>(xres);
   a.xres_stride = xres_stride;
   a.res = static_cast<const __nv_bfloat16*>(res);

@@ -1,0 +1,371 @@
+// Hand-written CUDA kernels of the hybrid_astro training step (sm_90a).
+//
+//   Kernel 13, the dense block's backward (replaces superresolution_tpu/
+//   ops/pallas_dense_trunk_vjp.py:fused_dense_block_train, _bwd_kernel).
+//   ops/dense_trunk_train.py runs it as a fixed sequence of launches:
+//     - B1's first four convs recompute y_1..y_4 (sr_kernels.cu);
+//     - dense_scale_kernel writes dacc5 = bf16(s_acc * dout) into the
+//       cotangent workspace D = [dacc5 | dpre4 | dpre3 | dpre2 | dpre1];
+//     - four transposed convs, one per source y_4..y_1, each a SAME 3x3
+//       conv over a prefix of D with flipped, channel-transposed weights
+//       (sr_kernels.cu's conv3x3_kernel, lrelu' gate epilogue), write
+//       dpre_i = bf16(lrelu'(y_i) * sum of every later conv's cotangent);
+//     - one more over all of D gives dx = convT + s_id * dout;
+//     - wgrad_kernel: per pixel chunk, f32 partials of dW_j[tap][ci][co]
+//       = sum_p in_j[p + tap] * dpre_j[p] (and of db_j = sum_p dpre_j[p]);
+//       wgrad_reduce_kernel sums the chunks in a fixed order and casts dW
+//       to the weight's type. No float atomics: two runs give the same bits.
+//   Kernel 14, the star-weighted L1 (replaces ops/pallas_loss.py:
+//   star_weighted_l1_pallas): star_l1_partial_kernel reduces |p - t| *
+//   (t > thr ? w : 1) into per-block f32 partials over a grid-stride loop,
+//   star_l1_reduce_kernel sums them in a fixed order and divides by n;
+//   star_l1_bwd_kernel writes sign(p - t) * w(t) * g / n, reading the
+//   upstream gradient g from device memory (no host sync).
+//
+// Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s). Kernel 13 at
+// [4,128,128,64], c 64, g 32: dgrad and wgrad each do the forward's
+// 239,616 MACs per pixel and the recompute (convs 1-4) 129,024, so
+// 608,256 in all, 8.0e10 FLOP a call against ~60 MB of x, dout, dx and
+// the weights: bound by operations (0.081 ms).
+// Kernel 14 does 4-5 operations per 8-12 bytes: bound by bytes.
+//
+// What this simple design leaves on the table: every conv and the wgrad
+// accumulate in f32 on the CUDA cores (FFMA, 67 TFLOP/s), not on the
+// tensor cores, so kernel 13 can reach at most ~7% of its bound; the
+// wgrad re-stages the input tile from device memory for each of its
+// channel tiles, and y_1..y_4 and D round-trip through device memory.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int WG_TH = 8;        // pixel tile rows
+constexpr int WG_TW = 16;       // pixel tile columns
+constexpr int WG_CI = 16;       // input channels per block
+constexpr int WG_CO = 32;       // output channels per block (8 quads)
+constexpr int WG_THREADS = 256; // 2 row halves x 16 ci x 8 co quads
+constexpr int WG_ACC = 9 * 4;   // accumulators per thread
+
+struct WgradArgs {
+  // in_j = [in0 channels 0..cin0) | in1 channels 0..cin1)], NHWC.
+  const __nv_bfloat16* in0;
+  int in0_stride, cin0;
+  const __nv_bfloat16* in1;
+  int in1_stride, cin1;
+  const __nv_bfloat16* d;  // dpre_j: channel o at d[pix * d_stride + o]
+  int d_stride, cout;
+  int B, H, W;
+  float* part_w;           // [nchunk][9][cin][cout]
+  float* part_b;           // [nchunk][cout], or null
+  int nchunk;
+};
+
+// Grid (nchunk, ci tiles, co tiles). Block `chunk` walks pixel tiles
+// chunk, chunk + nchunk, ...; each tile stages in_j with a 1-pixel zero
+// halo (WG_CI channels) and dpre_j (WG_CO channels) in shared memory as
+// f32. A thread owns one input channel, four output channels and all 9
+// taps, over half the tile's rows; the halves are summed at the end.
+__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
+  __shared__ float in_s[WG_CI][WG_TH + 2][WG_TW + 2];
+  __shared__ __align__(16) float d_s[WG_TH][WG_TW][WG_CO];
+  __shared__ float red_s[WG_THREADS / 2][WG_ACC + 4];
+
+  const int tid = threadIdx.x;
+  const int half = tid / (WG_THREADS / 2);
+  const int r = tid % (WG_THREADS / 2);
+  const int ci_l = r / 8;
+  const int cq = r % 8;
+  const int cin = a.cin0 + a.cin1;
+  const int ci0 = blockIdx.y * WG_CI;
+  const int co0 = blockIdx.z * WG_CO;
+  const bool do_bias = a.part_b != nullptr && blockIdx.y == 0 && ci_l == 0;
+  const int tiles_y = (a.H + WG_TH - 1) / WG_TH;
+  const int tiles_x = (a.W + WG_TW - 1) / WG_TW;
+  const int ntiles = a.B * tiles_y * tiles_x;
+
+  float acc[WG_ACC];
+#pragma unroll
+  for (int k = 0; k < WG_ACC; ++k) acc[k] = 0.f;
+  float bacc[4] = {0.f, 0.f, 0.f, 0.f};
+
+  for (int t = blockIdx.x; t < ntiles; t += a.nchunk) {
+    const int b = t / (tiles_y * tiles_x);
+    const int y0 = ((t / tiles_x) % tiles_y) * WG_TH;
+    const int x0 = (t % tiles_x) * WG_TW;
+    for (int e = tid; e < WG_CI * (WG_TH + 2) * (WG_TW + 2);
+         e += WG_THREADS) {
+      const int ci = e % WG_CI;
+      const int pix = e / WG_CI;
+      const int px = pix % (WG_TW + 2);
+      const int py = pix / (WG_TW + 2);
+      const int gy = y0 + py - 1;
+      const int gx = x0 + px - 1;
+      const int c = ci0 + ci;
+      float v = 0.f;
+      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin) {
+        const size_t p = ((size_t)b * a.H + gy) * a.W + gx;
+        v = __bfloat162float(c < a.cin0 ? a.in0[p * a.in0_stride + c]
+                                        : a.in1[p * a.in1_stride + c - a.cin0]);
+      }
+      in_s[ci][py][px] = v;
+    }
+    for (int e = tid; e < WG_TH * WG_TW * WG_CO; e += WG_THREADS) {
+      const int co = e % WG_CO;
+      const int pix = e / WG_CO;
+      const int px = pix % WG_TW;
+      const int py = pix / WG_TW;
+      const int gy = y0 + py;
+      const int gx = x0 + px;
+      const int o = co0 + co;
+      float v = 0.f;
+      if (gy < a.H && gx < a.W && o < a.cout)
+        v = __bfloat162float(
+            a.d[(((size_t)b * a.H + gy) * a.W + gx) * a.d_stride + o]);
+      d_s[py][px][co] = v;
+    }
+    __syncthreads();
+    for (int py = half * (WG_TH / 2); py < (half + 1) * (WG_TH / 2); ++py) {
+#pragma unroll 2
+      for (int px = 0; px < WG_TW; ++px) {
+        const float4 dv = *reinterpret_cast<const float4*>(&d_s[py][px][cq * 4]);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float iv = in_s[ci_l][py + dy][px + dx];
+            float* ac = &acc[(dy * 3 + dx) * 4];
+            ac[0] = fmaf(iv, dv.x, ac[0]);
+            ac[1] = fmaf(iv, dv.y, ac[1]);
+            ac[2] = fmaf(iv, dv.z, ac[2]);
+            ac[3] = fmaf(iv, dv.w, ac[3]);
+          }
+        }
+        if (do_bias) {
+          bacc[0] += dv.x;
+          bacc[1] += dv.y;
+          bacc[2] += dv.z;
+          bacc[3] += dv.w;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (half == 1) {
+#pragma unroll
+    for (int k = 0; k < WG_ACC; ++k) red_s[r][k] = acc[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) red_s[r][WG_ACC + k] = bacc[k];
+  }
+  __syncthreads();
+  if (half == 1) return;
+  const int ci = ci0 + ci_l;
+  const size_t nw = (size_t)9 * cin * a.cout;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int o = co0 + cq * 4 + k;
+    if (o >= a.cout) break;
+    if (ci < cin) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        a.part_w[(size_t)blockIdx.x * nw + ((size_t)tap * cin + ci) * a.cout +
+                 o] = acc[tap * 4 + k] + red_s[r][tap * 4 + k];
+    }
+    if (do_bias)
+      a.part_b[(size_t)blockIdx.x * a.cout + o] =
+          bacc[k] + red_s[r][WG_ACC + k];
+  }
+}
+
+constexpr int RED_THREADS = 256;
+
+// dW[i] = sum over chunks k = 0..nchunk-1, in that order, of
+// part_w[k][i], cast to bf16; db likewise, kept in f32.
+__global__ void __launch_bounds__(RED_THREADS)
+    wgrad_reduce_kernel(const float* __restrict__ part_w, size_t nw,
+                        const float* __restrict__ part_b, int cout, int nchunk,
+                        __nv_bfloat16* __restrict__ dw,
+                        float* __restrict__ db) {
+  const size_t i = (size_t)blockIdx.x * RED_THREADS + threadIdx.x;
+  if (i < nw) {
+    float s = 0.f;
+    for (int k = 0; k < nchunk; ++k) s += part_w[(size_t)k * nw + i];
+    dw[i] = __float2bfloat16(s);
+  }
+  if (part_b != nullptr && i < (size_t)cout) {
+    float s = 0.f;
+    for (int k = 0; k < nchunk; ++k) s += part_b[(size_t)k * cout + i];
+    db[i] = s;
+  }
+}
+
+constexpr int EW_THREADS = 256;
+
+// out[p * out_stride + o] = bf16(scale * in[p * c + o]) for o < c.
+__global__ void __launch_bounds__(EW_THREADS)
+    dense_scale_kernel(const __nv_bfloat16* __restrict__ in, size_t npix,
+                       int c, float scale, __nv_bfloat16* __restrict__ out,
+                       int out_stride) {
+  const size_t n = npix * c;
+  for (size_t i = (size_t)blockIdx.x * EW_THREADS + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * EW_THREADS) {
+    const size_t p = i / c;
+    out[p * out_stride + i % c] =
+        __float2bfloat16(scale * __bfloat162float(in[i]));
+  }
+}
+
+constexpr int SL_THREADS = 256;
+
+__device__ __forceinline__ float block_sum(float v, float* warp_s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  if (lane == 0) warp_s[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < (int)(blockDim.x / 32); ++k) s += warp_s[k];
+  return s;  // valid in thread 0
+}
+
+__global__ void __launch_bounds__(SL_THREADS)
+    star_l1_partial_kernel(const float* __restrict__ p,
+                           const float* __restrict__ t, size_t n, float thr,
+                           float w, float* __restrict__ part) {
+  __shared__ float warp_s[SL_THREADS / 32];
+  float s = 0.f;
+  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * SL_THREADS) {
+    const float tv = t[i];
+    const float d = fabsf(p[i] - tv);
+    s += tv > thr ? d * w : d;
+  }
+  s = block_sum(s, warp_s);
+  if (threadIdx.x == 0) part[blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(SL_THREADS)
+    star_l1_reduce_kernel(const float* __restrict__ part, int nparts,
+                          size_t n, float* __restrict__ out) {
+  __shared__ float warp_s[SL_THREADS / 32];
+  float s = 0.f;
+  for (int i = threadIdx.x; i < nparts; i += SL_THREADS) s += part[i];
+  s = block_sum(s, warp_s);
+  if (threadIdx.x == 0) out[0] = s / (float)n;
+}
+
+__global__ void __launch_bounds__(SL_THREADS)
+    star_l1_bwd_kernel(const float* __restrict__ p,
+                       const float* __restrict__ t, size_t n, float thr,
+                       float w, const float* __restrict__ g,
+                       float* __restrict__ dp) {
+  const float scale = g[0] / (float)n;
+  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * SL_THREADS) {
+    const float tv = t[i];
+    const float diff = p[i] - tv;
+    const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+    dp[i] = sgn * (tv > thr ? w : 1.f) * scale;
+  }
+}
+
+unsigned grid_for(size_t n, int threads, unsigned cap) {
+  const size_t blocks = (n + threads - 1) / threads;
+  return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of f32 partial slots star_l1_value needs for n elements.
+int train_star_l1_parts(size_t n) { return (int)grid_for(n, SL_THREADS, 1056); }
+
+// Returns the cudaError_t of the launches (0 on success).
+int train_star_l1_value(const void* p, const void* t, size_t n, float thr,
+                        float w, void* part, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = grid_for(n, SL_THREADS, 1056);
+  star_l1_partial_kernel<<<blocks, SL_THREADS, 0, s>>>(
+      static_cast<const float*>(p), static_cast<const float*>(t), n, thr, w,
+      static_cast<float*>(part));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  star_l1_reduce_kernel<<<1, SL_THREADS, 0, s>>>(
+      static_cast<const float*>(part), (int)blocks, n,
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+int train_star_l1_grad(const void* p, const void* t, size_t n, float thr,
+                       float w, const void* g, void* dp, void* stream) {
+  star_l1_bwd_kernel<<<grid_for(n, SL_THREADS, 4224), SL_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(t), n, thr, w,
+      static_cast<const float*>(g), static_cast<float*>(dp));
+  return (int)cudaGetLastError();
+}
+
+int train_dense_scale(const void* in, size_t npix, int c, float scale,
+                      void* out, int out_stride, void* stream) {
+  dense_scale_kernel<<<grid_for(npix * c, EW_THREADS, 4224), EW_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(in), npix, c, scale,
+      static_cast<__nv_bfloat16*>(out), out_stride);
+  return (int)cudaGetLastError();
+}
+
+// Pixel chunks wgrad uses for a conv of cin -> cout over B x H x W: about
+// four blocks per SM in all, at most one per pixel tile.
+int train_wgrad_chunks(int B, int H, int W, int cin, int cout) {
+  const int tiles = B * ((H + WG_TH - 1) / WG_TH) * ((W + WG_TW - 1) / WG_TW);
+  const int per = ((cin + WG_CI - 1) / WG_CI) * ((cout + WG_CO - 1) / WG_CO);
+  int n = (4 * 132 + per - 1) / per;
+  if (n > tiles) n = tiles;
+  return n < 1 ? 1 : n;
+}
+
+// dW [3,3,cin0+cin1,cout] bf16 and, when db is not
+// null, db [cout] f32, over the chunks' partials in `part` (f32, at least
+// nchunk * (9 * cin * cout + cout) floats).
+int train_wgrad(const void* in0, int in0_stride, int cin0, const void* in1,
+                int in1_stride, int cin1, const void* d, int d_stride,
+                int cout, int B, int H, int W, int nchunk, void* part,
+                void* dw, void* db, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cin = cin0 + cin1;
+  const size_t nw = (size_t)9 * cin * cout;
+  WgradArgs a;
+  a.in0 = static_cast<const __nv_bfloat16*>(in0);
+  a.in0_stride = in0_stride;
+  a.cin0 = cin0;
+  a.in1 = static_cast<const __nv_bfloat16*>(in1);
+  a.in1_stride = in1_stride;
+  a.cin1 = cin1;
+  a.d = static_cast<const __nv_bfloat16*>(d);
+  a.d_stride = d_stride;
+  a.cout = cout;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.part_w = static_cast<float*>(part);
+  a.part_b = db ? a.part_w + (size_t)nchunk * nw : nullptr;
+  a.nchunk = nchunk;
+  const dim3 grid(nchunk, (cin + WG_CI - 1) / WG_CI, (cout + WG_CO - 1) / WG_CO);
+  wgrad_kernel<<<grid, WG_THREADS, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wgrad_reduce_kernel<<<(unsigned)((nw + RED_THREADS - 1) / RED_THREADS),
+                        RED_THREADS, 0, s>>>(a.part_w, nw, a.part_b, cout,
+                                             nchunk,
+                                             static_cast<__nv_bfloat16*>(dw),
+                                             static_cast<float*>(db));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -105,10 +105,7 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
         raise ValueError("fused_dense_block: workspace shape "
                          f"{tuple(ws.shape)} != {(b, h, w, 4 * g)}")
     out = torch.empty_like(x)
-    for j, (k, bb) in enumerate(weights[:4]):
-        _build.conv3x3(x, c, k, bb, ws, j * g, g, geom=(b, h, w),
-                       in1=ws, cin1=j * g, lrelu=True)
-        fused_dense_block.launches += 1
+    dense_features(x, weights, ws)
     k, bb = weights[4]
     _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w), in1=ws,
                    cin1=4 * g, xres=x, res=residual)
@@ -117,3 +114,17 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
 
 
 fused_dense_block.launches = 0
+
+
+def dense_features(x: torch.Tensor, weights: DenseWeights,
+                   workspace: torch.Tensor) -> None:
+    """B1's first four launches: y_1..y_4 into `workspace` [B,H,W,4g],
+    each counted in fused_dense_block.launches. The dense block's
+    backward (ops/dense_trunk_train.py) recomputes them with it; callers
+    have validated the CUDA tensors."""
+    b, h, w, c = x.shape
+    g = weights[0][0].shape[-1]
+    for j, (k, bb) in enumerate(weights[:4]):
+        _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
+                       in1=workspace, cin1=j * g, lrelu=True)
+        fused_dense_block.launches += 1

@@ -1,0 +1,128 @@
+"""Checkpoints with best/last promotion and resume.
+
+Counterpart of superresolution_tpu/train/checkpoint.py:19-145, with the
+same directory layout: step_{step:010d}/ per saved step, meta.json
+(best_step, best_psnr, last_step), model_config.json, the best step kept
+by PSNR, at most `keep` steps, `finalize` copying best (else last) into
+out_dir/best. A step directory holds state.pt, torch.save of the train
+state's tree (step, params, opt_state, ema_params) on the host; it is
+written to a temporary directory and renamed, so an interrupted save
+leaves no partial step and `restore` falls back to the newest whole one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+
+import torch
+
+from superresolution_tpu_torch.train.state import TrainState
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3,
+                 model_config: dict | None = None):
+        self.dir = os.path.abspath(directory)
+        os.makedirs(self.dir, exist_ok=True)
+        self.keep = keep
+        self._meta_path = os.path.join(self.dir, "meta.json")
+        self.meta = {"best_step": None, "best_psnr": float("-inf"),
+                     "last_step": None}
+        if os.path.exists(self._meta_path):
+            with open(self._meta_path) as f:
+                self.meta = json.load(f)
+        # the architecture beside the weights, so inference can rebuild
+        # the model from the checkpoint directory alone
+        self._cfg_path = os.path.join(self.dir, "model_config.json")
+        if model_config is not None:
+            with open(self._cfg_path, "w") as f:
+                json.dump(model_config, f, indent=2)
+
+    def _save_meta(self) -> None:
+        with open(self._meta_path, "w") as f:
+            json.dump(self.meta, f, indent=2)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:010d}")
+
+    def save(self, state: TrainState, step: int,
+             psnr: float | None = None) -> bool:
+        """Save `state` at `step`; returns True if it is the new best by
+        PSNR."""
+        path = self._step_dir(step)
+        tmp = tempfile.mkdtemp(prefix=f"step_{step:010d}.tmp-", dir=self.dir)
+        torch.save(_to(state.state_dict(), "cpu"),
+                   os.path.join(tmp, "state.pt"))
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        self.meta["last_step"] = step
+        is_best = False
+        if psnr is not None and psnr > self.meta.get("best_psnr",
+                                                     float("-inf")):
+            self.meta["best_psnr"] = psnr
+            self.meta["best_step"] = step
+            is_best = True
+        self._save_meta()
+        self._gc()
+        return is_best
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        protected = {self.meta.get("best_step"), self.meta.get("last_step")}
+        removable = [s for s in steps if s not in protected]
+        while len(removable) > max(0, self.keep - len(protected)):
+            shutil.rmtree(self._step_dir(removable.pop(0)),
+                          ignore_errors=True)
+
+    def all_steps(self) -> list[int]:
+        # exact step_NNNN directories only, not the temporary ones
+        return sorted(int(d[5:]) for d in os.listdir(self.dir)
+                      if d.startswith("step_") and d[5:].isdigit())
+
+    def restore(self, target: TrainState,
+                step: int | None = None) -> TrainState | None:
+        """The saved state at `step` (default: the last whole one) on
+        `target`'s device, or None if there is none."""
+        if step is None:
+            committed = self.all_steps()
+            last = self.meta.get("last_step")
+            step = (last if last in committed
+                    else (committed[-1] if committed else None))
+        if step is None or not os.path.exists(self._step_dir(step)):
+            return None
+        device = next(iter(target.params.values())).device
+        tree = torch.load(os.path.join(self._step_dir(step), "state.pt"),
+                          map_location="cpu", weights_only=True)
+        tree = _to(tree, device)
+        return TrainState(step=tree["step"], params=tree["params"],
+                          opt_state=tree["opt_state"],
+                          ema_params=tree["ema_params"])
+
+    def finalize(self, out_dir: str) -> str:
+        """Copy best (else last) to out_dir/best with model_config.json."""
+        step = self.meta.get("best_step")
+        if step is None:  # explicit: `or` would skip a best_step of 0
+            step = self.meta.get("last_step")
+        if step is None:
+            raise FileNotFoundError("no checkpoints to finalize")
+        dst = os.path.join(out_dir, "best")
+        os.makedirs(out_dir, exist_ok=True)
+        if os.path.exists(dst):
+            shutil.rmtree(dst)
+        shutil.copytree(self._step_dir(step), dst)
+        if os.path.exists(self._cfg_path):
+            shutil.copy(self._cfg_path,
+                        os.path.join(out_dir, "model_config.json"))
+        return dst

@@ -1,0 +1,115 @@
+"""The training forward with the RRDB trunk on kernel 13's op.
+
+Counterpart of superresolution_tpu/train/fused_apply.py:34-148: a pure
+function of the live (compute-type) parameters, differentiable in them
+and in x, equal to the model's forward. Every dense block runs
+ops/dense_trunk_train.fused_dense_block_train (B1 forward, kernel 13
+backward on the card); the third block of each RRDB folds the RRDB
+residual in. The weights reach the op from the parameter dict through
+differentiable torch ops (OIHW -> HWIO); each bias reaches it as f32,
+cast from the compute type, as proj_weights_traced sees a bias that
+cast_to_compute already rounded.
+
+For a HybridSR over an RRDBNet, stage 1 runs fused and the blur /
+HATLite / blur / 'light' blur after it are the plain modules, as the
+reference replays them. Row-packed batches (`row_pack`) need B1's `seg`
+spacer rows, which are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from superresolution_tpu_torch.infer.common import conv_nhwc, hwio
+from superresolution_tpu_torch.models.hybrid import HybridSR, check_output_size
+from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+from superresolution_tpu_torch.ops.blur import anti_checkerboard
+from superresolution_tpu_torch.ops.dense_trunk_train import (
+    fused_dense_block_train,
+)
+from superresolution_tpu_torch.ops.pixel_shuffle import space_to_depth
+
+Params = Mapping[str, torch.Tensor]
+
+
+def supports_fused_train(model: nn.Module) -> bool:
+    """True when make_fused_train_apply can handle this model."""
+    if isinstance(model, HybridSR):
+        return supports_fused_train(model.stage1)
+    return (isinstance(model, RRDBNet) and model.scan_blocks
+            and model.fused_dense)
+
+
+class _Tail(nn.Module):
+    """An RRDBNet's tail as a module's forward, so functional_call can run
+    it on the given parameters."""
+
+    def __init__(self, model: RRDBNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model.tail(x)
+
+
+def _sub(params: Params, prefix: str) -> dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in params.items()
+            if k.startswith(prefix)}
+
+
+def _make_rrdb_apply(model: RRDBNet) -> Callable:
+    tail = _Tail(model)
+
+    def apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+        if model.pixel_unshuffle_input > 1:
+            x = space_to_depth(x, model.pixel_unshuffle_input)
+        x = head = conv_nhwc(x, p["conv_first.weight"], p["conv_first.bias"])
+        for i in range(model.num_blocks):
+            ws = [[(hwio(p[f"body.{i}.rdb{k}.conv{j}.weight"]),
+                    p[f"body.{i}.rdb{k}.conv{j}.bias"].float())
+                   for j in range(1, 6)] for k in range(1, 4)]
+            y = fused_dense_block_train(x, ws[0])
+            y = fused_dense_block_train(y, ws[1])
+            x = fused_dense_block_train(y, ws[2], residual=x)
+        feat = conv_nhwc(x, p["conv_body.weight"], p["conv_body.bias"]) + head
+        return functional_call(tail, {f"model.{k}": v for k, v in p.items()
+                                      if not k.startswith("body.")}, (feat,))
+
+    return apply
+
+
+def make_fused_train_apply(model: nn.Module, row_pack: bool = False
+                           ) -> Callable:
+    """-> apply(params, x), equal to functional_call(model, params, x)
+    with the RRDB trunk on kernel 13's op; `params` is the model's
+    name -> tensor dict (e.g. Policy.cast_to_compute of the masters)."""
+    if not supports_fused_train(model):
+        raise ValueError("the fused train apply requires an RRDBNet (or a "
+                         "HybridSR over one) with scan_blocks and "
+                         "fused_dense")
+    if row_pack:
+        raise NotImplementedError(
+            "row-packed fused training needs B1's seg spacer rows "
+            "(ops/pallas_dense_trunk.py seg), which are not ported yet")
+    if not isinstance(model, HybridSR):
+        return _make_rrdb_apply(model)
+    stage1 = _make_rrdb_apply(model.stage1)
+
+    def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+        x = stage1(_sub(params, "stage1."), x)
+        if model.smoothing:
+            x = anti_checkerboard(x, model.smoothing)
+        if model.stage2 is not None:
+            x = functional_call(model.stage2, _sub(params, "stage2."), (x,))
+            if model.smoothing:
+                x = anti_checkerboard(x, model.smoothing)
+        check_output_size(x, model.output_size)
+        if model.smoothing:
+            x = anti_checkerboard(x, "light")
+        return x
+
+    return apply

@@ -102,7 +102,6 @@ def _pair(seed, **kw):
                         jnp.zeros((1, 8, 8, args["in_channels"])))
     sd = convert.rrdbnet_state_dict_from_jax(variables, num_blocks=1,
                                              features=16, growth=8)
-    args.pop("upsampler")
     return jm, variables, sd, RRDBNet(**args, device="cpu")
 
 

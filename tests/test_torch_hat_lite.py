@@ -145,7 +145,8 @@ def test_hybrid_matches_jax_apply():
 
 def test_hybrid_resize_and_flash_are_not_ported():
     tm = HybridSR(RRDBNet(scale=2, in_channels=1, out_channels=1,
-                          features=8, num_blocks=1, growth=4, device="cpu"),
+                          features=8, num_blocks=1, growth=4,
+                          upsampler="pixelshuffle", device="cpu"),
                   HATLite(**KW, upsample_feat=8, device="cpu"),
                   output_size=40)
     with pytest.raises(NotImplementedError, match="resize"):

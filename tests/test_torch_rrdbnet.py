@@ -31,7 +31,6 @@ def _pair(seed=0, **kw):
     sd = convert.rrdbnet_state_dict_from_jax(
         variables, num_blocks=args["num_blocks"],
         features=args["features"], growth=args["growth"])
-    args.pop("upsampler")
     tm = RRDBNet(**args, device="cpu")
     tm.load_state_dict(convert.to_torch(sd), strict=True)
     return jm, variables, tm
@@ -116,6 +115,6 @@ def test_msra_init_is_truncated_kaiming():
 
 
 def test_rrdbnet_rejects_unported_upsampler():
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="upsampler"):
         RRDBNet(features=8, num_blocks=1, growth=4,
-                upsampler="nearest_conv", device="cpu")
+                upsampler="bilinear", device="cpu")

@@ -50,7 +50,7 @@ def _small(seed=0):
     sd = convert.rrdbnet_state_dict_from_jax(variables, num_blocks=1,
                                              features=16, growth=8)
     tm = RRDBNet(scale=4, features=16, num_blocks=1, growth=8,
-                 device="cpu")
+                 upsampler="pixelshuffle", device="cpu")
     return jm, variables, sd, tm
 
 
@@ -97,7 +97,8 @@ def test_entry_points_need_a_gpu_unless_cpu_asked():
     _, _, sd, tm = _small()
     entries = [
         lambda d: resolve_device(d),
-        lambda d: RRDBNet(features=8, num_blocks=1, growth=4, device=d),
+        lambda d: RRDBNet(features=8, num_blocks=1, growth=4,
+                          upsampler="pixelshuffle", device=d),
         lambda d: make_fused_trunk(sd, tm, device=d),
         lambda d: make_phase_tail(sd, device=d),
         lambda d: make_folded_tail(sd, device=d),

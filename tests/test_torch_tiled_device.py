@@ -68,7 +68,7 @@ def test_tiled_fused_rrdbnet_matches_jax():
     sd = convert.rrdbnet_state_dict_from_jax(variables, num_blocks=1,
                                              features=16, growth=8)
     tm = RRDBNet(scale=4, features=16, num_blocks=1, growth=8,
-                 device="cpu")
+                 upsampler="pixelshuffle", device="cpu")
     img = np.random.default_rng(1).random((48, 40, 3), np.float32)
     kw = dict(scale=4, tile=(16, 20), halo=4, tail_batch=2, h=48, w=40,
               channels=3)

@@ -1,0 +1,112 @@
+"""The port's Trainer (superresolution_tpu_torch/train/trainer.py) on the
+CPU at a tiny hybrid_astro-shaped config: fit runs, evaluates to a finite
+PSNR, keeps best/last checkpoints, finalizes and resumes; the parts not
+ported yet raise."""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from superresolution_tpu_torch.train.checkpoint import CheckpointManager
+from superresolution_tpu_torch.train.trainer import Trainer
+from superresolution_tpu_torch.utils.config import get_preset
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """These CPU tensors are small: intra-op threads gain nothing, and on
+    a host loaded by parallel test workers their spin-waits cost several
+    times the work."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    monkeypatch.setenv("SRTPU_NO_TB", "1")
+
+
+def _cfg(**train):
+    cfg = get_preset("hybrid_astro")
+    model = dataclasses.replace(
+        cfg.model,
+        kwargs={"features": 16, "num_blocks": 1, "growth": 8, "remat": True},
+        refiner_kwargs={"scale": 2, "embed_dim": 16, "depths": (2, 2),
+                        "num_heads": (2, 2), "window_size": 8,
+                        "remat": True})
+    data = dataclasses.replace(cfg.data, hr_patch=64, batch_size=2,
+                               synthetic_len=4, num_workers=1)
+    # f32: bf16 convs are slow on the CPU; the train step's tests hold bf16
+    tc = dict(epochs=2, steps_per_epoch=1, eval_every=1, keep_checkpoints=1,
+              precision="fp32")
+    tc.update(train)
+    return cfg.replace(model=model, data=data,
+                       train=dataclasses.replace(cfg.train, **tc))
+
+
+def test_fit_checkpoints_finalize_and_resume(tmp_path):
+    wd = str(tmp_path)
+    with Trainer(_cfg(), wd, device="cpu") as tr:
+        assert tr.scale == 4 and tr.batch_size == 2
+        assert tr.fused_apply is None  # auto: on CUDA only
+        out = tr.fit()
+        assert out["final_step"] == 2 and np.isfinite(out["best"]["psnr"])
+        ck = os.path.join(wd, "checkpoints")
+        meta = json.load(open(os.path.join(ck, "meta.json")))
+        assert meta["last_step"] == 2
+        assert sorted(CheckpointManager(ck).all_steps()) == sorted(
+            {meta["best_step"], 2})
+        cfg = json.load(open(os.path.join(ck, "model_config.json")))
+        assert cfg["output_size"] == 64 and cfg["refiner"] == "hat_lite"
+        best = tr.finalize()
+        assert os.path.exists(os.path.join(best, "state.pt"))
+        assert os.path.exists(os.path.join(wd, "final_weights",
+                                           "model_config.json"))
+        params = {k: v.clone() for k, v in tr.state.params.items()}
+        lines = open(os.path.join(wd, "logs", "metrics.jsonl")).read()
+        assert "train/star_l1" in lines and "val/psnr" in lines
+    # resume: the restored state is the saved one, and training goes on
+    with Trainer(_cfg(epochs=3), wd, device="cpu") as tr:
+        assert tr.state.step == 2 and tr.start_epoch == 2
+        assert tr.state.opt_state["count"] == 2
+        for k, v in params.items():
+            torch.testing.assert_close(tr.state.params[k], v)
+            # the module holds the restored weights too
+            torch.testing.assert_close(
+                dict(tr.model.named_parameters())[k].detach(), v)
+        assert tr.fit()["final_step"] == 3
+
+
+def test_fused_trunk_forced_on_cpu_trains(tmp_path):
+    # micro-batch 1 (accum 2): per-image fused blocks, no row packing
+    cfg = _cfg(epochs=1, fused_trunk=True, accum_steps=2)
+    with Trainer(cfg, str(tmp_path), device="cpu") as tr:
+        assert tr.fused_apply is not None
+        assert np.isfinite(tr.fit()["best"]["psnr"])
+
+
+def test_unported_parts_raise(tmp_path):
+    base = _cfg()
+    bad = [base.replace(mesh=dataclasses.replace(base.mesh, data=2)),
+           base.replace(loss=dataclasses.replace(
+               base.loss, terms={"l1": 1.0, "gan": 0.005})),
+           base.replace(data=dataclasses.replace(base.data,
+                                                 train_manifest="m.json")),
+           base.replace(data=dataclasses.replace(base.data,
+                                                 degradation="bicubic"))]
+    for cfg in bad:
+        with pytest.raises(NotImplementedError):
+            Trainer(cfg, str(tmp_path), device="cpu")
+    with Trainer(_cfg(preview_every=2, resume=False), str(tmp_path),
+                 device="cpu") as tr:
+        with pytest.raises(NotImplementedError, match="save_png"):
+            tr.fit()
+    cfg = _cfg(fused_trunk=True)  # LR 16 with 2 images: row-packed
+    with pytest.raises(NotImplementedError, match="seg"):
+        Trainer(cfg, str(tmp_path), device="cpu")
