@@ -69,7 +69,36 @@ random weights from the Trainer's seed:
              on one batch on the card, stage 1 and stage 2 forward +
              backward, the plain step, device time by kernel
              (torch.profiler) and its busy share, peak memory
-Then the kernels line (all eight kernels), the card's nvidia-smi line
+Then the public upscale API over the hybrid as bench_hybrid declares it
+(HATLite attn_f32=False, flash_attn=True: every window attention and
+OCAB on kernel 10), with no output resize, random weights from a fourth
+seed, bf16:
+ 12 attn-kernel     kernel 10 (flash_window_attention) against its plain
+             version at the path's shapes (41,472 windows, C 96, 6
+             heads): self unshifted, self shifted (region ids), cross (m
+             144, rel-pos-like bias), in f32 within 1e-4 (5e-4 cross) and
+             bf16 within 0.02 of max |plain|, the logit spread printed;
+             four planted faults (mask dropped, bias dropped, scale
+             C^-1/2, ids of window b // nW) each caught; gradients through
+             the autograd op equal plain autograd's within 1e-6; kernel,
+             plain and scaled_dot_product_attention ms with the bound
+ 13 upscale-path    a 1024^2 frame through api.upscale(on_device=True,
+             tile 256, halo 16, batch 8): 4096^2, finite, in [0, 1];
+             kernel-10 launches exactly 56 (2 batches x (24 HAB + 4
+             OCAB)) and every other kernel 0; within 0.03 of the same
+             call on plain attention with f32 logits (the bf16-logit
+             distance printed); the host tiler within 1e-3 of the
+             on-device one; hann printed; frame s, MP/s, peak memory
+ 14 no-gather       bench_hybrid's frame through fused_hybrid_model with
+             SRTPU_GATHER_OCA=0 (kernel 10 x 4, kernel 9 x 0, B1 and
+             kernels 7-8 as in phase 7), stage 2 and after within 0.03
+             of the plain HybridSR; an odd-overlap HATLite (ows 11)
+             through make_fused_hat within 0.03 of the plain one
+ 15 anchor          the committed checkpoint (assets/quality/port)
+             through fused_rrdb_model (B1-B3) in bf16 on bench.py's
+             quality data: PSNR within 0.05 dB of the reference's
+             25.595, bicubic PSNR within 0.002 dB of 23.599; SSIM printed
+Then the kernels line (all nine kernels), the card's nvidia-smi line
 and, last, {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
@@ -120,6 +149,19 @@ TOL_STEP_LOSS = 0.01      # kernel step vs plain bf16 step
 TOL_STEP_GNORM = 0.03
 TOL_LEAF = 0.03           # per-leaf gradients, of max |plain|
 TIME_STEPS = 3            # steps timed after one warm-up
+ATTN_SRC = "superresolution_tpu_torch/ops/csrc/attn_kernels.cu"
+TOL_ATTN = 1e-4           # CHIPEQ's bar for flash_window_attention (f32)
+TOL_ATTN_CROSS = 5e-4     # CHIPEQ's bar for flash_oca_stacked (f32, m 144)
+TOL_ATTN_BF16 = 0.02      # bf16 probabilities and output
+TOL_ATTN_GRAD = 1e-6      # the op's backward is plain autograd
+FRAME = 1024              # phase 13: a 1024^2 frame, x4 -> 4096^2
+UP_TILE, UP_HALO, UP_BATCH = 256, 16, 8   # 16 tiles in 2 batches of 8
+TOL_TILERS = 1e-3         # host tiler vs on-device tiler (expected 0)
+ANCHOR_DIR = "assets/quality/port"
+ANCHOR_PSNR = 25.595      # the reference's figure (BENCH_r05.json)
+ANCHOR_BICUBIC = 23.599   # the reference's bicubic figure
+TOL_ANCHOR = 0.05         # VERDICT.md's bar for the anchor
+TOL_ANCHOR_BICUBIC = 0.002
 
 
 def emit(obj) -> None:
@@ -827,9 +869,11 @@ def check_train_kernels(gen: torch.Generator) -> dict:
     return out
 
 
-def hybrid_model(gen: torch.Generator):
+def hybrid_model(gen: torch.Generator, output_size: int | None = 4 * HYBRID_IN,
+                 **hat):
     """bench_hybrid's HybridSR at full width, bf16, on the card, random
-    weights with N(0, 0.02) biases."""
+    weights with N(0, 0.02) biases; `hat` sets HATLite's attention flags
+    (attn_f32, flash_attn)."""
     from superresolution_tpu_torch.models.hat_lite import HATLite
     from superresolution_tpu_torch.models.hybrid import HybridSR
     from superresolution_tpu_torch.models.rrdbnet import RRDBNet
@@ -840,8 +884,8 @@ def hybrid_model(gen: torch.Generator):
                        generator=gen),
         stage2=HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=96,
                        depths=(6,) * 4, num_heads=(6,) * 4, window_size=8,
-                       generator=gen),
-        output_size=4 * HYBRID_IN, smoothing="balanced")
+                       generator=gen, **hat),
+        output_size=output_size, smoothing="balanced")
     model = model.to(torch.bfloat16).eval()
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1234,6 +1278,463 @@ def train_times(tr, lr, hr, card: str) -> dict:
             "top_device_kernels": top, "peak_mem_gib": peak}
 
 
+# ---- 12-15: the public upscale API over the flash hybrid, kernel 10 ----
+
+def counted_ops() -> dict:
+    """Every hand kernel's wrapper, by name, with its launch count."""
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops.dense_trunk import fused_dense_block
+    from superresolution_tpu_torch.ops.phase_tail import (
+        conv_last_phase, up2_hr)
+    from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
+    from superresolution_tpu_torch.ops.window_attention import (
+        flash_window_attention)
+
+    return {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
+            "conv_last_phase": conv_last_phase,
+            "fused_cab_convs": hab.fused_cab_convs,
+            "fused_hab_block": hab.fused_hab_block,
+            "flash_oca_gathered": fo.flash_oca_gathered,
+            "dense_block_backward": dtt.dense_block_backward,
+            "star_weighted_l1_cuda": star_weighted_l1_cuda,
+            "flash_window_attention": flash_window_attention}
+
+
+def zero_counts() -> dict:
+    ops = counted_ops()
+    for op in ops.values():
+        op.launches = 0
+    return ops
+
+
+def attn_case(cg: torch.Generator, case: str, nb: int):
+    """Kernel 10's f32 inputs at the path's layout: q, k, v N(0, 1.5^2),
+    so the logits spread over several units (printed), self-attention
+    as the split of one packed [nb, 64, 3C] projection, cross (m 144) as
+    a contiguous q beside the split of a gathered [nb, 144, 2C] kv; an
+    N(0, 1) bias, the cross one gathered from a rel-pos table as the
+    OCAB's; Swin region ids of the path's 576^2 map for 'shifted'."""
+    from superresolution_tpu_torch.models.hat_lite import (
+        relative_position_index_oca, shift_region_ids)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda") * 1.5
+
+    ids = None
+    if case == "cross":
+        q = randn(nb, 64, 96)
+        k, v = randn(nb, 144, 192).split(96, -1)
+        idx = torch.as_tensor(relative_position_index_oca(8, 12),
+                              device="cuda").long().reshape(-1)
+        table = torch.randn(19 * 19, 6, generator=cg, device="cuda")
+        bias = table[idx].reshape(64, 144, 6).permute(2, 0, 1).contiguous()
+    else:
+        q, k, v = randn(nb, 64, 288).split(96, -1)
+        bias = torch.randn(6, 64, 64, generator=cg, device="cuda")
+        if case == "shifted":
+            side = 2 * (UP_TILE + 2 * UP_HALO)
+            ids = torch.as_tensor(shift_region_ids(side, side, 8, 4),
+                                  device="cuda")
+    return q, k, v, bias, ids
+
+
+def logit_spread(q, k, bias) -> dict:
+    """Mean (max - min) and std of the first 256 windows' logits."""
+    qh = q[:256].float().reshape(-1, 64, 6, 16).transpose(1, 2)
+    kh = k[:256].float().reshape(qh.shape[0], -1, 6, 16).transpose(1, 2)
+    lg = qh @ kh.transpose(-1, -2) * 0.25 + bias.float()
+    return {"logit_range": float((lg.amax(-1) - lg.amin(-1)).mean()),
+            "logit_std": float(lg.std())}
+
+
+def check_attn(q, k, v, bias, ids, tag: str, tol: float) -> dict:
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    before = wa.flash_window_attention.launches
+    got = wa.flash_window_attention(q, k, v, bias, 6, ids)
+    if wa.flash_window_attention.launches != before + 1:
+        raise AssertionError(f"{tag}: the launch was not counted")
+    ref = wa.reference_window_attention(q, k, v, bias, 6, ids)
+    return compare(f"flash_window_attention/{tag}", got, ref, tol)
+
+
+def _planted_attn(fault: str):
+    """A faulty replacement for kernel 10's launch helper."""
+    from superresolution_tpu_torch.ops import _build
+
+    real = _build.window_attention
+
+    def planted(q, k, v, bias, ids, nh, scale, vec, out):
+        if fault == "scale_1_over_sqrt_C":
+            scale = q.shape[-1] ** -0.5
+        else:  # ids_b_div_nw: window b reads region_ids[b // nW_img]
+            rows = torch.arange(q.shape[0], device=q.device) // ids.shape[0]
+            ids = ids[rows].contiguous()
+        real(q, k, v, bias, ids, nh, scale, vec, out)
+    return planted
+
+
+def check_attn_kernel(cg: torch.Generator) -> dict:
+    """Phase 12: kernel 10 against its plain version at the path's shapes
+    (41,472 windows: 8 tiles of 288^2 at stage 2's 576^2), self
+    unshifted, self shifted (region ids) and cross (m 144): in f32 to
+    CHIPEQ's bars, in bf16 to 0.02; four planted faults; gradients
+    through the autograd op against plain autograd; times."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    nb = UP_BATCH * ((2 * (UP_TILE + 2 * UP_HALO)) // 8) ** 2
+    worst = {"f32": None, "bf16": None}
+    times = {}
+    for case in ("unshifted", "shifted", "cross"):
+        q, k, v, bias, ids = attn_case(cg, case, nb)
+        emit({"check": f"flash_window_attention/{case}/inputs", "nb": nb,
+              "m": k.shape[1], **logit_spread(q, k, bias)})
+        tol = TOL_ATTN_CROSS if case == "cross" else TOL_ATTN
+        e32 = check_attn(q, k, v, bias, ids, f"{case}/f32", tol)
+        qb, kb, vb = (t.to(bf) for t in (q, k, v))
+        if case != "cross":  # keep the packed layout in bf16 too
+            qb, kb, vb = torch.cat([q, k, v], -1).to(bf).split(96, -1)
+        del q, k, v
+        torch.cuda.empty_cache()
+        e16 = check_attn(qb, kb, vb, bias, ids, f"{case}/bf16",
+                         TOL_ATTN_BF16)
+        for key, e in (("f32", e32), ("bf16", e16)):
+            if worst[key] is None or e["max_rel_err"] > \
+                    worst[key]["max_rel_err"]:
+                worst[key] = e
+        if case == "shifted":  # each planted fault must fail the check
+            ref = wa.reference_window_attention(qb, kb, vb, bias, 6, ids)
+            for fault, run in (
+                    ("region_mask_dropped", lambda: wa.flash_window_attention(
+                        qb, kb, vb, bias, 6, None)),
+                    ("bias_dropped", lambda: wa.flash_window_attention(
+                        qb, kb, vb, torch.zeros_like(bias), 6, ids))):
+                expect_caught(fault, lambda: compare(
+                    f"planted/{fault}", run(), ref, TOL_ATTN_BF16))
+            for fault in ("scale_1_over_sqrt_C", "ids_b_div_nw"):
+                real = _build.window_attention
+                _build.window_attention = _planted_attn(fault)
+                try:
+                    expect_caught(fault, lambda: compare(
+                        f"planted/{fault}", wa.flash_window_attention(
+                            qb, kb, vb, bias, 6, ids), ref, TOL_ATTN_BF16))
+                finally:
+                    _build.window_attention = real
+            del ref
+        m = kb.shape[1]
+        n_img = nb // UP_BATCH
+        if ids is None:
+            mask = bias.to(bf)
+        else:
+            mask = (bias[None] + wa.region_mask(ids)[:, None]).to(bf)
+        sq, sk, sv = (t.reshape(UP_BATCH, n_img, t.shape[1], 6, 16)
+                      .transpose(2, 3) for t in (qb, kb, vb))
+        flops = 4 * nb * 6 * 64 * m * 16
+        nbytes = (2 * 64 + 2 * m) * 96 * 2 * nb + bias.numel() * 4 + (
+            0 if ids is None else ids.numel() * 4)
+        b_ms, b_by = bound(flops, nbytes)
+        times[case] = {
+            "ms": time_ms(lambda: wa.flash_window_attention(
+                qb, kb, vb, bias, 6, ids), 10),
+            "plain_ms": time_ms(lambda: wa.reference_window_attention(
+                qb, kb, vb, bias, 6, ids), 5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "m": m}
+        emit({"phase": "kernel_time", "name": "flash_window_attention",
+              "case": case, **times[case]})
+        del qb, kb, vb, sq, sk, sv, mask
+        torch.cuda.empty_cache()
+
+    # gradients: the op's backward is autograd of the plain form
+    for case in ("shifted", "cross"):
+        q, k, v, bias, ids = attn_case(cg, case, nb // UP_BATCH)
+        g = torch.randn(q.shape, generator=cg, device="cuda")
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        got = torch.autograd.grad(
+            wa.flash_window_attention(*leaves, 6, ids), leaves, g)
+        plain = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        ref = torch.autograd.grad(
+            wa.reference_window_attention(*plain, 6, ids), plain, g)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, ref):
+            compare(f"flash_window_attention/grad/{case}/{name}", a, b,
+                    TOL_ATTN_GRAD)
+
+    main = times["unshifted"]
+    return {"flash_window_attention": {
+        "name": "flash_window_attention", "route": "cuda",
+        "source": ATTN_SRC, "sources": [ATTN_SRC],
+        "replaces": "superresolution_tpu/ops/pallas_attn.py:201",
+        "shape": [nb, 64, 96], "max_abs_err": worst["bf16"]["max_abs_err"],
+        "max_rel_err": worst["bf16"]["max_rel_err"], "tol": TOL_ATTN_BF16,
+        "f32_max_rel_err": worst["f32"]["max_rel_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"], "cases": times}}
+
+
+def set_attention(model, flash: bool, attn_f32: bool) -> None:
+    """Switch every window attention and OCAB of `model` between kernel
+    10 and the plain form (f32 or compute-type logits)."""
+    from superresolution_tpu_torch.models.hat_lite import (
+        OCAB, WindowAttention)
+
+    for mod in model.modules():
+        if isinstance(mod, (WindowAttention, OCAB)):
+            mod.flash, mod.attn_f32 = flash, attn_f32
+
+
+def fit_output(model, gen: torch.Generator) -> None:
+    """Rescale stage 2's conv_last so that the random model's output has
+    mean 0.5 and std 0.2 on a probe tile. A trained model's output lies
+    in [0, 1]; this random one's spreads over hundreds, so after
+    api.upscale's clip almost every pixel is 0 or 1, and one bf16 step
+    before the clip flips a pixel by 1 (the first run of this phase).
+    The smoothing after conv_last is a normalized blur, so the frame
+    moves by the same affine map."""
+    side = UP_TILE + 2 * UP_HALO
+    x = torch.rand((1, side, side, 1), generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    with torch.inference_mode():
+        y = model(x).float()
+    m, sd = float(y.mean()), float(y.std())
+    a = 0.2 / sd
+    conv = model.stage2.conv_last
+    with torch.no_grad():
+        conv.weight.mul_(a)
+        conv.bias.copy_(conv.bias.float() * a + 0.5 - a * m)
+    emit({"check": "upscale/output_fit", "raw_mean": m, "raw_std": sd,
+          "conv_last_scale": a})
+
+
+def upscale_path(gen: torch.Generator, card: str) -> dict:
+    """Phase 13: a FRAME^2 frame through api.upscale (on-device tiler,
+    256 tiles + halo 16, batches of 8) over the bench_hybrid model with
+    flash attention and no output resize, launches counted; against the
+    same call on plain attention with f32 logits, the host tiler, and
+    times; the model's last conv fitted first (fit_output). Returns the
+    launches."""
+    from superresolution_tpu_torch import api
+
+    model = hybrid_model(gen, output_size=None, attn_f32=False,
+                         flash_attn=True)
+    fit_output(model, gen)
+    params = model.state_dict()
+    frame = torch.rand((FRAME, FRAME, 1), generator=gen).numpy()
+    kw = dict(model=model, params=params, tile=UP_TILE, halo=UP_HALO,
+              batch=UP_BATCH)
+    side = 4 * FRAME
+    ops = zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = api.upscale(frame, 4, on_device=True, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: op.launches for k, op in ops.items()}
+    batches = -(-(FRAME // UP_TILE) ** 2 // UP_BATCH)
+    n_attn = sum(model.stage2.depths) + len(model.stage2.depths)
+    check_launches("upscale", launches, {
+        **{k: 0 for k in ops}, "flash_window_attention": batches * n_attn})
+    if tuple(y.shape) != (side, side, 1):
+        raise AssertionError(f"upscale output shape {tuple(y.shape)}")
+    if not bool(torch.isfinite(y).all()) or float(y.min()) < 0 \
+            or float(y.max()) > 1:
+        raise AssertionError("upscale: output not finite in [0, 1]")
+    emit({"phase": "upscale_path", "output_shape": list(y.shape),
+          "first_run_s": first_s, "launches_per_frame": launches,
+          "batches": batches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    plain = copy.deepcopy(model)
+    set_attention(plain, False, True)
+    y_plain = api.upscale(frame, 4, on_device=True, **dict(kw, model=plain))
+    set_attention(plain, False, False)
+    y_bf16 = api.upscale(frame, 4, on_device=True, **dict(kw, model=plain))
+    compare("upscale/frame_vs_plain_f32_logits", y, y_plain, TOL_PATH,
+            rel_err_vs_plain_bf16_logits=rel_err(y, y_bf16),
+            plain_f32_vs_bf16_logits=rel_err(y_plain, y_bf16))
+    del y_bf16
+    y_host = torch.from_numpy(api.upscale(frame, 4, on_device=False,
+                                          blend="crop", **kw))
+    d_host = float((y_host - y.cpu()).abs().max())
+    emit({"check": "upscale/host_tiler_vs_on_device", "max_abs_diff": d_host,
+          "tol": TOL_TILERS})
+    if d_host > TOL_TILERS:
+        raise AssertionError(f"host tiler {d_host} from the on-device one")
+    y_hann = torch.from_numpy(api.upscale(frame, 4, on_device=False,
+                                          blend="hann", **kw))
+    emit({"check": "upscale/hann_vs_crop (printed, not held)",
+          "max_abs_diff": float((y_hann - y_host).abs().max()),
+          "mean_abs_diff": float((y_hann - y_host).abs().mean())})
+    del y_host, y_hann, y, y_plain
+
+    def host_s(fn, runs=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / runs
+
+    set_attention(plain, False, True)
+    torch.cuda.reset_peak_memory_stats()
+    frame_s = host_s(lambda: api.upscale(frame, 4, on_device=True, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain_s = host_s(lambda: api.upscale(frame, 4, on_device=True,
+                                         **dict(kw, model=plain)))
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    # device time of one frame by kernel, from the profiler
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        api.upscale(frame, 4, on_device=True, **kw)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    on_card = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    emit({"phase": "upscale_times", "card": card, "frame_s": frame_s,
+          "mp_per_s": FRAME ** 2 / 1e6 / frame_s, "plain_frame_s": plain_s,
+          "plain_mp_per_s": FRAME ** 2 / 1e6 / plain_s,
+          "peak_mem_gib": peak, "plain_peak_mem_gib": plain_peak,
+          "profiled_frame_s": prof_s,
+          # None when the profiler saw no device time
+          "device_ms_per_frame": device_ms or None,
+          "device_busy_share": device_ms / (prof_s * 1e3) if device_ms
+          else None,
+          "top_device_kernels": [
+              {"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+               "count": e.count} for e in on_card[:12]]})
+    return launches
+
+
+def finish(stage2, z):
+    """Stage 2 and the smoothing after it, as HybridSR runs them."""
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+
+    return anti_checkerboard(anti_checkerboard(stage2(z), "balanced"),
+                             "light")
+
+
+def no_gather_path(gen: torch.Generator) -> None:
+    """Phase 14: bench_hybrid's frame through fused_hybrid_model with
+    SRTPU_GATHER_OCA=0 (each OCAB on kernel 10, none on kernel 9), then
+    an odd-overlap HATLite (ows 11) through make_fused_hat; both against
+    their plain models on the same bf16 weights."""
+    from superresolution_tpu_torch.infer.fused_hat import (
+        fused_hybrid_model, make_fused_hat)
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.models.hat_lite import HATLite
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+
+    bf = torch.bfloat16
+    model = hybrid_model(gen)
+    params = model.state_dict()
+    x = torch.rand((1, HYBRID_IN, HYBRID_IN, 1), generator=gen).to("cuda", bf)
+    n_hab = sum(model.stage2.depths)
+    os.environ["SRTPU_GATHER_OCA"] = "0"
+    try:
+        with torch.inference_mode():
+            fused = fused_hybrid_model(params, model)
+            ops = zero_counts()
+            y = fused(x)
+            torch.cuda.synchronize()
+            check_launches("no_gather", {k: op.launches
+                                         for k, op in ops.items()}, {
+                **{k: 0 for k in ops}, "fused_dense_block": 69 * 5,
+                "fused_cab_convs": 3 * n_hab, "fused_hab_block": n_hab,
+                "flash_window_attention": len(model.stage2.depths)})
+            sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
+                       if n.startswith(k + ".")} for k in ("stage1", "stage2")}
+            s2 = make_fused_hat(sub["stage2"], model.stage2)
+            z = anti_checkerboard(
+                fused_rrdb_model(sub["stage1"], model.stage1)(x), "balanced")
+            compare("no_gather/stage2_and_after", finish(s2, z),
+                    finish(model.stage2, z), TOL_PATH,
+                    frame_rel_err_end_to_end=rel_err(y, model(x)))
+    finally:
+        del os.environ["SRTPU_GATHER_OCA"]
+    del model, params, fused, s2
+    torch.cuda.empty_cache()
+
+    hat = HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=96,
+                  depths=(2,), num_heads=(6,), window_size=8,
+                  overlap_ratio=0.375, generator=gen).to(bf).eval()
+    with torch.no_grad():
+        for name, p in hat.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    x = torch.rand((1, HYBRID_IN, HYBRID_IN, 1), generator=gen).to("cuda", bf)
+    with torch.inference_mode():
+        apply = make_fused_hat(hat.state_dict(), hat)
+        ops = zero_counts()
+        got = apply(x)
+        check_launches("odd_ocab", {k: op.launches for k, op in ops.items()},
+                       {**{k: 0 for k in ops}, "fused_cab_convs": 6,
+                        "fused_hab_block": 2, "flash_window_attention": 1})
+        compare("odd_ocab/hat_ows11", got, hat(x), TOL_PATH,
+                ows=hat.layers[0].overlap_attn.ows)
+
+
+def quality_anchor() -> dict:
+    """Phase 15: the committed checkpoint (assets/quality/port, exported
+    from the JAX one) through fused_rrdb_model (B1-B3) in bf16 on 8
+    synthetic 128^2 images degraded x1/4 (bench.py's quality stage):
+    PSNR against the reference's figure, bicubic PSNR against its own."""
+    from superresolution_tpu_torch.data.dataset import SyntheticHRDataset
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.metrics.psnr_ssim import psnr, ssim
+    from superresolution_tpu_torch.models.factory import get_model
+    from superresolution_tpu_torch.ops.degradation import degrade_bicubic
+    from superresolution_tpu_torch.ops.resize import resize_bicubic
+    from superresolution_tpu_torch.train.checkpoint import (
+        load_params_for_inference)
+
+    sd, cfg = load_params_for_inference(ANCHOR_DIR, with_config=True)
+    model = get_model(cfg["name"], scale=cfg["scale"],
+                      in_channels=cfg["in_channels"],
+                      out_channels=cfg["out_channels"], **cfg["kwargs"])
+    model.load_state_dict(sd, strict=True)
+    model = model.to(torch.bfloat16).eval()
+    scale = cfg["scale"]
+    ds = SyntheticHRDataset(8, 128, cfg["out_channels"], seed=2)
+    hr = torch.stack([torch.from_numpy(ds[i]["hr"])
+                      for i in range(len(ds))]).cuda()
+    lr = degrade_bicubic(hr, scale)
+    with torch.inference_mode():
+        deploy = fused_rrdb_model(model.state_dict(), model)
+        ops = zero_counts()
+        sr = deploy(lr.to(torch.bfloat16)).float().clamp(0, 1)
+        launches = {k: op.launches for k, op in ops.items() if op.launches}
+        up = resize_bicubic(lr, (hr.shape[1], hr.shape[2])).clamp(0, 1)
+        p, s = float(psnr(sr, hr).mean()), float(ssim(sr, hr).mean())
+        pb = float(psnr(up, hr).mean())
+    res = {"check": "quality_anchor", "psnr": p, "ssim": s,
+           "bicubic_psnr": pb, "delta_vs_bicubic": p - pb,
+           "reference_psnr": ANCHOR_PSNR, "reference_ssim": 0.6778,
+           "reference_bicubic_psnr": ANCHOR_BICUBIC,
+           "jax_cpu_f32": {"psnr": 25.6021, "ssim": 0.6848},
+           "jax_cpu_bf16": {"psnr": 25.5891, "ssim": 0.6841},
+           "tol_psnr": TOL_ANCHOR, "tol_bicubic": TOL_ANCHOR_BICUBIC,
+           "launches": launches}
+    emit(res)
+    if launches.get("fused_dense_block", 0) != 5 * 3 * model.num_blocks \
+            or not launches.get("up2_hr") or not launches.get(
+                "conv_last_phase"):
+        raise AssertionError(f"quality anchor launches {launches}")
+    if abs(p - ANCHOR_PSNR) > TOL_ANCHOR:
+        raise AssertionError(f"anchor PSNR {p} vs {ANCHOR_PSNR}")
+    if abs(pb - ANCHOR_BICUBIC) > TOL_ANCHOR_BICUBIC:
+        raise AssertionError(f"bicubic PSNR {pb} vs {ANCHOR_BICUBIC}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1374,6 +1875,20 @@ def main() -> int:
     train_launches = train_path(card)
     for k in ("dense_block_backward", "star_weighted_l1_cuda"):
         kernels[k]["launches"] = train_launches[k]
+    torch.cuda.empty_cache()
+
+    # ---- 12-15: api.upscale over the flash hybrid; the quality anchor ----
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cg = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    kernels.update(check_attn_kernel(cg))
+    torch.cuda.empty_cache()
+    upscale_launches = upscale_path(gen, card)
+    kernels["flash_window_attention"]["launches"] = upscale_launches[
+        "flash_window_attention"]
+    torch.cuda.empty_cache()
+    no_gather_path(gen)
+    torch.cuda.empty_cache()
+    quality_anchor()
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

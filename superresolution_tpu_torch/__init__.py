@@ -13,7 +13,12 @@ stage's CAB convs, HAB block bodies and OCAB attention run through
 ops/csrc/hat_kernels.cu, stage 1 through the slice-1 trunk. Slice 3
 covers hybrid_astro training on one device (train/trainer.py): the dense
 blocks' backward (kernel 13) and the star-weighted L1 (kernel 14) run
-through ops/csrc/train_kernels.cu, their forwards through B1. Entry points
+through ops/csrc/train_kernels.cu, their forwards through B1. Slice 4
+covers the public API (api.upscale, with the host tiler of infer/tiled.py
+or the on-device one of infer/tiled_device.py) over the hybrid with flash
+window attention (kernel 10, ops/csrc/attn_kernels.cu), and loads
+checkpoints for inference (train/checkpoint.load_params_for_inference).
+Entry points
 default to the `cuda` device and raise without a GPU unless the caller
 passes device="cpu", where every kernel wrapper runs its plain PyTorch
 version instead.

@@ -2,27 +2,33 @@
 
 Counterpart of superresolution_tpu/infer/fused_hat.py. Every HAB runs its
 CAB conv stack as kernel 7 (ops/hab.fused_cab_convs) and its window body
-as kernel 8 (ops/hab.fused_hab_block); every group-end OCAB runs its
-attention as kernel 9 (ops/flash_oca.flash_oca_gathered), fed the padded
-key and value maps. The rest is plain PyTorch, as the reference leaves
-it to XLA: the squeeze-excite tail, rolls and window partitions, the
-OCAB's dense layers and MLP, and the convs. fused_hybrid_model runs
-stage 1 through infer/fused_trunk.fused_rrdb_model (B1).
+as kernel 8 (ops/hab.fused_hab_block). Every group-end OCAB takes one of
+the reference's three attention paths, read from the environment at each
+call as the reference reads it at trace time:
+  * kernel 9 (ops/flash_oca.flash_oca_gathered), fed the padded key and
+    value maps, where oca_gather_supported holds (an even ows - ws) and
+    SRTPU_GATHER_OCA is not "" or "0";
+  * else, unless SRTPU_EINSUM_OCA is set, kernel 10
+    (ops/window_attention.flash_window_attention) on the key and value
+    windows gathered by ops/unfold.extract_overlapping_windows;
+  * with SRTPU_EINSUM_OCA set, the plain attention with f32 logits.
+The rest is plain PyTorch, as the reference leaves it to XLA: the
+squeeze-excite tail, rolls and window partitions, the OCAB's dense layers
+and MLP, and the convs. fused_hybrid_model runs stage 1 through
+infer/fused_trunk.fused_rrdb_model (B1) and resizes to output_size as the
+reference does.
 
 Weights come from the port's HAT-keyed state dict (models/convert.py
 bridges the JAX trees) and are cast per input dtype, as the reference
 casts its params at the call: bf16 on the card, f32 in the CPU tests.
 
 Not ported: the reference's levers SRTPU_LANE_PAD (infer/lane_pad.py),
-SRTPU_STRIP_HAB, SRTPU_XLA_CAB, SRTPU_EINSUM_OCA and SRTPU_GATHER_OCA=0,
-all off by default there. Where the OCAB geometry is one the gathered
-kernel does not cover, the reference takes flash_window_attention
-(row 10 of PERF.md's kernel table, not ported yet): on the card
-make_fused_hat raises; on the CPU it runs the plain attention.
+SRTPU_STRIP_HAB and SRTPU_XLA_CAB, all off by default there.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import torch
@@ -38,11 +44,10 @@ from superresolution_tpu_torch.models.hat_lite import (
     window_merge,
     window_partition,
 )
-from superresolution_tpu_torch.models.hybrid import check_output_size
+from superresolution_tpu_torch.models.hybrid import resize_to_output
 from superresolution_tpu_torch.ops.blur import anti_checkerboard
 from superresolution_tpu_torch.ops.flash_oca import (
     flash_oca_gathered,
-    flash_oca_gathered_reference,
     oca_gather_supported,
 )
 from superresolution_tpu_torch.ops.hab import (
@@ -53,6 +58,11 @@ from superresolution_tpu_torch.ops.hab import (
     layer_norm,
 )
 from superresolution_tpu_torch.ops.pixel_shuffle import depth_to_space
+from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
+from superresolution_tpu_torch.ops.window_attention import (
+    flash_window_attention,
+    reference_window_attention,
+)
 from superresolution_tpu_torch.runtime import resolve_device
 
 
@@ -103,20 +113,26 @@ def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
           nh: int, bias: torch.Tensor) -> torch.Tensor:
     """OverlappingCrossAttention: LN, q and kv denses, the kv maps
     zero-padded after the dense (asymmetric tail pad for odd ows - ws),
-    attention through kernel 9, proj, MLP."""
+    attention through kernel 9, kernel 10 or the plain form (see the
+    module docstring), proj, MLP."""
     _, h, w, c = x.shape
     pad = (ows - ws) // 2
     y = _ln(x, p, f"{pre}.norm1")
     qkv = _dense(y, p, f"{pre}.qkv")  # q | k | v, as HAT packs them
     q = window_partition(qkv[..., :c], ws).contiguous()
-    k_map, v_map = (F.pad(qkv[..., i * c:(i + 1) * c],
-                          (0, 0, pad, ows - ws - pad, pad, ows - ws - pad)
-                          ).contiguous() for i in (1, 2))
-    if oca_gather_supported(ws, ows, h, w):
+    kv = F.pad(qkv[..., c:], (0, 0, pad, ows - ws - pad, pad, ows - ws - pad))
+    einsum = bool(os.environ.get("SRTPU_EINSUM_OCA"))
+    if (not einsum
+            and os.environ.get("SRTPU_GATHER_OCA", "1") not in ("", "0")
+            and oca_gather_supported(ws, ows, h, w)):
+        k_map, v_map = (kv[..., i * c:(i + 1) * c].contiguous()
+                        for i in (0, 1))
         out = flash_oca_gathered(q, k_map, v_map, bias, nh, ws, ows)
-    else:  # the reference's row-10 path; make_fused_hat keeps it off-card
-        out = flash_oca_gathered_reference(q, k_map, v_map, bias, nh, ws,
-                                           ows)
+    else:
+        k, v = extract_overlapping_windows(kv, ws, ows, h // ws,
+                                           w // ws).split(c, dim=-1)
+        out = (reference_window_attention(q, k, v, bias, nh) if einsum
+               else flash_window_attention(q, k, v, bias, nh))
     x = x + window_merge(_dense(out, p, f"{pre}.proj"), ws, (h, w))
     z = F.gelu(_dense(_ln(x, p, f"{pre}.norm2"), p, f"{pre}.mlp.fc1"))
     return x + _dense(z, p, f"{pre}.mlp.fc2")
@@ -127,16 +143,12 @@ def make_fused_hat(params: Mapping, model: HATLite,
     """-> apply_fn(x [B,H,W,Cin]) -> [B,H*scale,W*scale,Cout], equal to
     `model` (the port's HATLite, which gives the configuration) applied
     with the weights of `params`, a HAT-keyed state dict, with its HABs
-    and OCABs through kernels 7-9. Sides that are not multiples of the
+    and OCABs through kernels 7-10. Sides that are not multiples of the
     window are edge-padded and the output cropped, as in the model."""
     dev = resolve_device(device)
     p = state_tensors(params, dev)
     ws, scale = model.window_size, model.scale
     ows = int(ws * (1 + model.overlap_ratio))
-    if dev.type == "cuda" and not oca_gather_supported(ws, ows, ws, ws):
-        raise NotImplementedError(
-            f"the OCAB geometry ws={ws} ows={ows} needs flash_window_"
-            "attention (ops/pallas_attn.py, row 10), not ported yet")
     n = ws * ws
     layers = []
     for g, (depth, nh) in enumerate(zip(model.depths, model.num_heads)):
@@ -212,9 +224,9 @@ def fused_hybrid_model(params: Mapping, model,
                        device: str | torch.device | None = None):
     """HybridSR (the port's; stage 2 a HATLite) -> apply_fn(x) with the
     HybridSR forward: stage 1 through fused_rrdb_model (B1 + its tail),
-    smooth, stage 2 through make_fused_hat (kernels 7-9), smooth, then
-    the output-size check (the resize is not ported) and the light
-    smooth. `params` holds stage1.* and stage2.* keys
+    smooth, stage 2 through make_fused_hat (kernels 7-10), smooth, the
+    bicubic resize to output_size where the stage output differs from
+    it, and the light smooth. `params` holds stage1.* and stage2.* keys
     (convert.hybrid_state_dict_from_jax)."""
     if not isinstance(model.stage2, HATLite):
         raise ValueError("fused hybrid requires a HATLite stage 2")
@@ -226,8 +238,8 @@ def fused_hybrid_model(params: Mapping, model,
 
     def apply_fn(x: torch.Tensor) -> torch.Tensor:
         y = anti_checkerboard(s1(x), smoothing)
-        y = anti_checkerboard(s2(y), smoothing)
-        check_output_size(y, model.output_size)
+        y = resize_to_output(anti_checkerboard(s2(y), smoothing),
+                             model.output_size)
         return anti_checkerboard(y, "light" if smoothing else None)
 
     return apply_fn

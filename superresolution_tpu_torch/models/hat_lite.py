@@ -11,10 +11,12 @@ and the reference ecosystem's stage2.* keys load with strict=True.
 
 The public forward takes and returns NHWC; blocks run NHWC (LayerNorm and
 Linear on the channel axis), convs NCHW. The attention is the plain form
-(ops/window_attention.py) with f32 logits; the flash kernel the JAX model
-takes with flash_attn=True is not ported yet, so flash_attn and
-flash_oca raise. The deploy path (infer/fused_hat.py) does not run these
-modules: it runs kernels 7-9 on the same weights.
+(ops/window_attention.py), with f32 logits unless attn_f32=False; with
+flash_attn (window attention) and flash_oca (the group-end OCAB, which
+follows flash_attn when None) it is kernel 10
+(ops/window_attention.flash_window_attention), whose logits are always
+f32. The deploy path (infer/fused_hat.py) does not run these modules: it
+runs kernels 7-10 on the same weights.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from superresolution_tpu_torch.models.common import (
 )
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.ops.window_attention import (
+    flash_window_attention,
     reference_window_attention,
 )
 from superresolution_tpu_torch.runtime import resolve_device
@@ -125,10 +128,11 @@ def _nchw(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class WindowAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 attn_f32: bool = True, generator=None):
+                 attn_f32: bool = True, flash: bool = False,
+                 generator=None):
         super().__init__()
         self.num_heads, self.window_size = num_heads, window_size
-        self.attn_f32 = attn_f32
+        self.attn_f32, self.flash = attn_f32, flash
         self.qkv = _linear(dim, 3 * dim, generator)
         self.relative_position_bias_table = nn.Parameter(_trunc_normal_(
             torch.empty((2 * window_size - 1) ** 2, num_heads), 0.02,
@@ -145,9 +149,13 @@ class WindowAttention(nn.Module):
                               device=x.device).long()
         bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
             n, n, self.num_heads).permute(2, 0, 1)
-        out = reference_window_attention(
-            q, k, v, bias, region_ids=region_ids,
-            acc_dtype=torch.float32 if self.attn_f32 else x.dtype)
+        if self.flash:
+            out = flash_window_attention(q, k, v, bias, self.num_heads,
+                                         region_ids)
+        else:
+            out = reference_window_attention(
+                q, k, v, bias, region_ids=region_ids,
+                acc_dtype=torch.float32 if self.attn_f32 else x.dtype)
         return self.proj(out)
 
 
@@ -198,14 +206,14 @@ class HABlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift: int, mlp_ratio: float = 2.0,
                  conv_scale: float = 0.01, attn_f32: bool = True,
-                 generator=None):
+                 flash_attn: bool = False, generator=None):
         super().__init__()
         self.window_size, self.shift = window_size, shift
         self.conv_scale = conv_scale
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device="cpu")
         self.conv_block = CAB(dim, generator=generator)
         self.attn = WindowAttention(dim, num_heads, window_size, attn_f32,
-                                    generator)
+                                    flash_attn, generator)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device="cpu")
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
 
@@ -234,11 +242,12 @@ class OCAB(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  overlap_ratio: float = 0.5, use_rpb: bool = False,
-                 attn_f32: bool = True, generator=None):
+                 attn_f32: bool = True, flash: bool = False,
+                 generator=None):
         super().__init__()
         self.num_heads, self.window_size = num_heads, window_size
         self.ows = int(window_size * (1 + overlap_ratio))
-        self.use_rpb, self.attn_f32 = use_rpb, attn_f32
+        self.use_rpb, self.attn_f32, self.flash = use_rpb, attn_f32, flash
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device="cpu")
         self.qkv = _linear(dim, 3 * dim, generator)
         if use_rpb:
@@ -266,9 +275,15 @@ class OCAB(nn.Module):
                                   device=x.device).long()
             bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
                 ws * ws, ows * ows, nh).permute(2, 0, 1)
-        out = reference_window_attention(
-            q, k, v, bias, num_heads=nh,
-            acc_dtype=torch.float32 if self.attn_f32 else x.dtype)
+        if self.flash:
+            if bias is None:
+                bias = torch.zeros((nh, ws * ws, ows * ows),
+                                   device=x.device)
+            out = flash_window_attention(q, k, v, bias, nh)
+        else:
+            out = reference_window_attention(
+                q, k, v, bias, num_heads=nh,
+                acc_dtype=torch.float32 if self.attn_f32 else x.dtype)
         x = x + window_merge(self.proj(out), ws, (h, w))
         return x + self.mlp(self.norm2(x))
 
@@ -294,6 +309,7 @@ class ResidualGroup(nn.Module):
                  conv_scale: float = 0.01, overlap_ratio: float = 0.5,
                  oca_rpb: bool = False, attn_f32: bool = True,
                  remat: bool = False, scan_blocks: bool = True,
+                 flash_attn: bool = False, flash_oca: bool = False,
                  generator=None):
         super().__init__()
         self.remat = remat
@@ -301,10 +317,10 @@ class ResidualGroup(nn.Module):
         self.residual_group = _Blocks([
             HABlock(dim, num_heads, window_size,
                     0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                    conv_scale, attn_f32, generator)
+                    conv_scale, attn_f32, flash_attn, generator)
             for i in range(depth)])
         self.overlap_attn = OCAB(dim, num_heads, window_size, overlap_ratio,
-                                 oca_rpb, attn_f32, generator)
+                                 oca_rpb, attn_f32, flash_oca, generator)
         self.conv = Conv(dim, dim, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -331,8 +347,9 @@ class HATLite(nn.Module):
     """The JAX HATLite's fields and forward. scan_blocks names the JAX
     tree's layout (models/convert.py reads it) and, as there, makes HAB
     pairs the remat unit; remat recomputes each pair's and each OCAB's
-    activations in the backward (ResidualGroup). flash_attn / flash_oca
-    need kernel 10, not ported yet, and raise. Parameters are made on the
+    activations in the backward (ResidualGroup). flash_attn runs every
+    window attention, and flash_oca (None: follow flash_attn) every OCAB,
+    through kernel 10. Parameters are made on the
     CPU from `generator` (MSRA convs, LeCun
     dense layers, zero biases, unit LayerNorms, N(0, 0.02) rel-pos tables
     truncated at 2 sigma) and moved to `device` (default cuda; raises
@@ -351,10 +368,6 @@ class HATLite(nn.Module):
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if flash_attn or flash_oca:
-            raise NotImplementedError(
-                "flash_attn / flash_oca need kernel 10 (ops/pallas_attn.py "
-                "flash_window_attention), which is not ported yet")
         dev = resolve_device(device)
         self.scale, self.window_size = scale, window_size
         self.depths, self.num_heads = tuple(depths), tuple(num_heads)
@@ -366,6 +379,7 @@ class HATLite(nn.Module):
         self.flash_attn, self.flash_oca = flash_attn, flash_oca
         self.remat = remat
         gen = generator
+        foca = flash_attn if flash_oca is None else flash_oca
         c = embed_dim
         self.conv_first = Conv(in_channels, c, generator=gen)
         if hat_compat:
@@ -373,7 +387,7 @@ class HATLite(nn.Module):
         self.layers = nn.ModuleList([
             ResidualGroup(c, d, nh, window_size, mlp_ratio, conv_scale,
                           overlap_ratio, hat_compat, attn_f32, remat,
-                          scan_blocks, gen)
+                          scan_blocks, flash_attn, foca, gen)
             for d, nh in zip(depths, num_heads)])
         if hat_compat:
             self.norm = nn.LayerNorm(c, eps=1e-5, device="cpu")

@@ -1,10 +1,8 @@
 """HybridSR: the two-stage generator with its smoothing slots.
 
 Counterpart of superresolution_tpu/models/hybrid.py: stage1 -> smooth ->
-[stage2 -> smooth] -> resize to output_size -> 'light' smooth, NHWC. The
-bicubic resize (ops/resize.resize_bicubic) is not ported yet, so a
-forward whose stage output is not output_size raises NotImplementedError;
-the hybrid deploy configuration (128 -> 256 -> 512) needs no resize.
+[stage2 -> smooth] -> bicubic resize to output_size (a=-0.75, no
+antialias: F.interpolate's convention) -> 'light' smooth, NHWC.
 """
 
 from __future__ import annotations
@@ -13,13 +11,17 @@ import torch
 import torch.nn as nn
 
 from superresolution_tpu_torch.ops.blur import anti_checkerboard
+from superresolution_tpu_torch.ops.resize import resize_bicubic
 
 
-def check_output_size(x: torch.Tensor, output_size: int | None) -> None:
+def resize_to_output(x: torch.Tensor, output_size: int | None
+                     ) -> torch.Tensor:
+    """x resized to output_size x output_size when its height differs,
+    as the reference decides it."""
     if output_size and x.shape[1] != output_size:
-        raise NotImplementedError(
-            f"HybridSR would resize {x.shape[1]} -> {output_size}; "
-            "resize_bicubic is not ported yet")
+        return resize_bicubic(x, (output_size, output_size), a=-0.75,
+                              antialias=False)
+    return x
 
 
 class HybridSR(nn.Module):
@@ -40,7 +42,7 @@ class HybridSR(nn.Module):
             x = self.stage2(x)
             if self.smoothing:
                 x = anti_checkerboard(x, self.smoothing)
-        check_output_size(x, self.output_size)
+        x = resize_to_output(x, self.output_size)
         if self.smoothing:
             x = anti_checkerboard(x, "light")
         return x

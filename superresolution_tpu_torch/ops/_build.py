@@ -37,6 +37,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.c_size_t
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -127,6 +128,9 @@ def library() -> ctypes.CDLL:
     lib.train_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                                 _I, _I, _P, _P, _P, _P]
     lib.train_wgrad.restype = _I
+    lib.attn_window.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
+                                _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    lib.attn_window.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -255,6 +259,26 @@ def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
                      _ptr(out), b, nh_w, nw_w, hp, wp, c, num_heads, ws,
                      ows, float(c // num_heads) ** -0.5, _stream(q))
     _check(lib, rc, "hat_oca")
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, region_ids: torch.Tensor | None,
+                     num_heads: int, scale: float, vec: bool,
+                     out: torch.Tensor) -> None:
+    """One launch of window_attn_kernel (attn_kernels.cu): q [nb, n, C],
+    k/v [nb, m, C], each with a unit channel stride and any window and
+    row strides (bf16 or f32, one type); bias [nh, n, m] f32 and
+    region_ids [nW_img, n] int32 contiguous; out [nb, n, C] contiguous.
+    vec: every row of q, k and v starts 16-byte aligned."""
+    lib = library()
+    nb, n, c = q.shape
+    rc = lib.attn_window(
+        _ptr(q), q.stride(0), q.stride(1), _ptr(k), k.stride(0), k.stride(1),
+        _ptr(v), v.stride(0), v.stride(1), _ptr(bias), _ptr(region_ids),
+        0 if region_ids is None else region_ids.shape[0], _ptr(out), nb, n,
+        k.shape[1], c, num_heads, scale, int(q.dtype == torch.float32),
+        int(vec), _stream(q))
+    _check(lib, rc, "attn_window")
 
 
 def star_l1_value(p: torch.Tensor, t: torch.Tensor, threshold: float,

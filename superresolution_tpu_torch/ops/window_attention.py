@@ -1,18 +1,39 @@
-"""Plain windowed multi-head attention on packed [nb, n, C] windows.
+"""Windowed multi-head attention on packed [nb, n, C] windows: the plain
+form, and kernel 10 (flash_window_attention) as a hand-written CUDA op.
 
 Counterpart of superresolution_tpu/ops/pallas_attn.py:
-reference_window_attention (the plain form only; the flash kernel of
-that file is not ported yet). Logits and softmax in f32 (or `acc_dtype`),
-probabilities cast to the input dtype before the product with v, as the
-reference does. Serves the HAT model's attention and the plain versions
-of kernels 8 and 9.
+reference_window_attention and flash_window_attention (_flash_fwd_impl,
+_flash_bwd). Logits and softmax in f32 (or `acc_dtype` in the plain
+form), probabilities cast to the input dtype before the product with v,
+as the reference does. The plain form serves the HAT model's attention
+and the plain versions of kernels 8, 9 and 10.
+
+Kernel 10 runs on the card as one launch of window_attn_kernel
+(csrc/attn_kernels.cu), one thread block per window; the [nb, nh, n, m]
+logits never leave the block. Its backward, like the reference's
+custom_vjp, is autograd of the plain form on the saved inputs: the TPU
+kernel has no backward kernel either.
+
+Bound on the H100: 2 * 2 * n * m * hd FLOP per window and head against
+(2n + 2m) * C * 2 bytes in bf16, 12 to 17 FLOP/B, so bound by bytes
+(see the source for what this first form reaches).
 """
 
 from __future__ import annotations
 
 import torch
 
+from superresolution_tpu_torch.ops import _build
+
 NEG = -1e9
+
+# what the hand kernel takes: head dim, queries per window, key counts
+# (self-attention, the OCAB's odd 11x11 and default 12x12 key windows),
+# the widest C its shared memory holds
+ATTN_HEAD_DIM, ATTN_N, ATTN_M, ATTN_MAX_C = 16, 64, (64, 121, 144), 128
+
+__all__ = ["flash_window_attention", "reference_window_attention",
+           "region_mask"]
 
 
 def region_mask(region_ids: torch.Tensor) -> torch.Tensor:
@@ -50,3 +71,108 @@ def reference_window_attention(q: torch.Tensor, k: torch.Tensor,
                 ).reshape(nb, nh, n, m)
     attn = torch.softmax(attn, dim=-1).to(q.dtype)
     return (attn @ vh).transpose(1, 2).reshape(nb, n, c)
+
+
+def _check_geometry(q, k, v, bias, num_heads, region_ids) -> None:
+    nb, n, c = q.shape
+    m = k.shape[1]
+    if c % num_heads:
+        raise ValueError(f"flash_window_attention: C={c} not divisible by "
+                         f"num_heads={num_heads}")
+    if k.shape != (nb, m, c) or v.shape != k.shape:
+        raise ValueError(f"flash_window_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if tuple(bias.shape) != (num_heads, n, m):
+        raise ValueError(f"flash_window_attention: bias {tuple(bias.shape)}"
+                         f" != {(num_heads, n, m)}")
+    if region_ids is not None:
+        if m != n:
+            raise ValueError("flash_window_attention: region_ids only "
+                             "supported for self-attention")
+        if region_ids.shape[1] != n or nb % region_ids.shape[0]:
+            raise ValueError(f"flash_window_attention: nb={nb} not a "
+                             f"multiple of nW_img={region_ids.shape[0]}")
+
+
+def _launch(q, k, v, bias, num_heads, region_ids) -> torch.Tensor:
+    """Kernel 10 on CUDA tensors, or a ValueError naming what it does not
+    take."""
+    nb, n, c = q.shape
+    m = k.shape[1]
+    hd = c // num_heads
+    if (hd, n) != (ATTN_HEAD_DIM, ATTN_N) or m not in ATTN_M \
+            or c > ATTN_MAX_C:
+        raise ValueError(
+            f"flash_window_attention: the kernel takes head dim "
+            f"{ATTN_HEAD_DIM}, n {ATTN_N}, m in {ATTN_M}, C <= {ATTN_MAX_C};"
+            f" got head dim {hd}, n {n}, m {m}, C {c}")
+    for t in (q, k, v):
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_window_attention: expected CUDA "
+                             f"tensors, got {t.device}")
+        if t.dtype != q.dtype or q.dtype not in (torch.bfloat16,
+                                                 torch.float32):
+            raise TypeError("flash_window_attention: q, k, v must share "
+                            f"bf16 or f32, got {q.dtype}, {k.dtype}, "
+                            f"{v.dtype}")
+        if t.stride(2) != 1:
+            raise ValueError("flash_window_attention: q, k, v need a unit "
+                             "channel stride")
+    align = 16 // q.element_size()
+    vec = all(t.data_ptr() % 16 == 0 and t.stride(0) % align == 0
+              and t.stride(1) % align == 0 for t in (q, k, v))
+    ids = None if region_ids is None else region_ids.to(
+        q.device, torch.int32).contiguous()
+    bias = bias.to(q.device, torch.float32).contiguous()
+    out = torch.empty((nb, n, c), dtype=q.dtype, device=q.device)
+    _build.window_attention(q, k, v, bias, ids, num_heads, float(hd) ** -0.5,
+                            vec, out)
+    flash_window_attention.launches += 1
+    return out
+
+
+class _FlashWindowAttention(torch.autograd.Function):
+    """Forward: kernel 10 on CUDA tensors, the plain form on CPU ones.
+    Backward: autograd of the plain form (f32 logits) on the saved
+    inputs, as the reference's _flash_bwd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads, region_ids):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.num_heads, ctx.region_ids = num_heads, region_ids
+        if q.device.type == "cpu":
+            return reference_window_attention(q, k, v, bias, num_heads,
+                                              region_ids)
+        return _launch(q, k, v, bias, num_heads, region_ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(r) for t, r in
+                      zip(saved, need)]
+            out = reference_window_attention(*leaves, ctx.num_heads,
+                                             ctx.region_ids)
+            wrt = [t for t, r in zip(leaves, need) if r]
+            grads = iter(torch.autograd.grad(out, wrt, g) if wrt else ())
+        return (*(next(grads) if r else None for r in need), None, None)
+
+
+def flash_window_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, bias: torch.Tensor,
+                           num_heads: int,
+                           region_ids: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Kernel 10. q [nb, n, C], k/v [nb, m, C] (bf16 or f32; strided
+    views such as the split of a packed qkv projection are read in
+    place), bias [nh, n, m] (f32 in the kernel), region_ids [nW_img, n]
+    int or None (self-attention only; window b uses region_ids[b %
+    nW_img]). Returns [nb, n, C] in q's dtype. CPU tensors run the plain
+    form; CUDA tensors launch the kernel (head dim 16, n 64, m 64, 121 or
+    144, C <= 128) or raise. Differentiable in q, k, v and bias."""
+    _check_geometry(q, k, v, bias, num_heads, region_ids)
+    return _FlashWindowAttention.apply(q, k, v, bias, num_heads, region_ids)
+
+
+flash_window_attention.launches = 0

@@ -8,6 +8,12 @@ out_dir/best. A step directory holds state.pt, torch.save of the train
 state's tree (step, params, opt_state, ema_params) on the host; it is
 written to a temporary directory and renamed, so an interrupted save
 leaves no partial step and `restore` falls back to the newest whole one.
+
+load_params_for_inference (train/checkpoint.py:148-183 there) reads the
+weights alone for inference: from such a directory, from a finalized
+best/ directory, or from an export of a JAX checkpoint (params.npz with
+'/'-joined tree paths beside model_config.json, written by
+tools/export_params_npz.py), which models/convert.py bridges.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ import os
 import shutil
 import tempfile
 
+import numpy as np
 import torch
 
+from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.train.state import TrainState
 
 
@@ -126,3 +134,95 @@ class CheckpointManager:
             shutil.copy(self._cfg_path,
                         os.path.join(out_dir, "model_config.json"))
         return dst
+
+
+def _unflatten(flat) -> dict:
+    """{'a/b/c': array} -> nested dicts."""
+    tree: dict = {}
+    for key in flat:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = flat[key]
+    return tree
+
+
+def _stage_state_dict(name: str, kw: dict, tree) -> dict:
+    """One JAX model tree -> the port's numpy state dict."""
+    from superresolution_tpu_torch.models import convert
+
+    if name == "rrdbnet":
+        return convert.rrdbnet_state_dict_from_jax(
+            tree, num_blocks=kw.get("num_blocks", 23),
+            features=kw.get("features", 64), growth=kw.get("growth", 32))
+    if name == "hat_lite":
+        return convert.hat_state_dict_from_jax(
+            tree, depths=tuple(kw.get("depths", (6, 6, 6, 6))),
+            hat_compat=kw.get("hat_compat", False))
+    raise NotImplementedError(f"model {name!r} is not ported yet")
+
+
+def state_dict_from_jax_tree(tree, cfg: dict) -> dict:
+    """A JAX parameter tree (a HybridSR's stage1/stage2, or one model's)
+    and its model_config dict -> the port's numpy state dict."""
+    tree = tree.get("params", tree)
+    if "stage1" not in tree:
+        return _stage_state_dict(cfg["name"], cfg.get("kwargs", {}), tree)
+    sd = {f"stage1.{k}": v for k, v in _stage_state_dict(
+        cfg["name"], cfg.get("kwargs", {}), tree["stage1"]).items()}
+    if "stage2" in tree:
+        sd.update({f"stage2.{k}": v for k, v in _stage_state_dict(
+            cfg["refiner"], cfg.get("refiner_kwargs", {}),
+            tree["stage2"]).items()})
+    return sd
+
+
+def _read_config(*dirs: str) -> dict | None:
+    for d in dirs:
+        path = os.path.join(d, "model_config.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+    return None
+
+
+def load_params_for_inference(ckpt_dir: str, prefer_ema: bool = True,
+                              with_config: bool = False,
+                              device: str | torch.device | None = None):
+    """The model's weights (EMA if present and prefer_ema) as the port's
+    f32 state dict on `device` (default cuda; raises without a GPU unless
+    device='cpu'), from
+      * a CheckpointManager directory (its best step, else its last);
+      * a step or finalized best/ directory holding state.pt;
+      * a directory holding params.npz (a JAX tree, '/'-joined keys) and
+        model_config.json, converted through models/convert.py.
+    model_config.json is read from the directory or its parent; with
+    with_config=True returns (state_dict, config dict or None)."""
+    dev = resolve_device(device)
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    path = ckpt_dir
+    if os.path.exists(os.path.join(ckpt_dir, "meta.json")):
+        mgr = CheckpointManager(ckpt_dir)
+        step = mgr.meta.get("best_step")
+        if step is None:  # explicit: `or` would skip a best_step of 0
+            step = mgr.meta.get("last_step")
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+        path = mgr._step_dir(step)
+    cfg = _read_config(ckpt_dir, os.path.dirname(ckpt_dir))
+    npz = os.path.join(path, "params.npz")
+    if os.path.exists(npz):
+        if cfg is None:
+            raise FileNotFoundError(f"{npz} needs a model_config.json")
+        with np.load(npz) as z:
+            sd = state_dict_from_jax_tree(_unflatten(z), cfg)
+        params = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+                  for k, v in sd.items()}
+    else:
+        tree = torch.load(os.path.join(path, "state.pt"), map_location=dev,
+                          weights_only=True)
+        params = (tree["ema_params"]
+                  if prefer_ema and tree.get("ema_params") is not None
+                  else tree["params"])
+    return (params, cfg) if with_config else params

@@ -25,7 +25,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from superresolution_tpu_torch.infer.common import conv_nhwc, hwio
-from superresolution_tpu_torch.models.hybrid import HybridSR, check_output_size
+from superresolution_tpu_torch.models.hybrid import HybridSR, resize_to_output
 from superresolution_tpu_torch.models.rrdbnet import RRDBNet
 from superresolution_tpu_torch.ops.blur import anti_checkerboard
 from superresolution_tpu_torch.ops.dense_trunk_train import (
@@ -107,7 +107,7 @@ def make_fused_train_apply(model: nn.Module, row_pack: bool = False
             x = functional_call(model.stage2, _sub(params, "stage2."), (x,))
             if model.smoothing:
                 x = anti_checkerboard(x, model.smoothing)
-        check_output_size(x, model.output_size)
+        x = resize_to_output(x, model.output_size)
         if model.smoothing:
             x = anti_checkerboard(x, "light")
         return x

@@ -1,0 +1,132 @@
+"""Kernel 10 (superresolution_tpu_torch/ops/window_attention.py:
+flash_window_attention) on the CPU, where it runs its plain form, against
+the JAX package's flash_window_attention in Pallas interpret mode: self,
+masked and cross attention (m 144 and the odd OCAB's 121) in f32 within
+1e-5 of max |ref|, and gradients in q, k, v and bias against jax.vjp
+within 1e-5. Also the wrapper's refusals off the CPU."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from superresolution_tpu.ops import pallas_attn
+from superresolution_tpu_torch.ops.window_attention import (
+    flash_window_attention,
+)
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(case, nb=8, c=32, nh=2, nw_img=4, seed=0):
+    """q [nb, 64, C]; k, v [nb, m, C]; bias [nh, 64, m]; region ids for
+    'masked'. Logits of a few units, so the softmax is far from uniform."""
+    n = 64
+    m = {"self": 64, "masked": 64, "cross144": 144, "cross121": 121}[case]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((nb, n, c)).astype(np.float32)
+    k = rng.standard_normal((nb, m, c)).astype(np.float32)
+    v = rng.standard_normal((nb, m, c)).astype(np.float32)
+    bias = rng.standard_normal((nh, n, m)).astype(np.float32)
+    ids = (rng.integers(0, 3, (nw_img, n)).astype(np.int32)
+           if case == "masked" else None)
+    return q, k, v, bias, ids
+
+
+def _rel(got, ref) -> float:
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+def _torch(*arrays, grad=False):
+    return [None if a is None else
+            torch.from_numpy(a).requires_grad_(grad and a.dtype != np.int32)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("case", ["self", "masked", "cross144", "cross121"])
+def test_forward_matches_jax_interpret(case):
+    q, k, v, bias, ids = _inputs(case)
+    ref = pallas_attn.flash_window_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), 2,
+        True, None if ids is None else jnp.asarray(ids))
+    before = flash_window_attention.launches
+    got = flash_window_attention(*_torch(q, k, v, bias), 2,
+                                 *_torch(ids))
+    assert flash_window_attention.launches == before  # no launch on a CPU
+    assert _rel(got.numpy(), ref) < TOL
+
+
+@pytest.mark.parametrize("case", ["masked", "cross121"])
+def test_gradients_match_jax_vjp(case):
+    q, k, v, bias, ids = _inputs(case, nb=4, nw_img=2, seed=1)
+    g = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    jids = None if ids is None else jnp.asarray(ids)
+    _, vjp = jax.vjp(
+        lambda *a: pallas_attn.flash_window_attention(*a, 2, True, jids),
+        *map(jnp.asarray, (q, k, v, bias)))
+    refs = vjp(jnp.asarray(g))
+    leaves = _torch(q, k, v, bias, grad=True)
+    out = flash_window_attention(*leaves, 2, *_torch(ids))
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for got, ref in zip(grads, refs):
+        assert _rel(got.numpy(), ref) < TOL
+
+
+def test_gradient_only_where_asked():
+    """needs_input_grad: a leaf without requires_grad gets None, and the
+    others still match the plain form's autograd."""
+    q, k, v, bias, _ = _inputs("self", nb=2)
+    tq, tk, tv, tb = _torch(q, k, v, bias)
+    tq.requires_grad_()
+    out = flash_window_attention(tq, tk, tv, tb, 2)
+    (dq,) = torch.autograd.grad(out.sum(), [tq])
+    assert dq.shape == tq.shape and tk.grad is None
+
+
+def test_strided_views_read_in_place():
+    """q, k, v as the split of one packed [nb, n, 3C] tensor (row stride
+    3C), as WindowAttention hands them over."""
+    q, k, v, bias, _ = _inputs("self")
+    qkv = torch.from_numpy(np.concatenate([q, k, v], -1))
+    tq, tk, tv = qkv.split(32, dim=-1)
+    assert tq.stride(1) == 96
+    got = flash_window_attention(tq, tk, tv, torch.from_numpy(bias), 2)
+    ref = flash_window_attention(*_torch(q, k, v, bias), 2)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_wrapper_raises_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises: here
+    (meta tensors) for the device, and first for a geometry the kernel
+    does not take, naming it."""
+    m = torch.device("meta")
+
+    def e(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, device=m, dtype=dtype)
+
+    bias = e(6, 64, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_window_attention(e(4, 64, 96), e(4, 64, 96), e(4, 64, 96),
+                               bias, 6)
+    with pytest.raises(ValueError, match="head dim 16.*got head dim 8"):
+        flash_window_attention(e(4, 64, 48), e(4, 64, 48), e(4, 64, 48),
+                               bias, 6)
+    with pytest.raises(ValueError, match="m 100"):
+        flash_window_attention(e(4, 64, 96), e(4, 100, 96), e(4, 100, 96),
+                               e(6, 64, 100, dtype=torch.float32), 6)
+    with pytest.raises(ValueError, match="self-attention"):
+        flash_window_attention(
+            e(4, 64, 96), e(4, 144, 96), e(4, 144, 96),
+            e(6, 64, 144, dtype=torch.float32), 6,
+            torch.zeros(2, 64, dtype=torch.int32, device=m))

@@ -1,8 +1,9 @@
 """The port's deploy-time HAT and hybrid (superresolution_tpu_torch/
 infer/fused_hat.py) against the JAX package's fused paths on the CPU,
 where the kernels run their plain versions and the JAX kernels run in
-interpret mode: f32, to 1e-4 of max |ref|. Also the device rules of the
-slice's new entry points and wrappers."""
+interpret mode: f32, to 1e-4 of max |ref|, on each of the OCAB's three
+attention paths (kernel 9, kernel 10, plain). Also the device rules of
+the entry points and wrappers."""
 
 import functools
 
@@ -64,13 +65,40 @@ def test_make_fused_hat_matches_jax(compat, shape):
 
 def test_make_fused_hat_odd_overlap_matches_jax():
     """ows - ws odd (overlap 0.25 -> ows 5): the gathered kernel does not
-    cover it; the reference takes flash_window_attention, the port's CPU
-    path its plain attention."""
+    cover it; both take flash_window_attention (kernel 10, its plain form
+    on the CPU)."""
     jm, variables, sd, tm = _hat(False, 0.25)
     x = np.random.default_rng(4).standard_normal((1, 12, 16, 1)).astype(
         np.float32)
     ref = jfused.make_fused_hat(variables, jm)(jnp.asarray(x))
     _close(make_fused_hat(sd, tm, device="cpu")(torch.from_numpy(x)), ref)
+
+
+@pytest.mark.parametrize("env", [{"SRTPU_GATHER_OCA": "0"},
+                                 {"SRTPU_GATHER_OCA": ""},
+                                 {"SRTPU_EINSUM_OCA": "1"}])
+def test_make_fused_hat_oca_paths_match_jax(env, monkeypatch):
+    """SRTPU_GATHER_OCA '0' or '' turns kernel 9 off for kernel 10 on
+    the gathered windows; SRTPU_EINSUM_OCA takes the plain attention.
+    Both sides read the environment at the call."""
+    from superresolution_tpu_torch.infer import fused_hat
+
+    jm, variables, sd, tm = _hat(True)
+    x = np.random.default_rng(6).standard_normal((1, 12, 16, 1)).astype(
+        np.float32)
+    apply = make_fused_hat(sd, tm, device="cpu")
+    calls = []
+    for name in ("flash_window_attention", "reference_window_attention"):
+        real = getattr(fused_hat, name)
+        monkeypatch.setattr(fused_hat, name, lambda *a, _n=name, _r=real,
+                            **k: calls.append(_n) or _r(*a, **k))
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ref = jfused.make_fused_hat(variables, jm)(jnp.asarray(x))
+    _close(apply(torch.from_numpy(x)).numpy(), ref)
+    path = ("reference_window_attention" if "SRTPU_EINSUM_OCA" in env
+            else "flash_window_attention")
+    assert calls == [path] * len(KW["depths"])
 
 
 def test_fused_hybrid_model_matches_jax():

@@ -1,8 +1,11 @@
 """The port's HATLite and HybridSR (superresolution_tpu_torch/models/
 hat_lite.py, hybrid.py) and their numpy helpers against the JAX package:
 the index tables, region ids and unfold exactly; the models' forwards on
-bridged weights in f32 to 1e-4 of max |ref|. Small geometry (embed 12,
-depths (2, 2), 3 heads, window 4)."""
+bridged weights in f32 to 1e-4 of max |ref|, with the plain attention and
+with kernel 10 (flash_attn / flash_oca, its plain form on the CPU against
+the JAX kernel in interpret mode), and HybridSR's bicubic resize to
+output_size. Small geometry (embed 12, depths (2, 2), 3 heads, window
+4)."""
 
 import functools
 
@@ -117,6 +120,26 @@ def test_hat_lite_matches_jax_apply(compat, shape):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("flash_attn,flash_oca",
+                         [(True, None), (True, False), (False, True)])
+def test_hat_lite_flash_matches_jax_apply(flash_attn, flash_oca):
+    """flash_oca None follows flash_attn, as in the JAX model."""
+    _, variables, sd, _ = _hat_pair(False)
+    kw = dict(KW, upsample_feat=8, flash_attn=flash_attn, flash_oca=flash_oca)
+    tm = HATLite(**kw, device="cpu")
+    tm.load_state_dict(convert.to_torch(sd), strict=True)
+    assert tm.layers[0].overlap_attn.flash == (flash_attn if flash_oca is None
+                                               else flash_oca)
+    x = np.random.default_rng(3).standard_normal((2, 12, 16, 1)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(JaxHATLite(**kw).apply)(variables,
+                                                     jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    _close(got, ref)
+
+
+@functools.lru_cache(maxsize=None)
 def _hybrid_pair(seed=0):
     s1 = dict(scale=2, in_channels=1, out_channels=1, features=16,
               num_blocks=1, growth=8, upsampler="pixelshuffle")
@@ -144,14 +167,19 @@ def test_hybrid_matches_jax_apply():
 
 
 def test_hybrid_resize_and_flash_are_not_ported():
-    tm = HybridSR(RRDBNet(scale=2, in_channels=1, out_channels=1,
-                          features=8, num_blocks=1, growth=4,
-                          upsampler="pixelshuffle", device="cpu"),
-                  HATLite(**KW, upsample_feat=8, device="cpu"),
-                  output_size=40)
-    with pytest.raises(NotImplementedError, match="resize"):
-        with torch.no_grad():
-            tm(torch.zeros(1, 8, 8, 1))
+    """Both are ported now: a stage output (32) that is not output_size
+    (40) is resized as the JAX model resizes it (bicubic a=-0.75, no
+    antialias), and HATLite takes the flash flags (the models are checked
+    in test_hat_lite_flash_matches_jax_apply)."""
+    jm, variables, _, tm = _hybrid_pair()
+    x = np.random.default_rng(4).random((1, 8, 8, 1), np.float32)
+    ref = np.asarray(jax.jit(jm.clone(output_size=40).apply)(
+        variables, jnp.asarray(x)))
+    tm40 = HybridSR(tm.stage1, tm.stage2, output_size=40,
+                    smoothing="balanced")
+    with torch.no_grad():
+        got = tm40(torch.from_numpy(x)).numpy()
+    assert got.shape == (1, 40, 40, 1)
+    _close(got, ref)
     for kw in ({"flash_attn": True}, {"flash_oca": True}):
-        with pytest.raises(NotImplementedError, match="kernel 10"):
-            HATLite(**KW, **kw, device="cpu")
+        assert HATLite(**KW, **kw, device="cpu").layers[0].overlap_attn.flash
