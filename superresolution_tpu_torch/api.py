@@ -25,9 +25,11 @@ def upscale(img, scale: int = 4, *, model=None, params=None,
             **kwargs):
     """Super-resolve an HWC (or HW) image array in [0, 1] by `scale`.
 
-    `model` is an nn.Module of the port, a registry name or None
-    ('rrdbnet'); `params` its state dict (None: its random
-    initialization). Options of both tilers: batch (8), precision
+    `model` is an nn.Module of the port, a registry name, None
+    ('rrdbnet') or a PreboundModel (infer/fused_trunk.fused_rrdb_model,
+    infer/fused_hat.fused_hybrid_model), which ignores `params`;
+    `params` the module's state dict (None: its random initialization).
+    Options of both tilers: batch (8), precision
     ('bf16') and device (default cuda); the host tiler also takes blend
     and pad_mode. Any other keyword goes to the model's constructor.
 

@@ -45,3 +45,19 @@ def param_conv(x: torch.Tensor, params: Mapping[str, torch.Tensor],
     """conv_nhwc on the `name.weight` / `name.bias` entries of a state dict."""
     return conv_nhwc(x, params[f"{name}.weight"], params[f"{name}.bias"],
                      padding)
+
+
+class PreboundModel:
+    """A deploy model whose weights are bound already (fused_rrdb_model,
+    fused_hybrid_model): .apply(_params, x) ignores the params, as the
+    reference's PreboundModel, so the tilers take it in place of a module
+    and its state dict; calling it runs the bound function too."""
+
+    def __init__(self, apply_fn):
+        self._fn = apply_fn
+
+    def apply(self, _params, x: torch.Tensor) -> torch.Tensor:
+        return self._fn(x)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self._fn(x)

@@ -34,7 +34,11 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
-from superresolution_tpu_torch.infer.common import param_conv, state_tensors
+from superresolution_tpu_torch.infer.common import (
+    PreboundModel,
+    param_conv,
+    state_tensors,
+)
 from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
 from superresolution_tpu_torch.models.common import pixel_shuffle_stages
 from superresolution_tpu_torch.models.hat_lite import (
@@ -222,8 +226,8 @@ def _stage(params: Mapping, prefix: str) -> dict:
 
 def fused_hybrid_model(params: Mapping, model,
                        device: str | torch.device | None = None):
-    """HybridSR (the port's; stage 2 a HATLite) -> apply_fn(x) with the
-    HybridSR forward: stage 1 through fused_rrdb_model (B1 + its tail),
+    """HybridSR (the port's; stage 2 a HATLite) -> a PreboundModel of x
+    with the HybridSR forward: stage 1 through fused_rrdb_model (B1 + its tail),
     smooth, stage 2 through make_fused_hat (kernels 7-10), smooth, the
     bicubic resize to output_size where the stage output differs from
     it, and the light smooth. `params` holds stage1.* and stage2.* keys
@@ -242,4 +246,4 @@ def fused_hybrid_model(params: Mapping, model,
                              model.output_size)
         return anti_checkerboard(y, "light" if smoothing else None)
 
-    return apply_fn
+    return PreboundModel(apply_fn)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from superresolution_tpu_torch.infer.common import (
+    PreboundModel,
     hwio,
     param_conv,
     state_tensors,
@@ -100,10 +101,10 @@ def make_standard_tail(params: Mapping, model,
 
 def fused_rrdb_model(params: Mapping, model,
                      device: str | torch.device | None = None):
-    """RRDBNet -> apply_fn(x [B,H,W,Cin]) -> [B,sH,sW,out]: the fused
-    trunk, then the B2/B3 phase tail when the tail is x4 pixelshuffle,
-    else the model's standard tail as plain convs; both unclipped, as the
-    model's own tail."""
+    """RRDBNet -> a PreboundModel of x [B,H,W,Cin] -> [B,sH,sW,out]: the
+    fused trunk, then the B2/B3 phase tail when the tail is x4
+    pixelshuffle, else the model's standard tail as plain convs; both
+    unclipped, as the model's own tail."""
     trunk = make_fused_trunk(params, model, device=device)
     if (model.upsampler == "pixelshuffle"
             and tuple(model.up_stages) == (2, 2)):
@@ -114,4 +115,4 @@ def fused_rrdb_model(params: Mapping, model,
     def apply_fn(x: torch.Tensor) -> torch.Tensor:
         return tail(trunk(x))
 
-    return apply_fn
+    return PreboundModel(apply_fn)

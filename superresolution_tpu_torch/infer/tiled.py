@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from superresolution_tpu_torch.infer.common import state_tensors
+from superresolution_tpu_torch.infer.common import PreboundModel, state_tensors
 from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.utils.precision import get_policy
 
@@ -119,7 +119,7 @@ def _default_model_params(img, scale, model, params, device=None,
     if model is None or isinstance(model, str):
         model = get_model(model or "rrdbnet", scale=scale, in_channels=c,
                           out_channels=c, device=device, **model_kwargs)
-    if params is None:
+    if params is None and not isinstance(model, PreboundModel):
         params = model.state_dict()
     return model, params
 
@@ -128,8 +128,16 @@ def model_fn(model, params, compute_dtype: torch.dtype,
              device: str | torch.device | None = None):
     """-> fn(x) = clip(model(x) with the weights of the state dict
     `params` cast to compute_dtype, 0, 1) in f32. x goes to the device in
-    compute_dtype; `model` itself is not modified."""
+    compute_dtype; `model` itself is not modified. A PreboundModel
+    carries its own weights: `params` is ignored."""
     dev = resolve_device(device)
+    if isinstance(model, PreboundModel):
+        @torch.inference_mode()
+        def prebound(x: torch.Tensor) -> torch.Tensor:
+            out = model.apply(params, x.to(dev, compute_dtype))
+            return out.float().clamp(0.0, 1.0)
+
+        return prebound
     p = {k: v.to(compute_dtype) if v.is_floating_point() else v
          for k, v in state_tensors(params, dev).items()}
 

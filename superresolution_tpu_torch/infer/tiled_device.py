@@ -72,9 +72,10 @@ def upscale_on_device(img, scale: int, model, params, tile: int = 256,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       device: str | torch.device | None = None
                       ) -> torch.Tensor:
-    """Device-resident tiled SR of one HWC image: `model` (an nn.Module)
-    with the weights of the state dict `params` in compute_dtype, the
-    output clipped to [0, 1] in f32 and left on the device."""
+    """Device-resident tiled SR of one HWC image: `model` (an nn.Module,
+    or a PreboundModel whose own weights are used) with the weights of
+    the state dict `params` in compute_dtype, the output clipped to
+    [0, 1] in f32 and left on the device."""
     h, w, c = img.shape
     fn = model_fn(model, params, compute_dtype, device)
     return make_tiled_infer(fn, scale, tile, halo, batch, h, w, c,

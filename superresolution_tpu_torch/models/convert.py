@@ -8,11 +8,13 @@ Counterpart of superresolution_tpu/models/convert.py:32-141,157-257,
 package). Every mapping is a transpose, slice or concat, so the bridge
 is exact.
 
-The JAX tree comes in two layouts:
+An RRDBNet tree comes in two layouts:
   * scan-stacked (scan_blocks=True): params['body']['RRDB_0'] holds
     FusedDenseBlock_{k} (or DenseBlock_{k}) leaves with a leading
     [num_blocks] axis;
   * plain (scan_blocks=False): params['body_blocks_{i}'] per block.
+A HATLite tree in the layouts of its models/hat_lite.py:345-365 and
+455-474 (hat_state_dict_from_jax).
 Its kernels are HWIO; the state dict's are OIHW.
 """
 
@@ -192,27 +194,50 @@ def _put_ocab(sd: dict, pre: str, oc: Mapping, use_rpb: bool) -> None:
     _put_linear(sd, f"{pre}.mlp.fc2", oc["Dense_4"])
 
 
+def _hat_groups(p: Mapping, n_groups: int) -> list:
+    """The ResidualGroup subtrees of a JAX HATLite tree, in order: the
+    scan-stacked groups.ResidualGroup_0 (uniform groups, scan_blocks,
+    more than one group) or one ResidualGroup_{i} per group."""
+    if "groups" in p:
+        return _unstack_trees(p["groups"]["ResidualGroup_0"], n_groups)
+    return [p[f"ResidualGroup_{i}"] for i in range(n_groups)]
+
+
+def _group_habs(grp: Mapping, depth: int) -> list:
+    """One group's HABlock subtrees in block order: the scanned hab_pairs
+    (HABlock_0 / HABlock_1 of each pair, a leading [pairs] axis) first,
+    then the unscanned HABlock_{k}: an odd tail after the pairs, or every
+    block of an unscanned group."""
+    habs = []
+    if "hab_pairs" in grp:
+        for pair in _unstack_trees(grp["hab_pairs"], depth // 2):
+            habs += [pair["HABlock_0"], pair["HABlock_1"]]
+    k = 0
+    while f"HABlock_{k}" in grp:
+        habs.append(grp[f"HABlock_{k}"])
+        k += 1
+    if len(habs) != depth:
+        raise ValueError(f"the tree's group holds {len(habs)} HAB blocks, "
+                         f"depth {depth} expected")
+    return habs
+
+
 def hat_state_dict_from_jax(params: Mapping, *, depths: tuple[int, ...],
                             hat_compat: bool = False
                             ) -> dict[str, np.ndarray]:
-    """Scan-stacked JAX HATLite tree (groups.ResidualGroup_0 with leading
-    [groups] axes, hab_pairs with [groups, pairs]; even depths) -> numpy
-    state dict with the port's HATLite (HAT) keys. With hat_compat the
-    keys are export_hybrid_numpy's stage2.* keys without the prefix."""
+    """JAX HATLite tree -> numpy state dict with the port's HATLite (HAT)
+    keys. The layout is read from the tree's keys: scan-stacked or
+    per-group ResidualGroups, each with scanned HAB pairs, an odd tail or
+    unscanned blocks (_hat_groups, _group_habs). With hat_compat the keys
+    are export_hybrid_numpy's stage2.* keys without the prefix."""
     p = params["params"] if "params" in params else params
-    if any(d % 2 for d in depths):
-        raise ValueError(f"the scan layout has HAB pairs; depths {depths}")
     sd: dict[str, np.ndarray] = {}
     _put_conv(sd, "conv_first", p["Conv_0"])
     if hat_compat:
         _put_ln(sd, "patch_embed.norm", p["norm_embed"])
-    groups = _unstack_trees(p["groups"]["ResidualGroup_0"], len(depths))
-    for gi, grp in enumerate(groups):
-        pairs = _unstack_trees(grp["hab_pairs"], depths[gi] // 2)
-        for pi, pair in enumerate(pairs):
-            for half in (0, 1):
-                _put_hab(sd, f"layers.{gi}.residual_group.blocks."
-                         f"{2 * pi + half}", pair[f"HABlock_{half}"])
+    for gi, grp in enumerate(_hat_groups(p, len(depths))):
+        for i, hb in enumerate(_group_habs(grp, depths[gi])):
+            _put_hab(sd, f"layers.{gi}.residual_group.blocks.{i}", hb)
         # under remat=True flax names the OCAB's module after nn.remat's
         # wrapper class
         oc = grp.get("OverlappingCrossAttention_0",

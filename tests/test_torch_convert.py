@@ -161,5 +161,8 @@ def test_hat_state_dict_without_compat_drops_compat_keys():
 
 
 def test_hat_state_dict_rejects_odd_depths():
-    with pytest.raises(ValueError, match="pairs"):
-        convert.hat_state_dict_from_jax({"params": {}}, depths=(3, 3))
+    """Odd depths convert now (tests/test_torch_convert_layouts.py); a
+    depth the tree's groups do not hold is still rejected."""
+    tree = _hybrid_tree(False)["params"]["stage2"]
+    with pytest.raises(ValueError, match="HAB blocks"):
+        convert.hat_state_dict_from_jax(tree, depths=(3, 3))
