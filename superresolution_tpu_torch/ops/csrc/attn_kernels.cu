@@ -1,43 +1,57 @@
-// Kernel 10, flash window attention, hand-written for sm_90a.
+// Kernels 9 and 10: window attention, hand-written for sm_90a.
 //
-// Replaces superresolution_tpu/ops/pallas_attn.py: flash_window_attention
-// (_flash_fwd_impl, _kernel, _kernel_masked, _attn_window). Per window b
-// and head h, with hd = C / nh = 16 and scale = hd^-1/2:
+// 10 flash_window_attention  (replaces superresolution_tpu/ops/
+//    pallas_attn.py: flash_window_attention, _flash_fwd_impl, _kernel,
+//    _kernel_masked, _attn_window). Per window b and head h, with head
+//    dim hd = C / nh and scale = hd^-1/2:
 //
-//   logits = q_h k_h^T * scale + bias[h]  (+ -1e9 where the Swin region
-//            ids of query i and key j differ, region_ids[b % nw_img])
-//   out_h  = T(softmax(logits)) v_h
+//      logits = q_h k_h^T * scale + bias[h]  (+ -1e9 where the Swin region
+//               ids of query i and key j differ, region_ids[b % nw_img])
+//      out_h  = softmax(logits) v_h
 //
-// q [nb, 64, C]; k, v [nb, M, C] with M = 64 (self-attention) or 121 / 144
-// (the OCAB's 11x11 / 12x12 key windows); bias [nh, 64, M] f32; ids
-// [nw_img, 64] int32 or null. T is bf16 on the deploy path, f32 for the
-// exact check. Rounding follows the reference: products and softmax in
-// f32, the probabilities rounded to T before the product with v, that
-// product summed in f32 and the output stored in T. The -1e9 mask
-// underflows to exactly 0 in expf. The Pallas kernel's TPU layout
-// (masked-K head packing, the stacked bias, window blocks) is not carried
-// over: nothing in it is needed on this card.
+//    q [nb, N, C]; k, v [nb, M, C] strided views (window and row strides
+//    are arguments, so the split of a packed qkv projection is read in
+//    place); bias [nh, N, M] f32; ids [nw_img, N] int32 or null. T is bf16
+//    on the deploy path, f32 for the exact check.
+//  9 flash_oca_gathered  (replaces ops/pallas_flash_oca.py:
+//    flash_oca_gathered, _fwd_impl, _kernel): the same attention for the
+//    OCAB, whose keys and values are not windows of a tensor but ows x
+//    ows patches of the zero-padded key and value maps [B, hp, wp, C]:
+//    key j of query window (wr, wc) is the map pixel (wr*ws + j / ows,
+//    wc*ws + j % ows). The block reads its patch straight from the maps,
+//    so the gathered [nb, ows*ows, C] tensor is never written; the padded
+//    keys are zero vectors whose logits are the bias alone and take part
+//    in the softmax, as in the reference.
 //
-// Layout: one thread block of 256 threads per window. The block copies
-// the window's q, k and v rows into shared memory (16-byte loads where
-// the pointers and strides allow, else element loads), so q, k and v may
-// be strided views: the row stride is an argument, and the split of the
-// packed qkv projection ([nb, n, 3C], row stride 3C) is read in place,
-// with no copy. Query row i = tid / 4 is held by four lanes; lane g takes
-// the keys g, g + 4, ... Each head's output overwrites that head's
-// columns of the q tile (only the row's own four lanes read them, and
-// they have by then), and the finished tile is written back with 16-byte
-// stores. No atomics: the result is deterministic.
+// The geometries (template instances): head dim 16 or 20; (N, M) of the
+// window attention (64, 64), (64, 100), (64, 121), (64, 144), (256, 256),
+// (256, 576): 8x8 and 16x16 windows against themselves and against the
+// OCAB's 10x10, 11x11, 12x12 and 24x24 key windows. Anything else is
+// refused with cudaErrorInvalidValue.
 //
-// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): 2 * 2 * 64 * M * 16
-// FLOP per window and head against (64 + 2M + 64) * C * 2 bytes, 12 to
-// 17 FLOP/B: bound by bytes, far below the ~295 FLOP/B ridge. This first
-// form does the products on the CUDA cores in f32 FMA (67 TFLOP/s), which
-// at these shapes costs more than the bytes (2.2 ms for the OCAB call of
-// the 8-tile batch, against its 0.99 ms byte bound); the tensor cores
-// (mma / wgmma on bf16 tiles) are the next step. It does keep one pass:
-// every q, k, v element is read once and every output written once; the
-// logits never leave registers.
+// Layout: one thread block of 256 threads per (window, head). The block
+// stages the head's M keys and values in shared memory as f32 (converted
+// once), reading 4 elements (8 bytes in bf16) at a time where every row
+// start is 4-element aligned (head dim 20 in bf16 is 40 bytes: not
+// 16-byte aligned) and single elements otherwise. Query row i = tid /
+// LPQ is held by LPQ = 256 / N lanes (4 at N 64, 1 at N 256); lane g
+// takes the keys g, g + LPQ, ... and runs an online softmax over them in
+// steps of KC keys (running max, rescaled sum and output), so no lane
+// holds more than KC logits whatever M is; the lanes of a row merge their
+// (max, sum, output) at the end. Logits, softmax and the product with v
+// in f32; each probability rounded to T before that product, as the
+// reference rounds its probabilities to the input type (here before the
+// final normalisation, which the online form applies last). The -1e9
+// mask underflows to exactly 0 in expf. No atomics: deterministic.
+//
+// Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s): 2 * 2 * N * M * hd
+// FLOP per window and head against (2N + 2M) * C * 2 bytes, 12 to 48
+// FLOP/B: bound by bytes, far below the ~295 FLOP/B ridge. This form
+// does the products on the CUDA cores in f32 FMA (67 TFLOP/s) and reads
+// the bias through L2; the tensor cores (mma / wgmma on bf16 tiles) are
+// the next step. Every q, k, v element and map pixel is read once per
+// head from device memory and every output written once; the logits
+// never leave registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,11 +62,11 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNeg = -1e9f;
-constexpr int HD = 16;     // head dim
-constexpr int N = 64;      // queries per window (8x8)
-constexpr int NT = 256;    // threads per block, 4 per query row
-constexpr int MAX_C = 128; // channels the shared-memory budget allows
+constexpr int NT = 256;  // threads per block
+constexpr int KC = 8;    // keys a lane takes per online-softmax step
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rnd(float v, float) { return v; }
 __device__ __forceinline__ float rnd(float v, bf16) {
   return __bfloat162float(__float2bfloat16(v));
@@ -62,192 +76,213 @@ __device__ __forceinline__ void put(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// 16 consecutive head dims from shared memory (16-byte aligned) as f32.
-__device__ __forceinline__ void read16(const bf16* p, float (&d)[HD]) {
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const uint4 w = reinterpret_cast<const uint4*>(p)[u];
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      __nv_bfloat162 h;
-      *reinterpret_cast<uint32_t*>(&h) = words[k];
-      const float2 t = __bfloat1622float2(h);
-      d[8 * u + 2 * k] = t.x;
-      d[8 * u + 2 * k + 1] = t.y;
-    }
-  }
-}
-__device__ __forceinline__ void read16(const float* p, float (&d)[HD]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const float4 t = reinterpret_cast<const float4*>(p)[u];
-    d[4 * u] = t.x;
-    d[4 * u + 1] = t.y;
-    d[4 * u + 2] = t.z;
-    d[4 * u + 3] = t.w;
-  }
-}
-
-// rows x C elements of a global tile with row stride rs -> shared memory
-// with row stride ld. vec: every row start is 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long rs, int rows, int C,
-                                          bool vec) {
+// 4 consecutive elements as f32: one 8-byte (bf16) or 16-byte (f32) load
+// when vec, else four element loads.
+__device__ __forceinline__ float4 load4(const bf16* p, bool vec) {
   if (vec) {
-    constexpr int V = 16 / sizeof(T);
-    const int cv = C / V;
-    for (int e = threadIdx.x; e < rows * cv; e += NT) {
-      const int r = e / cv, c = (e % cv) * V;
-      *reinterpret_cast<uint4*>(dst + r * ld + c) =
-          *reinterpret_cast<const uint4*>(src + r * rs + c);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * C; e += NT) {
-      const int r = e / C, c = e % C;
-      dst[r * ld + c] = src[r * rs + c];
-    }
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
+  return make_float4(to_f(p[0]), to_f(p[1]), to_f(p[2]), to_f(p[3]));
+}
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
 }
 
 struct AttnArgs {
   const void* q;
-  const void* k;
+  const void* k;          // windows [nb, M, C], or the padded key map
   const void* v;
-  long long q_bs, q_rs;  // window and row strides, in elements
+  long long q_bs, q_rs;   // window and row strides, in elements
   long long k_bs, k_rs;
   long long v_bs, v_rs;
-  const float* bias;     // [nh, N, M]
-  const int* ids;        // [nw_img, N] or null
+  // gathered keys (kernel 9): maps [B, hp, wp, C], windows in (B, nh_w,
+  // nw_w) order, ws x ws query windows, ows x ows key patches
+  int nh_w, nw_w, hp, wp, ws, ows;
+  const float* bias;      // [nh, N, M]
+  const int* ids;         // [nw_img, N] or null
   int nw_img;
-  void* out;             // [nb, N, C], contiguous
+  void* out;              // [nb, N, C], contiguous
   int C, nh;
   float scale;
-  int vec;
+  int vec;                // every row start of q, k, v is 4-element aligned
 };
 
-// shared-memory row padding: 16 bytes, so 16-byte accesses stay aligned
-template <typename T>
-__host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
-
-template <typename T, int M>
-size_t smem_bytes(int C) {
-  return (size_t)(N + 2 * M) * (C + row_pad<T>()) * sizeof(T) +
-         N * sizeof(int);
+// Offset (in elements, before the head's column offset) of key row j of
+// window b in k or v.
+template <bool GATHER>
+__device__ __forceinline__ long long key_row(const AttnArgs& a, long long b,
+                                             int j, long long bs,
+                                             long long rs) {
+  if (!GATHER) return b * bs + j * rs;
+  const long long img = b / ((long long)a.nh_w * a.nw_w);
+  const int wr = (int)((b / a.nw_w) % a.nh_w);
+  const int wc = (int)(b % a.nw_w);
+  return ((img * a.hp + wr * a.ws + j / a.ows) * a.wp + wc * a.ws +
+          j % a.ows) *
+         (long long)a.C;
 }
 
-template <typename T, int M>
-__global__ void __launch_bounds__(NT) window_attn_kernel(const AttnArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int JJ = (M + 3) / 4;
-  const int ld = a.C + row_pad<T>();
-  T* qs = reinterpret_cast<T*>(smem);  // q, then the output
-  T* ks = qs + N * ld;
-  T* vs = ks + M * ld;
-  int* ids = reinterpret_cast<int*>(vs + M * ld);
-  const long long b = blockIdx.x;
+template <int HD, int M>
+constexpr size_t smem_bytes(int n) {
+  return (size_t)2 * M * (HD + 4) * sizeof(float) + n * sizeof(int);
+}
+
+template <typename T, int HD, int N, int M, bool GATHER>
+__global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
+  constexpr int LPQ = NT / N;   // lanes per query row
+  constexpr int LD = HD + 4;    // f32 row stride: 16-byte rows, no bank
+                                // conflicts between the LPQ lanes' rows
+  constexpr int DPL = HD / LPQ; // output dims each lane stores
+  static_assert(NT % N == 0 && HD % 4 == 0 && HD % LPQ == 0, "geometry");
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + M * LD;
+  int* ids = reinterpret_cast<int*>(vs + M * LD);
+  const long long b = blockIdx.x / a.nh;
+  const int h = blockIdx.x % a.nh;
+  const int c0 = h * HD;
+  const bool vec = a.vec != 0;
   const bool masked = a.ids != nullptr;
 
-  load_rows(qs, ld, static_cast<const T*>(a.q) + b * a.q_bs, a.q_rs, N, a.C,
-            a.vec);
-  load_rows(ks, ld, static_cast<const T*>(a.k) + b * a.k_bs, a.k_rs, M, a.C,
-            a.vec);
-  load_rows(vs, ld, static_cast<const T*>(a.v) + b * a.v_bs, a.v_rs, M, a.C,
-            a.vec);
-  if (masked && threadIdx.x < N)
-    ids[threadIdx.x] = a.ids[(size_t)(b % a.nw_img) * N + threadIdx.x];
+  const T* kp = static_cast<const T*>(a.k) + c0;
+  const T* vp = static_cast<const T*>(a.v) + c0;
+  for (int e = threadIdx.x; e < M * (HD / 4); e += NT) {
+    const int j = e / (HD / 4), d = (e % (HD / 4)) * 4;
+    *reinterpret_cast<float4*>(ks + j * LD + d) =
+        load4(kp + key_row<GATHER>(a, b, j, a.k_bs, a.k_rs) + d, vec);
+    *reinterpret_cast<float4*>(vs + j * LD + d) =
+        load4(vp + key_row<GATHER>(a, b, j, a.v_bs, a.v_rs) + d, vec);
+  }
+  if (masked)
+    for (int t = threadIdx.x; t < N; t += NT)
+      ids[t] = a.ids[(size_t)(b % a.nw_img) * N + t];
   __syncthreads();
 
-  const int i = threadIdx.x >> 2, g = threadIdx.x & 3;
-  for (int h = 0; h < a.nh; ++h) {
-    const int c0 = h * HD;
-    const float* brow = a.bias + ((size_t)h * N + i) * M;
-    float q[HD];
-    read16(qs + i * ld + c0, q);
-    float s[JJ];
-    float mx = __int_as_float(0xff800000);  // -inf
+  const int i = threadIdx.x / LPQ, g = threadIdx.x % LPQ;
+  const T* qrow = static_cast<const T*>(a.q) + b * a.q_bs + i * a.q_rs + c0;
+  float q[HD];
 #pragma unroll
-    for (int jj = 0; jj < JJ; ++jj) {
-      const int j = g + 4 * jj;
+  for (int d = 0; d < HD; d += 4) {
+    const float4 t = load4(qrow + d, vec);
+    q[d] = t.x;
+    q[d + 1] = t.y;
+    q[d + 2] = t.z;
+    q[d + 3] = t.w;
+  }
+  const float* brow = a.bias + ((size_t)h * N + i) * M;
+  const int id_i = masked ? ids[i] : 0;
+  float mx = __int_as_float(0xff800000);  // -inf
+  float l = 0.f;
+  float o[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
+
+  for (int j0 = g; j0 < M; j0 += LPQ * KC) {
+    float s[KC];
+    float cm = __int_as_float(0xff800000);
+#pragma unroll
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + LPQ * u;
+      s[u] = cm;  // -inf: no key
       if (j < M) {
-        float kv[HD];
-        read16(ks + j * ld + c0, kv);
+        const float* kr = ks + j * LD;
         float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(q[d], kv[d], acc);
+        for (int d = 0; d < HD; d += 4) {
+          const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+          acc = fmaf(q[d], k4.x, acc);
+          acc = fmaf(q[d + 1], k4.y, acc);
+          acc = fmaf(q[d + 2], k4.z, acc);
+          acc = fmaf(q[d + 3], k4.w, acc);
+        }
         float t = acc * a.scale + brow[j];
-        if (masked && ids[i] != ids[j]) t += kNeg;
-        s[jj] = t;
-        mx = fmaxf(mx, t);
+        if (masked && id_i != ids[j]) t += kNeg;
+        s[u] = t;
       }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float sum = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < JJ; ++jj) {
-      if (g + 4 * jj < M) {
-        s[jj] = expf(s[jj] - mx);
-        sum += s[jj];
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    float o[HD];
+    for (int u = 0; u < KC; ++u) cm = fmaxf(cm, s[u]);
+    const float mn = fmaxf(mx, cm);   // finite: key j0 < M exists
+    const float corr = expf(mx - mn); // 0 on the first step
+    l *= corr;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = 0.f;
+    for (int d = 0; d < HD; ++d) o[d] *= corr;
 #pragma unroll
-    for (int jj = 0; jj < JJ; ++jj) {
-      const int j = g + 4 * jj;
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + LPQ * u;
       if (j < M) {
-        const float p = rnd(s[jj] / sum, T());
-        float vv[HD];
-        read16(vs + j * ld + c0, vv);
+        const float p = expf(s[u] - mn);
+        l += p;
+        const float pr = rnd(p, T());
+        const float* vr = vs + j * LD;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) o[d] = fmaf(p, vv[d], o[d]);
+        for (int d = 0; d < HD; d += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
+          o[d] = fmaf(pr, v4.x, o[d]);
+          o[d + 1] = fmaf(pr, v4.y, o[d + 1]);
+          o[d + 2] = fmaf(pr, v4.z, o[d + 2]);
+          o[d + 3] = fmaf(pr, v4.w, o[d + 3]);
+        }
       }
     }
+    mx = mn;
+  }
+  // merge the LPQ lanes of the row: every lane ends with the row's total
+#pragma unroll
+  for (int off = 1; off < LPQ; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(mx, mo);
+    const float fa = expf(mx - mn), fb = expf(mo - mn);
+    l = l * fa + lo * fb;
 #pragma unroll
     for (int d = 0; d < HD; ++d) {
-      o[d] += __shfl_xor_sync(0xffffffffu, o[d], 1);
-      o[d] += __shfl_xor_sync(0xffffffffu, o[d], 2);
+      const float od = __shfl_xor_sync(0xffffffffu, o[d], off);
+      o[d] = o[d] * fa + od * fb;
     }
-    // lane g stores head dims 4g..4g+3 over the q it no longer needs
+    mx = mn;
+  }
+  T* orow = static_cast<T*>(a.out) + ((size_t)b * N + i) * a.C + c0;
 #pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if ((d >> 2) == g) put(qs + i * ld + c0 + d, o[d]);
-  }
-  __syncthreads();
-  constexpr int V = 16 / sizeof(T);
-  const int cv = a.C / V;
-  T* out = static_cast<T*>(a.out) + b * N * a.C;
-  for (int e = threadIdx.x; e < N * cv; e += NT) {
-    const int r = e / cv, c = (e % cv) * V;
-    *reinterpret_cast<uint4*>(out + r * a.C + c) =
-        *reinterpret_cast<const uint4*>(qs + r * ld + c);
-  }
+  for (int d = 0; d < HD; ++d)
+    if (d / DPL == g) put(orow + d, o[d] / l);
 }
 
-template <typename T, int M>
-int launch(const AttnArgs& a, int nb, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<T, M>(a.C);
+template <typename T, int HD, int N, int M, bool GATHER>
+int launch(const AttnArgs& a, long long nb, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<HD, M>(N);
   cudaError_t e = cudaFuncSetAttribute(
-      window_attn_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      attn_kernel<T, HD, N, M, GATHER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  window_attn_kernel<T, M><<<nb, NT, bytes, stream>>>(a);
+  attn_kernel<T, HD, N, M, GATHER>
+      <<<(unsigned)(nb * a.nh), NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const AttnArgs& a, int nb, int m, cudaStream_t stream) {
-  switch (m) {
-    case 64: return launch<T, 64>(a, nb, stream);
-    case 121: return launch<T, 121>(a, nb, stream);
-    case 144: return launch<T, 144>(a, nb, stream);
-    default: return (int)cudaErrorInvalidValue;
+template <typename T, int HD>
+int dispatch_window(const AttnArgs& a, long long nb, int n, int m,
+                    cudaStream_t s) {
+  if (n == 64) {
+    switch (m) {
+      case 64: return launch<T, HD, 64, 64, false>(a, nb, s);
+      case 100: return launch<T, HD, 64, 100, false>(a, nb, s);
+      case 121: return launch<T, HD, 64, 121, false>(a, nb, s);
+      case 144: return launch<T, HD, 64, 144, false>(a, nb, s);
+    }
+  } else if (n == 256) {
+    switch (m) {
+      case 256: return launch<T, HD, 256, 256, false>(a, nb, s);
+      case 576: return launch<T, HD, 256, 576, false>(a, nb, s);
+    }
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -263,10 +298,12 @@ int attn_window(const void* q, long long q_bs, long long q_rs,
                 const void* bias, const void* ids, int nw_img, void* out,
                 int nb, int n, int m, int C, int nh, float scale, int f32,
                 int vec, void* stream) {
-  if (n != N || nh < 1 || C != nh * HD || C > MAX_C || nb < 1 ||
+  const int hd = nh > 0 ? C / nh : 0;
+  if (nh < 1 || C != nh * hd || nb < 1 || !(hd == 16 || hd == 20) ||
+      C > (hd == 16 ? 128 : 120) ||
       (ids && (m != n || nw_img <= 0 || nb % nw_img)))
     return (int)cudaErrorInvalidValue;
-  AttnArgs a;
+  AttnArgs a = {};
   a.q = q;
   a.k = k;
   a.v = v;
@@ -285,7 +322,50 @@ int attn_window(const void* q, long long q_bs, long long q_rs,
   a.scale = scale;
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? dispatch<float>(a, nb, m, s) : dispatch<bf16>(a, nb, m, s);
+  if (hd == 16)
+    return f32 ? dispatch_window<float, 16>(a, nb, n, m, s)
+               : dispatch_window<bf16, 16>(a, nb, n, m, s);
+  return f32 ? dispatch_window<float, 20>(a, nb, n, m, s)
+             : dispatch_window<bf16, 20>(a, nb, n, m, s);
+}
+
+// One launch of kernel 9 on bf16 q [B*nh_w*nw_w, ws*ws, C] and maps
+// [B, hp, wp, C]; (C, nh, ws, ows) one of (96, 6, 8, 12), (96, 6, 8, 10),
+// (96, 6, 16, 24), (120, 6, 16, 24).
+int hat_oca(const void* q, const void* kmap, const void* vmap,
+            const void* bias, void* out, int B, int nh_w, int nw_w, int hp,
+            int wp, int C, int nh, int ws, int ows, float scale,
+            void* stream) {
+  const bool ok = nh == 6 && ((C == 96 && ws == 8 && (ows == 12 || ows == 10))
+                              || ((C == 96 || C == 120) && ws == 16 &&
+                                  ows == 24));
+  if (!ok || B < 1 || hp < nh_w * ws + ows - ws ||
+      wp < nw_w * ws + ows - ws)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs a = {};
+  a.q = q;
+  a.k = kmap;
+  a.v = vmap;
+  a.q_bs = (long long)ws * ws * C;
+  a.q_rs = C;
+  a.nh_w = nh_w;
+  a.nw_w = nw_w;
+  a.hp = hp;
+  a.wp = wp;
+  a.ws = ws;
+  a.ows = ows;
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.C = C;
+  a.nh = nh;
+  a.scale = scale;
+  a.vec = 1;  // contiguous bf16 rows of C, a multiple of 8 elements
+  const long long nb = (long long)B * nh_w * nw_w;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 120) return launch<bf16, 20, 256, 576, true>(a, nb, s);
+  if (ws == 16) return launch<bf16, 16, 256, 576, true>(a, nb, s);
+  if (ows == 12) return launch<bf16, 16, 64, 144, true>(a, nb, s);
+  return launch<bf16, 16, 64, 100, true>(a, nb, s);
 }
 
 }  // extern "C"

@@ -1,46 +1,55 @@
-// Hand-written CUDA kernels of the hybrid RRDBNet -> HAT x4 deploy path's
-// HAT stage (sm_90a), at the configuration it runs: C = 96 channels, 6
-// heads of 16, 8x8 windows (n = 64 tokens), MLP hidden 192, OCAB key
-// windows of 12x12.
+// Hand-written CUDA kernels of the HAT stage of the hybrid RRDBNet -> HAT
+// deploy path (sm_90a).
 //
 //   7 fused_cab_convs  (replaces superresolution_tpu/ops/pallas_hab.py:
 //      fused_cab_convs / _cab_kernel): layernorm_kernel writes LN(x) in
 //      bf16 (f32 statistics over C), then two launches of the shared
-//      conv3x3_kernel of sr_kernels.cu: conv 96->32 + bias + exact GELU
-//      into a [B,H,W,32] workspace, conv 32->96 + bias. Each conv reads
+//      conv3x3_kernel of sr_kernels.cu: conv C->C/3 + bias + exact GELU
+//      into a [B,H,W,C/3] workspace, conv C/3->C + bias. Each conv reads
 //      its input through a zero halo, so conv1 sees 0 outside the image,
 //      not LN(0) = ln bias, and conv2 sees 0, not GELU(bias): the trap the
 //      Pallas kernel masks by hand (_cab_kernel's mask(ln, 0)).
 //   8 fused_hab_block  (replaces ops/pallas_hab.py: fused_hab_block /
 //      fused_hab_block_inference, _fused_fwd_impl / _kernel / _body):
 //      hab_kernel, one thread block per window. LN1 -> qkv -> per head
-//      softmax(q k^T / 4 + rpb[h] (+ -1e9 where region ids differ)) v ->
-//      proj -> x1 = x + proj + cab -> LN2 -> fc1 -> exact GELU -> fc2 ->
+//      softmax(q k^T hd^-1/2 + rpb[h] (+ -1e9 where region ids differ)) v
+//      -> proj -> x1 = x + proj + cab -> LN2 -> fc1 -> exact GELU -> fc2 ->
 //      x1 + o, with every intermediate in shared memory and the weights
-//      read through L1/L2.
-//   9 flash_oca_gathered  (replaces ops/pallas_flash_oca.py:
-//      flash_oca_gathered / _fwd_impl / _kernel): oca_kernel, one thread
-//      block per query window; it copies its 12x12 key and value patch
-//      straight from the zero-padded maps into shared memory, so the
-//      gathered [nb, 144, C] tensor is never written. The padded keys
-//      are zero vectors whose logits are the bias alone; they take part
-//      in the softmax, as in the reference.
+//      read through L1/L2. Templated on (C, heads, tokens n, MLP hidden),
+//      instantiated for (96, 6, 64, 192), (96, 6, 256, 192) and (120, 6,
+//      256, 240): 8x8 and 16x16 windows, head dim 16 and 20.
+//   (Kernel 9, the OCAB's gathered attention, is in attn_kernels.cu: it
+//      shares kernel 10's attention body.)
+//
+// Kernel 8's shared memory: at n 256 a whole window's five [n, C+8] bf16
+// tiles would take 266 KB (C 96) or 328 KB (C 120), beyond the 227 KB a
+// block may have. So the block first computes LN1 and k, v of all n
+// tokens, 64 rows at a time, into [n, C+8] K and V tiles that stay for
+// the block's life (131 KB at n 256, C 120); then for each tile of 64
+// query rows it recomputes LN1, computes q, attends over all n keys with
+// an online softmax (the keys in steps of KC per lane: no lane holds more
+// than KC logits), and runs proj, LN2 and the MLP on the tile. The
+// recomputed LN1 costs 2% of the block's operations. Rows of C = 120
+// (head dim 20) are not a multiple of 32 lanes: the LN and product loops
+// mask the columns past C, and a head's columns are read as bf16 pairs
+// (4-byte aligned at every head dim here).
 //
 // Rounding follows the reference: f32 accumulation and f32 softmax; bf16
 // stores of LN outputs, q, k, v, the probabilities, the attention output,
-// proj, x1, the MLP hidden and o. The -1e9 mask underflows to exactly 0
-// in expf.
+// proj, x1, the MLP hidden and o. The probabilities are rounded before
+// the online softmax's final normalisation. The -1e9 mask underflows to
+// exactly 0 in expf.
 //
 // Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s; ridge ~295 FLOP/B):
-// the HAB does 86,016 MACs per token for 576 bytes (x, cab, out), 299
-// FLOP/B; the CAB 55,296 MACs per pixel for 384 bytes, 288 FLOP/B; the
-// OCA 27,648 MACs per query token for 384 bytes plus the two maps, bound
-// by bytes. All three sit at or near the ridge, so a fast form needs both
-// the tensor cores and one pass over memory. This first form runs every
-// product on the CUDA cores in f32 FMA (67 TFLOP/s peak), so it can reach
-// at most ~7% of the operation bound; it does keep the one pass: the HAB
-// and OCA read each activation once and write each output once, and the
-// CAB writes only LN(x) and its 32-channel hidden map besides.
+// the HAB does C (3C + C + 2 MLP) + 2 n C MACs per token for 6 C bytes
+// (x, cab, out) -- 86,016 MACs for 576 bytes at (96, 64, 192), 299
+// FLOP/B, and more at n 256; the CAB 55,296 MACs per pixel for 384 bytes
+// at C 96, 288 FLOP/B. Both sit at or near the ridge, so a fast form
+// needs both the tensor cores and one pass over memory. This first form
+// runs every product on the CUDA cores in f32 FMA (67 TFLOP/s peak), so
+// it can reach at most ~7% of the operation bound; it does keep the one
+// pass: the HAB reads each activation once and writes each output once,
+// and the CAB writes only LN(x) and its hidden map besides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,18 +61,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kEps = 1e-5f;
 constexpr float kNeg = -1e9f;
-
-constexpr int HC = 96;          // channels
-constexpr int HNH = 6;          // heads
-constexpr int HHD = HC / HNH;   // head dim, 16
-constexpr int HN = 64;          // tokens per window (8x8)
-constexpr int HMLP = 192;       // HAB MLP hidden
-constexpr int OWS = 12;         // OCAB key window side
-constexpr int OM = OWS * OWS;   // keys per OCAB window, 144
-constexpr int WS = 8;           // window side
 constexpr int NT = 256;         // threads per block
-constexpr int LDA = HC + 8;     // smem row stride (bf16) of [*, HC] tiles
-constexpr int LDH = HMLP + 8;   // smem row stride of the MLP hidden tile
+constexpr int RT = 64;          // rows per tile of kernel 8 (4 lanes a row)
+constexpr int KC = 8;           // keys a lane takes per online-softmax step
 
 __device__ __forceinline__ float f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rbf(float v) {  // round to bf16
@@ -104,45 +104,50 @@ __global__ void __launch_bounds__(LN_THREADS)
         __float2bfloat16((f(xr[c]) - mu) * rs * s[c] + b[c]);
 }
 
-// ---- pieces of the window kernels (blockDim.x == NT) -------------------
+// ---- pieces of kernel 8 (blockDim.x == NT) ----------------------------
 
-// LN of a [HN, HC] smem tile into another, one warp per row.
-__device__ void ln_tile(const bf16* in, bf16* out,
+// LN of `rows` rows of a [*, C] smem tile (row stride lda) into another,
+// one warp per row; columns past C masked.
+template <int C>
+__device__ void ln_rows(const bf16* in, bf16* out, int lda, int rows,
                         const float* __restrict__ s,
                         const float* __restrict__ b) {
+  constexpr int J = (C + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < HN; r += NT / 32) {
-    float v[HC / 32];
+  for (int r = warp; r < rows; r += NT / 32) {
+    float v[J];
     float sum = 0.f, sq = 0.f;
 #pragma unroll
-    for (int j = 0; j < HC / 32; ++j) {
-      v[j] = f(in[r * LDA + lane + 32 * j]);
+    for (int j = 0; j < J; ++j) {
+      const int c = lane + 32 * j;
+      v[j] = c < C ? f(in[r * lda + c]) : 0.f;
       sum += v[j];
       sq += v[j] * v[j];
     }
     sum = warp_sum(sum);
     sq = warp_sum(sq);
-    const float mu = sum / HC;
-    const float rs = rsqrtf(sq / HC - mu * mu + kEps);
+    const float mu = sum / C;
+    const float rs = rsqrtf(sq / C - mu * mu + kEps);
 #pragma unroll
-    for (int j = 0; j < HC / 32; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int c = lane + 32 * j;
-      out[r * LDA + c] = __float2bfloat16((v[j] - mu) * rs * s[c] + b[c]);
+      if (c < C) out[r * lda + c] = __float2bfloat16((v[j] - mu) * rs * s[c] + b[c]);
     }
   }
 }
 
-// [HN, K] (smem, row stride lda) @ [K, N] (global, row stride LDW) with
-// f32 accumulation. Warp w owns rows 8w..8w+7 and lane l the columns l + 32j,
-// so a warp reads 32 consecutive weights per row of W and one broadcast A
-// value per row. epi(row, col, acc) sees every output once.
+// [RT, K] (smem, row stride lda) @ [K, N] (global, row stride LDW) with
+// f32 accumulation. Warp w owns rows 8w..8w+7 and lane l the columns
+// l + 32j (masked past N), so a warp reads 32 consecutive weights per row
+// of W and one broadcast A value per row. epi(row, col, acc) sees every
+// output once.
 template <int K, int N, int LDW, typename Epi>
 __device__ __forceinline__ void gemm_rows(const bf16* A, int lda,
                                           const bf16* __restrict__ W,
                                           Epi epi) {
-  constexpr int RM = HN / (NT / 32);
-  constexpr int NJ = N / 32;
-  static_assert(N % 32 == 0 && K % 2 == 0, "gemm_rows shape");
+  constexpr int RM = RT / (NT / 32);
+  constexpr int NJ = (N + 31) / 32;
+  static_assert(K % 2 == 0, "gemm_rows: K must be even");
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * RM;
   float acc[RM][NJ];
@@ -159,8 +164,9 @@ __device__ __forceinline__ void gemm_rows(const bf16* A, int lda,
           A + (r0 + r) * lda + k));
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float w0 = f(W[k * LDW + lane + 32 * j]);
-      const float w1 = f(W[(k + 1) * LDW + lane + 32 * j]);
+      const int col = lane + 32 * j;
+      const float w0 = col < N ? f(W[k * LDW + col]) : 0.f;
+      const float w1 = col < N ? f(W[(k + 1) * LDW + col]) : 0.f;
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         acc[r][j] = fmaf(av[r].x, w0, acc[r][j]);
@@ -171,213 +177,220 @@ __device__ __forceinline__ void gemm_rows(const bf16* A, int lda,
 #pragma unroll
   for (int r = 0; r < RM; ++r)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) epi(r0 + r, lane + 32 * j, acc[r][j]);
+    for (int j = 0; j < NJ; ++j)
+      if (lane + 32 * j < N) epi(r0 + r, lane + 32 * j, acc[r][j]);
 }
 
-// One head of softmax attention for the block's HN queries over M keys.
-// Query row i = tid / 4 is held by four lanes; lane g = tid % 4 takes the
-// keys g, g + 4, ... (consecutive rows of the padded ks/vs tiles fall in
-// distinct banks). Logits and softmax in f32, probabilities rounded to
-// bf16, their sum with v in f32; the four partial outputs are summed
-// across the lanes and lane g stores head dims 4g..4g+3 via store(d, v).
-template <int M, typename Bias, typename Store>
-__device__ __forceinline__ void attend(const bf16* qs, const bf16* ks,
-                                       const bf16* vs, int c0, float scale,
-                                       Bias bias, Store store) {
-  constexpr int JJ = M / 4;
+// One head (columns c0..c0+HD) of softmax attention for the tile's RT
+// query rows (qs) over NK keys (ks, vs), all bf16 smem tiles of row
+// stride lda. Row i = tid / 4 is held by four lanes; lane g takes the
+// keys g, g + 4, ... in steps of KC with an online softmax (f32 logits,
+// running max and sum, probabilities rounded to bf16 before the product
+// with v); the four lanes merge and lane g stores head dims
+// g*HD/4 .. (g+1)*HD/4 - 1 of the row into outs.
+template <int HD, int NK, typename Bias>
+__device__ __forceinline__ void attend_rows(const bf16* qs, const bf16* ks,
+                                            const bf16* vs, int lda, int c0,
+                                            float scale, Bias bias,
+                                            bf16* outs) {
+  static_assert(HD % 4 == 0, "head dim");
   const int i = threadIdx.x >> 2, g = threadIdx.x & 3;
-  float q[HHD];
+  float q[HD];
 #pragma unroll
-  for (int d = 0; d < HHD; d += 2) {
+  for (int d = 0; d < HD; d += 2) {
     const float2 t = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(qs + i * LDA + c0 + d));
+        *reinterpret_cast<const __nv_bfloat162*>(qs + i * lda + c0 + d));
     q[d] = t.x;
     q[d + 1] = t.y;
   }
-  float s[JJ];
-  float m = __int_as_float(0xff800000);  // -inf
+  float mx = __int_as_float(0xff800000);  // -inf
+  float l = 0.f;
+  float o[HD];
 #pragma unroll
-  for (int jj = 0; jj < JJ; ++jj) {
-    const int j = g + 4 * jj;
-    float acc = 0.f;
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
+  for (int j0 = g; j0 < NK; j0 += 4 * KC) {
+    float s[KC];
+    float cm = __int_as_float(0xff800000);
 #pragma unroll
-    for (int d = 0; d < HHD; d += 2) {
-      const float2 t = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(ks + j * LDA + c0 + d));
-      acc = fmaf(q[d], t.x, acc);
-      acc = fmaf(q[d + 1], t.y, acc);
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + 4 * u;
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; d += 2) {
+        const float2 t = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ks + j * lda + c0 + d));
+        acc = fmaf(q[d], t.x, acc);
+        acc = fmaf(q[d + 1], t.y, acc);
+      }
+      s[u] = acc * scale + bias(i, j);
+      cm = fmaxf(cm, s[u]);
     }
-    s[jj] = acc * scale + bias(i, j);
-    m = fmaxf(m, s[jj]);
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  float sum = 0.f;
+    const float mn = fmaxf(mx, cm);
+    const float corr = expf(mx - mn);  // 0 on the first step
+    l *= corr;
 #pragma unroll
-  for (int jj = 0; jj < JJ; ++jj) {
-    s[jj] = expf(s[jj] - m);
-    sum += s[jj];
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  float o[HHD];
+    for (int d = 0; d < HD; ++d) o[d] *= corr;
 #pragma unroll
-  for (int d = 0; d < HHD; ++d) o[d] = 0.f;
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + 4 * u;
+      const float p = expf(s[u] - mn);
+      l += p;
+      const float pr = rbf(p);
 #pragma unroll
-  for (int jj = 0; jj < JJ; ++jj) {
-    const int j = g + 4 * jj;
-    const float p = rbf(s[jj] / sum);
-#pragma unroll
-    for (int d = 0; d < HHD; d += 2) {
-      const float2 t = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vs + j * LDA + c0 + d));
-      o[d] = fmaf(p, t.x, o[d]);
-      o[d + 1] = fmaf(p, t.y, o[d + 1]);
+      for (int d = 0; d < HD; d += 2) {
+        const float2 t = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(vs + j * lda + c0 + d));
+        o[d] = fmaf(pr, t.x, o[d]);
+        o[d + 1] = fmaf(pr, t.y, o[d + 1]);
+      }
     }
+    mx = mn;
   }
 #pragma unroll
-  for (int d = 0; d < HHD; ++d) {
-    o[d] += __shfl_xor_sync(0xffffffffu, o[d], 1);
-    o[d] += __shfl_xor_sync(0xffffffffu, o[d], 2);
+  for (int off = 1; off < 4; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(mx, mo);
+    const float fa = expf(mx - mn), fb = expf(mo - mn);
+    l = l * fa + lo * fb;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      const float od = __shfl_xor_sync(0xffffffffu, o[d], off);
+      o[d] = o[d] * fa + od * fb;
+    }
+    mx = mn;
   }
 #pragma unroll
-  for (int d = 0; d < HHD; ++d)
-    if ((d >> 2) == g) store(i, c0 + d, o[d]);
+  for (int d = 0; d < HD; ++d)
+    if (d / (HD / 4) == g) outs[i * lda + c0 + d] = __float2bfloat16(o[d] / l);
 }
 
-// Copy a contiguous [rows, HC] bf16 block into a padded smem tile.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+// Copy a contiguous [rows, C] bf16 block into a padded smem tile.
+template <int C>
+__device__ __forceinline__ void load_tile(bf16* dst, int lda, const bf16* src,
                                           int rows) {
-  for (int e = threadIdx.x; e < rows * (HC / 8); e += NT) {
-    const int r = e / (HC / 8), c8 = e % (HC / 8);
-    *reinterpret_cast<uint4*>(dst + r * LDA + c8 * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * HC + c8 * 8);
+  static_assert(C % 8 == 0, "16-byte rows");
+  for (int e = threadIdx.x; e < rows * (C / 8); e += NT) {
+    const int r = e / (C / 8), c8 = e % (C / 8);
+    *reinterpret_cast<uint4*>(dst + r * lda + c8 * 8) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * C + c8 * 8);
   }
 }
 
 // ---- kernel 8: the HAB block body, one block per window ----------------
 struct HabArgs {
-  const bf16* x;            // [nb, HN, HC] windows
-  const bf16* cab;          // [nb, HN, HC], conv_scale already applied
-  bf16* out;                // [nb, HN, HC]
-  const float* ln1_s;       // [HC]
+  const bf16* x;            // [nb, n, C] windows
+  const bf16* cab;          // [nb, n, C], conv_scale already applied
+  bf16* out;                // [nb, n, C]
+  const float* ln1_s;       // [C]
   const float* ln1_b;
-  const bf16* wqkv;         // [HC, 3 HC], columns q | k | v
-  const float* bqkv;        // [3 HC]
-  const float* rpb;         // [HNH, HN, HN]
-  const bf16* wp;           // [HC, HC]
+  const bf16* wqkv;         // [C, 3C], columns q | k | v
+  const float* bqkv;        // [3C]
+  const float* rpb;         // [heads, n, n]
+  const bf16* wp;           // [C, C]
   const float* bp;
   const float* ln2_s;
   const float* ln2_b;
-  const bf16* w1;           // [HC, HMLP]
+  const bf16* w1;           // [C, MLP]
   const float* b1;
-  const bf16* w2;           // [HMLP, HC]
+  const bf16* w2;           // [MLP, C]
   const float* b2;
-  const int* ids;           // [nw_img, HN] region ids, or null
+  const int* ids;           // [nw_img, n] region ids, or null
   int nw_img;
   float scale;              // head_dim ** -0.5
 };
 
-constexpr size_t HAB_SMEM = 5 * HN * LDA * sizeof(bf16) + HN * sizeof(int);
-
-__global__ void __launch_bounds__(NT, 2) hab_kernel(const HabArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // x, then x1
-  bf16* ys = xs + HN * LDA;  // LN1(x), then attention out, then LN2(x1)
-  bf16* qs = ys + HN * LDA;
-  bf16* ks = qs + HN * LDA;
-  bf16* vs = ks + HN * LDA;
-  bf16* hs = qs;  // MLP hidden [HN, LDH], over the dead q and k tiles
-  int* ids = reinterpret_cast<int*>(vs + HN * LDA);
-  const size_t base = (size_t)blockIdx.x * HN * HC;
-  const bool masked = a.ids != nullptr;
-
-  load_tile(xs, a.x + base, HN);
-  if (masked && threadIdx.x < HN)
-    ids[threadIdx.x] =
-        a.ids[(size_t)(blockIdx.x % a.nw_img) * HN + threadIdx.x];
-  __syncthreads();
-  ln_tile(xs, ys, a.ln1_s, a.ln1_b);
-  __syncthreads();
-  // q, k and v as three column slices of wqkv (24 accumulators a thread)
-  bf16* qkv[3] = {qs, ks, vs};
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-    gemm_rows<HC, HC, 3 * HC>(ys, LDA, a.wqkv + p * HC,
-                              [&](int r, int c, float acc) {
-      qkv[p][r * LDA + c] = __float2bfloat16(acc + a.bqkv[p * HC + c]);
-    });
-  __syncthreads();
-  for (int h = 0; h < HNH; ++h)
-    attend<HN>(
-        qs, ks, vs, h * HHD, a.scale,
-        [&](int i, int j) {
-          const float v = a.rpb[(h * HN + i) * HN + j];
-          return masked && ids[i] != ids[j] ? v + kNeg : v;
-        },
-        [&](int i, int c, float v) {
-          ys[i * LDA + c] = __float2bfloat16(v);
-        });
-  __syncthreads();
-  gemm_rows<HC, HC, HC>(ys, LDA, a.wp, [&](int r, int c, float acc) {
-    const float t = rbf(f(xs[r * LDA + c]) + rbf(acc + a.bp[c]));
-    xs[r * LDA + c] = __float2bfloat16(t + f(a.cab[base + r * HC + c]));
-  });
-  __syncthreads();
-  ln_tile(xs, ys, a.ln2_s, a.ln2_b);
-  __syncthreads();
-  gemm_rows<HC, HMLP, HMLP>(ys, LDA, a.w1, [&](int r, int c, float acc) {
-    hs[r * LDH + c] = __float2bfloat16(gelu_erf(acc + a.b1[c]));
-  });
-  __syncthreads();
-  gemm_rows<HMLP, HC, HC>(hs, LDH, a.w2, [&](int r, int c, float acc) {
-    a.out[base + r * HC + c] =
-        __float2bfloat16(f(xs[r * LDA + c]) + rbf(acc + a.b2[c]));
-  });
+template <int C, int N, int MLP>
+constexpr size_t hab_smem() {
+  return (size_t)(2 * N * (C + 8) + 3 * RT * (C + 8) + RT * (MLP + 8)) *
+             sizeof(bf16) +
+         N * sizeof(int);
 }
 
-// ---- kernel 9: OCAB attention with the kv gather in the kernel ---------
-struct OcaArgs {
-  const bf16* q;     // [B * nh_w * nw_w, HN, HC]
-  const bf16* kmap;  // [B, hp, wp, HC], zero-padded by (OWS - WS) / 2
-  const bf16* vmap;
-  const float* bias; // [HNH, HN, OM]
-  bf16* out;         // [B * nh_w * nw_w, HN, HC]
-  int nh_w, nw_w, hp, wp;
-  float scale;
-};
-
-constexpr size_t OCA_SMEM = (HN + 2 * OM) * LDA * sizeof(bf16);
-
-__global__ void __launch_bounds__(NT) oca_kernel(const OcaArgs a) {
+template <int C, int NH, int N, int MLP>
+__global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
+  constexpr int LDA = C + 8;      // smem row stride (bf16) of [*, C] tiles
+  constexpr int LDH = MLP + 8;    // smem row stride of the MLP hidden tile
+  constexpr int HD = C / NH;
+  static_assert(N % RT == 0 && C % NH == 0, "geometry");
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + HN * LDA;
-  bf16* vs = ks + OM * LDA;
-  const int wi = blockIdx.x;
-  const int wc = wi % a.nw_w;
-  const int wr = (wi / a.nw_w) % a.nh_w;
-  const int b = wi / (a.nw_w * a.nh_w);
-  const size_t base = (size_t)wi * HN * HC;
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [N, LDA] keys of the window
+  bf16* vs = ks + N * LDA;                   // [N, LDA] values
+  bf16* xs = vs + N * LDA;   // [RT, LDA] x of the tile, then x1
+  bf16* ys = xs + RT * LDA;  // LN1(x), then attention out, then LN2(x1)
+  bf16* qs = ys + RT * LDA;  // q
+  bf16* hs = qs + RT * LDA;  // [RT, LDH] MLP hidden
+  int* ids = reinterpret_cast<int*>(hs + RT * LDH);
+  const size_t base = (size_t)blockIdx.x * N * C;
+  const bool masked = a.ids != nullptr;
 
-  load_tile(qs, a.q + base, HN);
-  for (int e = threadIdx.x; e < OM * (HC / 8); e += NT) {
-    const int t = e / (HC / 8), c8 = e % (HC / 8);
-    const size_t pix =
-        ((size_t)b * a.hp + wr * WS + t / OWS) * a.wp + wc * WS + t % OWS;
-    *reinterpret_cast<uint4*>(ks + t * LDA + c8 * 8) =
-        *reinterpret_cast<const uint4*>(a.kmap + pix * HC + c8 * 8);
-    *reinterpret_cast<uint4*>(vs + t * LDA + c8 * 8) =
-        *reinterpret_cast<const uint4*>(a.vmap + pix * HC + c8 * 8);
+  if (masked)
+    for (int t = threadIdx.x; t < N; t += NT)
+      ids[t] = a.ids[(size_t)(blockIdx.x % a.nw_img) * N + t];
+  // k and v of every token of the window
+  for (int t0 = 0; t0 < N; t0 += RT) {
+    load_tile<C>(xs, LDA, a.x + base + (size_t)t0 * C, RT);
+    __syncthreads();
+    ln_rows<C>(xs, ys, LDA, RT, a.ln1_s, a.ln1_b);
+    __syncthreads();
+#pragma unroll
+    for (int p = 1; p < 3; ++p) {
+      bf16* dst = p == 1 ? ks : vs;
+      gemm_rows<C, C, 3 * C>(ys, LDA, a.wqkv + p * C,
+                             [&](int r, int c, float acc) {
+        dst[(t0 + r) * LDA + c] = __float2bfloat16(acc + a.bqkv[p * C + c]);
+      });
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int h = 0; h < HNH; ++h)
-    attend<OM>(
-        qs, ks, vs, h * HHD, a.scale,
-        [&](int i, int j) { return a.bias[(h * HN + i) * OM + j]; },
-        [&](int i, int c, float v) {
-          a.out[base + i * HC + c] = __float2bfloat16(v);
-        });
+  // each tile of RT query rows through attention, proj and the MLP
+  for (int t0 = 0; t0 < N; t0 += RT) {
+    load_tile<C>(xs, LDA, a.x + base + (size_t)t0 * C, RT);
+    __syncthreads();
+    ln_rows<C>(xs, ys, LDA, RT, a.ln1_s, a.ln1_b);
+    __syncthreads();
+    gemm_rows<C, C, 3 * C>(ys, LDA, a.wqkv, [&](int r, int c, float acc) {
+      qs[r * LDA + c] = __float2bfloat16(acc + a.bqkv[c]);
+    });
+    __syncthreads();
+    for (int h = 0; h < NH; ++h)
+      attend_rows<HD, N>(
+          qs, ks, vs, LDA, h * HD, a.scale,
+          [&](int i, int j) {
+            const float v = a.rpb[((size_t)h * N + t0 + i) * N + j];
+            return masked && ids[t0 + i] != ids[j] ? v + kNeg : v;
+          },
+          ys);
+    __syncthreads();
+    gemm_rows<C, C, C>(ys, LDA, a.wp, [&](int r, int c, float acc) {
+      const float t = rbf(f(xs[r * LDA + c]) + rbf(acc + a.bp[c]));
+      xs[r * LDA + c] = __float2bfloat16(
+          t + f(a.cab[base + (size_t)(t0 + r) * C + c]));
+    });
+    __syncthreads();
+    ln_rows<C>(xs, ys, LDA, RT, a.ln2_s, a.ln2_b);
+    __syncthreads();
+    gemm_rows<C, MLP, MLP>(ys, LDA, a.w1, [&](int r, int c, float acc) {
+      hs[r * LDH + c] = __float2bfloat16(gelu_erf(acc + a.b1[c]));
+    });
+    __syncthreads();
+    gemm_rows<MLP, C, C>(hs, LDH, a.w2, [&](int r, int c, float acc) {
+      a.out[base + (size_t)(t0 + r) * C + c] =
+          __float2bfloat16(f(xs[r * LDA + c]) + rbf(acc + a.b2[c]));
+    });
+    __syncthreads();  // before the next tile overwrites xs and hs
+  }
+}
+
+template <int C, int NH, int N, int MLP>
+int launch_hab(const HabArgs& a, int nb, cudaStream_t stream) {
+  constexpr size_t bytes = hab_smem<C, N, MLP>();
+  cudaError_t e = cudaFuncSetAttribute(
+      hab_kernel<C, NH, N, MLP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  hab_kernel<C, NH, N, MLP><<<nb, NT, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -405,8 +418,7 @@ int hat_hab_block(const void* x, const void* cab, void* out, int nb, int C,
                   const void* ln2_s, const void* ln2_b, const void* w1,
                   const void* b1, const void* w2, const void* b2,
                   const void* ids, int nw_img, float scale, void* stream) {
-  if (C != HC || nh != HNH || n != HN || mlp != HMLP ||
-      (ids && (nw_img <= 0 || nb % nw_img)))
+  if (nb < 1 || (ids && (nw_img <= 0 || nb % nw_img)))
     return (int)cudaErrorInvalidValue;
   HabArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -428,37 +440,14 @@ int hat_hab_block(const void* x, const void* cab, void* out, int nb, int C,
   a.ids = static_cast<const int*>(ids);
   a.nw_img = nw_img;
   a.scale = scale;
-  cudaError_t e = cudaFuncSetAttribute(
-      hab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, HAB_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  hab_kernel<<<nb, NT, HAB_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int hat_oca(const void* q, const void* kmap, const void* vmap,
-            const void* bias, void* out, int B, int nh_w, int nw_w, int hp,
-            int wp, int C, int nh, int ws, int ows, float scale,
-            void* stream) {
-  if (C != HC || nh != HNH || ws != WS || ows != OWS ||
-      hp < nh_w * WS + OWS - WS || wp < nw_w * WS + OWS - WS)
-    return (int)cudaErrorInvalidValue;
-  OcaArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.kmap = static_cast<const bf16*>(kmap);
-  a.vmap = static_cast<const bf16*>(vmap);
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<bf16*>(out);
-  a.nh_w = nh_w;
-  a.nw_w = nw_w;
-  a.hp = hp;
-  a.wp = wp;
-  a.scale = scale;
-  cudaError_t e = cudaFuncSetAttribute(
-      oca_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, OCA_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  oca_kernel<<<B * nh_w * nw_w, NT, OCA_SMEM,
-               static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 96 && nh == 6 && n == 64 && mlp == 192)
+    return launch_hab<96, 6, 64, 192>(a, nb, s);
+  if (C == 96 && nh == 6 && n == 256 && mlp == 192)
+    return launch_hab<96, 6, 256, 192>(a, nb, s);
+  if (C == 120 && nh == 6 && n == 256 && mlp == 240)
+    return launch_hab<120, 6, 256, 240>(a, nb, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -12,14 +12,15 @@ key and value maps [B, H+(ows-ws), W+(ows-ws), C] whose corner is at
 The maps are zero-padded after the kv dense, so the padded keys are
 zero vectors whose logits are the bias alone; they take part in the
 softmax and are not masked. On the card this is one launch of
-oca_kernel (csrc/hat_kernels.cu), one thread block per query window,
-which copies its patch from the maps into shared memory: the gathered
+attn_kernel in its gathering form (csrc/attn_kernels.cu, kernel 10's
+attention body), one thread block per query window and head, which
+copies the head's patch from the maps into shared memory: the gathered
 [nb, ows*ows, C] tensor of the plain version is never written.
 
-Bound on the H100: 27,648 MACs per query token at C 96 and ows 12, for
-384 bytes of q and out plus one read of the two maps: bound by bytes at
-the bf16 tensor rate, by operations at the CUDA cores' f32 rate this
-first form runs at (see the source).
+Bound on the H100: 2 * ows^2 * C MACs per query token (27,648 at C 96
+and ows 12), for 4C bytes of q and out plus one read of the two maps:
+bound by bytes at the bf16 tensor rate, by operations at the CUDA cores'
+f32 rate this first form runs at (see the source).
 """
 
 from __future__ import annotations
@@ -32,8 +33,11 @@ from superresolution_tpu_torch.ops.window_attention import (
     reference_window_attention,
 )
 
-# the only geometry the hand kernel takes: C, heads, ws, ows
-OCA_GEOMETRY = (96, 6, 8, 12)
+# the geometries kernel 9 is instantiated for: (C, heads, ws, ows) at
+# overlap 0.5 and 0.25 of 8x8 windows, and at 16x16 windows (embed 96 and
+# hybrid_astro_h200's 120)
+OCA_GEOMETRIES = ((96, 6, 8, 12), (96, 6, 8, 10), (96, 6, 16, 24),
+                  (120, 6, 16, 24))
 
 __all__ = ["flash_oca_gathered", "flash_oca_gathered_reference",
            "oca_gather_supported"]
@@ -80,7 +84,7 @@ def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,
     W+(ows-ws), C]; bias [nh, ws*ws, ows*ows] f32 (zeros when the model
     has no OCA rel-pos table). Returns [B*nH*nW, ws*ws, C] in q's dtype.
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    (C 96, 6 heads, ws 8, ows 12; bf16 q and maps) or raise."""
+    ((C, heads, ws, ows) in OCA_GEOMETRIES; bf16 q and maps) or raise."""
     grid = _grid(q, k_map, ws, ows)
     if v_map.shape != k_map.shape:
         raise ValueError(f"flash_oca_gathered: v_map {tuple(v_map.shape)} "
@@ -91,9 +95,9 @@ def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,
     if q.device.type == "cpu":
         return flash_oca_gathered_reference(q, k_map, v_map, bias,
                                             num_heads, ws, ows)
-    if (q.shape[-1], num_heads, ws, ows) != OCA_GEOMETRY:
+    if (q.shape[-1], num_heads, ws, ows) not in OCA_GEOMETRIES:
         raise ValueError(f"flash_oca_gathered: the kernel takes (C, heads, "
-                         f"ws, ows) = {OCA_GEOMETRY}, got "
+                         f"ws, ows) in {OCA_GEOMETRIES}, got "
                          f"{(q.shape[-1], num_heads, ws, ows)}")
     _build.require_cuda(q, k_map, v_map, name="flash_oca_gathered")
     _build.require_cuda(bias, dtype=torch.float32, name="flash_oca_gathered")

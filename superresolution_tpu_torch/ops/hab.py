@@ -25,8 +25,8 @@ partition layout):
     x1 = x + (a Wp + bp) + cab
     out = x1 + (GELU(LN2(x1) W1 + b1) W2 + b2)
 
-one launch of hab_kernel, one thread block per window. Window b uses
-region_ids[b % nW_img]. The kernels round to bf16 where the reference
+one launch of hab_kernel, one thread block per window, at each
+geometry of HAB_GEOMETRIES. Window b uses region_ids[b % nW_img]. The kernels round to bf16 where the reference
 rounds; the plain versions here repeat that rounding, with f32
 accumulation, and serve the CPU path and the checks on the card.
 
@@ -57,8 +57,10 @@ from superresolution_tpu_torch.ops.window_attention import (
 )
 
 EPS = 1e-5
-# the only geometry the hand kernels take: C, heads, tokens, MLP hidden
-HAB_GEOMETRY = (96, 6, 64, 192)
+# the geometries kernel 8 is instantiated for: (C, heads, tokens n, MLP
+# hidden) of 8x8 and 16x16 windows at embed 96 and of hybrid_astro_h200's
+# embed 120 (head dim 20)
+HAB_GEOMETRIES = ((96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240))
 
 __all__ = ["HAB_WEIGHTS", "cab_weights", "fused_cab_convs",
            "fused_cab_convs_reference", "fused_hab_block",
@@ -218,7 +220,7 @@ def fused_hab_block(x_wins: torch.Tensor, cab_wins: torch.Tensor,
                     region_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 8 on x_wins, cab_wins [nb, n, C]; region_ids [nW_img, n]
     int32 Swin labels or None. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (C 96, 6 heads, 64 tokens, MLP 192; bf16
+    tensors launch the kernel ((C, heads, n, MLP) in HAB_GEOMETRIES; bf16
     activations and dense kernels, f32 rest) or raise."""
     nb, n, c = x_wins.shape
     if cab_wins.shape != x_wins.shape:
@@ -233,9 +235,10 @@ def fused_hab_block(x_wins: torch.Tensor, cab_wins: torch.Tensor,
         return hab_body_reference(x_wins, cab_wins, weights, num_heads,
                                   region_ids)
     mlp = weights["w1"].shape[-1]
-    if (c, num_heads, n, mlp) != HAB_GEOMETRY:
+    if (c, num_heads, n, mlp) not in HAB_GEOMETRIES:
         raise ValueError(f"fused_hab_block: the kernel takes (C, heads, n, "
-                         f"mlp) = {HAB_GEOMETRY}, got {(c, num_heads, n, mlp)}")
+                         f"mlp) in {HAB_GEOMETRIES}, got "
+                         f"{(c, num_heads, n, mlp)}")
     want = {"ln1_s": (c,), "ln1_b": (c,), "wqkv": (c, 3 * c),
             "bqkv": (3 * c,), "rpb": (num_heads, n, n), "wp": (c, c),
             "bp": (c,), "ln2_s": (c,), "ln2_b": (c,), "w1": (c, mlp),

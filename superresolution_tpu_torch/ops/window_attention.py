@@ -8,14 +8,15 @@ form), probabilities cast to the input dtype before the product with v,
 as the reference does. The plain form serves the HAT model's attention
 and the plain versions of kernels 8, 9 and 10.
 
-Kernel 10 runs on the card as one launch of window_attn_kernel
-(csrc/attn_kernels.cu), one thread block per window; the [nb, nh, n, m]
-logits never leave the block. Its backward, like the reference's
+Kernel 10 runs on the card as one launch of attn_kernel
+(csrc/attn_kernels.cu), one thread block per window and head, with an
+online softmax over the keys; the [nb, nh, n, m] logits never leave the
+block. Its backward, like the reference's
 custom_vjp, is autograd of the plain form on the saved inputs: the TPU
 kernel has no backward kernel either.
 
 Bound on the H100: 2 * 2 * n * m * hd FLOP per window and head against
-(2n + 2m) * C * 2 bytes in bf16, 12 to 17 FLOP/B, so bound by bytes
+(2n + 2m) * C * 2 bytes in bf16, 12 to 48 FLOP/B, so bound by bytes
 (see the source for what this first form reaches).
 """
 
@@ -27,10 +28,12 @@ from superresolution_tpu_torch.ops import _build
 
 NEG = -1e9
 
-# what the hand kernel takes: head dim, queries per window, key counts
-# (self-attention, the OCAB's odd 11x11 and default 12x12 key windows),
-# the widest C its shared memory holds
-ATTN_HEAD_DIM, ATTN_N, ATTN_M, ATTN_MAX_C = 16, 64, (64, 121, 144), 128
+# what the hand kernel takes: head dim -> widest C; (queries, keys) per
+# window: 8x8 windows against themselves and the OCAB's 10x10, 11x11 and
+# 12x12 key windows, 16x16 windows against themselves and 24x24
+ATTN_MAX_C = {16: 128, 20: 120}
+ATTN_NM = ((64, 64), (64, 100), (64, 121), (64, 144), (256, 256),
+           (256, 576))
 
 __all__ = ["flash_window_attention", "reference_window_attention",
            "region_mask"]
@@ -100,12 +103,11 @@ def _launch(q, k, v, bias, num_heads, region_ids) -> torch.Tensor:
     nb, n, c = q.shape
     m = k.shape[1]
     hd = c // num_heads
-    if (hd, n) != (ATTN_HEAD_DIM, ATTN_N) or m not in ATTN_M \
-            or c > ATTN_MAX_C:
+    if hd not in ATTN_MAX_C or (n, m) not in ATTN_NM or c > ATTN_MAX_C[hd]:
         raise ValueError(
-            f"flash_window_attention: the kernel takes head dim "
-            f"{ATTN_HEAD_DIM}, n {ATTN_N}, m in {ATTN_M}, C <= {ATTN_MAX_C};"
-            f" got head dim {hd}, n {n}, m {m}, C {c}")
+            f"flash_window_attention: the kernel takes head dim and widest "
+            f"C in {ATTN_MAX_C}, (n, m) in {ATTN_NM}; got head dim {hd}, "
+            f"n {n}, m {m}, C {c}")
     for t in (q, k, v):
         if t.device.type != "cuda":
             raise ValueError(f"flash_window_attention: expected CUDA "
@@ -118,9 +120,11 @@ def _launch(q, k, v, bias, num_heads, region_ids) -> torch.Tensor:
         if t.stride(2) != 1:
             raise ValueError("flash_window_attention: q, k, v need a unit "
                              "channel stride")
-    align = 16 // q.element_size()
-    vec = all(t.data_ptr() % 16 == 0 and t.stride(0) % align == 0
-              and t.stride(1) % align == 0 for t in (q, k, v))
+    # 4-element loads where every row start (and so every head's first
+    # column, head dims being multiples of 4) is 4-element aligned
+    vec = all(t.data_ptr() % (4 * t.element_size()) == 0
+              and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+              for t in (q, k, v))
     ids = None if region_ids is None else region_ids.to(
         q.device, torch.int32).contiguous()
     bias = bias.to(q.device, torch.float32).contiguous()
@@ -169,8 +173,9 @@ def flash_window_attention(q: torch.Tensor, k: torch.Tensor,
     place), bias [nh, n, m] (f32 in the kernel), region_ids [nW_img, n]
     int or None (self-attention only; window b uses region_ids[b %
     nW_img]). Returns [nb, n, C] in q's dtype. CPU tensors run the plain
-    form; CUDA tensors launch the kernel (head dim 16, n 64, m 64, 121 or
-    144, C <= 128) or raise. Differentiable in q, k, v and bias."""
+    form; CUDA tensors launch the kernel (head dim 16 with C <= 128 or 20
+    with C <= 120; (n, m) in ATTN_NM) or raise. Differentiable in q, k, v
+    and bias."""
     _check_geometry(q, k, v, bias, num_heads, region_ids)
     return _FlashWindowAttention.apply(q, k, v, bias, num_heads, region_ids)
 
