@@ -497,14 +497,15 @@ def check_hab(ws, x: torch.Tensor, cab: torch.Tensor, ids, tag: str) -> dict:
     return res
 
 
-def check_oca(q, k_map, v_map, bias, tag: str) -> dict:
+def check_oca(q, k_map, v_map, bias, tag: str, ws: int = 8,
+              ows: int = 12) -> dict:
     from superresolution_tpu_torch.ops import flash_oca as fo
 
     before = fo.flash_oca_gathered.launches
-    got = fo.flash_oca_gathered(q, k_map, v_map, bias, 6, 8, 12)
+    got = fo.flash_oca_gathered(q, k_map, v_map, bias, 6, ws, ows)
     if fo.flash_oca_gathered.launches != before + 1:
         raise AssertionError("flash_oca_gathered did not count its launch")
-    ref = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6, 8, 12)
+    ref = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6, ws, ows)
     return compare(f"flash_oca_gathered/{tag}", got, ref, TOL_HAB)
 
 
@@ -603,7 +604,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              lambda: F.scaled_dot_product_attention(
                  sdpa_q, kw, vw, attn_mask=bias.to(bf)),
              2 * tok * OCA_MACS, tok * 96 * 2 * 2 + map_bytes
-             + bias.numel() * 4, list(q.shape), [HAT_SRC]),
+             + bias.numel() * 4, list(q.shape), [ATTN_SRC]),
         ]
         for name, tpu, err, kern, plain, lib, flops, nbytes, shape, srcs \
                 in rows:
@@ -870,20 +871,21 @@ def check_train_kernels(gen: torch.Generator) -> dict:
 
 
 def hybrid_model(gen: torch.Generator, output_size: int | None = 4 * HYBRID_IN,
-                 **hat):
+                 num_blocks: int = 23, **hat):
     """bench_hybrid's HybridSR at full width, bf16, on the card, random
     weights with N(0, 0.02) biases; `hat` sets HATLite's attention flags
-    (attn_f32, flash_attn)."""
+    (attn_f32, flash_attn) or overrides its geometry (H200_HAT, depths)."""
     from superresolution_tpu_torch.models.hat_lite import HATLite
     from superresolution_tpu_torch.models.hybrid import HybridSR
     from superresolution_tpu_torch.models.rrdbnet import RRDBNet
 
+    hat = dict(dict(embed_dim=96, depths=(6,) * 4, num_heads=(6,) * 4,
+                    window_size=8), **hat)
     model = HybridSR(
         stage1=RRDBNet(scale=2, in_channels=1, out_channels=1, features=64,
-                       num_blocks=23, growth=32, upsampler="pixelshuffle",
-                       generator=gen),
-        stage2=HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=96,
-                       depths=(6,) * 4, num_heads=(6,) * 4, window_size=8,
+                       num_blocks=num_blocks, growth=32,
+                       upsampler="pixelshuffle", generator=gen),
+        stage2=HATLite(scale=2, in_channels=1, out_channels=1,
                        generator=gen, **hat),
         output_size=output_size, smoothing="balanced")
     model = model.to(torch.bfloat16).eval()
@@ -1292,8 +1294,13 @@ def counted_ops() -> dict:
     from superresolution_tpu_torch.ops.window_attention import (
         flash_window_attention)
 
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
     return {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
             "conv_last_phase": conv_last_phase,
+            "fused_dense_block_prologue": dt.fused_dense_block_prologue,
+            "fused_dense_block_epilogue": dt.fused_dense_block_epilogue,
+            "fused_rrdb": dt.fused_rrdb,
             "fused_cab_convs": hab.fused_cab_convs,
             "fused_hab_block": hab.fused_hab_block,
             "flash_oca_gathered": fo.flash_oca_gathered,
@@ -1488,22 +1495,24 @@ def set_attention(model, flash: bool, attn_f32: bool) -> None:
             mod.flash, mod.attn_f32 = flash, attn_f32
 
 
-def fit_output(model, gen: torch.Generator) -> None:
-    """Rescale stage 2's conv_last so that the random model's output has
-    mean 0.5 and std 0.2 on a probe tile. A trained model's output lies
-    in [0, 1]; this random one's spreads over hundreds, so after
-    api.upscale's clip almost every pixel is 0 or 1, and one bf16 step
-    before the clip flips a pixel by 1 (the first run of this phase).
-    The smoothing after conv_last is a normalized blur, so the frame
-    moves by the same affine map."""
+def fit_output(model, gen: torch.Generator, conv=None,
+               channels: int = 1) -> None:
+    """Rescale the model's last conv (stage 2's conv_last unless `conv`
+    is given) so that the random model's output has mean 0.5 and std 0.2
+    on a probe tile. A trained model's output lies in [0, 1]; this
+    random one's spreads over hundreds, so after api.upscale's clip
+    almost every pixel is 0 or 1, and one bf16 step before the clip flips
+    a pixel by 1 (the first run of this phase). The smoothing after
+    conv_last is a normalized blur, so the frame moves by the same affine
+    map."""
     side = UP_TILE + 2 * UP_HALO
-    x = torch.rand((1, side, side, 1), generator=gen).to("cuda",
-                                                          torch.bfloat16)
+    x = torch.rand((1, side, side, channels), generator=gen).to(
+        "cuda", torch.bfloat16)
     with torch.inference_mode():
         y = model(x).float()
     m, sd = float(y.mean()), float(y.std())
     a = 0.2 / sd
-    conv = model.stage2.conv_last
+    conv = model.stage2.conv_last if conv is None else conv
     with torch.no_grad():
         conv.weight.mul_(a)
         conv.bias.copy_(conv.bias.float() * a + 0.5 - a * m)
@@ -1735,6 +1744,609 @@ def quality_anchor() -> dict:
     return res
 
 
+# ---- 16-21: kernels 4-6 behind the ESRGAN trunk's levers; the port's
+# ---- repaired faults: kernels 8-10 at the reference's other geometries,
+# ---- the hybrid_astro_h200 class, the prebound models in the tilers ----
+
+TRUNK_OPS = ("fused_dense_block_prologue", "fused_dense_block_epilogue",
+             "fused_rrdb")
+# Faults planted in kernels 4-6 through their launch helpers' `plant`
+# (ops/_build.py): each check must fail on every one.
+CHAIN_FAULTS = ("residual_dropped", "first_stages_swapped")
+
+
+def end_conv_weights(gen: torch.Generator, cin: int, cout: int = 64):
+    """conv_first / trunk_conv weights for kernels 4 and 5's checks: MSRA
+    x 2, as B1's check weights, and N(0, 0.1) biases."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    k = torch.randn(3, 3, cin, cout, generator=gen) * 2 * (
+        2 / (9 * cin)) ** 0.5
+    return dt.dense_weights([k], [torch.randn(cout, generator=gen) * 0.1],
+                            device="cuda")[0]
+
+
+def trunk_cases(gen: torch.Generator, b: int, h: int, w: int, ws3, ends):
+    """Kernels 4-6's inputs at one geometry and their calls: name ->
+    (kernel call, plain call in f32 on the upcast inputs, launch helper
+    of ops/_build)."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    def randn(*shape, scale):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            "cuda", torch.bfloat16)
+
+    head_w, trunk_w = ends
+    x_raw = randn(b, h, w, 3, scale=0.5)
+    x, res, head = (randn(b, h, w, 64, scale=s) for s in (0.2, 0.1, 0.05))
+    return {
+        "fused_dense_block_prologue": (
+            lambda: dt.fused_dense_block_prologue(x_raw, head_w, ws3[0]),
+            lambda: dt.fused_dense_block_prologue_reference(
+                x_raw.float(), head_w, ws3[0]), "dense_prologue"),
+        "fused_dense_block_epilogue": (
+            lambda: dt.fused_dense_block_epilogue(x, ws3[2], res, trunk_w,
+                                                  head),
+            lambda: dt.fused_dense_block_epilogue_reference(
+                x.float(), ws3[2], res.float(), trunk_w, head.float()),
+            "dense_epilogue"),
+        "fused_rrdb": (
+            lambda: dt.fused_rrdb(x, *ws3),
+            lambda: dt.fused_rrdb_reference(x.float(), *ws3), "rrdb"),
+    }, (x_raw, x, res, head)
+
+
+def check_chain(name: str, kern, plain, tag: str) -> dict:
+    """One of kernels 4-6 against its plain version in f32 within
+    TOL_KERNEL (kernel 4 on both outputs), its launch counted once."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    op = getattr(dt, name)
+    before = op.launches
+    got, ref = kern(), plain()
+    if op.launches != before + 1:
+        raise AssertionError(f"{name}/{tag}: not one counted launch")
+    if name == "fused_dense_block_prologue":
+        compare(f"{name}/{tag}/head", got[1], ref[1], TOL_KERNEL)
+        got, ref = got[0], ref[0]
+    return compare(f"{name}/{tag}", got, ref, TOL_KERNEL)
+
+
+def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
+    """Phase 16: kernels 4, 5, 6 against their plain versions (f32 on the
+    upcast bf16 inputs) within 0.02, at a CHIPEQ-sized geometry, a ragged
+    one and the main path's shape, with B1's MSRA x 2 check weights; at
+    the first each check must fail on both CHAIN_FAULTS, planted on fresh
+    inputs (so stale scratch from a right run cannot hide them); timed at
+    the latter beside the bound, the plain version and the default path
+    for the same function (plain convs and B1 calls)."""
+    import functools
+
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    ws3 = [dense_check_weights(gen) for _ in range(3)]
+    ends = (end_conv_weights(gen, 3), end_conv_weights(gen, 64))
+    th, tw = TILE[0] + 2 * HALO, TILE[1] + 2 * HALO
+    out = {}
+    for geom, (b, h, w) in (("chipeq", (2, 48, 64)), ("ragged", (1, 37, 45)),
+                            ("main", (n_tiles, th, tw))):
+        cases, (x_raw, x, res, head) = trunk_cases(gen, b, h, w, ws3, ends)
+        errs = {name: check_chain(name, kern, plain, geom)
+                for name, (kern, plain, _) in cases.items()}
+        if geom == "chipeq":
+            for bit, fault in zip((_build.PLANT_NO_RESIDUAL,
+                                   _build.PLANT_SWAP_STAGES), CHAIN_FAULTS):
+                fresh, _ = trunk_cases(gen, b, h, w, ws3, ends)
+                for name, (kern, plain, helper) in fresh.items():
+                    real = getattr(_build, helper)
+                    setattr(_build, helper,
+                            functools.partial(real, plant=bit))
+                    try:
+                        expect_caught(f"{name}:{fault}", lambda: check_chain(
+                            name, kern, plain, f"fault:{fault}"))
+                    finally:
+                        setattr(_build, helper, real)
+        if geom != "main":
+            continue
+        del cases
+        torch.cuda.empty_cache()
+        px = b * h * w
+        head_oihw = ends[0][0].permute(3, 2, 0, 1).contiguous()
+        trunk_oihw = ends[1][0].permute(3, 2, 0, 1).contiguous()
+
+        def nchw_conv(t, k, bias):
+            return F.conv2d(t.permute(0, 3, 1, 2), k, bias.to(t.dtype),
+                            padding=1).permute(0, 2, 3, 1).contiguous()
+
+        def default_prologue():
+            hd = nchw_conv(x_raw, head_oihw, ends[0][1])
+            return dt.fused_dense_block(hd, ws3[0]), hd
+
+        def default_epilogue():
+            y = dt.fused_dense_block(x, ws3[2], residual=res)
+            return nchw_conv(y, trunk_oihw, ends[1][1]) + head
+
+        def default_rrdb():
+            y = dt.fused_dense_block(dt.fused_dense_block(x, ws3[0]), ws3[1])
+            return dt.fused_dense_block(y, ws3[2], residual=x)
+
+        rows = {
+            "fused_dense_block_prologue": (
+                "superresolution_tpu/ops/pallas_dense_trunk.py:355",
+                lambda: dt.fused_dense_block_prologue(x_raw, ends[0],
+                                                      ws3[0]),
+                lambda: dt.fused_dense_block_prologue_reference(
+                    x_raw, ends[0], ws3[0]), default_prologue,
+                2 * px * (B1_MACS + 9 * 3 * 64),
+                px * (3 + 2 * 64) * 2 + 2 * (B1_MACS + 9 * 3 * 64), 5),
+            "fused_dense_block_epilogue": (
+                "superresolution_tpu/ops/pallas_dense_trunk.py:414",
+                lambda: dt.fused_dense_block_epilogue(x, ws3[2], res,
+                                                      ends[1], head),
+                lambda: dt.fused_dense_block_epilogue_reference(
+                    x, ws3[2], res, ends[1], head), default_epilogue,
+                2 * px * (B1_MACS + 9 * 64 * 64),
+                4 * px * 64 * 2 + 2 * (B1_MACS + 9 * 64 * 64), 5),
+            "fused_rrdb": (
+                "superresolution_tpu/ops/pallas_dense_trunk.py:485",
+                lambda: dt.fused_rrdb(x, *ws3),
+                lambda: dt.fused_rrdb_reference(x, *ws3), default_rrdb,
+                2 * px * 3 * B1_MACS, 2 * px * 64 * 2 + 6 * B1_MACS, 3),
+        }
+        for name, (tpu, kern, plain, default, flops, nbytes, iters) \
+                in rows.items():
+            b_ms, b_by = bound(flops, nbytes)
+            err = errs[name]
+            out[name] = {
+                "name": name, "route": "cuda", "source": SRC,
+                "replaces": tpu, "shape": [b, h, w, 64],
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
+                "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
+                "default_path_ms": time_ms(default, iters),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            emit({"phase": "kernel_time", **out[name]})
+    return out
+
+
+def lever_frames(model, params, img, geom: dict, default_feats,
+                 plain_feats, default_times: dict, card: str) -> dict:
+    """Phase 17: the 2K frame through make_tiled_infer_staged with
+    fold_ends=True, then with chain_rrdb=True: exact launches per frame
+    (fold_ends: kernel 4 once, kernel 5 once, B1 67 calls; chain_rrdb:
+    kernel 6 23 times, B1 none; the tail's B2 6 and B3 3 in both), shape
+    and finiteness; trunk features and the unclipped frame within 0.03 of
+    the plain model (the default fused trunk's distance printed); frame
+    s, MP/s and trunk ms beside phase 5's. Returns the launches."""
+    from superresolution_tpu_torch.infer.fused_trunk import make_fused_trunk
+    from superresolution_tpu_torch.infer.phase_tail import make_phase_tail
+    from superresolution_tpu_torch.infer.tiled_device import (
+        make_tiled_infer_staged)
+
+    th, tw = geom["tile"]
+    n_tiles = -(-geom["h"] // th) * -(-geom["w"] // tw)
+    chunks = -(-n_tiles // TAIL_BATCH)
+    nb = model.num_blocks
+    expected = {
+        "fold_ends": {"fused_dense_block": 5 * (3 * nb - 2),
+                      "fused_dense_block_prologue": 1,
+                      "fused_dense_block_epilogue": 1},
+        "chain_rrdb": {"fused_rrdb": nb}}
+    _, plain_tail = make_tiled_infer_staged(
+        lambda x: model.trunk(x.to(torch.bfloat16)), model.tail,
+        split_stages=True, **geom)
+    with torch.inference_mode():
+        plain_frame = plain_tail(plain_feats)
+    launches = {}
+    for lever, want in expected.items():
+        fused = make_fused_trunk(params, model, **{lever: True})
+
+        def trunk_fn(x, fused=fused):
+            return fused(x.to(torch.bfloat16))
+
+        runner = make_tiled_infer_staged(trunk_fn, make_phase_tail(params),
+                                         **geom)
+        ops = zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        frame = runner(img)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches[lever] = {k: op.launches for k, op in ops.items()}
+        check_launches(lever, launches[lever], {
+            **{k: 0 for k in ops}, "up2_hr": 2 * chunks,
+            "conv_last_phase": chunks, **want})
+        if tuple(frame.shape) != (4 * H, 4 * W, 3) or not bool(
+                torch.isfinite(frame).all()):
+            raise AssertionError(f"{lever}: frame {tuple(frame.shape)} "
+                                 "not finite or not 4x")
+        emit({"phase": "lever_path", "lever": lever,
+              "output_shape": list(frame.shape), "first_run_s": first_s,
+              "launches_per_frame": launches[lever],
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del frame
+        run_trunk, run_tail = make_tiled_infer_staged(
+            trunk_fn, make_phase_tail(params, clip=False), split_stages=True,
+            **geom)
+        with torch.inference_mode():
+            feats = run_trunk(img)
+            compare(f"{lever}/trunk_features", feats, plain_feats, TOL_PATH,
+                    rel_err_vs_default_fused=rel_err(feats, default_feats))
+            compare(f"{lever}/frame_unclipped", run_tail(feats), plain_frame,
+                    TOL_PATH)
+            frame_s = host_clock(lambda: runner(img))
+            trunk_s = host_clock(lambda: run_trunk(img))
+        del feats
+        torch.cuda.empty_cache()
+        emit({"phase": "lever_times", "lever": lever, "card": card,
+              "frame_s": frame_s, "mp_per_s": H * W / 1e6 / frame_s,
+              "trunk_ms": trunk_s * 1e3, **default_times})
+    return launches
+
+
+def host_clock(fn, runs: int = 2) -> float:
+    """Mean host seconds of fn over `runs` runs, each between syncs."""
+    t = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return sum(t) / len(t)
+
+
+H200_HAT = dict(embed_dim=120, depths=(6,) * 6, num_heads=(6,) * 6,
+                window_size=16)
+H200_IN = 128             # 128x128 -> 256x256 (stage 2 in) -> 512x512
+
+
+def attn_geometry_case(cg: torch.Generator, hd: int, n: int, m: int):
+    """Kernel 10's f32 inputs at one geometry, laid out as the path has
+    them: C = 6 hd; self-attention (m == n) as the split of a packed
+    [nb, n, 3C] projection with the Swin region ids of a 256^2 map,
+    cross as a contiguous q beside the split of a gathered [nb, m, 2C]
+    kv; N(0, 1.5^2) activations and an N(0, 1) bias; nb the windows of
+    one 256^2 map (stage 2's side in the h200 frame)."""
+    from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+
+    c, ws = 6 * hd, int(n ** 0.5)
+    nb = (256 // ws) ** 2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=cg, device="cuda") * 1.5
+
+    ids = None
+    if m == n:
+        q, k, v = randn(nb, n, 3 * c).split(c, -1)
+        ids = torch.as_tensor(shift_region_ids(256, 256, ws, ws // 2),
+                              device="cuda")
+    else:
+        q = randn(nb, n, c)
+        k, v = randn(nb, m, 2 * c).split(c, -1)
+    bias = torch.randn(6, n, m, generator=cg, device="cuda")
+    return q, k, v, bias, ids
+
+
+def check_attn_geometries(cg: torch.Generator) -> dict:
+    """Phase 18a: kernel 10 at every geometry the kernel takes that phase
+    12 does not cover (head dim 16 and 20; (n, m) (64, 100), (256, 256),
+    (256, 576), and at head dim 20 also (64, 64), (64, 121), (64, 144)),
+    shifted (region ids) where m == n: f32 within 1e-4 (5e-4 cross), bf16
+    within 0.02; the four planted faults caught at window 16, head dim 20;
+    each geometry timed in bf16 beside its bound, the plain version and
+    SDPA. Returns the times by geometry."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    geoms = [(16, 64, 100), (16, 256, 256), (16, 256, 576)] + [
+        (20, n, m) for n, m in ((64, 64), (64, 100), (64, 121), (64, 144),
+                                (256, 256), (256, 576))]
+    times = {}
+    for hd, n, m in geoms:
+        tag = f"hd{hd}_n{n}_m{m}"
+        q, k, v, bias, ids = attn_geometry_case(cg, hd, n, m)
+        tol = TOL_ATTN if m == n else TOL_ATTN_CROSS
+        check_attn(q, k, v, bias, ids, f"{tag}/f32", tol)
+        c = q.shape[-1]
+        if m == n:  # keep the packed layout in bf16 too
+            qb, kb, vb = torch.cat([q, k, v], -1).to(bf).split(c, -1)
+        else:
+            qb, kb, vb = (t.to(bf) for t in (q, k, v))
+        e16 = check_attn(qb, kb, vb, bias, ids, f"{tag}/bf16",
+                         TOL_ATTN_BF16)
+        if (hd, n, m) == (20, 256, 256):  # each planted fault must fail
+            ref = wa.reference_window_attention(qb, kb, vb, bias, 6, ids)
+            for fault, run in (
+                    ("region_mask_dropped", lambda: wa.flash_window_attention(
+                        qb, kb, vb, bias, 6, None)),
+                    ("bias_dropped", lambda: wa.flash_window_attention(
+                        qb, kb, vb, torch.zeros_like(bias), 6, ids))):
+                expect_caught(f"{tag}:{fault}", lambda: compare(
+                    f"planted/{tag}/{fault}", run(), ref, TOL_ATTN_BF16))
+            for fault in ("scale_1_over_sqrt_C", "ids_b_div_nw"):
+                real = _build.window_attention
+                _build.window_attention = _planted_attn(fault)
+                try:
+                    expect_caught(f"{tag}:{fault}", lambda: compare(
+                        f"planted/{tag}/{fault}", wa.flash_window_attention(
+                            qb, kb, vb, bias, 6, ids), ref, TOL_ATTN_BF16))
+                finally:
+                    _build.window_attention = real
+        nb = q.shape[0]
+        mask = bias.to(bf) if ids is None else (
+            bias[None] + wa.region_mask(ids)[:, None]).to(bf)
+        sq, sk, sv = (t.reshape(nb, t.shape[1], 6, hd).transpose(1, 2)
+                      for t in (qb, kb, vb))
+        b_ms, b_by = bound(4 * nb * 6 * n * m * hd,
+                           (2 * n + 2 * m) * c * 2 * nb + bias.numel() * 4)
+        times[tag] = {
+            "ms": time_ms(lambda: wa.flash_window_attention(
+                qb, kb, vb, bias, 6, ids), 10),
+            "plain_ms": time_ms(lambda: wa.reference_window_attention(
+                qb, kb, vb, bias, 6, ids), 5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "nb": nb,
+            "max_rel_err": e16["max_rel_err"]}
+        emit({"phase": "kernel_time", "name": "flash_window_attention",
+              "case": tag, **times[tag]})
+        del q, k, v, qb, kb, vb, sq, sk, sv, mask
+        torch.cuda.empty_cache()
+    return times
+
+
+def check_hab_oca_geometries(gen: torch.Generator) -> dict:
+    """Phase 18b: kernel 8 at (C, heads, n, MLP) (96, 6, 256, 192) and
+    (120, 6, 256, 240), kernel 9 at (C, heads, ws, ows) (96, 6, 8, 10),
+    (96, 6, 16, 24) and (120, 6, 16, 24), against their plain versions
+    within 0.03, on 16 windows of a 64^2 (ws 16) or 32^2 (ws 8) map, HAB
+    unmasked and masked; the planted faults of phase 6 caught at window
+    16, C 120; each timed at the h200 frame's stage-2 shapes (a 256^2
+    map) beside its bound, the plain version and, for kernel 9, SDPA on
+    the pre-gathered windows. Returns the times by geometry."""
+    from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops.unfold import (
+        extract_overlapping_windows)
+
+    bf = torch.bfloat16
+    times = {}
+    for c, n, mlp in ((96, 256, 192), (120, 256, 240)):
+        tag = f"hab_c{c}_n{n}"
+        ws = int(n ** 0.5)
+        w8 = hab_check_weights(gen, c, 6, n, mlp)
+        ids = torch.as_tensor(shift_region_ids(64, 64, ws, ws // 2),
+                              device="cuda")
+        xw = rand(gen, 16, n, c, dtype=bf)
+        cw = rand(gen, 16, n, c, scale=0.3, dtype=bf)
+        e8 = max((check_hab(w8, xw, cw, i, f"{tag}/{name}")
+                  for name, i in (("unmasked", None), ("masked", ids))),
+                 key=lambda e: e["max_rel_err"])
+        if c == 120:
+            ref8 = hab.hab_body_reference(xw, cw, w8, 6, ids)
+            rpb_t = dict(w8, rpb=w8["rpb"].transpose(1, 2).contiguous())
+            for fault, kern in (
+                    ("hab_region_ids_dropped", lambda: hab.fused_hab_block(
+                        xw, cw, 6, w8, None)),
+                    ("hab_rpb_transposed", lambda: hab.fused_hab_block(
+                        xw, cw, 6, rpb_t, ids))):
+                expect_caught(f"{tag}:{fault}", lambda: compare(
+                    f"planted/{tag}/{fault}", kern(), ref8, TOL_HAB))
+        nw = (256 // ws) ** 2
+        ids_t = torch.as_tensor(shift_region_ids(256, 256, ws, ws // 2),
+                                device="cuda")
+        xt = rand(gen, nw, n, c, dtype=bf)
+        ct = rand(gen, nw, n, c, scale=0.3, dtype=bf)
+        tok = nw * n
+        macs = c * 3 * c + c * c + 2 * c * mlp + 2 * n * c
+        b_ms, b_by = bound(2 * tok * macs, tok * c * 2 * 3
+                           + 2 * (c * 3 * c + c * c + 2 * c * mlp))
+        times[tag] = {
+            "ms": time_ms(lambda: hab.fused_hab_block(xt, ct, 6, w8, ids_t),
+                          10),
+            "plain_ms": time_ms(lambda: hab.hab_body_reference(
+                xt, ct, w8, 6, ids_t), 5),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": list(xt.shape), "max_rel_err": e8["max_rel_err"]}
+        emit({"phase": "kernel_time", "name": "fused_hab_block", "case": tag,
+              **times[tag]})
+
+    for c, ws, ows in ((96, 8, 10), (96, 16, 24), (120, 16, 24)):
+        tag = f"oca_c{c}_ws{ws}_ows{ows}"
+        pad = (ows - ws) // 2
+
+        def inputs(side, scale=1.5):
+            nw = (side // ws) ** 2
+            q = rand(gen, nw, ws * ws, c, scale=scale, dtype=bf)
+            maps = [F.pad(rand(gen, 1, side, side, c, scale=scale, dtype=bf),
+                          (0, 0, pad, pad, pad, pad)).contiguous()
+                    for _ in range(2)]
+            return q, *maps, rand(gen, 6, ws * ws, ows * ows)
+
+        q, k_map, v_map, bias = inputs(4 * ws)
+        e9 = check_oca(q, k_map, v_map, bias, tag, ws, ows)
+        if c == 120:
+            ref9 = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6,
+                                                   ws, ows)
+            for fault, kern in (
+                    ("oca_bias_zeroed", lambda: fo.flash_oca_gathered(
+                        q, k_map, v_map, torch.zeros_like(bias), 6, ws,
+                        ows)),
+                    ("oca_k_map_shifted", lambda: fo.flash_oca_gathered(
+                        q, torch.roll(k_map, 1, 2), v_map, bias, 6, ws,
+                        ows))):
+                expect_caught(f"{tag}:{fault}", lambda: compare(
+                    f"planted/{tag}/{fault}", kern(), ref9, TOL_HAB))
+        q, k_map, v_map, bias = inputs(256)
+        nh_w = 256 // ws
+        tok = q.shape[0] * ws * ws
+        sq = q.reshape(-1, ws * ws, 6, c // 6).transpose(1, 2)
+        kw, vw = (extract_overlapping_windows(mp, ws, ows, nh_w, nh_w)
+                  .reshape(-1, ows * ows, 6, c // 6).transpose(1, 2)
+                  for mp in (k_map, v_map))
+        b_ms, b_by = bound(2 * tok * 2 * ows * ows * c,
+                           tok * c * 2 * 2 + 2 * k_map.numel() * 2
+                           + bias.numel() * 4)
+        times[tag] = {
+            "ms": time_ms(lambda: fo.flash_oca_gathered(
+                q, k_map, v_map, bias, 6, ws, ows), 10),
+            "plain_ms": time_ms(lambda: fo.flash_oca_gathered_reference(
+                q, k_map, v_map, bias, 6, ws, ows), 5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                sq, kw, vw, attn_mask=bias.to(bf)), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": list(q.shape),
+            "max_rel_err": e9["max_rel_err"]}
+        emit({"phase": "kernel_time", "name": "flash_oca_gathered",
+              "case": tag, **times[tag]})
+        del q, k_map, v_map, bias, sq, kw, vw
+        torch.cuda.empty_cache()
+    return times
+
+
+def h200_path(gen: torch.Generator, card: str) -> dict:
+    """Phase 19: a hybrid_astro_h200-class HybridSR (stage 1 RRDBNet x2,
+    23 RRDBs; stage 2 HATLite embed 120, 6 groups of 6, 6 heads of 20,
+    window 16), 128^2 -> 512^2, batch 1, bf16, random weights: one frame
+    through fused_hybrid_model (B1 345, kernels 7 108, 8 36, 9 6, the
+    rest 0) and one through the model with HATLite(flash_attn=True)
+    (kernel 10 42, the rest 0), launches exact; stage 1, and stage 2 and
+    the smoothing after it on the same input, within 0.03 of the plain
+    HybridSR (f32 logits); both whole frames' distances printed; times.
+    Returns the launches of both frames."""
+    from superresolution_tpu_torch.infer.fused_hat import (
+        fused_hybrid_model, make_fused_hat)
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+
+    model = hybrid_model(gen, output_size=4 * H200_IN, **H200_HAT)
+    params = model.state_dict()
+    x = torch.rand((1, H200_IN, H200_IN, 1), generator=gen).to(
+        "cuda", torch.bfloat16)
+    n_hab, n_grp = sum(model.stage2.depths), len(model.stage2.depths)
+    flash = copy.deepcopy(model)
+    set_attention(flash, True, False)
+    launches = {}
+    with torch.inference_mode():
+        fused = fused_hybrid_model(params, model)
+        frame_plain = model(x)
+        for tag, run, want in (
+                ("fused", fused, {"fused_dense_block": 69 * 5,
+                                  "fused_cab_convs": 3 * n_hab,
+                                  "fused_hab_block": n_hab,
+                                  "flash_oca_gathered": n_grp}),
+                ("flash_hatlite", flash,
+                 {"flash_window_attention": n_hab + n_grp})):
+            ops = zero_counts()
+            y = run(x)
+            torch.cuda.synchronize()
+            launches[tag] = {k: op.launches for k, op in ops.items()}
+            check_launches(f"h200/{tag}", launches[tag],
+                           {**{k: 0 for k in ops}, **want})
+            if tuple(y.shape) != (1, 4 * H200_IN, 4 * H200_IN, 1) or not \
+                    bool(torch.isfinite(y).all()):
+                raise AssertionError(f"h200/{tag}: output {tuple(y.shape)}"
+                                     " not finite or not x4")
+            emit({"check": f"h200/{tag}/frame_end_to_end (printed)",
+                  "rel_err": rel_err(y, frame_plain)})
+        sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
+                   if n.startswith(k + ".")} for k in ("stage1", "stage2")}
+        s1 = fused_rrdb_model(sub["stage1"], model.stage1)
+        s2 = make_fused_hat(sub["stage2"], model.stage2)
+        y1 = s1(x)
+        compare("h200/fused/stage1", y1, model.stage1(x), TOL_PATH)
+        z = anti_checkerboard(y1, "balanced")
+        plain2 = finish(model.stage2, z)
+        compare("h200/fused/stage2_and_after", finish(s2, z), plain2,
+                TOL_PATH)
+        compare("h200/flash_hatlite/stage2_and_after",
+                finish(flash.stage2, z), plain2, TOL_PATH)
+        times = {f"{tag}_ms": host_clock(lambda: run(x), 3) * 1e3
+                 for tag, run in (("fused", fused), ("flash_hatlite", flash),
+                                  ("plain", model))}
+    emit({"phase": "h200_times", "card": card, **times,
+          "fused_mp_per_s": H200_IN ** 2 / 1e3 / times["fused_ms"]})
+    return launches
+
+
+def ows10_path(gen: torch.Generator) -> None:
+    """Phase 20: a HATLite at window 8 and overlap 0.25 (ows 10, where
+    the gathered kernel 9 covers the even overlap) through make_fused_hat
+    within 0.03 of the plain model; kernel 9 once, kernel 10 never."""
+    from superresolution_tpu_torch.infer.fused_hat import make_fused_hat
+    from superresolution_tpu_torch.models.hat_lite import HATLite
+
+    bf = torch.bfloat16
+    hat = HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=96,
+                  depths=(2,), num_heads=(6,), window_size=8,
+                  overlap_ratio=0.25, generator=gen).to(bf).eval()
+    with torch.no_grad():
+        for name, p in hat.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    x = torch.rand((1, HYBRID_IN, HYBRID_IN, 1), generator=gen).to("cuda", bf)
+    with torch.inference_mode():
+        apply = make_fused_hat(hat.state_dict(), hat)
+        ops = zero_counts()
+        got = apply(x)
+        check_launches("ows10", {k: op.launches for k, op in ops.items()},
+                       {**{k: 0 for k in ops}, "fused_cab_convs": 6,
+                        "fused_hab_block": 2, "flash_oca_gathered": 1})
+        compare("ows10/hat", got, hat(x), TOL_PATH,
+                ows=hat.layers[0].overlap_attn.ows)
+
+
+def prebound_upscale(gen: torch.Generator) -> None:
+    """Phase 21: api.upscale over fused_rrdb_model (ESRGAN x4, 23 RRDBs,
+    RGB) and over fused_hybrid_model (bench_hybrid's widths, its depth cut
+    to 4 RRDBs and 2 groups of 2 HABs, no output resize), each a
+    PreboundModel, on both tilers: a 256^2 image in 128-tiles with halo
+    16, one batch of 4; the tilers within 1e-3 of each other and each
+    within 0.03 of api.upscale over the plain module. The models' last
+    convs are fitted first (fit_output), so the clip hides little."""
+    from superresolution_tpu_torch import api
+    from superresolution_tpu_torch.infer.fused_hat import fused_hybrid_model
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+
+    esrgan = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,
+                     num_blocks=23, growth=32, upsampler="pixelshuffle",
+                     generator=gen).to(torch.bfloat16).eval()
+    fit_output(esrgan, gen, conv=esrgan.conv_last, channels=3)
+    hybrid = hybrid_model(gen, output_size=None, num_blocks=4,
+                          depths=(2, 2), num_heads=(6, 6))
+    fit_output(hybrid, gen)
+    kw = dict(tile=128, halo=16, batch=4)
+    for name, model, fused, c in (
+            ("fused_rrdb_model", esrgan, fused_rrdb_model, 3),
+            ("fused_hybrid_model", hybrid, fused_hybrid_model, 1)):
+        img = torch.rand((256, 256, c), generator=gen).numpy()
+        params = model.state_dict()
+        prebound = fused(params, model)
+        ops = zero_counts()
+        dev = api.upscale(img, 4, model=prebound, params={}, on_device=True,
+                          **kw)
+        torch.cuda.synchronize()
+        if not any(op.launches for op in ops.values()):
+            raise AssertionError(f"prebound/{name}: no kernel launched")
+        host = torch.from_numpy(api.upscale(img, 4, model=prebound,
+                                            params={}, **kw))
+        plain = api.upscale(img, 4, model=model, params=params,
+                            on_device=True, **kw)
+        d = float((host - dev.cpu()).abs().max())
+        emit({"check": f"prebound/{name}/host_vs_on_device",
+              "max_abs_diff": d, "tol": TOL_TILERS,
+              "launches": {k: op.launches for k, op in ops.items()
+                           if op.launches}})
+        if d > TOL_TILERS:
+            raise AssertionError(f"prebound/{name}: tilers differ by {d}")
+        compare(f"prebound/{name}/vs_plain", dev, plain, TOL_PATH,
+                inside_0_1=float(((plain > 0) & (plain < 1)).float().mean()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1776,6 +2388,8 @@ def main() -> int:
     params = model.state_dict()
     ny, nx = -(-H // TILE[0]), -(-W // TILE[1])
     kernels = check_kernels(model, gen, ny * nx)
+    torch.cuda.empty_cache()
+    kernels.update(check_trunk_kernels(gen, ny * nx))
     torch.cuda.empty_cache()
 
     # ---- 4: the main path ----
@@ -1828,23 +2442,12 @@ def main() -> int:
         compare("path/trunk_features", feats, ref_feats, TOL_PATH)
         compare("path/frame_unclipped", run_tail(feats),
                 plain_tail(ref_feats), TOL_PATH)
-        del ref_feats
         torch.cuda.empty_cache()
 
         # ---- 5: times on the card ----
-        def host_s(fn, runs=2):
-            t = []
-            for _ in range(runs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                t.append(time.perf_counter() - t0)
-            return sum(t) / len(t)
-
-        frame_s = host_s(lambda: runner(img))
-        trunk_s = host_s(lambda: run_trunk(img))
-        tail_s = host_s(lambda: run_tail(feats))
+        frame_s = host_clock(lambda: runner(img))
+        trunk_s = host_clock(lambda: run_trunk(img))
+        tail_s = host_clock(lambda: run_tail(feats))
     px_tiles = ny * nx * (TILE[0] + 2 * HALO) * (TILE[1] + 2 * HALO)
     frame_macs = px_tiles * (9 * 3 * 64 + 69 * B1_MACS + 9 * 64 * 64
                              + 9 * 64 * 256 + B2_MACS + 16 * B3_MACS)
@@ -1854,9 +2457,18 @@ def main() -> int:
           "frame_bound_ms": 2 * frame_macs / PEAK_FLOPS * 1e3,
           "frame_tflop_per_s": 2 * frame_macs / frame_s / 1e12,
           "total_s": time.perf_counter() - t_start})
+    del out, runner, run_trunk, run_tail, plain_trunk, plain_tail
+    torch.cuda.empty_cache()
 
-    del img, out, feats, fused, runner, run_trunk, run_tail, plain_trunk, \
-        plain_tail, model, params
+    # ---- 17: the frame under the levers, kernels 4-6 ----
+    lever_launches = lever_frames(
+        model, params, img, geom, feats, ref_feats,
+        {"default_frame_s": frame_s, "default_trunk_ms": trunk_s * 1e3},
+        card)
+    for k in TRUNK_OPS:
+        kernels[k]["launches"] = lever_launches[
+            "chain_rrdb" if k == "fused_rrdb" else "fold_ends"][k]
+    del img, feats, ref_feats, fused, model, params
     torch.cuda.empty_cache()
 
     # ---- 6-8: the hybrid RRDBNet -> HAT path ----
@@ -1889,6 +2501,25 @@ def main() -> int:
     no_gather_path(gen)
     torch.cuda.empty_cache()
     quality_anchor()
+    torch.cuda.empty_cache()
+
+    # ---- 18-21: kernels 8-10 at the reference's other geometries, the
+    # ---- hybrid_astro_h200 class, the prebound models in the tilers ----
+    gen = torch.Generator().manual_seed(SEED + 4)
+    cg = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kernels["flash_window_attention"]["geometries"] = check_attn_geometries(
+        cg)
+    geo = check_hab_oca_geometries(gen)
+    for k, prefix in (("fused_hab_block", "hab_"),
+                      ("flash_oca_gathered", "oca_")):
+        kernels[k]["geometries"] = {g: t for g, t in geo.items()
+                                    if g.startswith(prefix)}
+    torch.cuda.empty_cache()
+    h200 = h200_path(gen, card)
+    torch.cuda.empty_cache()
+    ows10_path(gen)
+    prebound_upscale(gen)
+    emit({"phase": "h200_launches", **h200})
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

@@ -1,15 +1,22 @@
-"""Deploy-time RRDB trunk through the B1 CUDA kernel.
+"""Deploy-time RRDB trunk through the hand-written dense-block kernels.
 
-Counterpart of superresolution_tpu/infer/fused_trunk.py: conv_first and
-trunk_conv stay plain convs (XLA's in the reference); the 23x3 dense
-blocks run as ops/dense_trunk.fused_dense_block, the RRDB residual folded
-into every third block's epilogue. The dense-block kernels are kept in
-bf16, as the reference's proj_weights keeps them; the convs around them
-run in the input's dtype.
-
-The reference's levers chain_rrdb (a whole RRDB per kernel) and fold_ends
-(conv_first / trunk_conv folded into the first / last block) are off by
-default there and are not ported yet: asking for either raises.
+Counterpart of superresolution_tpu/infer/fused_trunk.py. By default
+conv_first and trunk_conv stay plain convs (XLA's in the reference) and
+the 23x3 dense blocks run as ops/dense_trunk.fused_dense_block (B1), the
+RRDB residual folded into every third block's epilogue. The reference's
+two levers, off by default there too:
+  * chain_rrdb: each RRDB is one launch of kernel 6 (fused_rrdb);
+    conv_first and trunk_conv stay plain convs;
+  * fold_ends: RRDB 0 starts with kernel 4 (conv_first folded into its
+    first block) and the last RRDB ends with kernel 5 (its third block,
+    trunk_conv and the global residual), so no plain conv is left; the
+    middle RRDBs run as by default. Forced off under chain_rrdb and with
+    fewer than 2 RRDBs, as in the reference.
+The dense-block kernels are kept in bf16, as the reference's proj_weights
+keeps them; the convs around them run in the input's dtype, and as
+kernels 4 and 5 their kernels keep the params' dtype on the CPU (the
+reference's end folds keep it) and are bf16 on the card (the kernels'
+type).
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from superresolution_tpu_torch.infer.phase_tail import make_phase_tail
 from superresolution_tpu_torch.ops.dense_trunk import (
     dense_weights,
     fused_dense_block,
+    fused_dense_block_epilogue,
+    fused_dense_block_prologue,
+    fused_rrdb,
 )
 from superresolution_tpu_torch.ops.pixel_shuffle import (
     depth_to_space,
@@ -42,10 +52,8 @@ def make_fused_trunk(params: Mapping, model, chain_rrdb: bool = False,
                      device: str | torch.device | None = None):
     """-> trunk_fn(x [B,H,W,Cin]) equal to model.trunk(x) on the weights
     of `params` (a BasicSR-keyed state dict; `model` is the port's
-    RRDBNet and gives the configuration)."""
-    if chain_rrdb or fold_ends:
-        raise NotImplementedError(
-            "chain_rrdb and fold_ends are not ported yet")
+    RRDBNet and gives the configuration), through B1 and, under the
+    levers, kernels 4-6 (see the module docstring)."""
     dev = resolve_device(device)
     p = state_tensors(params, dev)
     blocks = []
@@ -59,12 +67,37 @@ def make_fused_trunk(params: Mapping, model, chain_rrdb: bool = False,
                 device=dev))
         blocks.append(rrdb)
     unshuffle = model.pixel_unshuffle_input
+    if chain_rrdb or model.num_blocks < 2:
+        fold_ends = False
+    if fold_ends:
+        end_dtype = (torch.bfloat16 if dev.type == "cuda"
+                     else p["conv_first.weight"].dtype)
+        head_w, trunk_w = (dense_weights([hwio(p[f"{n}.weight"])],
+                                         [p[f"{n}.bias"]], dtype=end_dtype,
+                                         device=dev)[0]
+                           for n in ("conv_first", "conv_body"))
 
     def trunk_fn(x: torch.Tensor) -> torch.Tensor:
         if unshuffle > 1:
-            x = space_to_depth(x, unshuffle)
+            x = space_to_depth(x, unshuffle).contiguous()
+        if fold_ends:
+            (w0, w1, w2), last = blocks[0], blocks[-1]
+            # RRDB 0: conv_first rides its first block
+            y, head = fused_dense_block_prologue(x, head_w, w0)
+            y = fused_dense_block(y, w1)
+            x = fused_dense_block(y, w2, residual=head)
+            for w0, w1, w2 in blocks[1:-1]:
+                y = fused_dense_block(fused_dense_block(x, w0), w1)
+                x = fused_dense_block(y, w2, residual=x)
+            # the last RRDB: trunk_conv and the global residual ride its
+            # third block
+            y = fused_dense_block(fused_dense_block(x, last[0]), last[1])
+            return fused_dense_block_epilogue(y, last[2], x, trunk_w, head)
         x = head = param_conv(x, p, "conv_first")
         for w0, w1, w2 in blocks:
+            if chain_rrdb:
+                x = fused_rrdb(x, w0, w1, w2)
+                continue
             y = fused_dense_block(x, w0)
             y = fused_dense_block(y, w1)
             # the RRDB residual rides the third block's epilogue

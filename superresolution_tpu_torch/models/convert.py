@@ -13,8 +13,8 @@ An RRDBNet tree comes in two layouts:
     FusedDenseBlock_{k} (or DenseBlock_{k}) leaves with a leading
     [num_blocks] axis;
   * plain (scan_blocks=False): params['body_blocks_{i}'] per block.
-A HATLite tree in the layouts of its models/hat_lite.py:345-365 and
-455-474 (hat_state_dict_from_jax).
+A HATLite tree comes in every layout superresolution_tpu/models/
+hat_lite.py writes (hat_state_dict_from_jax reads them all).
 Its kernels are HWIO; the state dict's are OIHW.
 """
 

@@ -107,6 +107,15 @@ def library() -> ctypes.CDLL:
     lib.sr_conv3x3.restype = _I
     lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
     lib.sr_conv_last.restype = _I
+    lib.sr_dense_prologue.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _P]
+    lib.sr_dense_prologue.restype = _I
+    lib.sr_dense_epilogue.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _P]
+    lib.sr_dense_epilogue.restype = _I
+    lib.sr_rrdb.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P]
+    lib.sr_rrdb.restype = _I
     lib.hat_layernorm.argtypes = [_P, _I, _I, _P, _P, _P, _P]
     lib.hat_layernorm.restype = _I
     lib.hat_hab_block.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
@@ -214,6 +223,65 @@ def conv_last(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _check(lib, rc, "sr_conv_last")
 
 
+def _ptrs(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (void* const*)."""
+    return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+# Faults chip_smoke.py plants in kernels 4-6 (`plant`, a bit mask; 0 in
+# use): the last stage's residual dropped, the first two stages swapped
+# (see sr_kernels.cu launch_chain).
+PLANT_NO_RESIDUAL, PLANT_SWAP_STAGES = 1, 2
+
+
+def dense_prologue(x_raw: torch.Tensor, head_w, weights, ws: torch.Tensor,
+                   out: torch.Tensor, head: torch.Tensor,
+                   plant: int = 0) -> None:
+    """One cooperative launch of kernel 4 (sr_kernels.cu): head =
+    conv_first(x_raw), out = dense block 0 of head. head_w: (kernel,
+    bias) of conv_first; weights: the block's five (kernel, bias); ws
+    [B,H,W,4g] scratch."""
+    lib = library()
+    b, h, w, cin = x_raw.shape
+    pairs = [head_w, *weights]
+    rc = lib.sr_dense_prologue(
+        _ptr(x_raw), cin, _ptrs([k for k, _ in pairs]),
+        _ptrs([bb for _, bb in pairs]), _ptr(ws), _ptr(out), _ptr(head), b,
+        h, w, out.shape[-1], ws.shape[-1] // 4, plant, _stream(x_raw))
+    _check(lib, rc, "sr_dense_prologue")
+
+
+def dense_epilogue(x: torch.Tensor, weights, residual: torch.Tensor,
+                   trunk_w, head: torch.Tensor, ws: torch.Tensor,
+                   feat: torch.Tensor, out: torch.Tensor,
+                   plant: int = 0) -> None:
+    """One cooperative launch of kernel 5: out = trunk_conv(residual +
+    0.2 * block(x)) + head, the block's output in feat; ws [B,H,W,4g] and
+    feat [B,H,W,C] scratch."""
+    lib = library()
+    b, h, w, c = x.shape
+    pairs = [*weights, trunk_w]
+    rc = lib.sr_dense_epilogue(
+        _ptr(x), _ptr(residual), _ptr(head), _ptrs([k for k, _ in pairs]),
+        _ptrs([bb for _, bb in pairs]), _ptr(ws), _ptr(feat), _ptr(out), b,
+        h, w, c, ws.shape[-1] // 4, plant, _stream(x))
+    _check(lib, rc, "sr_dense_epilogue")
+
+
+def rrdb(x: torch.Tensor, weights, ws: torch.Tensor, tmp: torch.Tensor,
+         out: torch.Tensor, plant: int = 0) -> None:
+    """One cooperative launch of kernel 6: out = x + 0.2 * block3(block2(
+    block1(x))); weights: the three blocks' 15 (kernel, bias) pairs; ws
+    [B,H,W,4g] and tmp [B,H,W,C] scratch."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.sr_rrdb(_ptr(x), _ptrs([k for k, _ in weights]),
+                     _ptrs([bb for _, bb in weights]), _ptr(ws), _ptr(tmp),
+                     _ptr(out), b, h, w, c, ws.shape[-1] // 4, plant,
+                     _stream(x))
+    _check(lib, rc, "sr_rrdb")
+
+
 def layernorm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
               out: torch.Tensor) -> None:
     """One launch of layernorm_kernel (hat_kernels.cu) over the rows of
@@ -249,7 +317,7 @@ def hab_block(x: torch.Tensor, cab: torch.Tensor, weights: dict,
 def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
         bias: torch.Tensor, num_heads: int, ws: int, ows: int,
         grid: tuple[int, int, int], out: torch.Tensor) -> None:
-    """One launch of oca_kernel (hat_kernels.cu): q, out [nb, n, C]; k_map,
+    """One launch of kernel 9 (attn_kernels.cu): q, out [nb, n, C]; k_map,
     v_map [B, hp, wp, C] bf16; bias [nh, n, ows*ows] f32; grid = (B,
     window rows, window columns)."""
     lib = library()
@@ -265,11 +333,11 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, region_ids: torch.Tensor | None,
                      num_heads: int, scale: float, vec: bool,
                      out: torch.Tensor) -> None:
-    """One launch of window_attn_kernel (attn_kernels.cu): q [nb, n, C],
+    """One launch of attn_kernel (attn_kernels.cu): q [nb, n, C],
     k/v [nb, m, C], each with a unit channel stride and any window and
     row strides (bf16 or f32, one type); bias [nh, n, m] f32 and
     region_ids [nW_img, n] int32 contiguous; out [nb, n, C] contiguous.
-    vec: every row of q, k and v starts 16-byte aligned."""
+    vec: every row of q, k and v starts 4-element aligned."""
     lib = library()
     nb, n, c = q.shape
     rc = lib.attn_window(

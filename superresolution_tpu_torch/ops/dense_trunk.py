@@ -1,4 +1,7 @@
-"""B1: one RRDB dense block as a hand-written CUDA op.
+"""B1 and kernels 4-6: the RRDB trunk's dense blocks as hand-written CUDA
+ops.
+
+B1, one dense block.
 
 Replaces superresolution_tpu/ops/pallas_dense_trunk.py:fused_dense_block
 (the roll-conv Pallas kernel). What it computes, on NHWC x [B,H,W,c]:
@@ -21,9 +24,27 @@ MACs per pixel, 1.11 TFLOP per call -> 1.12 ms at 989 TFLOP/s, against
 The simple kernel runs on the CUDA cores (see sr_kernels.cu for what it
 leaves on the table).
 
+Kernels 4-6, the levers of the trunk (infer/fused_trunk.make_fused_trunk
+fold_ends / chain_rrdb), each ONE cooperative launch of conv_chain_kernel
+(csrc/sr_kernels.cu): its conv stages in order, each over the whole
+tensor, separated by grid-wide barriers, every intermediate in device
+memory:
+  4 fused_dense_block_prologue (replaces ops/pallas_dense_trunk.py:
+    fused_dense_block_prologue): head = conv_first(x_raw), out = B1(head);
+  5 fused_dense_block_epilogue (replaces fused_dense_block_epilogue):
+    trunk_conv(residual + 0.2 * B1(x)) + head;
+  6 fused_rrdb (replaces fused_rrdb / _rrdb_kernel): one whole RRDB,
+    x + 0.2 * B1(B1(B1(x))).
+SAME zero padding at every conv, f32 accumulation, lrelu 0.2 and the
+x0.2 residuals in the reference's order. Bounds at the main-path shape
+(operations, 989 TFLOP/s): kernel 6 does 3 x 239,616 MACs per pixel,
+3.36 ms at [24,376,256,64]; kernel 4 B1's plus 9 * Cin * 64, kernel 5
+B1's plus 36,864.
+
 Weights: five (kernel [3,3,cin_j,cout_j] HWIO, bias [cout_j] f32) pairs
 (dense_weights), from a BasicSR-keyed state dict or from the JAX
-package's projection-layout params through models/convert._unfuse_dense.
+package's projection-layout params through models/convert._unfuse_dense;
+a conv around the blocks is one such pair.
 """
 
 from __future__ import annotations
@@ -128,3 +149,143 @@ def dense_features(x: torch.Tensor, weights: DenseWeights,
         _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
                        in1=workspace, cin1=j * g, lrelu=True)
         fused_dense_block.launches += 1
+
+
+def _conv(x: torch.Tensor, w: tuple[torch.Tensor, torch.Tensor]
+          ) -> torch.Tensor:
+    """3x3 SAME conv of NHWC x with an HWIO (kernel, bias) pair, in x's
+    dtype."""
+    k, b = w
+    y = F.conv2d(x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1).to(x.dtype),
+                 b.to(x.dtype), padding=1)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _check_pair(name: str, w, cin: int, cout: int) -> None:
+    k, b = w
+    if tuple(k.shape) != (3, 3, cin, cout) or tuple(b.shape) != (cout,):
+        raise ValueError(f"{name}: conv kernel {tuple(k.shape)} / bias "
+                         f"{tuple(b.shape)}, expected {(3, 3, cin, cout)}")
+
+
+def _check_block(name: str, x: torch.Tensor, weights: DenseWeights) -> int:
+    """Validate one dense block's weights for x; returns the growth g."""
+    if len(weights) != 5:
+        raise ValueError(f"{name}: expected 5 (kernel, bias) pairs, got "
+                         f"{len(weights)}")
+    c = x.shape[-1]
+    g = weights[0][0].shape[-1]
+    for j, w in enumerate(weights):
+        _check_pair(f"{name} conv{j + 1}", w, c + j * g, g if j < 4 else c)
+    return g
+
+
+def _require(name: str, acts, pairs) -> None:
+    _build.require_cuda(*acts, *(k for k, _ in pairs), name=name)
+    _build.require_cuda(*(b for _, b in pairs), dtype=torch.float32,
+                        name=name)
+
+
+def fused_dense_block_prologue_reference(x_raw: torch.Tensor, head_w,
+                                         weights: DenseWeights):
+    """Plain PyTorch version of kernel 4: (B1(head), head) with head =
+    conv_first(x_raw)."""
+    head = _conv(x_raw, head_w)
+    return fused_dense_block_reference(head, weights), head
+
+
+def fused_dense_block_prologue(x_raw: torch.Tensor, head_w,
+                               weights: DenseWeights):
+    """Kernel 4 on x_raw [B,H,W,Cin] (the trunk's raw input after any
+    pixel unshuffle): -> (out, head), both [B,H,W,C]. head_w: conv_first's
+    (kernel [3,3,Cin,C], bias); weights: dense block 0's. CPU tensors run
+    the plain version; CUDA tensors launch the kernel (bf16 activations
+    and kernels, f32 biases) or raise."""
+    if x_raw.device.type == "cpu":
+        return fused_dense_block_prologue_reference(x_raw, head_w, weights)
+    b, h, w, cin = x_raw.shape
+    c = head_w[0].shape[-1]
+    _check_pair("fused_dense_block_prologue conv_first", head_w, cin, c)
+    head = torch.empty((b, h, w, c), dtype=x_raw.dtype, device=x_raw.device)
+    g = _check_block("fused_dense_block_prologue", head, weights)
+    _require("fused_dense_block_prologue", [x_raw], [head_w, *weights])
+    out = torch.empty_like(head)
+    ws = torch.empty((b, h, w, 4 * g), dtype=x_raw.dtype,
+                     device=x_raw.device)
+    _build.dense_prologue(x_raw, head_w, weights, ws, out, head)
+    fused_dense_block_prologue.launches += 1
+    return out, head
+
+
+fused_dense_block_prologue.launches = 0
+
+
+def fused_dense_block_epilogue_reference(x: torch.Tensor,
+                                         weights: DenseWeights,
+                                         residual: torch.Tensor, trunk_w,
+                                         head: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 5: trunk_conv(B1(x, residual)) +
+    head."""
+    return _conv(fused_dense_block_reference(x, weights, residual),
+                 trunk_w) + head
+
+
+def fused_dense_block_epilogue(x: torch.Tensor, weights: DenseWeights,
+                               residual: torch.Tensor, trunk_w,
+                               head: torch.Tensor) -> torch.Tensor:
+    """Kernel 5 on x, residual, head [B,H,W,C]: trunk_conv(residual + 0.2
+    * block(x)) + head, the last RRDB's third block, its residual, the
+    trunk conv and the global residual. CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return fused_dense_block_epilogue_reference(x, weights, residual,
+                                                    trunk_w, head)
+    b, h, w, c = x.shape
+    g = _check_block("fused_dense_block_epilogue", x, weights)
+    _check_pair("fused_dense_block_epilogue trunk_conv", trunk_w, c, c)
+    if residual.shape != x.shape or head.shape != x.shape:
+        raise ValueError("fused_dense_block_epilogue: residual "
+                         f"{tuple(residual.shape)} / head "
+                         f"{tuple(head.shape)} != x {tuple(x.shape)}")
+    _require("fused_dense_block_epilogue", [x, residual, head],
+             [*weights, trunk_w])
+    ws = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
+    feat, out = torch.empty_like(x), torch.empty_like(x)
+    _build.dense_epilogue(x, weights, residual, trunk_w, head, ws, feat, out)
+    fused_dense_block_epilogue.launches += 1
+    return out
+
+
+fused_dense_block_epilogue.launches = 0
+
+
+def fused_rrdb_reference(x: torch.Tensor, w0: DenseWeights,
+                         w1: DenseWeights, w2: DenseWeights) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: three B1s, the RRDB residual in
+    the third."""
+    y = fused_dense_block_reference(x, w0)
+    y = fused_dense_block_reference(y, w1)
+    return fused_dense_block_reference(y, w2, residual=x)
+
+
+def fused_rrdb(x: torch.Tensor, w0: DenseWeights, w1: DenseWeights,
+               w2: DenseWeights) -> torch.Tensor:
+    """Kernel 6 on x [B,H,W,C]: x + 0.2 * B1(B1(B1(x))) with the three
+    blocks' weights. CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return fused_rrdb_reference(x, w0, w1, w2)
+    g = {_check_block(f"fused_rrdb block {i}", x, ws)
+         for i, ws in enumerate((w0, w1, w2))}
+    if len(g) != 1:
+        raise ValueError(f"fused_rrdb: blocks of growths {sorted(g)}")
+    b, h, w, c = x.shape
+    _require("fused_rrdb", [x], [*w0, *w1, *w2])
+    ws = torch.empty((b, h, w, 4 * g.pop()), dtype=x.dtype, device=x.device)
+    tmp, out = torch.empty_like(x), torch.empty_like(x)
+    _build.rrdb(x, [*w0, *w1, *w2], ws, tmp, out)
+    fused_rrdb.launches += 1
+    return out
+
+
+fused_rrdb.launches = 0

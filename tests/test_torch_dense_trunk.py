@@ -116,10 +116,3 @@ def test_fused_trunk_matches_jax(unshuffle):
     got = make_fused_trunk(sd, tm, device="cpu")(torch.from_numpy(x))
     assert got.shape == ref.shape
     assert _rel(got, ref) < 1e-4
-
-
-def test_fused_trunk_levers_not_ported():
-    _, _, sd, tm = _pair(0)
-    for lever in ("chain_rrdb", "fold_ends"):
-        with pytest.raises(NotImplementedError):
-            make_fused_trunk(sd, tm, device="cpu", **{lever: True})

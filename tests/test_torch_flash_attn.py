@@ -119,12 +119,15 @@ def test_wrapper_raises_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         flash_window_attention(e(4, 64, 96), e(4, 64, 96), e(4, 64, 96),
                                bias, 6)
-    with pytest.raises(ValueError, match="head dim 16.*got head dim 8"):
+    with pytest.raises(ValueError, match="head dim.*got head dim 8"):
         flash_window_attention(e(4, 64, 48), e(4, 64, 48), e(4, 64, 48),
                                bias, 6)
-    with pytest.raises(ValueError, match="m 100"):
-        flash_window_attention(e(4, 64, 96), e(4, 100, 96), e(4, 100, 96),
-                               e(6, 64, 100, dtype=torch.float32), 6)
+    with pytest.raises(ValueError, match="m 196"):
+        flash_window_attention(e(4, 64, 96), e(4, 196, 96), e(4, 196, 96),
+                               e(6, 64, 196, dtype=torch.float32), 6)
+    with pytest.raises(ValueError, match="head dim 20, n 64, m 64, C 140"):
+        flash_window_attention(e(4, 64, 140), e(4, 64, 140), e(4, 64, 140),
+                               e(7, 64, 64, dtype=torch.float32), 7)
     with pytest.raises(ValueError, match="self-attention"):
         flash_window_attention(
             e(4, 64, 96), e(4, 144, 96), e(4, 144, 96),
