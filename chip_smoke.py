@@ -2427,7 +2427,7 @@ def main() -> int:
           "launches_per_frame": launches, "tail_batch": TAIL_BATCH,
           "tail_chunks": chunks,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    for k in kernels:
+    for k in launches:
         kernels[k]["launches"] = launches[k]
 
     run_trunk, run_tail = make_tiled_infer_staged(

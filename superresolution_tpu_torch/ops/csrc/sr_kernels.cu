@@ -233,9 +233,11 @@ __host__ __device__ inline int conv_tiles(const ConvArgs& a, int co_t) {
          ((a.cout + co_t - 1) / co_t);
 }
 
-// One launch, one tile per block.
+// One launch, one tile per block. Two blocks per SM: without the bound
+// the depth_to_space instance takes 130 registers a thread, one block an
+// SM (B2 33% slower on the H100 than its 127-register form).
 template <int CO_T, bool D2S>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 2)
     conv3x3_kernel(const ConvArgs a) {
   __shared__ float in_s[CK * (TH + 2) * (TW + 2)];
   __shared__ __align__(16) float w_s[9 * CK * CO_T];
