@@ -29,12 +29,11 @@
 // OCAB's 10x10, 11x11, 12x12 and 24x24 key windows. Anything else is
 // refused with cudaErrorInvalidValue.
 //
-// Layout: a thread block of 256 threads per window (8x8 windows: the
-// heads in turn) or per window and head (16x16 windows). For each head
-// the block stages its M keys and values in shared memory as f32
-// (converted once), reading 4 elements (8 bytes in bf16) at a time where
-// every row start is 4-element aligned (head dim 20 in bf16 is 40 bytes:
-// not 16-byte aligned) and single elements otherwise. Query row i = tid /
+// Layout: one thread block of 256 threads per (window, head). The block
+// stages the head's M keys and values in shared memory as f32 (converted
+// once), reading 4 elements (8 bytes in bf16) at a time where every row
+// start is 4-element aligned (head dim 20 in bf16 is 40 bytes: not
+// 16-byte aligned) and single elements otherwise. Query row i = tid /
 // LPQ is held by LPQ = 256 / N lanes (4 at N 64, 1 at N 256); lane g
 // takes the keys g, g + LPQ, ... and runs an online softmax over them in
 // steps of KC keys (running max, rescaled sum and output), so no lane
@@ -129,13 +128,6 @@ __device__ __forceinline__ long long key_row(const AttnArgs& a, long long b,
          (long long)a.C;
 }
 
-// Heads a block takes in turn: all of them for 8x8 windows, whose single
-// head is too little work to pay for a block of its own; one for 16x16
-// windows, whose 256 windows of a map would not fill the card otherwise.
-__host__ __device__ constexpr int heads_per_block(int n, int nh) {
-  return n == 64 ? nh : 1;
-}
-
 template <int HD, int M>
 constexpr size_t smem_bytes(int n) {
   return (size_t)2 * M * (HD + 4) * sizeof(float) + n * sizeof(int);
@@ -152,119 +144,114 @@ __global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
   float* ks = smem;
   float* vs = ks + M * LD;
   int* ids = reinterpret_cast<int*>(vs + M * LD);
-  const int hpb = heads_per_block(N, a.nh);
-  const long long b = blockIdx.x / (a.nh / hpb);
-  const int h0 = (blockIdx.x % (a.nh / hpb)) * hpb;
+  const long long b = blockIdx.x / a.nh;
+  const int h = blockIdx.x % a.nh;
+  const int c0 = h * HD;
   const bool vec = a.vec != 0;
   const bool masked = a.ids != nullptr;
+
+  const T* kp = static_cast<const T*>(a.k) + c0;
+  const T* vp = static_cast<const T*>(a.v) + c0;
+  for (int e = threadIdx.x; e < M * (HD / 4); e += NT) {
+    const int j = e / (HD / 4), d = (e % (HD / 4)) * 4;
+    *reinterpret_cast<float4*>(ks + j * LD + d) =
+        load4(kp + key_row<GATHER>(a, b, j, a.k_bs, a.k_rs) + d, vec);
+    *reinterpret_cast<float4*>(vs + j * LD + d) =
+        load4(vp + key_row<GATHER>(a, b, j, a.v_bs, a.v_rs) + d, vec);
+  }
   if (masked)
     for (int t = threadIdx.x; t < N; t += NT)
       ids[t] = a.ids[(size_t)(b % a.nw_img) * N + t];
+  __syncthreads();
+
   const int i = threadIdx.x / LPQ, g = threadIdx.x % LPQ;
-
-  for (int h = h0; h < h0 + hpb; ++h) {
-    const int c0 = h * HD;
-    const T* kp = static_cast<const T*>(a.k) + c0;
-    const T* vp = static_cast<const T*>(a.v) + c0;
-    __syncthreads();  // the previous head is done with ks and vs
-    for (int e = threadIdx.x; e < M * (HD / 4); e += NT) {
-      const int j = e / (HD / 4), d = (e % (HD / 4)) * 4;
-      *reinterpret_cast<float4*>(ks + j * LD + d) =
-          load4(kp + key_row<GATHER>(a, b, j, a.k_bs, a.k_rs) + d, vec);
-      *reinterpret_cast<float4*>(vs + j * LD + d) =
-          load4(vp + key_row<GATHER>(a, b, j, a.v_bs, a.v_rs) + d, vec);
-    }
-    __syncthreads();
-
-    const T* qrow =
-        static_cast<const T*>(a.q) + b * a.q_bs + i * a.q_rs + c0;
-    float q[HD];
+  const T* qrow = static_cast<const T*>(a.q) + b * a.q_bs + i * a.q_rs + c0;
+  float q[HD];
 #pragma unroll
-    for (int d = 0; d < HD; d += 4) {
-      const float4 t = load4(qrow + d, vec);
-      q[d] = t.x;
-      q[d + 1] = t.y;
-      q[d + 2] = t.z;
-      q[d + 3] = t.w;
-    }
-    const float* brow = a.bias + ((size_t)h * N + i) * M;
-    const int id_i = masked ? ids[i] : 0;
-    float mx = __int_as_float(0xff800000);  // -inf
-    float l = 0.f;
-    float o[HD];
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] = 0.f;
-
-    for (int j0 = g; j0 < M; j0 += LPQ * KC) {
-      float s[KC];
-#pragma unroll
-      for (int u = 0; u < KC; ++u) {
-        const int j = j0 + LPQ * u;
-        s[u] = __int_as_float(0xff800000);  // -inf: no key
-        if (j < M) {
-          const float* kr = ks + j * LD;
-          float acc = 0.f;
-#pragma unroll
-          for (int d = 0; d < HD; d += 4) {
-            const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-            acc = fmaf(q[d], k4.x, acc);
-            acc = fmaf(q[d + 1], k4.y, acc);
-            acc = fmaf(q[d + 2], k4.z, acc);
-            acc = fmaf(q[d + 3], k4.w, acc);
-          }
-          float t = acc * a.scale + brow[j];
-          if (masked && id_i != ids[j]) t += kNeg;
-          s[u] = t;
-        }
-      }
-      float cm = s[0];
-#pragma unroll
-      for (int u = 1; u < KC; ++u) cm = fmaxf(cm, s[u]);
-      const float mn = fmaxf(mx, cm);   // finite: key j0 < M exists
-      const float corr = expf(mx - mn); // 0 on the first step
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) o[d] *= corr;
-#pragma unroll
-      for (int u = 0; u < KC; ++u) {
-        const int j = j0 + LPQ * u;
-        if (j < M) {
-          const float p = expf(s[u] - mn);
-          l += p;
-          const float pr = rnd(p, T());
-          const float* vr = vs + j * LD;
-#pragma unroll
-          for (int d = 0; d < HD; d += 4) {
-            const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
-            o[d] = fmaf(pr, v4.x, o[d]);
-            o[d + 1] = fmaf(pr, v4.y, o[d + 1]);
-            o[d + 2] = fmaf(pr, v4.z, o[d + 2]);
-            o[d + 3] = fmaf(pr, v4.w, o[d + 3]);
-          }
-        }
-      }
-      mx = mn;
-    }
-    // merge the LPQ lanes of the row: every lane ends with the row's total
-#pragma unroll
-    for (int off = 1; off < LPQ; off <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-      const float mn = fmaxf(mx, mo);
-      const float fa = expf(mx - mn), fb = expf(mo - mn);
-      l = l * fa + lo * fb;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        const float od = __shfl_xor_sync(0xffffffffu, o[d], off);
-        o[d] = o[d] * fa + od * fb;
-      }
-      mx = mn;
-    }
-    T* orow = static_cast<T*>(a.out) + ((size_t)b * N + i) * a.C + c0;
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d / DPL == g) put(orow + d, o[d] / l);
+  for (int d = 0; d < HD; d += 4) {
+    const float4 t = load4(qrow + d, vec);
+    q[d] = t.x;
+    q[d + 1] = t.y;
+    q[d + 2] = t.z;
+    q[d + 3] = t.w;
   }
+  const float* brow = a.bias + ((size_t)h * N + i) * M;
+  const int id_i = masked ? ids[i] : 0;
+  float mx = __int_as_float(0xff800000);  // -inf
+  float l = 0.f;
+  float o[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
+
+  for (int j0 = g; j0 < M; j0 += LPQ * KC) {
+    float s[KC];
+    float cm = __int_as_float(0xff800000);
+#pragma unroll
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + LPQ * u;
+      s[u] = __int_as_float(0xff800000);  // -inf: no key
+      if (j < M) {
+        const float* kr = ks + j * LD;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < HD; d += 4) {
+          const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+          acc = fmaf(q[d], k4.x, acc);
+          acc = fmaf(q[d + 1], k4.y, acc);
+          acc = fmaf(q[d + 2], k4.z, acc);
+          acc = fmaf(q[d + 3], k4.w, acc);
+        }
+        float t = acc * a.scale + brow[j];
+        if (masked && id_i != ids[j]) t += kNeg;
+        s[u] = t;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KC; ++u) cm = fmaxf(cm, s[u]);
+    const float mn = fmaxf(mx, cm);   // finite: key j0 < M exists
+    const float corr = expf(mx - mn); // 0 on the first step
+    l *= corr;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) o[d] *= corr;
+#pragma unroll
+    for (int u = 0; u < KC; ++u) {
+      const int j = j0 + LPQ * u;
+      if (j < M) {
+        const float p = expf(s[u] - mn);
+        l += p;
+        const float pr = rnd(p, T());
+        const float* vr = vs + j * LD;
+#pragma unroll
+        for (int d = 0; d < HD; d += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(vr + d);
+          o[d] = fmaf(pr, v4.x, o[d]);
+          o[d + 1] = fmaf(pr, v4.y, o[d + 1]);
+          o[d + 2] = fmaf(pr, v4.z, o[d + 2]);
+          o[d + 3] = fmaf(pr, v4.w, o[d + 3]);
+        }
+      }
+    }
+    mx = mn;
+  }
+  // merge the LPQ lanes of the row: every lane ends with the row's total
+#pragma unroll
+  for (int off = 1; off < LPQ; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float mn = fmaxf(mx, mo);
+    const float fa = expf(mx - mn), fb = expf(mo - mn);
+    l = l * fa + lo * fb;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      const float od = __shfl_xor_sync(0xffffffffu, o[d], off);
+      o[d] = o[d] * fa + od * fb;
+    }
+    mx = mn;
+  }
+  T* orow = static_cast<T*>(a.out) + ((size_t)b * N + i) * a.C + c0;
+#pragma unroll
+  for (int d = 0; d < HD; ++d)
+    if (d / DPL == g) put(orow + d, o[d] / l);
 }
 
 template <typename T, int HD, int N, int M, bool GATHER>
@@ -275,8 +262,7 @@ int launch(const AttnArgs& a, long long nb, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
   attn_kernel<T, HD, N, M, GATHER>
-      <<<(unsigned)(nb * (a.nh / heads_per_block(N, a.nh))), NT, bytes,
-         stream>>>(a);
+      <<<(unsigned)(nb * a.nh), NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
