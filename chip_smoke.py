@@ -98,7 +98,40 @@ seed, bf16:
              through fused_rrdb_model (B1-B3) in bf16 on bench.py's
              quality data: PSNR within 0.05 dB of the reference's
              25.595, bicubic PSNR within 0.002 dB of 23.599; SSIM printed
-Then the kernels line (all nine kernels), the card's nvidia-smi line
+Then phases 16-21: kernels 4-6 against their plain versions with two
+planted faults each (16), the 2K frame under the trunk levers fold_ends
+and chain_rrdb (17, run right after phase 5), kernels 8-10 at window 16,
+head dim 20 and ows 10 (18), the hybrid_astro_h200-class frame (19), an
+ows 10 HATLite (20), api.upscale over both prebound fused models on both
+tilers (21). Then the fused HAT's deploy levers, random weights from a
+sixth seed:
+ 22 strip-kernel    kernel 11 (strip_hab_block) against its plain version
+             within 0.03 on [1,256,256,C] maps (window 8 at C 96, window
+             16 at C 96 and 120; shift 0 and ws/2), also on out - x - cab;
+             three faults planted in the kernel (coordinates clamped for
+             the wrap, SE not applied, region mask off) must each miss by
+             3x the bar; timed beside the windowed route of kernel 8 with
+             its rolls, partitions and SE passes, and the plain version
+ 23 pair-kernel     kernel 12 (fused_cab_convs_pair) within 0.02 at
+             [1,256,256,96], [1,256,256,120] and a ragged map; two planted
+             faults (the hidden map not zeroed outside the image, a
+             pair's pixels swapped) at 3x the bar; timed beside kernel 7
+ 24 padded-kernels  kernels 7, 8, 9 at C 128 with c_real 96 and 8 heads
+             within 0.02 / 0.03 of their plain versions, the pad lanes of
+             each output exactly zero; timed
+ 25 lever-frames    bench_hybrid's frame under SRTPU_STRIP_HAB,
+             SRTPU_LANE_PAD and SRTPU_XLA_CAB, one at a time: exact
+             launches (strip: kernel 11 x24, kernel 8 x0; lane pad:
+             kernels 8 x24 and 9 x4, each at C 128; xla cab: kernel 7 x0),
+             the frame within 0.03 of the plain HybridSR end to end and
+             after stage 2 on the kernel path's stage-2 input (phase 7's
+             rule), stage 2's distances from plain and from the default
+             path printed; frame ms, stage-2 host and device ms, between
+             two default frames
+ 26 h200-levers     the h200-class frame under the strip lever (kernel 11
+             x36 at window 16, C 120) and under lane pad, which does not
+             apply at head dim 20: the frame runs unpadded at C 120
+Then the kernels line (all fourteen kernels), the card's nvidia-smi line
 and, last, {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
@@ -1286,7 +1319,7 @@ def counted_ops() -> dict:
     """Every hand kernel's wrapper, by name, with its launch count."""
     from superresolution_tpu_torch.ops import dense_trunk_train as dtt
     from superresolution_tpu_torch.ops import flash_oca as fo
-    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops import hab, hab_strip
     from superresolution_tpu_torch.ops.dense_trunk import fused_dense_block
     from superresolution_tpu_torch.ops.phase_tail import (
         conv_last_phase, up2_hr)
@@ -1304,6 +1337,8 @@ def counted_ops() -> dict:
             "fused_cab_convs": hab.fused_cab_convs,
             "fused_hab_block": hab.fused_hab_block,
             "flash_oca_gathered": fo.flash_oca_gathered,
+            "strip_hab_block": hab_strip.strip_hab_block,
+            "fused_cab_convs_pair": hab.fused_cab_convs_pair,
             "dense_block_backward": dtt.dense_block_backward,
             "star_weighted_l1_cuda": star_weighted_l1_cuda,
             "flash_window_attention": flash_window_attention}
@@ -2347,6 +2382,468 @@ def prebound_upscale(gen: torch.Generator) -> None:
                 inside_0_1=float(((plain > 0) & (plain < 1)).float().mean()))
 
 
+# ---- 22-26: the fused HAT's deploy levers, kernels 11 and 12 ----------
+
+TOL_PLANT_FACTOR = 3      # a planted fault must show at 3x the bar or more
+LEVERS = {"strip": {"SRTPU_STRIP_HAB": "1"},
+          "lane_pad": {"SRTPU_LANE_PAD": "1"},
+          "xla_cab": {"SRTPU_XLA_CAB": "1"}}
+
+
+def expect_margin(fault: str, got: torch.Tensor, ref: torch.Tensor,
+                  tol: float) -> None:
+    """A planted fault's output against the plain version: raise unless
+    it misses by TOL_PLANT_FACTOR times the bar or more (non-finite
+    values count as caught)."""
+    g = got.float()
+    rel = rel_err(got, ref) if bool(torch.isfinite(g).all()) else float("inf")
+    emit({"planted_fault": fault, "max_rel_err": rel, "tol": tol,
+          "caught": rel > TOL_PLANT_FACTOR * tol})
+    if not rel > TOL_PLANT_FACTOR * tol:
+        raise AssertionError(f"{fault}: planted fault shows only {rel} "
+                             f"(< {TOL_PLANT_FACTOR} x {tol})")
+
+
+def planted(helper: str, bit: int, fn):
+    """fn() with `plant=bit` passed to the _build launch helper."""
+    import functools
+
+    from superresolution_tpu_torch.ops import _build
+
+    real = getattr(_build, helper)
+    setattr(_build, helper, functools.partial(real, plant=bit))
+    try:
+        return fn()
+    finally:
+        setattr(_build, helper, real)
+
+
+STRIP_CASES = (("c96_ws8", 96, 8, 192), ("c96_ws16", 96, 16, 192),
+               ("c120_ws16", 120, 16, 240))
+
+
+def check_strip_kernel(gen: torch.Generator) -> dict:
+    """Phase 22: kernel 11 (strip_hab_block) against its plain version on
+    the same bf16 inputs within 0.03, on [1,256,256,C] maps at window 8
+    (C 96) and 16 (C 96, C 120), shift 0 and ws/2: the output, and out -
+    x - bf16(cab_y se) (attention + MLP, which the identity terms would
+    hide); se drawn in [0.2, 0.9] so the CAB term is material. Each of
+    the three faults planted in the kernel (coordinates clamped in place
+    of the wrap, SE not applied, region mask off) must miss by 3x the bar
+    at the shifted window 8 and 16 maps. Timed at window 8, shift 4,
+    beside the plain version and the windowed route the default path
+    takes for the same block (SE glue, rolls, partitions, kernel 8,
+    merge, roll back). Returns the kernels-line entry."""
+    from superresolution_tpu_torch.models.hat_lite import (
+        shift_region_ids, window_merge, window_partition)
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops import hab_strip as hs
+
+    bf = torch.bfloat16
+    side = 2 * HYBRID_IN
+    entry = None
+    for tag, c, ws, mlp in STRIP_CASES:
+        n = ws * ws
+        w = hab_check_weights(gen, c, 6, n, mlp)
+        x = rand(gen, 1, side, side, c, dtype=bf)
+        cab_y = rand(gen, 1, side, side, c, dtype=bf)
+        se = (0.2 + 0.7 * torch.rand((1, 1, c), generator=gen)).cuda()
+        cab = (cab_y.float() * se.reshape(1, 1, 1, c)).to(bf)
+        for shift in (0, ws // 2):
+            name = f"strip_hab_block/{tag}/shift{shift}"
+            before = hs.strip_hab_block.launches
+            got = hs.strip_hab_block(x, cab_y, se, w, num_heads=6,
+                                     window_size=ws, shift=shift)
+            if hs.strip_hab_block.launches != before + 1:
+                raise AssertionError(f"{name}: not one counted launch")
+            ref = hs.strip_hab_block_reference(x, cab_y, se, w, 6, ws, shift)
+            err = compare(name, got, ref, TOL_HAB)
+            ident = x.float() + cab.float()
+            compare(f"{name}/attn_mlp", got.float() - ident,
+                    ref.float() - ident, TOL_HAB)
+            if not shift:
+                continue
+            if tag != "c96_ws16":
+                for bit, fault in ((_build.PLANT_CLAMP, "clamp_not_wrap"),
+                                   (_build.PLANT_NO_SE, "se_not_applied"),
+                                   (_build.PLANT_NO_MASK, "region_mask_off")):
+                    expect_margin(f"strip_hab_block/{tag}:{fault}", planted(
+                        "strip_hab", bit, lambda: hs.strip_hab_block(
+                            x, cab_y, se, w, num_heads=6, window_size=ws,
+                            shift=shift)), ref, TOL_HAB)
+            if tag != "c96_ws8":
+                continue
+            ids = torch.as_tensor(shift_region_ids(side, side, ws, shift),
+                                  device="cuda")
+            s_bf, one = se.to(bf).reshape(1, 1, 1, c), torch.tensor(1.0,
+                                                                     dtype=bf)
+
+            def windowed():
+                cb = cab_y * s_bf * one  # the SE and conv_scale passes
+                xs = torch.roll(x, (-shift, -shift), dims=(1, 2))
+                cb = torch.roll(cb, (-shift, -shift), dims=(1, 2))
+                o = hab.fused_hab_block(window_partition(xs, ws).contiguous(),
+                                        window_partition(cb, ws).contiguous(),
+                                        6, w, ids)
+                o = window_merge(o, ws, (side, side))
+                return torch.roll(o, (shift, shift), dims=(1, 2)).contiguous()
+
+            compare(f"{name}/windowed_route", windowed(), ref, TOL_PATH)
+            tok = side * side
+            b_ms, b_by = bound(2 * tok * HAB_MACS,
+                               tok * c * 2 * 3 + se.numel() * 4
+                               + 2 * (c * 3 * c + c * c + 2 * c * mlp))
+            entry = {
+                "name": "strip_hab_block", "route": "cuda", "source": HAT_SRC,
+                "sources": [HAT_SRC],
+                "replaces": "superresolution_tpu/ops/pallas_hab_strip.py:204",
+                "shape": list(x.shape), "case": f"{tag}/shift{shift}",
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"], "tol": TOL_HAB,
+                "ms": time_ms(lambda: hs.strip_hab_block(
+                    x, cab_y, se, w, num_heads=6, window_size=ws,
+                    shift=shift), 20),
+                "plain_ms": time_ms(lambda: hs.strip_hab_block_reference(
+                    x, cab_y, se, w, 6, ws, shift), 10),
+                "windowed_ms": time_ms(windowed, 20),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            emit({"phase": "kernel_time", **entry})
+        del x, cab_y, cab
+        torch.cuda.empty_cache()
+    return entry
+
+
+def check_cab_pair_kernel(gen: torch.Generator) -> dict:
+    """Phase 23: kernel 12 (fused_cab_convs_pair) against its plain
+    version (f32 on the bf16 inputs) within 0.02, kernel 7's bar, at
+    [1,256,256,96], [1,256,256,120] and a ragged [2,37,46,96] (partial
+    tiles at every edge), with kernel 7's check weights (a large LN bias,
+    so a conv that saw LN(0) outside the image would differ); both faults
+    planted in the kernel (the hidden map not zeroed outside the image,
+    the pixels of a pair swapped) must miss by 3x the bar at the first.
+    Timed at [1,256,256,96] beside kernel 7's three launches and the
+    plain version. Returns the kernels-line entry."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import hab
+
+    bf = torch.bfloat16
+    side = 2 * HYBRID_IN
+    entry = None
+    for tag, c, shape in (("c96", 96, (1, side, side)),
+                          ("c120", 120, (1, side, side)),
+                          ("ragged_c96", 96, (2, 37, 46))):
+        w = cab_check_weights(gen, c, c // 3)
+        x = rand(gen, *shape, c, dtype=bf)
+        before = hab.fused_cab_convs_pair.launches
+        got = hab.fused_cab_convs_pair(x, w)
+        if hab.fused_cab_convs_pair.launches != before + 1:
+            raise AssertionError("fused_cab_convs_pair: not one counted "
+                                 "launch")
+        ref = hab.fused_cab_convs_pair_reference(x.float(), w)
+        err = compare(f"fused_cab_convs_pair/{tag}", got, ref, TOL_KERNEL)
+        if tag != "c96":
+            continue
+        for bit, fault in ((_build.PLANT_HID_BORDER, "hidden_not_zeroed"),
+                           (_build.PLANT_SWAP_PAIR, "pair_swapped")):
+            expect_margin(f"fused_cab_convs_pair:{fault}", planted(
+                "cab_pair", bit, lambda: hab.fused_cab_convs_pair(x, w)),
+                ref, TOL_KERNEL)
+        px = side * side
+        b_ms, b_by = bound(2 * px * CAB_MACS,
+                           px * c * 2 * 2 + 2 * 9 * c * (c // 3) * 2)
+        entry = {
+            "name": "fused_cab_convs_pair", "route": "cuda",
+            "source": HAT_SRC, "sources": [HAT_SRC],
+            "replaces": "superresolution_tpu/ops/pallas_hab.py:613",
+            "shape": list(x.shape), "max_abs_err": err["max_abs_err"],
+            "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
+            "ms": time_ms(lambda: hab.fused_cab_convs_pair(x, w), 20),
+            "plain_ms": time_ms(
+                lambda: hab.fused_cab_convs_pair_reference(x, w), 20),
+            "kernel7_ms": time_ms(lambda: hab.fused_cab_convs(x, w), 20),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "path": "none: no caller, as in the reference"}
+        emit({"phase": "kernel_time", **entry})
+    return entry
+
+
+def pad_lanes(t: torch.Tensor, dims, to: int = 128) -> torch.Tensor:
+    """t zero-padded at the end of each of `dims` to `to`."""
+    for d in dims:
+        shape = list(t.shape)
+        shape[d] = to - t.shape[d]
+        t = torch.cat([t, t.new_zeros(shape)], d)
+    return t.contiguous()
+
+
+def check_padded_kernels(gen: torch.Generator) -> dict:
+    """Phase 24: kernels 7, 8 and 9 at the lane-padded geometry (C 96 in
+    128 lanes, 8 heads of 16, c_real 96), against their plain versions
+    (7 within 0.02, 8 and 9 within 0.03) at the bench_hybrid frame's
+    stage-2 shapes (a 256^2 map: [1,256,256,128]; 1024 windows of 64;
+    kernel 8 unmasked and masked), on inputs and weights padded as
+    infer/lane_pad.py pads them; the lanes past 96 of each output must be
+    exactly zero. Each timed beside its bound and plain version. Returns
+    the times by kernel."""
+    from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+    from superresolution_tpu_torch.ops import flash_oca as fo
+    from superresolution_tpu_torch.ops import hab
+
+    bf, cr, cp = torch.bfloat16, 96, 128
+    side = 2 * HYBRID_IN
+    out = {}
+
+    def zero_pads(name, t):
+        if bool(t[..., cr:].any()):
+            raise AssertionError(f"{name}: pad lanes not zero")
+
+    cw = cab_check_weights(gen)
+    cw = [pad_lanes(cw[0], [0]), pad_lanes(cw[1], [0]),
+          pad_lanes(cw[2], [2]), cw[3], pad_lanes(cw[4], [3]),
+          pad_lanes(cw[5], [0])]
+    x = pad_lanes(rand(gen, 1, side, side, cr, dtype=bf), [3])
+    got = hab.fused_cab_convs(x, cw, c_real=cr)
+    e7 = compare("fused_cab_convs/c128_creal96", got,
+                 hab.fused_cab_convs_reference(x.float(), cw, c_real=cr),
+                 TOL_KERNEL)
+    zero_pads("fused_cab_convs/c128", got)
+    px = side * side
+    out["cab_c128_creal96"] = {
+        "ms": time_ms(lambda: hab.fused_cab_convs(x, cw, c_real=cr), 20),
+        "plain_ms": time_ms(lambda: hab.fused_cab_convs_reference(
+            x, cw, c_real=cr), 10),
+        "max_rel_err": e7["max_rel_err"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * px * CAB_MACS, px * cp * 2 * 2 + 2 * 9 * cp * 32 * 2)))}
+
+    w = hab_check_weights(gen)
+    wq = w["wqkv"].float()
+    w = dict(w, **{
+        k: pad_lanes(w[k], [0]) for k in ("ln1_s", "ln1_b", "bp", "ln2_s",
+                                          "ln2_b", "b2")})
+    w["wqkv"] = pad_lanes(torch.cat([pad_lanes(s, [1])
+                                     for s in wq.split(cr, 1)], 1), [0]).to(bf)
+    w["bqkv"] = torch.cat([pad_lanes(s, [0])
+                           for s in w["bqkv"].split(cr)]).contiguous()
+    w["rpb"] = pad_lanes(w["rpb"], [0], 8)
+    w["wp"] = pad_lanes(w["wp"], [0, 1])
+    w["w1"], w["w2"] = pad_lanes(w["w1"], [0]), pad_lanes(w["w2"], [1])
+    nw = (side // 8) ** 2
+    xw = pad_lanes(rand(gen, nw, 64, cr, dtype=bf), [2])
+    cwin = pad_lanes(rand(gen, nw, 64, cr, scale=0.3, dtype=bf), [2])
+    ids = torch.as_tensor(shift_region_ids(side, side, 8, 4), device="cuda")
+    errs = []
+    for tag, i in (("unmasked", None), ("masked", ids)):
+        got = hab.fused_hab_block(xw, cwin, 8, w, i, c_real=cr)
+        errs.append(compare(
+            f"fused_hab_block/c128_creal96/{tag}", got,
+            hab.hab_body_reference(xw, cwin, w, 8, i, c_real=cr), TOL_HAB))
+        zero_pads(f"fused_hab_block/c128/{tag}", got)
+    tok = nw * 64
+    out["hab_c128_nh8_n64"] = {
+        "ms": time_ms(lambda: hab.fused_hab_block(xw, cwin, 8, w, ids,
+                                                  c_real=cr), 20),
+        "plain_ms": time_ms(lambda: hab.hab_body_reference(
+            xw, cwin, w, 8, ids, c_real=cr), 10),
+        "max_rel_err": max(e["max_rel_err"] for e in errs),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * tok * (cp * 4 * cp + 2 * cp * 192 + 2 * 64 * cp),
+            tok * cp * 2 * 3 + 2 * (cp * 4 * cp + 2 * cp * 192))))}
+
+    q = pad_lanes(rand(gen, nw, 64, cr, scale=1.5, dtype=bf), [2])
+    k_map, v_map = (pad_lanes(F.pad(rand(gen, 1, side, side, cr, scale=1.5,
+                                         dtype=bf), (0, 0, 2, 2, 2, 2)), [3])
+                    for _ in range(2))
+    bias = pad_lanes(rand(gen, 6, 64, 144), [0], 8)
+    got = fo.flash_oca_gathered(q, k_map, v_map, bias, 8, 8, 12)
+    e9 = compare("flash_oca_gathered/c128_nh8", got,
+                 fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 8, 8,
+                                                 12), TOL_HAB)
+    zero_pads("flash_oca_gathered/c128", got)
+    out["oca_c128_nh8_ws8_ows12"] = {
+        "ms": time_ms(lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 8,
+                                                    8, 12), 20),
+        "plain_ms": time_ms(lambda: fo.flash_oca_gathered_reference(
+            q, k_map, v_map, bias, 8, 8, 12), 10),
+        "max_rel_err": e9["max_rel_err"],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * tok * 2 * 144 * cp, tok * cp * 2 * 2 + 2 * k_map.numel() * 2
+            + bias.numel() * 4)))}
+    for tag, t in out.items():
+        emit({"phase": "kernel_time", "case": tag, **t})
+    return out
+
+
+class lever_env:
+    """Set a lever's environment variables for a with-block, then restore
+    the environment as it was."""
+
+    def __init__(self, env: dict):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def launch_channels(fn) -> tuple:
+    """fn() with the channel count of every kernel-8 and kernel-9 launch
+    recorded (the _build launch helpers wrapped). Returns (fn's result,
+    {'fused_hab_block': [C, ...], 'flash_oca_gathered': [C, ...]})."""
+    from superresolution_tpu_torch.ops import _build
+
+    seen = {"fused_hab_block": [], "flash_oca_gathered": []}
+    real = {"hab_block": _build.hab_block, "oca": _build.oca}
+
+    def hab_block(x, *a, **k):
+        seen["fused_hab_block"].append(x.shape[-1])
+        return real["hab_block"](x, *a, **k)
+
+    def oca(q, *a, **k):
+        seen["flash_oca_gathered"].append(q.shape[-1])
+        return real["oca"](q, *a, **k)
+
+    _build.hab_block, _build.oca = hab_block, oca
+    try:
+        return fn(), seen
+    finally:
+        _build.hab_block, _build.oca = real["hab_block"], real["oca"]
+
+
+def device_ms(fn) -> float | None:
+    """Device time of one call of fn after a warm-up: the sum of its CUDA
+    kernels' self time (torch.profiler), None if the profiler sees none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
+def lever_frame(model, params, x, z, lever: str, want: dict,
+                channels: dict, tag: str) -> dict:
+    """One frame through fused_hybrid_model under `lever` (None: the
+    default) with every launch counted (exact: `want`, the rest 0) and
+    kernels 8 and 9's channels recorded (each `channels[k]`); shape and
+    finiteness; the frame after stage 2, fed the kernel path's own
+    stage-2 input z, within 0.03 of the plain HybridSR (phase 7's rule),
+    and the whole frame too; stage 2's own output (before the smoothing
+    that follows it) and its distance from the plain stage 2, printed;
+    frame ms and stage 2's host and device ms. Returns the launches, the
+    times and stage 2's output."""
+    from superresolution_tpu_torch.infer.fused_hat import (
+        fused_hybrid_model, make_fused_hat)
+
+    stage2 = {n[len("stage2."):]: v for n, v in params.items()
+              if n.startswith("stage2.")}
+    with lever_env(LEVERS.get(lever, {})), torch.inference_mode():
+        fused = fused_hybrid_model(params, model)
+        ops = zero_counts()
+        y, seen = launch_channels(lambda: fused(x))
+        torch.cuda.synchronize()
+        launches = {k: op.launches for k, op in ops.items()}
+        check_launches(f"{tag}/{lever}", launches,
+                       {**{k: 0 for k in ops}, **want})
+        for k, c in channels.items():
+            if set(seen[k]) != {c}:
+                raise AssertionError(f"{tag}/{lever}: {k} launched at C "
+                                     f"{sorted(set(seen[k]))}, not {c}")
+        side = 4 * x.shape[1]
+        if tuple(y.shape) != (1, side, side, 1) or not bool(
+                torch.isfinite(y).all()):
+            raise AssertionError(f"{tag}/{lever}: output {tuple(y.shape)} "
+                                 "not finite or not x4")
+        s2 = make_fused_hat(stage2, model.stage2)
+        y2 = s2(z)
+        compare(f"{tag}/{lever}/frame", y, finish(model.stage2, z), TOL_PATH,
+                stage2_rel_err=rel_err(y2, model.stage2(z)),
+                stage2_channels={k: sorted(set(v)) for k, v in seen.items()})
+        compare(f"{tag}/{lever}/frame_end_to_end", y, model(x), TOL_PATH)
+        times = {"frame_ms": host_clock(lambda: fused(x), 5) * 1e3,
+                 "stage2_ms": host_clock(lambda: s2(z), 5) * 1e3,
+                 "stage2_device_ms": device_ms(lambda: s2(z))}
+    emit({"phase": "lever_frame", "model": tag, "lever": lever,
+          "launches_per_frame": {k: v for k, v in launches.items() if v},
+          **times})
+    return {"launches": launches, "stage2_out": y2, **times}
+
+
+def hat_lever_paths(gen: torch.Generator, card: str) -> dict:
+    """Phases 25 and 26: bench_hybrid's frame (128^2 -> 512^2, stage 2
+    HATLite embed 96, 4 x 6 HABs, window 8) through fused_hybrid_model
+    under SRTPU_STRIP_HAB (kernel 11 x24, kernel 8 x0), SRTPU_LANE_PAD
+    (kernels 8 x24 and 9 x4, all at C 128) and SRTPU_XLA_CAB (kernel 7
+    x0), one at a time, between two runs of the default frame; then the
+    hybrid_astro_h200-class frame (embed 120, 6 x 6 HABs, head dim 20,
+    window 16) under the strip lever (kernel 11 x36 at window 16, C 120)
+    and under lane pad, which does not apply at head dim 20 (128 % 20):
+    the frame runs unpadded, kernels 8 and 9 at C 120. Returns kernel
+    11's launches in bench_hybrid's strip frame."""
+    from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard
+
+    bf = torch.bfloat16
+    out = {}
+    for tag, hat, side in (("bench_hybrid", {}, HYBRID_IN),
+                           ("h200", H200_HAT, H200_IN)):
+        model = hybrid_model(gen, output_size=4 * side, **hat)
+        params = model.state_dict()
+        x = torch.rand((1, side, side, 1), generator=gen).to("cuda", bf)
+        with torch.inference_mode():
+            z = anti_checkerboard(fused_rrdb_model(
+                {n[len("stage1."):]: v for n, v in params.items()
+                 if n.startswith("stage1.")}, model.stage1)(x), "balanced")
+        n_hab, n_grp = sum(model.stage2.depths), len(model.stage2.depths)
+        c = model.stage2.embed_dim
+        cp = 128 if c == 96 else c  # lane pad applies at head dim 16 only
+        base = {"fused_dense_block": 69 * 5, "fused_cab_convs": 3 * n_hab,
+                "fused_hab_block": n_hab, "flash_oca_gathered": n_grp}
+        plain = {"fused_hab_block": c, "flash_oca_gathered": c}
+        cases = [("default", base, plain),
+                 ("strip", {**base, "fused_hab_block": 0,
+                            "strip_hab_block": n_hab},
+                  {"flash_oca_gathered": c}),
+                 ("lane_pad", base, {"fused_hab_block": cp,
+                                     "flash_oca_gathered": cp})]
+        if tag == "bench_hybrid":
+            cases.append(("xla_cab", {**base, "fused_cab_convs": 0}, plain))
+        cases.append(("default_again", base, plain))
+        res = {lever: lever_frame(model, params, x, z, lever, want, chans,
+                                  tag)
+               for lever, want, chans in cases}
+        default2 = res["default"]["stage2_out"]
+        for lever, r in res.items():  # how far each lever moves stage 2
+            emit({"check": f"{tag}/{lever}/stage2_vs_default (printed)",
+                  "rel_err": rel_err(r.pop("stage2_out"), default2)})
+        del default2
+        emit({"phase": "lever_times", "model": tag, "card": card,
+              **{f"{k}_{m}": v[m] for k, v in res.items()
+                 for m in ("frame_ms", "stage2_ms", "stage2_device_ms")},
+              "lane_pad_applied": cp != c})
+        if cp == c:
+            emit({"check": f"{tag}/lane_pad", "ran_unpadded_at_C": c,
+                  "why": f"head dim {c // model.stage2.num_heads[0]} does "
+                         "not divide 128"})
+        out[tag] = res["strip"]["launches"]["strip_hab_block"]
+        del model, params
+        torch.cuda.empty_cache()
+    return out["bench_hybrid"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2520,6 +3017,20 @@ def main() -> int:
     ows10_path(gen)
     prebound_upscale(gen)
     emit({"phase": "h200_launches", **h200})
+    torch.cuda.empty_cache()
+
+    # ---- 22-26: the fused HAT's deploy levers, kernels 11 and 12 ----
+    gen = torch.Generator().manual_seed(SEED + 5)
+    kernels["strip_hab_block"] = check_strip_kernel(gen)
+    kernels["fused_cab_convs_pair"] = {**check_cab_pair_kernel(gen),
+                                       "launches": 0}
+    padded = check_padded_kernels(gen)
+    for k, tag in (("fused_cab_convs", "cab_c128_creal96"),
+                   ("fused_hab_block", "hab_c128_nh8_n64"),
+                   ("flash_oca_gathered", "oca_c128_nh8_ws8_ows12")):
+        kernels[k].setdefault("geometries", {})[tag] = padded[tag]
+    torch.cuda.empty_cache()
+    kernels["strip_hab_block"]["launches"] = hat_lever_paths(gen, card)
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

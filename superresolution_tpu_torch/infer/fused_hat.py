@@ -22,8 +22,20 @@ Weights come from the port's HAT-keyed state dict (models/convert.py
 bridges the JAX trees) and are cast per input dtype, as the reference
 casts its params at the call: bf16 on the card, f32 in the CPU tests.
 
-Not ported: the reference's levers SRTPU_LANE_PAD (infer/lane_pad.py),
-SRTPU_STRIP_HAB and SRTPU_XLA_CAB, all off by default there.
+The reference's three deploy levers, all off by default, are read from
+the environment where the reference reads them:
+  * SRTPU_LANE_PAD (with SRTPU_LANE_PAD_TO, default 128), once in
+    make_fused_hat: where infer/lane_pad.lane_pad_supported holds, the
+    weights are zero-padded to that many channels (pad_hat_params) and
+    the stage runs there, kernels 7-9 at C 128 with 8 heads for embed 96,
+    every LayerNorm dividing by the real C (c_real); elsewhere (C 120 at
+    head dim 20, say) the model runs unpadded, as the reference's does;
+  * SRTPU_STRIP_HAB (with SRTPU_STRIP_RB), at each HAB call and only
+    unpadded: kernel 7, the squeeze-excite vector from its output (f32,
+    conv_scale folded in), then kernel 11 (ops/hab_strip.strip_hab_block)
+    on the spatial maps, with no roll, partition or merge around it;
+  * SRTPU_XLA_CAB, at each HAB call: the plain CAB (LN, convs, GELU, SE)
+    in PyTorch in place of kernel 7.
 """
 
 from __future__ import annotations
@@ -40,6 +52,10 @@ from superresolution_tpu_torch.infer.common import (
     state_tensors,
 )
 from superresolution_tpu_torch.infer.fused_trunk import fused_rrdb_model
+from superresolution_tpu_torch.infer.lane_pad import (
+    lane_pad_supported,
+    pad_hat_params,
+)
 from superresolution_tpu_torch.models.common import pixel_shuffle_stages
 from superresolution_tpu_torch.models.hat_lite import (
     HATLite,
@@ -61,6 +77,7 @@ from superresolution_tpu_torch.ops.hab import (
     hab_weights,
     layer_norm,
 )
+from superresolution_tpu_torch.ops.hab_strip import strip_hab_block
 from superresolution_tpu_torch.ops.pixel_shuffle import depth_to_space
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.ops.window_attention import (
@@ -70,8 +87,9 @@ from superresolution_tpu_torch.ops.window_attention import (
 from superresolution_tpu_torch.runtime import resolve_device
 
 
-def _ln(x: torch.Tensor, p: Mapping, name: str) -> torch.Tensor:
-    return layer_norm(x, p[f"{name}.weight"], p[f"{name}.bias"])
+def _ln(x: torch.Tensor, p: Mapping, name: str,
+        c_real: int | None = None) -> torch.Tensor:
+    return layer_norm(x, p[f"{name}.weight"], p[f"{name}.bias"], c_real)
 
 
 def _dense(x: torch.Tensor, p: Mapping, name: str) -> torch.Tensor:
@@ -84,29 +102,52 @@ def _dense(x: torch.Tensor, p: Mapping, name: str) -> torch.Tensor:
             + p[f"{name}.bias"].float()).to(x.dtype)
 
 
-def _se_scale(y: torch.Tensor, p: Mapping, pre: str) -> torch.Tensor:
-    """Squeeze-excite tail of the CAB, on the kernel's pre-SE output."""
+def _se(y: torch.Tensor, p: Mapping, pre: str) -> torch.Tensor:
+    """The CAB's squeeze-excite vector [B,1,1,C] of its pre-SE output y,
+    in y's dtype."""
     s = y.float().mean((1, 2), keepdim=True).to(y.dtype)
     s = torch.relu(_dense(s, p, f"{pre}.conv_block.cab.3.attention.1"))
-    s = torch.sigmoid(_dense(s, p, f"{pre}.conv_block.cab.3.attention.3"))
-    return y * s
+    return torch.sigmoid(_dense(s, p, f"{pre}.conv_block.cab.3.attention.3"))
+
+
+def _cab_plain(x: torch.Tensor, p: Mapping, pre: str,
+               c_real: int | None) -> torch.Tensor:
+    """The CAB in plain PyTorch (SRTPU_XLA_CAB): LN, conv, exact GELU,
+    conv, squeeze-excite."""
+    y = _ln(x, p, f"{pre}.norm1", c_real)
+    y = F.gelu(param_conv(y, p, f"{pre}.conv_block.cab.0"))
+    y = param_conv(y, p, f"{pre}.conv_block.cab.2")
+    return y * _se(y, p, pre)
 
 
 def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
-         ws: int, nh: int, conv_scale: float,
-         ids: torch.Tensor | None) -> torch.Tensor:
-    """One HABlock: the CAB branch (kernel 7 + SE), then the window body
-    (kernel 8) on the rolled, partitioned x and cab."""
-    _, h, w, _ = x.shape
+         ws: int, nh: int, conv_scale: float, ids: torch.Tensor | None,
+         c_real: int | None = None) -> torch.Tensor:
+    """One HABlock: the CAB branch (kernel 7 + SE, or the plain CAB
+    under SRTPU_XLA_CAB), then the window body (kernel 8) on the rolled,
+    partitioned x and cab; or, under SRTPU_STRIP_HAB on an unpadded
+    stage, kernel 7 and kernel 11 on the maps."""
+    b, h, w, c = x.shape
     cw, hw = weights
-    cab = (_se_scale(fused_cab_convs(x, cw), p, pre)
-           * torch.tensor(conv_scale, dtype=x.dtype))
+    if os.environ.get("SRTPU_STRIP_HAB") and c_real is None:
+        y_cab = fused_cab_convs(x, cw)
+        se = (_se(y_cab, p, pre).float() * conv_scale).reshape(b, 1, c)
+        rb = os.environ.get("SRTPU_STRIP_RB")
+        return strip_hab_block(x, y_cab, se, hw, num_heads=nh,
+                               window_size=ws, shift=shift,
+                               rb=int(rb) if rb else None)
+    if os.environ.get("SRTPU_XLA_CAB"):
+        cab = _cab_plain(x, p, pre, c_real)
+    else:
+        y = fused_cab_convs(x, cw, c_real=c_real)
+        cab = y * _se(y, p, pre)
+    cab = cab * torch.tensor(conv_scale, dtype=x.dtype)
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
         cab = torch.roll(cab, (-shift, -shift), dims=(1, 2))
     out = fused_hab_block(window_partition(x, ws).contiguous(),
                           window_partition(cab, ws).contiguous(), nh, hw,
-                          ids)
+                          ids, c_real)
     out = window_merge(out, ws, (h, w))
     if shift:
         out = torch.roll(out, (shift, shift), dims=(1, 2))
@@ -114,14 +155,15 @@ def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
 
 
 def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
-          nh: int, bias: torch.Tensor) -> torch.Tensor:
+          nh: int, bias: torch.Tensor,
+          c_real: int | None = None) -> torch.Tensor:
     """OverlappingCrossAttention: LN, q and kv denses, the kv maps
     zero-padded after the dense (asymmetric tail pad for odd ows - ws),
     attention through kernel 9, kernel 10 or the plain form (see the
     module docstring), proj, MLP."""
     _, h, w, c = x.shape
     pad = (ows - ws) // 2
-    y = _ln(x, p, f"{pre}.norm1")
+    y = _ln(x, p, f"{pre}.norm1", c_real)
     qkv = _dense(y, p, f"{pre}.qkv")  # q | k | v, as HAT packs them
     q = window_partition(qkv[..., :c], ws).contiguous()
     kv = F.pad(qkv[..., c:], (0, 0, pad, ows - ws - pad, pad, ows - ws - pad))
@@ -138,7 +180,8 @@ def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
         out = (reference_window_attention(q, k, v, bias, nh) if einsum
                else flash_window_attention(q, k, v, bias, nh))
     x = x + window_merge(_dense(out, p, f"{pre}.proj"), ws, (h, w))
-    z = F.gelu(_dense(_ln(x, p, f"{pre}.norm2"), p, f"{pre}.mlp.fc1"))
+    z = F.gelu(_dense(_ln(x, p, f"{pre}.norm2", c_real), p,
+                      f"{pre}.mlp.fc1"))
     return x + _dense(z, p, f"{pre}.mlp.fc2")
 
 
@@ -148,14 +191,24 @@ def make_fused_hat(params: Mapping, model: HATLite,
     `model` (the port's HATLite, which gives the configuration) applied
     with the weights of `params`, a HAT-keyed state dict, with its HABs
     and OCABs through kernels 7-10. Sides that are not multiples of the
-    window are edge-padded and the output cropped, as in the model."""
+    window are edge-padded and the output cropped, as in the model.
+    Under SRTPU_LANE_PAD the weights are lane-padded here, once (see the
+    module docstring)."""
     dev = resolve_device(device)
     p = state_tensors(params, dev)
     ws, scale = model.window_size, model.scale
     ows = int(ws * (1 + model.overlap_ratio))
     n = ws * ws
+    heads, c_real = model.num_heads, None
+    if os.environ.get("SRTPU_LANE_PAD"):
+        c_model = p["conv_first.weight"].shape[0]
+        c_pad = int(os.environ.get("SRTPU_LANE_PAD_TO", "128"))
+        if len(set(heads)) == 1 and lane_pad_supported(c_model, heads[0],
+                                                       c_pad):
+            p, nhp = pad_hat_params(p, model, c_pad)
+            heads, c_real = (nhp,) * len(heads), c_model
     layers = []
-    for g, (depth, nh) in enumerate(zip(model.depths, model.num_heads)):
+    for g, (depth, nh) in enumerate(zip(model.depths, heads)):
         blocks = [f"layers.{g}.residual_group.blocks.{i}"
                   for i in range(depth)]
         pre = f"layers.{g}.overlap_attn"
@@ -194,19 +247,20 @@ def make_fused_hat(params: Mapping, model: HATLite,
         wts = weights(x.dtype)
         ids = region_ids(h0 + ph, w0 + pw)
         feat = param_conv(x, p, "conv_first")
-        y = _ln(feat, p, "patch_embed.norm") if model.hat_compat else feat
+        y = (_ln(feat, p, "patch_embed.norm", c_real) if model.hat_compat
+             else feat)
         for g, blocks, nh, bias in layers:
             y0 = y
             for i, pre in enumerate(blocks):
                 shift = 0 if i % 2 == 0 else ws // 2
                 y = _hab(y, p, pre, wts[pre], shift=shift, ws=ws, nh=nh,
                          conv_scale=model.conv_scale,
-                         ids=ids if shift else None)
+                         ids=ids if shift else None, c_real=c_real)
             y = _ocab(y, p, f"layers.{g}.overlap_attn", ws=ws, ows=ows,
-                      nh=nh, bias=bias)
+                      nh=nh, bias=bias, c_real=c_real)
             y = y0 + param_conv(y, p, f"layers.{g}.conv")
         if model.hat_compat:
-            y = _ln(y, p, "norm")
+            y = _ln(y, p, "norm", c_real)
         y = param_conv(y, p, "conv_after_body") + feat
         if model.hat_compat:
             y = F.leaky_relu(param_conv(y, p, "conv_before_upsample.0"),

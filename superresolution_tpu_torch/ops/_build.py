@@ -116,11 +116,15 @@ def library() -> ctypes.CDLL:
     lib.sr_rrdb.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P]
     lib.sr_rrdb.restype = _I
-    lib.hat_layernorm.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+    lib.hat_layernorm.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
     lib.hat_layernorm.restype = _I
-    lib.hat_hab_block.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
-                                  *[_P] * 13, _P, _I, _F, _P]
+    lib.hat_hab_block.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                  _I, _F, _I, _P]
     lib.hat_hab_block.restype = _I
+    lib.hat_strip_hab.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P, _F, _I, _P]
+    lib.hat_strip_hab.restype = _I
+    lib.hat_cab_pair.argtypes = [_P, *[_I] * 4, *[_P] * 7, _I, _P]
+    lib.hat_cab_pair.restype = _I
     lib.hat_oca.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _P]
     lib.hat_oca.restype = _I
@@ -283,35 +287,73 @@ def rrdb(x: torch.Tensor, weights, ws: torch.Tensor, tmp: torch.Tensor,
 
 
 def layernorm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
-              out: torch.Tensor) -> None:
+              out: torch.Tensor, c_real: int | None = None) -> None:
     """One launch of layernorm_kernel (hat_kernels.cu) over the rows of
-    x [..., C] bf16; s, b: [C] f32."""
+    x [..., C] bf16; s, b: [C] f32; the statistics divided by c_real
+    (default C)."""
     lib = library()
     c = x.shape[-1]
-    rc = lib.hat_layernorm(_ptr(x), x.numel() // c, c, _ptr(s), _ptr(b),
-                           _ptr(out), _stream(x))
+    rc = lib.hat_layernorm(_ptr(x), x.numel() // c, c, c_real or c, _ptr(s),
+                           _ptr(b), _ptr(out), _stream(x))
     _check(lib, rc, "hat_layernorm")
 
 
-# hab_block's weights, in the order of hat_hab_block's C signature
+# hab_block's weights, in the order hat_hab_block and hat_strip_hab read
+# them
 HAB_WEIGHTS = ("ln1_s", "ln1_b", "wqkv", "bqkv", "rpb", "wp", "bp", "ln2_s",
                "ln2_b", "w1", "b1", "w2", "b2")
 
 
 def hab_block(x: torch.Tensor, cab: torch.Tensor, weights: dict,
               num_heads: int, region_ids: torch.Tensor | None,
-              out: torch.Tensor) -> None:
-    """One launch of hab_kernel (hat_kernels.cu): x, cab, out [nb, n, C]
-    bf16; weights by HAB_WEIGHTS (ops/hab.hab_weights); region_ids
-    [nW_img, n] int32 or None."""
+              out: torch.Tensor, c_real: int | None = None) -> None:
+    """One launch of kernel 8, hab_kernel (hat_kernels.cu): x, cab, out
+    [nb, n, C] bf16; weights by HAB_WEIGHTS (ops/hab.hab_weights);
+    region_ids [nW_img, n] int32 or None; both LNs divided by c_real
+    (default C)."""
     lib = library()
     nb, n, c = x.shape
     rc = lib.hat_hab_block(
         _ptr(x), _ptr(cab), _ptr(out), nb, c, num_heads, n,
-        weights["w1"].shape[-1], *[_ptr(weights[k]) for k in HAB_WEIGHTS],
+        weights["w1"].shape[-1], _ptrs([weights[k] for k in HAB_WEIGHTS]),
         _ptr(region_ids), 0 if region_ids is None else region_ids.shape[0],
-        float(c // num_heads) ** -0.5, _stream(x))
+        float(c // num_heads) ** -0.5, c_real or c, _stream(x))
     _check(lib, rc, "hat_hab_block")
+
+
+# Faults chip_smoke.py plants in kernels 11 and 12 (`plant`, a bit mask;
+# 0 in use; see hat_kernels.cu): kernel 11's coordinates clamped instead
+# of wrapped, its SE scale not applied, its region mask off; kernel 12's
+# hidden map not zeroed outside the image, the pixels of a pair swapped.
+PLANT_CLAMP, PLANT_NO_SE, PLANT_NO_MASK = 1, 2, 4
+PLANT_HID_BORDER, PLANT_SWAP_PAIR = 1, 2
+
+
+def strip_hab(x: torch.Tensor, cab_y: torch.Tensor, se: torch.Tensor,
+              weights: dict, num_heads: int, ws: int, shift: int,
+              out: torch.Tensor, plant: int = 0) -> None:
+    """One launch of kernel 11, hab_kernel on the maps (hat_kernels.cu):
+    x, cab_y, out [B, H, W, C] bf16; se [B, 1, C] f32; weights by
+    HAB_WEIGHTS."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.hat_strip_hab(
+        _ptr(x), _ptr(cab_y), _ptr(se), _ptr(out), b, h, w, c, num_heads,
+        ws, shift, weights["w1"].shape[-1],
+        _ptrs([weights[k] for k in HAB_WEIGHTS]),
+        float(c // num_heads) ** -0.5, plant, _stream(x))
+    _check(lib, rc, "hat_strip_hab")
+
+
+def cab_pair(x: torch.Tensor, weights, out: torch.Tensor,
+             plant: int = 0) -> None:
+    """One launch of kernel 12, cab_pair_kernel (hat_kernels.cu): x, out
+    [B, H, W, C] bf16; weights as kernel 7's (ops/hab.cab_weights)."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.hat_cab_pair(_ptr(x), b, h, w, c, *[_ptr(t) for t in weights],
+                          _ptr(out), plant, _stream(x))
+    _check(lib, rc, "hat_cab_pair")
 
 
 def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,

@@ -331,14 +331,18 @@ int attn_window(const void* q, long long q_bs, long long q_rs,
 
 // One launch of kernel 9 on bf16 q [B*nh_w*nw_w, ws*ws, C] and maps
 // [B, hp, wp, C]; (C, nh, ws, ows) one of (96, 6, 8, 12), (96, 6, 8, 10),
-// (96, 6, 16, 24), (120, 6, 16, 24).
+// (96, 6, 16, 24), (120, 6, 16, 24) and the lane-padded (128, 8, 8, 12):
+// C 96 padded to 128 at head dim 16, whose two pad heads read zero q, k
+// and v columns and write exactly zero.
 int hat_oca(const void* q, const void* kmap, const void* vmap,
             const void* bias, void* out, int B, int nh_w, int nw_w, int hp,
             int wp, int C, int nh, int ws, int ows, float scale,
             void* stream) {
-  const bool ok = nh == 6 && ((C == 96 && ws == 8 && (ows == 12 || ows == 10))
-                              || ((C == 96 || C == 120) && ws == 16 &&
-                                  ows == 24));
+  const bool ok = (nh == 6 && ((C == 96 && ws == 8 &&
+                                (ows == 12 || ows == 10)) ||
+                               ((C == 96 || C == 120) && ws == 16 &&
+                                ows == 24))) ||
+                  (nh == 8 && C == 128 && ws == 8 && ows == 12);
   if (!ok || B < 1 || hp < nh_w * ws + ows - ws ||
       wp < nw_w * ws + ows - ws)
     return (int)cudaErrorInvalidValue;

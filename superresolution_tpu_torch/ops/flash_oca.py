@@ -34,10 +34,11 @@ from superresolution_tpu_torch.ops.window_attention import (
 )
 
 # the geometries kernel 9 is instantiated for: (C, heads, ws, ows) at
-# overlap 0.5 and 0.25 of 8x8 windows, and at 16x16 windows (embed 96 and
-# hybrid_astro_h200's 120)
+# overlap 0.5 and 0.25 of 8x8 windows, at 16x16 windows (embed 96 and
+# hybrid_astro_h200's 120), and at embed 96 lane-padded to 128 (8 heads
+# of 16: infer/lane_pad.py)
 OCA_GEOMETRIES = ((96, 6, 8, 12), (96, 6, 8, 10), (96, 6, 16, 24),
-                  (120, 6, 16, 24))
+                  (120, 6, 16, 24), (128, 8, 8, 12))
 
 __all__ = ["flash_oca_gathered", "flash_oca_gathered_reference",
            "oca_gather_supported"]

@@ -5,7 +5,8 @@ Kernel 7, fused_cab_convs, replaces superresolution_tpu/ops/pallas_hab.py:
 fused_cab_convs (_cab_kernel). On NHWC x [B,H,W,C] it computes the CAB's
 conv stack before its squeeze-excite:
 
-    y   = LN(x)                      f32 statistics over C, stored bf16
+    y   = LN(x)                      f32 statistics over C (divided by
+                                     c_real on a lane-padded map), bf16
     hid = GELU(conv3x3(y) + b1)      C -> C/3, exact erf, stored bf16
     out = conv3x3(hid) + b2          C/3 -> C
 
@@ -26,15 +27,28 @@ partition layout):
     out = x1 + (GELU(LN2(x1) W1 + b1) W2 + b2)
 
 one launch of hab_kernel, one thread block per window, at each
-geometry of HAB_GEOMETRIES. Window b uses region_ids[b % nW_img]. The kernels round to bf16 where the reference
-rounds; the plain versions here repeat that rounding, with f32
-accumulation, and serve the CPU path and the checks on the card.
+geometry of HAB_GEOMETRIES. Window b uses region_ids[b % nW_img]. Both
+LNs divide their sums by c_real where it is given: the lane-padded
+deploy map (infer/lane_pad.py) keeps zeros in the lanes past the model's
+channels, so only the divisor differs (the reference's _ln(..., c_real),
+fused_hab_block_inference). The kernels round to bf16 where the
+reference rounds; the plain versions here repeat that rounding, with
+f32 accumulation, and serve the CPU path and the checks on the card.
 
-Bounds on the H100 (see csrc/hat_kernels.cu): the CAB does 55,296 MACs
-per pixel for 384 bytes of x and out, the HAB 86,016 MACs per token for
-576 bytes of x, cab and out. Both sit at the bf16 ridge: the CAB is
-bound by bytes and the HAB by operations, each by a few percent. These
-first forms run on the CUDA cores in f32, so operations bound them.
+Kernel 12, fused_cab_convs_pair, replaces ops/pallas_hab.py:
+fused_cab_convs_pair (_cab_pair_kernel): kernel 7's function, for an
+even W, in one launch of cab_pair_kernel, which keeps LN(x) and the
+hidden map of a spatial tile in shared memory and computes two adjacent
+pixels per thread (csrc/hat_kernels.cu). It takes kernel 7's weight list:
+the reference's pair-packed tap matrices (cab_pair_weights) are a layout
+for the MXU. Like the reference's, it has no caller on any path.
+
+Bounds on the H100 (see csrc/hat_kernels.cu): the CAB (kernels 7 and
+12) does 55,296 MACs per pixel for 384 bytes of x and out, the HAB
+86,016 MACs per token for 576 bytes of x, cab and out. Both sit at the
+bf16 ridge: the CAB is bound by bytes and the HAB by operations, each by
+a few percent. These first forms run on the CUDA cores in f32, so
+operations bound them.
 
 Weights: cab_weights and hab_weights read the port's HAT-keyed state
 dict (models/hat_lite.py), as the reference's cab_weights and
@@ -58,22 +72,35 @@ from superresolution_tpu_torch.ops.window_attention import (
 
 EPS = 1e-5
 # the geometries kernel 8 is instantiated for: (C, heads, tokens n, MLP
-# hidden) of 8x8 and 16x16 windows at embed 96 and of hybrid_astro_h200's
-# embed 120 (head dim 20)
-HAB_GEOMETRIES = ((96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240))
+# hidden) of 8x8 and 16x16 windows at embed 96, of hybrid_astro_h200's
+# embed 120 (head dim 20), and of embed 96 lane-padded to 128 (8 heads of
+# 16, the MLP hidden unpadded: infer/lane_pad.py)
+HAB_GEOMETRIES = ((96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240),
+                  (128, 8, 64, 192))
+# the channel counts kernel 12 is instantiated for
+CAB_PAIR_CHANNELS = (96, 120)
 
-__all__ = ["HAB_WEIGHTS", "cab_weights", "fused_cab_convs",
-           "fused_cab_convs_reference", "fused_hab_block",
-           "hab_body_reference", "hab_weights", "layer_norm"]
+__all__ = ["CAB_PAIR_CHANNELS", "HAB_WEIGHTS", "cab_weights",
+           "fused_cab_convs", "fused_cab_convs_pair",
+           "fused_cab_convs_pair_reference", "fused_cab_convs_reference",
+           "fused_hab_block", "hab_body_reference", "hab_weights",
+           "layer_norm"]
 
 
-def layer_norm(x: torch.Tensor, s: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
+               c_real: int | None = None) -> torch.Tensor:
     """LayerNorm over the last axis with f32 statistics (mean of squares
-    minus squared mean, as the reference), returned in x's dtype."""
+    minus squared mean, as the reference), returned in x's dtype. With
+    c_real (a lane-padded x whose lanes past c_real are zero) the sums
+    run over every lane and are divided by c_real."""
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    if c_real is None or c_real == xf.shape[-1]:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    else:
+        inv = 1.0 / c_real
+        mu = xf.sum(-1, keepdim=True) * inv
+        var = (xf * xf).sum(-1, keepdim=True) * inv - mu * mu
     return ((xf - mu) * torch.rsqrt(var + EPS) * s.float()
             + b.float()).to(x.dtype)
 
@@ -105,47 +132,61 @@ def _conv_f32(x: torch.Tensor, k: torch.Tensor,
 
 
 def fused_cab_convs_reference(x: torch.Tensor, weights: list[torch.Tensor],
-                              hidden: torch.Tensor | None = None
-                              ) -> torch.Tensor:
+                              hidden: torch.Tensor | None = None,
+                              c_real: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel 7: LN -> conv -> GELU -> conv in
     f32, rounded to x's dtype after LN, after GELU and at the output. A
     `hidden` [B,H,W,C/3] receives the GELU map, as the kernel's does."""
     ln_s, ln_b, k1, b1, k2, b2 = weights
     dt = x.dtype
-    y = layer_norm(x, ln_s, ln_b)
+    y = layer_norm(x, ln_s, ln_b, c_real)
     hid = F.gelu(_conv_f32(y, k1, b1)).to(dt)
     if hidden is not None:
         hidden.copy_(hid)
     return _conv_f32(hid, k2, b2).to(dt).contiguous()
 
 
-def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
-                    hidden: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel 7. CPU tensors run the plain version; CUDA tensors launch
-    the kernels (bf16 x and kernels, f32 LN parameters and biases) or
-    raise. The GELU hidden map goes into `hidden` [B,H,W,C/3] when one
-    is given (so a check can read it), else into a fresh one."""
-    if x.device.type == "cpu":
-        return fused_cab_convs_reference(x, weights, hidden)
+def _check_cab_weights(name: str, x: torch.Tensor,
+                       weights: list[torch.Tensor]) -> int:
+    """Raise unless `weights` fit x's C and lie on x's CUDA device in
+    the kernels' types; returns the hidden width."""
     ln_s, ln_b, k1, b1, k2, b2 = weights
-    b, h, w, c = x.shape
+    c = x.shape[-1]
     mid = k1.shape[-1]
     if (tuple(k1.shape) != (3, 3, c, mid) or tuple(k2.shape) != (3, 3, mid, c)
             or ln_s.shape != (c,) or ln_b.shape != (c,)
             or b1.shape != (mid,) or b2.shape != (c,)):
-        raise ValueError("fused_cab_convs: weight shapes "
+        raise ValueError(f"{name}: weight shapes "
                          f"{[tuple(t.shape) for t in weights]} do not fit "
                          f"C={c}")
-    _build.require_cuda(x, k1, k2, hidden, name="fused_cab_convs")
-    _build.require_cuda(ln_s, ln_b, b1, b2, dtype=torch.float32,
-                        name="fused_cab_convs")
+    _build.require_cuda(x, k1, k2, name=name)
+    _build.require_cuda(ln_s, ln_b, b1, b2, dtype=torch.float32, name=name)
+    return mid
+
+
+def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
+                    hidden: torch.Tensor | None = None,
+                    c_real: int | None = None) -> torch.Tensor:
+    """Kernel 7. CPU tensors run the plain version; CUDA tensors launch
+    the kernels (bf16 x and kernels, f32 LN parameters and biases) or
+    raise. The GELU hidden map goes into `hidden` [B,H,W,C/3] when one
+    is given (so a check can read it), else into a fresh one. c_real:
+    the LN's divisor on a lane-padded x (default C)."""
+    if x.device.type == "cpu":
+        return fused_cab_convs_reference(x, weights, hidden, c_real)
+    ln_s, ln_b, k1, b1, k2, b2 = weights
+    b, h, w, c = x.shape
+    mid = _check_cab_weights("fused_cab_convs", x, weights)
+    if c_real is not None and not 0 < c_real <= c:
+        raise ValueError(f"fused_cab_convs: c_real {c_real} not in 1..{c}")
+    _build.require_cuda(hidden, name="fused_cab_convs")
     if hidden is None:
         hidden = torch.empty((b, h, w, mid), dtype=x.dtype, device=x.device)
     elif hidden.shape != (b, h, w, mid):
         raise ValueError("fused_cab_convs: hidden shape "
                          f"{tuple(hidden.shape)} != {(b, h, w, mid)}")
     y = torch.empty_like(x)
-    _build.layernorm(x, ln_s, ln_b, y)
+    _build.layernorm(x, ln_s, ln_b, y, c_real)
     fused_cab_convs.launches += 1
     _build.conv3x3(y, c, k1, b1, hidden, 0, mid, geom=(b, h, w), gelu=True)
     fused_cab_convs.launches += 1
@@ -156,6 +197,40 @@ def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
 
 
 fused_cab_convs.launches = 0
+
+
+def fused_cab_convs_pair_reference(x: torch.Tensor,
+                                   weights: list[torch.Tensor]
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of kernel 12: kernel 7's function
+    (fused_cab_convs_reference), which the pair kernel computes too."""
+    return fused_cab_convs_reference(x, weights)
+
+
+def fused_cab_convs_pair(x: torch.Tensor,
+                         weights: list[torch.Tensor]) -> torch.Tensor:
+    """Kernel 12 on x [B,H,W,C] with an even W (the reference's rule),
+    weights as kernel 7's (cab_weights). CPU tensors run the plain
+    version; CUDA tensors launch the kernel (C in CAB_PAIR_CHANNELS, bf16
+    x and kernels, f32 LN parameters and biases) or raise."""
+    if x.shape[2] % 2:
+        raise ValueError(f"fused_cab_convs_pair: needs an even width, got "
+                         f"{x.shape[2]}")
+    if x.device.type == "cpu":
+        return fused_cab_convs_pair_reference(x, weights)
+    c = x.shape[-1]
+    if c not in CAB_PAIR_CHANNELS or weights[2].shape[-1] != c // 3:
+        raise ValueError(f"fused_cab_convs_pair: the kernel takes C in "
+                         f"{CAB_PAIR_CHANNELS} with C/3 hidden channels, got "
+                         f"C={c}, hidden {weights[2].shape[-1]}")
+    _check_cab_weights("fused_cab_convs_pair", x, weights)
+    out = torch.empty_like(x)
+    _build.cab_pair(x, weights, out)
+    fused_cab_convs_pair.launches += 1
+    return out
+
+
+fused_cab_convs_pair.launches = 0
 
 
 def hab_weights(params: Mapping[str, torch.Tensor], pre: str,
@@ -198,29 +273,32 @@ def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def hab_body_reference(x_wins: torch.Tensor, cab_wins: torch.Tensor,
                        weights: Mapping[str, torch.Tensor], num_heads: int,
-                       region_ids: torch.Tensor | None = None
-                       ) -> torch.Tensor:
+                       region_ids: torch.Tensor | None = None,
+                       c_real: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel 8 (the reference's
-    reference_hab_body): f32 accumulation and softmax, rounded to x's
-    dtype where the reference rounds."""
+    reference_hab_body, with fused_hab_block_inference's c_real): f32
+    accumulation and softmax, rounded to x's dtype where the reference
+    rounds."""
     w = weights
     c = x_wins.shape[-1]
-    y = layer_norm(x_wins, w["ln1_s"], w["ln1_b"])
+    y = layer_norm(x_wins, w["ln1_s"], w["ln1_b"], c_real)
     q, k, v = _dense(y, w["wqkv"], w["bqkv"]).split(c, dim=-1)
     attn = reference_window_attention(q, k, v, w["rpb"], num_heads,
                                       region_ids=region_ids)
     x1 = x_wins + _dense(attn, w["wp"], w["bp"]) + cab_wins
-    z = layer_norm(x1, w["ln2_s"], w["ln2_b"])
+    z = layer_norm(x1, w["ln2_s"], w["ln2_b"], c_real)
     hid = F.gelu(z.float() @ w["w1"].float() + w["b1"].float()).to(z.dtype)
     return x1 + _dense(hid, w["w2"], w["b2"])
 
 
 def fused_hab_block(x_wins: torch.Tensor, cab_wins: torch.Tensor,
                     num_heads: int, weights: Mapping[str, torch.Tensor],
-                    region_ids: torch.Tensor | None = None) -> torch.Tensor:
+                    region_ids: torch.Tensor | None = None,
+                    c_real: int | None = None) -> torch.Tensor:
     """Kernel 8 on x_wins, cab_wins [nb, n, C]; region_ids [nW_img, n]
-    int32 Swin labels or None. CPU tensors run the plain version; CUDA
-    tensors launch the kernel ((C, heads, n, MLP) in HAB_GEOMETRIES; bf16
+    int32 Swin labels or None; c_real the LNs' divisor on lane-padded
+    windows (default C). CPU tensors run the plain version; CUDA tensors
+    launch the kernel ((C, heads, n, MLP) in HAB_GEOMETRIES; bf16
     activations and dense kernels, f32 rest) or raise."""
     nb, n, c = x_wins.shape
     if cab_wins.shape != x_wins.shape:
@@ -233,33 +311,43 @@ def fused_hab_block(x_wins: torch.Tensor, cab_wins: torch.Tensor,
                          f"windows of {n}")
     if x_wins.device.type == "cpu":
         return hab_body_reference(x_wins, cab_wins, weights, num_heads,
-                                  region_ids)
+                                  region_ids, c_real)
+    check_hab_weights("fused_hab_block", weights, c, num_heads, n,
+                      HAB_GEOMETRIES)
+    if c_real is not None and not 0 < c_real <= c:
+        raise ValueError(f"fused_hab_block: c_real {c_real} not in 1..{c}")
+    _build.require_cuda(x_wins, cab_wins, name="fused_hab_block")
+    if region_ids is not None:
+        _build.require_cuda(region_ids, dtype=torch.int32,
+                            name="fused_hab_block")
+    out = torch.empty_like(x_wins)
+    _build.hab_block(x_wins, cab_wins, weights, num_heads, region_ids, out,
+                     c_real)
+    fused_hab_block.launches += 1
+    return out
+
+
+fused_hab_block.launches = 0
+
+
+def check_hab_weights(name: str, weights: Mapping[str, torch.Tensor], c: int,
+                      num_heads: int, n: int, geometries: tuple) -> None:
+    """Raise unless (c, num_heads, n, MLP) is one of `geometries` and
+    every weight of HAB_WEIGHTS has its shape and lies on the card in the
+    kernels' types (kernels 8 and 11)."""
     mlp = weights["w1"].shape[-1]
-    if (c, num_heads, n, mlp) not in HAB_GEOMETRIES:
-        raise ValueError(f"fused_hab_block: the kernel takes (C, heads, n, "
-                         f"mlp) in {HAB_GEOMETRIES}, got "
-                         f"{(c, num_heads, n, mlp)}")
+    if (c, num_heads, n, mlp) not in geometries:
+        raise ValueError(f"{name}: the kernel takes (C, heads, n, mlp) in "
+                         f"{geometries}, got {(c, num_heads, n, mlp)}")
     want = {"ln1_s": (c,), "ln1_b": (c,), "wqkv": (c, 3 * c),
             "bqkv": (3 * c,), "rpb": (num_heads, n, n), "wp": (c, c),
             "bp": (c,), "ln2_s": (c,), "ln2_b": (c,), "w1": (c, mlp),
             "b1": (mlp,), "w2": (mlp, c), "b2": (c,)}
     for k in HAB_WEIGHTS:
         if tuple(weights[k].shape) != want[k]:
-            raise ValueError(f"fused_hab_block: {k} {tuple(weights[k].shape)}"
-                             f" != {want[k]}")
-    _build.require_cuda(x_wins, cab_wins,
-                        *(weights[k] for k in ("wqkv", "wp", "w1", "w2")),
-                        name="fused_hab_block")
-    _build.require_cuda(*(weights[k] for k in HAB_WEIGHTS
-                          if k not in ("wqkv", "wp", "w1", "w2")),
-                        dtype=torch.float32, name="fused_hab_block")
-    if region_ids is not None:
-        _build.require_cuda(region_ids, dtype=torch.int32,
-                            name="fused_hab_block")
-    out = torch.empty_like(x_wins)
-    _build.hab_block(x_wins, cab_wins, weights, num_heads, region_ids, out)
-    fused_hab_block.launches += 1
-    return out
-
-
-fused_hab_block.launches = 0
+            raise ValueError(f"{name}: {k} {tuple(weights[k].shape)} != "
+                             f"{want[k]}")
+    dense = ("wqkv", "wp", "w1", "w2")
+    _build.require_cuda(*(weights[k] for k in dense), name=name)
+    _build.require_cuda(*(weights[k] for k in HAB_WEIGHTS if k not in dense),
+                        dtype=torch.float32, name=name)
