@@ -131,7 +131,33 @@ sixth seed:
  26 h200-levers     the h200-class frame under the strip lever (kernel 11
              x36 at window 16, C 120) and under lane pad, which does not
              apply at head dim 20: the frame runs unpadded at C 120
-Then the kernels line (all fourteen kernels), the card's nvidia-smi line
+Then the serving path of the system's default model family through
+kernel 15 (conv3x3_depth_to_space, the sub-pixel heads), random weights
+from a seventh seed, bf16:
+ 27 subpixel-kernel kernel 15 against its plain version (F.conv2d and
+             F.pixel_shuffle; f32 with TF32 off) at test_pallas.py's
+             geometries, a ragged one (r 3) and the three path shapes
+             (EDSR stages 1 and 2, ESPCN's head): bf16 within 0.02 and
+             f32 within 1e-4 of max |plain|; three faults planted in the
+             kernel ((i, j) swapped in the store, the border clamped, the
+             bias dropped) must each miss by 3x the bar; timed at the path
+             shapes beside the plain version and F.conv2d alone (cuDNN)
+ 28 edsr-upscale    EDSR-baseline x4 (16 resblocks x 64 features),
+             conv_last fitted, a 1024^2 RGB frame through
+             api.upscale(on_device=True, tile 256, halo 16, batch 8):
+             kernel 15 exactly 4 launches and every other kernel 0; 4096^2,
+             finite, in [0, 1]; within 0.03 of the same call with the
+             plain op; the host tiler within 1e-3; frame s, MP/s, the
+             plain frame, peak memory, device time by kernel
+ 29 espcn-upscale   the same for ESPCN x4 on a 1024^2 grayscale frame
+             (kernel 15 x2)
+ 30 eval-folder     phase 28's EDSR saved as a checkpoint directory with
+             its model_config.json, loaded back as cmd_eval_folder does
+             (load_params_for_inference, build_from_config, total_scale)
+             and scored by evaluate_folder through api.upscale on 4
+             synthetic HR PNGs (two ragged): PSNR within 0.05 dB and SSIM
+             within 0.002 of the same evaluation with the plain op
+Then the kernels line (all fifteen kernels), the card's nvidia-smi line
 and, last, {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
@@ -140,8 +166,10 @@ Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -187,7 +215,7 @@ TOL_ATTN = 1e-4           # CHIPEQ's bar for flash_window_attention (f32)
 TOL_ATTN_CROSS = 5e-4     # CHIPEQ's bar for flash_oca_stacked (f32, m 144)
 TOL_ATTN_BF16 = 0.02      # bf16 probabilities and output
 TOL_ATTN_GRAD = 1e-6      # the op's backward is plain autograd
-FRAME = 1024              # phase 13: a 1024^2 frame, x4 -> 4096^2
+FRAME = 1024              # phases 13, 28, 29: a 1024^2 frame, x4 -> 4096^2
 UP_TILE, UP_HALO, UP_BATCH = 256, 16, 8   # 16 tiles in 2 batches of 8
 TOL_TILERS = 1e-3         # host tiler vs on-device tiler (expected 0)
 ANCHOR_DIR = "assets/quality/port"
@@ -944,6 +972,7 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
         dense_weights, fused_dense_block)
     from superresolution_tpu_torch.ops.phase_tail import (
         conv_last_phase, up2_hr)
+    from superresolution_tpu_torch.ops.subpixel import conv3x3_depth_to_space
 
     model = hybrid_model(gen)
     params = model.state_dict()
@@ -954,7 +983,8 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
            "conv_last_phase": conv_last_phase,
            "fused_cab_convs": hab.fused_cab_convs,
            "fused_hab_block": hab.fused_hab_block,
-           "flash_oca_gathered": fo.flash_oca_gathered}
+           "flash_oca_gathered": fo.flash_oca_gathered,
+           "conv3x3_depth_to_space": conv3x3_depth_to_space}
     with torch.inference_mode():
         for op in ops.values():
             op.launches = 0
@@ -968,7 +998,8 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
         expected = {"fused_dense_block": 69 * 5, "up2_hr": 0,
                     "conv_last_phase": 0, "fused_cab_convs": 3 * n_hab,
                     "fused_hab_block": n_hab,
-                    "flash_oca_gathered": len(model.stage2.depths)}
+                    "flash_oca_gathered": len(model.stage2.depths),
+                    "conv3x3_depth_to_space": 0}
         if launches != expected:
             raise AssertionError(f"hybrid launches {launches} != "
                                  f"expected {expected}")
@@ -1094,6 +1125,7 @@ def train_ops() -> dict:
     from superresolution_tpu_torch.ops import hab
     from superresolution_tpu_torch.ops import phase_tail as pt
     from superresolution_tpu_torch.ops import star_l1 as sl
+    from superresolution_tpu_torch.ops import subpixel
 
     return {"fused_dense_block": dt.fused_dense_block,
             "up2_hr": pt.up2_hr, "conv_last_phase": pt.conv_last_phase,
@@ -1101,7 +1133,8 @@ def train_ops() -> dict:
             "fused_hab_block": hab.fused_hab_block,
             "flash_oca_gathered": fo.flash_oca_gathered,
             "dense_block_backward": dtt.dense_block_backward,
-            "star_weighted_l1_cuda": sl.star_weighted_l1_cuda}
+            "star_weighted_l1_cuda": sl.star_weighted_l1_cuda,
+            "conv3x3_depth_to_space": subpixel.conv3x3_depth_to_space}
 
 
 def step_grads(tr, apply, policy, lr, hr, kernel_loss: bool):
@@ -1324,6 +1357,7 @@ def counted_ops() -> dict:
     from superresolution_tpu_torch.ops.phase_tail import (
         conv_last_phase, up2_hr)
     from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
+    from superresolution_tpu_torch.ops.subpixel import conv3x3_depth_to_space
     from superresolution_tpu_torch.ops.window_attention import (
         flash_window_attention)
 
@@ -1341,7 +1375,8 @@ def counted_ops() -> dict:
             "fused_cab_convs_pair": hab.fused_cab_convs_pair,
             "dense_block_backward": dtt.dense_block_backward,
             "star_weighted_l1_cuda": star_weighted_l1_cuda,
-            "flash_window_attention": flash_window_attention}
+            "flash_window_attention": flash_window_attention,
+            "conv3x3_depth_to_space": conv3x3_depth_to_space}
 
 
 def zero_counts() -> dict:
@@ -2584,11 +2619,14 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
     stage-2 shapes (a 256^2 map: [1,256,256,128]; 1024 windows of 64;
     kernel 8 unmasked and masked), on inputs and weights padded as
     infer/lane_pad.py pads them; the lanes past 96 of each output must be
-    exactly zero. Each timed beside its bound and plain version. Returns
-    the times by kernel."""
+    exactly zero. Each timed beside its bound and plain version, kernel 9
+    also beside SDPA on the pre-gathered windows. Returns the times by
+    kernel."""
     from superresolution_tpu_torch.models.hat_lite import shift_region_ids
     from superresolution_tpu_torch.ops import flash_oca as fo
     from superresolution_tpu_torch.ops import hab
+    from superresolution_tpu_torch.ops.unfold import (
+        extract_overlapping_windows)
 
     bf, cr, cp = torch.bfloat16, 96, 128
     side = 2 * HYBRID_IN
@@ -2661,11 +2699,19 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
                  fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 8, 8,
                                                  12), TOL_HAB)
     zero_pads("flash_oca_gathered/c128", got)
+    # the library yardstick as at C 96 (phase 6): SDPA on the
+    # pre-gathered windows, the gather itself not in the call
+    sq = q.reshape(-1, 64, 8, 16).transpose(1, 2)
+    kw, vw = (extract_overlapping_windows(m, 8, 12, side // 8, side // 8)
+              .reshape(-1, 144, 8, 16).transpose(1, 2)
+              for m in (k_map, v_map))
     out["oca_c128_nh8_ws8_ows12"] = {
         "ms": time_ms(lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 8,
                                                     8, 12), 20),
         "plain_ms": time_ms(lambda: fo.flash_oca_gathered_reference(
             q, k_map, v_map, bias, 8, 8, 12), 10),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            sq, kw, vw, attn_mask=bias.to(bf)), 20),
         "max_rel_err": e9["max_rel_err"],
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * tok * 2 * 144 * cp, tok * cp * 2 * 2 + 2 * k_map.numel() * 2
@@ -2844,6 +2890,318 @@ def hat_lever_paths(gen: torch.Generator, card: str) -> dict:
     return out["bench_hybrid"]
 
 
+# ---- 27-30: EDSR and ESPCN serving through kernel 15 ------------------
+
+SUB_SRC = "superresolution_tpu_torch/ops/csrc/subpixel_kernels.cu"
+TOL_SUB_F32 = 1e-4        # f32 kernel against the f32 plain version
+TOL_PSNR = 0.05           # VERDICT.md's bar, here kernel against plain op
+TOL_SSIM = 0.002
+EVAL_DIR = "outputs/chip_smoke_eval"     # .gitignore lists outputs/
+# (tag, B, H, W, C_in, C_out, r, channels-last input)
+SUB_CASES = (("pallas_r2", 2, 16, 24, 8, 4, 2, True),
+             ("pallas_r4", 2, 16, 24, 16, 1, 4, False),
+             ("ragged_r3", 2, 37, 53, 24, 3, 3, True),
+             ("edsr_stage1", UP_BATCH, UP_TILE + 2 * UP_HALO,
+              UP_TILE + 2 * UP_HALO, 64, 64, 2, True),
+             ("edsr_stage2", UP_BATCH, 2 * (UP_TILE + 2 * UP_HALO),
+              2 * (UP_TILE + 2 * UP_HALO), 64, 64, 2, True),
+             ("espcn", UP_BATCH, UP_TILE + 2 * UP_HALO,
+              UP_TILE + 2 * UP_HALO, 32, 1, 4, True))
+SUB_FAULTS = ("PLANT_SWAP_IJ", "PLANT_CLAMP_BORDER", "PLANT_NO_BIAS")
+
+
+def subpixel_case(gen: torch.Generator, b, h, w, cin, cout, r, cl):
+    """Kernel 15's f32 inputs on the card: x N(0, 1) (channels-last as
+    the port's convs hand it over, or NCHW), w N(0, 1 / (9 C_in)) in
+    OIHW, bias N(0, 0.5^2), so the bias and every tap show in the output."""
+    x = torch.randn((b, cin, h, w), generator=gen).cuda()
+    if cl:
+        x = x.contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn((cout * r * r, cin, 3, 3), generator=gen)
+          / (9 * cin) ** 0.5).cuda()
+    bias = (0.5 * torch.randn(cout * r * r, generator=gen)).cuda()
+    return x, wt, bias
+
+
+def check_subpixel_kernel(gen: torch.Generator) -> dict:
+    """Phase 27: kernel 15 against its plain version at SUB_CASES, bf16
+    within 0.02 (the bar of the other conv kernels, B1-B3; CHIPEQ has no
+    row for it) and f32 within 1e-4 of max |plain| (plain in f32 with
+    TF32 off, on the same values); each fault planted in the kernel must
+    miss by 3x the bar at the ragged and EDSR stage-1 geometries in bf16;
+    timed at the path shapes beside the plain version and F.conv2d alone
+    (cuDNN). Returns the kernels-line entry (EDSR stage 1) with every
+    path shape under 'geometries'."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops.subpixel import (
+        conv3x3_depth_to_space as op, reference_conv3x3_depth_to_space as
+        plain)
+
+    bf = torch.bfloat16
+    geometries = {}
+    for tag, b, h, w, cin, cout, r, cl in SUB_CASES:
+        x, wt, bias = subpixel_case(gen, b, h, w, cin, cout, r, cl)
+        with torch.inference_mode():
+            for dt, tol in ((torch.float32, TOL_SUB_F32), (bf, TOL_KERNEL)):
+                xd, wd, bd = x.to(dt), wt.to(dt), bias.to(dt)
+                before = op.launches
+                got = op(xd, wd, bd, r)
+                if op.launches != before + 1:
+                    raise AssertionError("conv3x3_depth_to_space: not one "
+                                         "counted launch")
+                if got.dtype != dt or tuple(got.shape) != (b, cout, h * r,
+                                                           w * r):
+                    raise AssertionError(f"conv3x3_depth_to_space/{tag}: "
+                                         f"{got.dtype} {tuple(got.shape)}")
+                ref = plain(xd.float(), wd.float(), bd.float(), r)
+                err = compare(f"conv3x3_depth_to_space/{tag}/{dt}", got, ref,
+                              tol)
+                del got
+            if tag in ("ragged_r3", "edsr_stage1"):
+                for fault in SUB_FAULTS:
+                    expect_margin(
+                        f"conv3x3_depth_to_space:{tag}:{fault}",
+                        planted("conv3x3_d2s", getattr(_build, fault),
+                                lambda: op(xd, wd, bd, r)), ref, TOL_KERNEL)
+            del ref
+            if not tag.startswith(("edsr", "espcn")):
+                continue
+            px = b * h * w
+            b_ms, b_by = bound(2 * px * 9 * cin * cout * r * r,
+                               2 * (px * cin + px * r * r * cout
+                                    + wt.numel() + bias.numel()))
+            geometries[tag] = {
+                "shape": [b, cin, h, w], "c_out": cout, "r": r,
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"],
+                "ms": time_ms(lambda: op(xd, wd, bd, r), 10),
+                "plain_ms": time_ms(lambda: plain(xd, wd, bd, r), 10),
+                "library_ms": time_ms(
+                    lambda: F.conv2d(xd, wd, bd, padding=1), 10),
+                "bound_ms": b_ms, "bound_by": b_by}
+            emit({"phase": "kernel_time", "name": "conv3x3_depth_to_space",
+                  "geometry": tag, **geometries[tag]})
+        del x, xd, wt, wd
+        torch.cuda.empty_cache()
+    main = geometries["edsr_stage1"]
+    return {"name": "conv3x3_depth_to_space", "route": "cuda",
+            "source": SUB_SRC, "sources": [SUB_SRC],
+            "replaces": "superresolution_tpu/ops/pallas_kernels.py:64",
+            **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
+                                    "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "tol": TOL_KERNEL, "geometries": geometries}
+
+
+@contextlib.contextmanager
+def plain_subpixel():
+    """Inside the block, the models' sub-pixel heads run the plain op
+    (F.conv2d, F.pixel_shuffle) in place of kernel 15: the reference for
+    phases 28-30's kernel paths."""
+    from superresolution_tpu_torch.models import edsr, espcn
+    from superresolution_tpu_torch.ops.subpixel import (
+        reference_conv3x3_depth_to_space)
+
+    mods = (edsr, espcn)
+    real = [m.conv3x3_depth_to_space for m in mods]
+    for m in mods:
+        m.conv3x3_depth_to_space = reference_conv3x3_depth_to_space
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, real):
+            m.conv3x3_depth_to_space = fn
+
+
+def frame_profile(fn) -> dict:
+    """One call of fn under torch.profiler: host s, device ms (the sum of
+    its CUDA kernels' self time), busy share and the top kernels."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    on_card = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    return {"profiled_frame_s": prof_s,
+            # None when the profiler saw no device time
+            "device_ms_per_frame": device_ms or None,
+            "device_busy_share": device_ms / (prof_s * 1e3) if device_ms
+            else None,
+            "top_device_kernels": [
+                {"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+                 "count": e.count} for e in on_card[:12]]}
+
+
+def sr_model(name: str, gen: torch.Generator, channels: int):
+    """EDSR-baseline x4 (utils/config.py's edsr_baseline_x4) or ESPCN x4
+    (espcn_x4) at full width, bf16, on the card, random weights with
+    N(0, 0.02) biases, the last conv fitted so a frame spreads over [0, 1]
+    (fit_output; EDSR's output is then recentred on 0.5, since its DIV2K
+    mean is added after conv_last)."""
+    from superresolution_tpu_torch.models.factory import build_from_config
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    mc = get_preset({"edsr": "edsr_baseline_x4", "espcn": "espcn_x4"}[name]
+                    ).model
+    model = build_from_config(mc, generator=gen).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if pname.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    conv = model.conv_last if name == "edsr" else model.conv3
+    fit_output(model, gen, conv=conv, channels=channels)
+    if name == "edsr":
+        side = UP_TILE + 2 * UP_HALO
+        x = torch.rand((1, side, side, channels), generator=gen).to(
+            "cuda", torch.bfloat16)
+        with torch.inference_mode():
+            m = float(model(x).float().mean())
+        with torch.no_grad():
+            conv.bias.add_(0.5 - m)
+        emit({"check": f"{name}/output_recentred", "mean_before": m})
+    return mc, model
+
+
+def sr_upscale_path(name: str, gen: torch.Generator, card: str,
+                    channels: int, stages: int):
+    """Phases 28 and 29: a FRAME^2 frame through api.upscale (on-device
+    tiler, 256 tiles + halo 16, batches of 8) over `name`'s model with
+    kernel-15 launches counted (exact: stages per batch, every other
+    kernel 0); against the same call with the plain op and the host
+    tiler; times and the profile. Returns (model config, model, kernel-15
+    launches)."""
+    from superresolution_tpu_torch import api
+
+    mc, model = sr_model(name, gen, channels)
+    params = model.state_dict()
+    frame = torch.rand((FRAME, FRAME, channels), generator=gen).numpy()
+    kw = dict(model=model, params=params, tile=UP_TILE, halo=UP_HALO,
+              batch=UP_BATCH)
+    side = 4 * FRAME
+    ops = zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y = api.upscale(frame, 4, on_device=True, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: op.launches for k, op in ops.items()}
+    batches = -(-(FRAME // UP_TILE) ** 2 // UP_BATCH)
+    check_launches(name, launches, {**{k: 0 for k in ops},
+                                    "conv3x3_depth_to_space":
+                                    batches * stages})
+    if tuple(y.shape) != (side, side, channels):
+        raise AssertionError(f"{name}: output shape {tuple(y.shape)}")
+    if not bool(torch.isfinite(y).all()) or float(y.min()) < 0 \
+            or float(y.max()) > 1:
+        raise AssertionError(f"{name}: output not finite in [0, 1]")
+    emit({"phase": f"{name}_upscale_path", "output_shape": list(y.shape),
+          "first_run_s": first_s, "launches_per_frame": launches,
+          "batches": batches,
+          "inside_0_1": float(((y > 0) & (y < 1)).float().mean()),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    with plain_subpixel():
+        y_plain = api.upscale(frame, 4, on_device=True, **kw)
+    compare(f"{name}/frame_vs_plain_op", y, y_plain, TOL_PATH)
+    del y_plain
+    y_host = torch.from_numpy(api.upscale(frame, 4, on_device=False,
+                                          blend="crop", **kw))
+    d_host = float((y_host - y.cpu()).abs().max())
+    emit({"check": f"{name}/host_tiler_vs_on_device", "max_abs_diff": d_host,
+          "tol": TOL_TILERS})
+    if d_host > TOL_TILERS:
+        raise AssertionError(f"{name}: host tiler {d_host} from the "
+                             "on-device one")
+    del y_host, y
+    torch.cuda.reset_peak_memory_stats()
+    frame_s = host_clock(lambda: api.upscale(frame, 4, on_device=True, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with plain_subpixel():
+        torch.cuda.reset_peak_memory_stats()
+        plain_s = host_clock(lambda: api.upscale(frame, 4, on_device=True,
+                                                 **kw))
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": f"{name}_upscale_times", "card": card, "frame_s": frame_s,
+          "mp_per_s": FRAME ** 2 / 1e6 / frame_s, "plain_frame_s": plain_s,
+          "plain_mp_per_s": FRAME ** 2 / 1e6 / plain_s,
+          "peak_mem_gib": peak, "plain_peak_mem_gib": plain_peak,
+          **frame_profile(lambda: api.upscale(frame, 4, on_device=True,
+                                              **kw))})
+    return mc, model, launches["conv3x3_depth_to_space"]
+
+
+def eval_folder_path(mc, model, gen: torch.Generator) -> None:
+    """Phase 30: `model` saved as a checkpoint directory with its
+    model_config.json, loaded back and rebuilt as cli/main.py's
+    cmd_eval_folder does, and scored by evaluate_folder through
+    api.upscale on 4 synthetic HR PNGs (two 512^2, two 517x383 for the
+    centre crop): PSNR within 0.05 dB and SSIM within 0.002 of the same
+    evaluation with the plain op; kernel-15 launches exact (2 a frame)."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch import api
+    from superresolution_tpu_torch.data.io import save_png
+    from superresolution_tpu_torch.metrics.benchmark_eval import (
+        evaluate_folder)
+    from superresolution_tpu_torch.models.factory import (
+        build_from_config, total_scale)
+    from superresolution_tpu_torch.ops.subpixel import conv3x3_depth_to_space
+    from superresolution_tpu_torch.train.checkpoint import (
+        CheckpointManager, load_params_for_inference)
+    from superresolution_tpu_torch.train.state import TrainState
+    from superresolution_tpu_torch.utils.config import ModelConfig
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    hr_dir, ckpt = f"{EVAL_DIR}/hr", f"{EVAL_DIR}/ckpt"
+    shapes = ((512, 512), (512, 512), (517, 383), (383, 517))
+    for i, (h, w) in enumerate(shapes):
+        save_png(torch.rand((h, w, 3), generator=gen).numpy(),
+                 f"{hr_dir}/img{i}.png")
+    sd = {k: v.float() for k, v in model.state_dict().items()}
+    CheckpointManager(ckpt, model_config=dataclasses.asdict(mc)).save(
+        TrainState(step=0, params=sd, opt_state={}), 0, psnr=0.0)
+    params, cfg = load_params_for_inference(ckpt, with_config=True)
+    cfg.pop("output_size", None)
+    mcfg = ModelConfig(**cfg)
+    built = build_from_config(mcfg, output_size=None)
+    scale = total_scale(mcfg)
+
+    def up(lr):
+        return api.upscale(lr, scale, model=built, params=params,
+                           tile=UP_TILE, halo=UP_HALO)
+
+    # the host tiler's batches of 8 tiles, each through both x2 stages
+    want = sum(2 * math.ceil(math.ceil(h // scale / UP_TILE)
+                             * math.ceil(w // scale / UP_TILE) / 8)
+               for h, w in shapes)
+    conv3x3_depth_to_space.launches = 0
+    t0 = time.perf_counter()
+    got = evaluate_folder(up, hr_dir, scale)
+    eval_s = time.perf_counter() - t0
+    n_launch = conv3x3_depth_to_space.launches
+    if n_launch != want:
+        raise AssertionError(f"eval_folder: {n_launch} kernel-15 launches, "
+                             f"expected {want}")
+    with plain_subpixel():
+        ref = evaluate_folder(up, hr_dir, scale)
+    d_psnr, d_ssim = abs(got["psnr"] - ref["psnr"]), abs(got["ssim"]
+                                                         - ref["ssim"])
+    emit({"phase": "eval_folder", "model": cfg["name"], "scale": scale,
+          "n": got["n"], "psnr": got["psnr"], "ssim": got["ssim"],
+          "plain_psnr": ref["psnr"], "plain_ssim": ref["ssim"],
+          "d_psnr": d_psnr, "d_ssim": d_ssim, "tol_psnr": TOL_PSNR,
+          "tol_ssim": TOL_SSIM, "kernel15_launches": n_launch,
+          "eval_s": eval_s})
+    if got["n"] != len(shapes) or d_psnr > TOL_PSNR or d_ssim > TOL_SSIM:
+        raise AssertionError(f"eval_folder: {got} against the plain op's "
+                             f"{ref}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2857,6 +3215,7 @@ def main() -> int:
     from superresolution_tpu_torch.ops.dense_trunk import fused_dense_block
     from superresolution_tpu_torch.ops.phase_tail import (
         conv_last_phase, up2_hr)
+    from superresolution_tpu_torch.ops.subpixel import conv3x3_depth_to_space
     from superresolution_tpu_torch.runtime import exact_fp32_reference
 
     t_start = time.perf_counter()
@@ -2901,7 +3260,8 @@ def main() -> int:
     runner = make_tiled_infer_staged(trunk_fn, make_phase_tail(params),
                                      **geom)
     ops = {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
-           "conv_last_phase": conv_last_phase}
+           "conv_last_phase": conv_last_phase,
+           "conv3x3_depth_to_space": conv3x3_depth_to_space}
     for op in ops.values():
         op.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -2912,7 +3272,7 @@ def main() -> int:
     launches = {k: op.launches for k, op in ops.items()}
     chunks = -(-ny * nx // TAIL_BATCH)
     expected = {"fused_dense_block": 69 * 5, "up2_hr": 2 * chunks,
-                "conv_last_phase": chunks}
+                "conv_last_phase": chunks, "conv3x3_depth_to_space": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
     if tuple(out.shape) != (4 * H, 4 * W, 3):
@@ -2924,7 +3284,7 @@ def main() -> int:
           "launches_per_frame": launches, "tail_batch": TAIL_BATCH,
           "tail_chunks": chunks,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    for k in launches:
+    for k in ("fused_dense_block", "up2_hr", "conv_last_phase"):
         kernels[k]["launches"] = launches[k]
 
     run_trunk, run_tail = make_tiled_infer_staged(
@@ -3031,6 +3391,19 @@ def main() -> int:
         kernels[k].setdefault("geometries", {})[tag] = padded[tag]
     torch.cuda.empty_cache()
     kernels["strip_hab_block"]["launches"] = hat_lever_paths(gen, card)
+    torch.cuda.empty_cache()
+
+    # ---- 27-30: EDSR and ESPCN serving through kernel 15 ----
+    gen = torch.Generator().manual_seed(SEED + 6)
+    kernels["conv3x3_depth_to_space"] = check_subpixel_kernel(gen)
+    edsr_mc, edsr, edsr_launches = sr_upscale_path("edsr", gen, card, 3, 2)
+    torch.cuda.empty_cache()
+    _, _, espcn_launches = sr_upscale_path("espcn", gen, card, 1, 1)
+    kernels["conv3x3_depth_to_space"].update(
+        launches=edsr_launches + espcn_launches,
+        launches_by_frame={"edsr": edsr_launches, "espcn": espcn_launches})
+    torch.cuda.empty_cache()
+    eval_folder_path(edsr_mc, edsr, gen)
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

@@ -29,16 +29,17 @@ def msra_init_(w: torch.Tensor, scale: float = 1.0,
 
 
 class Conv(nn.Conv2d):
-    """3x3 SAME conv with MSRA x `init_scale` weights and zero bias.
+    """SAME conv (3x3 unless `kernel` says otherwise; odd sizes) with MSRA
+    x `init_scale` weights and zero bias.
 
     Parameters are made on the CPU from `generator`; the owning model
     moves them to its device."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  bias: bool = True, init_scale: float = 1.0,
-                 generator: torch.Generator | None = None):
-        super().__init__(in_channels, out_channels, 3, padding=1,
-                         bias=bias, device="cpu")
+                 generator: torch.Generator | None = None, kernel: int = 3):
+        super().__init__(in_channels, out_channels, kernel,
+                         padding=kernel // 2, bias=bias, device="cpu")
         msra_init_(self.weight, init_scale, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)

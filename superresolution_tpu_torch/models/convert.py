@@ -1,6 +1,7 @@
-"""Weight bridge: the JAX package's RRDBNet, HATLite and HybridSR
-parameter trees (as numpy) -> this port's state dicts, BasicSR-keyed for
-RRDBNet and HAT-keyed for HATLite.
+"""Weight bridge: the JAX package's parameter trees (as numpy) -> this
+port's state dicts: RRDBNet and EDSR BasicSR-keyed, HATLite HAT-keyed,
+HybridSR as both stages, and SRCNN, ESPCN and FSRCNN under the names
+their port modules give.
 
 Counterpart of superresolution_tpu/models/convert.py:32-141,157-257,
 300-425, with its own copies of _fuse_dense, _unfuse_dense and the tree
@@ -272,6 +273,71 @@ def hybrid_state_dict_from_jax(params: Mapping, *, num_blocks: int,
                                  hat_compat=hat_compat)
     return {**{f"stage1.{k}": v for k, v in s1.items()},
             **{f"stage2.{k}": v for k, v in s2.items()}}
+
+
+def edsr_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX EDSR tree -> numpy state dict with the port's (BasicSR) EDSR
+    keys. Reads both layouts: scan-stacked (res_blocks/ResBlock_0 with a
+    leading [num_blocks] axis) and one ResBlock_{i} subtree per block."""
+    p = params["params"] if "params" in params else params
+    sd: dict[str, np.ndarray] = {}
+    _put_conv(sd, "conv_first", p["Conv_0"])
+    if "res_blocks" in p:
+        stacked = p["res_blocks"]["ResBlock_0"]
+        n = np.asarray(stacked["Conv_0"]["Conv_0"]["bias"]).shape[0]
+        blocks = _unstack_trees(stacked, n)
+    else:
+        n = sum(1 for k in p if k.startswith("ResBlock_"))
+        blocks = [p[f"ResBlock_{i}"] for i in range(n)]
+    for i, blk in enumerate(blocks):
+        _put_conv(sd, f"body.{i}.conv1", blk["Conv_0"])
+        _put_conv(sd, f"body.{i}.conv2", blk["Conv_1"])
+    _put_conv(sd, "conv_after_body", p["Conv_1"])
+    up = p.get("PixelShuffleUpsampler_0", {})
+    j = 0
+    while f"Conv_{j}" in up:
+        _put_conv(sd, f"upsample.{2 * j}", up[f"Conv_{j}"])
+        j += 1
+    _put_conv(sd, "conv_last", p["Conv_2"])
+    return sd
+
+
+def _plain_convs_state_dict(params: Mapping, names: tuple[str, ...]
+                            ) -> dict[str, np.ndarray]:
+    """Conv_{k} of a JAX tree -> the port's names[k]."""
+    p = params["params"] if "params" in params else params
+    sd: dict[str, np.ndarray] = {}
+    for k, name in enumerate(names):
+        _put_conv(sd, name, p[f"Conv_{k}"])
+    return sd
+
+
+def espcn_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX ESPCN tree -> numpy state dict (conv1, conv2, conv3)."""
+    return _plain_convs_state_dict(params, ("conv1", "conv2", "conv3"))
+
+
+def srcnn_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX SRCNN tree -> numpy state dict (conv1, conv2, conv3)."""
+    return _plain_convs_state_dict(params, ("conv1", "conv2", "conv3"))
+
+
+def fsrcnn_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
+    """JAX FSRCNN tree -> numpy state dict: Conv_0..Conv_{m+3} and the
+    PReLUs p_feat, p_shrink, p_map{i}, p_expand (one negative_slope each)
+    -> conv_feat, conv_shrink, conv_map.{i}, conv_expand, conv_last and
+    prelu_* ([1] weights)."""
+    p = params["params"] if "params" in params else params
+    m = sum(1 for k in p if k.startswith("p_map"))
+    names = ("conv_feat", "conv_shrink",
+             *(f"conv_map.{i}" for i in range(m)), "conv_expand", "conv_last")
+    sd = _plain_convs_state_dict(p, names)
+    for src, dst in (("p_feat", "prelu_feat"), ("p_shrink", "prelu_shrink"),
+                     *((f"p_map{i}", f"prelu_map.{i}") for i in range(m)),
+                     ("p_expand", "prelu_expand")):
+        sd[f"{dst}.weight"] = np.asarray(
+            p[src]["negative_slope"], np.float32).reshape(1)
+    return sd
 
 
 def to_torch(sd: Mapping[str, np.ndarray],

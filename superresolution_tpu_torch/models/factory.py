@@ -1,20 +1,25 @@
 """Build a generator from a ModelConfig, including the two-stage hybrid.
 
-Counterpart of superresolution_tpu/models/factory.py:11-38. The port has
-RRDBNet and HATLite so far; the other registry models (SRCNN, ESPCN,
-FSRCNN, EDSR) come with a later slice and raise here.
+Counterpart of superresolution_tpu/models/factory.py:11-38, over the
+generators of the reference's registry (superresolution_tpu/models/
+__init__.py): SRCNN, ESPCN, FSRCNN, EDSR, RRDBNet and HATLite.
 """
 
 from __future__ import annotations
 
 import torch
 
+from superresolution_tpu_torch.models.edsr import EDSR
+from superresolution_tpu_torch.models.espcn import ESPCN
+from superresolution_tpu_torch.models.fsrcnn import FSRCNN
 from superresolution_tpu_torch.models.hat_lite import HATLite
 from superresolution_tpu_torch.models.hybrid import HybridSR
 from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+from superresolution_tpu_torch.models.srcnn import SRCNN
 from superresolution_tpu_torch.utils.config import ModelConfig
 
-_MODELS = {"rrdbnet": RRDBNet, "hat_lite": HATLite}
+_MODELS = {"srcnn": SRCNN, "espcn": ESPCN, "fsrcnn": FSRCNN, "edsr": EDSR,
+           "rrdbnet": RRDBNet, "hat_lite": HATLite}
 
 
 def total_scale(mc: ModelConfig) -> int:
@@ -32,10 +37,7 @@ def _tuplify(kw: dict) -> dict:
 
 def get_model(name: str, **kwargs) -> torch.nn.Module:
     if name not in _MODELS:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (the port has "
-            f"{sorted(_MODELS)}; SRCNN, ESPCN, FSRCNN and EDSR come with "
-            "slice 4)")
+        raise KeyError(f"unknown model {name!r}; have {sorted(_MODELS)}")
     return _MODELS[name](**kwargs)
 
 

@@ -144,6 +144,9 @@ def library() -> ctypes.CDLL:
     lib.attn_window.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                                 _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.attn_window.restype = _I
+    lib.subpixel_conv3x3_d2s.argtypes = [_P, _L, _L, _L, _L, _I, _I, _I,
+                                         _I, _P, _P, _I, _I, _P, _I, _I, _P]
+    lib.subpixel_conv3x3_d2s.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -389,6 +392,24 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k.shape[1], c, num_heads, scale, int(q.dtype == torch.float32),
         int(vec), _stream(q))
     _check(lib, rc, "attn_window")
+
+
+PLANT_SWAP_IJ, PLANT_CLAMP_BORDER, PLANT_NO_BIAS = 1, 2, 3
+
+
+def conv3x3_d2s(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+                r: int, out: torch.Tensor, plant: int = 0) -> None:
+    """One launch of kernel 15, subpixel_kernel (subpixel_kernels.cu): x
+    [B, C_in, H, W] with any strides; w [C_out*r*r, C_in, 3, 3] and bias
+    [C_out*r*r] (or None) contiguous in x's type (bf16 or f32); out
+    contiguous [B, H*r, W*r, C_out] in x's type."""
+    lib = library()
+    b, cin, h, w_ = x.shape
+    rc = lib.subpixel_conv3x3_d2s(
+        _ptr(x), *x.stride(), b, h, w_, cin, _ptr(w), _ptr(bias),
+        out.shape[-1], r, _ptr(out), int(x.dtype == torch.float32), plant,
+        _stream(x))
+    _check(lib, rc, "subpixel_conv3x3_d2s")
 
 
 def star_l1_value(p: torch.Tensor, t: torch.Tensor, threshold: float,

@@ -160,7 +160,13 @@ def _stage_state_dict(name: str, kw: dict, tree) -> dict:
         return convert.hat_state_dict_from_jax(
             tree, depths=tuple(kw.get("depths", (6, 6, 6, 6))),
             hat_compat=kw.get("hat_compat", False))
-    raise NotImplementedError(f"model {name!r} is not ported yet")
+    bridges = {"edsr": convert.edsr_state_dict_from_jax,
+               "espcn": convert.espcn_state_dict_from_jax,
+               "fsrcnn": convert.fsrcnn_state_dict_from_jax,
+               "srcnn": convert.srcnn_state_dict_from_jax}
+    if name not in bridges:
+        raise KeyError(f"unknown model {name!r}")
+    return bridges[name](tree)
 
 
 def state_dict_from_jax_tree(tree, cfg: dict) -> dict:

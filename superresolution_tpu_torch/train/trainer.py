@@ -11,7 +11,8 @@ patches of FUSED_TRUNK_AUTO_MIN_PATCH and more, True forces it.
 
 Not ported yet, and raising NotImplementedError: multi-device meshes
 (mesh.data or mesh.pipe > 1), GAN terms, manifest data (PairedDataset),
-and previews (a `preview_every` that falls due needs data/io.save_png).
+and previews (a `preview_every` that falls due needs the preview strip,
+_save_preview).
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ class Trainer:
                 or config.mesh.spatial > 1:
             raise NotImplementedError(
                 "multi-device training (mesh.data / mesh.pipe / "
-                "mesh.spatial > 1) comes with slice 4's parallel/ port")
+                "mesh.spatial > 1) needs the parallel/ port, which is not "
+                "ported yet (ROADMAP item A6)")
         self.is_gan = "gan" in config.loss.terms
         if self.is_gan:
             raise NotImplementedError(
@@ -161,8 +163,9 @@ class Trainer:
         dc = self.cfg.data
         if dc.train_manifest:
             raise NotImplementedError(
-                "manifest data (data/dataset.PairedDataset) needs data/io "
-                "and data/manifest, which are not ported yet")
+                "manifest data (data/dataset.PairedDataset) needs "
+                "data/manifest and data/native_io, which are not ported "
+                "yet")
         c = self.cfg.model.in_channels
         n = dc.synthetic_len or 64
         # degradation 'none' means real LR: with no manifest the
@@ -182,8 +185,9 @@ class Trainer:
         if due:
             raise NotImplementedError(
                 f"a preview falls due at epoch {due[0]} (preview_every "
-                f"{cfg.preview_every}); previews need data/io.save_png, "
-                "which is not ported yet")
+                f"{cfg.preview_every}); previews need the preview strip "
+                "(superresolution_tpu/train/trainer.py:378-398, "
+                "_save_preview), which is not ported yet")
         best = {"psnr": float("-inf"), "ssim": 0.0}
         t_start = time.time()
         step = self.state.step

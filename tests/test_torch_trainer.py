@@ -105,7 +105,7 @@ def test_unported_parts_raise(tmp_path):
             Trainer(cfg, str(tmp_path), device="cpu")
     with Trainer(_cfg(preview_every=2, resume=False), str(tmp_path),
                  device="cpu") as tr:
-        with pytest.raises(NotImplementedError, match="save_png"):
+        with pytest.raises(NotImplementedError, match="preview strip"):
             tr.fit()
     cfg = _cfg(fused_trunk=True)  # LR 16 with 2 images: row-packed
     with pytest.raises(NotImplementedError, match="seg"):
