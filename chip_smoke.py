@@ -157,8 +157,42 @@ from a seventh seed, bf16:
              and scored by evaluate_folder through api.upscale on 4
              synthetic HR PNGs (two ragged): PSNR within 0.05 dB and SSIM
              within 0.002 of the same evaluation with the plain op
-Then the kernels line (all fifteen kernels), the card's nvidia-smi line
-and, last, {"ok": true, "device": {...}}.
+Then single-device training at the reference's defaults, random weights
+from an eighth seed:
+ 31 seg-kernels     B1 and kernel 13 with `seg` (batch-packed rows, one
+             zero spacer row per image) at esrgan_x4_tiled's packed
+             geometry [1, 8*49, 48, 64], the RRDB residual folded, against
+             their plain seg forms: value and dx within 0.02, dW and db
+             within 0.03, dres exactly; the spacer rows of the value and
+             of dx exactly 0; three planted faults (a spacer every H rows,
+             no row masked, spacer rows not zeroed at the store) each
+             missing by 3x the bar; timed packed, per image [8,48,48,64]
+             and plain, with the bound
+ 32 packed-train    esrgan_x4_tiled (23 RRDBs x 64, growth 32, batch 8, hr
+             192, bicubic, bf16) for 3 steps with fused_trunk=True: B1
+             and kernel 13 launches exact, every one with seg; once more
+             with fused_trunk=None under SRTPU_PACKED_TRAIN (and not packed
+             without it); one step against the plain step in f32 (loss
+             0.01, gradients 0.03; the plain bf16 step's distances
+             printed); ms/step packed, per image and plain, a profiled
+             step's busy share
+ 33 bicubic-presets edsr_baseline_x4 at full width (16 x 64, hr 192,
+             batch 16) for 3 steps, eval and a preview PNG every step,
+             async checkpoints, kernel 15's launches exact; the best step
+             finalized with params_probe and reloaded by
+             load_params_for_inference, equal on a patch to the module
+             restored by restore_best; srcnn_x2, espcn_x4, fsrcnn_x4 for 2
+             steps each; ms/step each; blur_bicubic and bsr_light LR made
+             on the card against the CPU from fixed draws
+ 34 manifest-train  8 synthetic 128^2 / 512^2 16-bit TIFF pairs and a
+             train/val/test manifest (under outputs/chip_smoke_manifest/);
+             hybrid_astro at full width trains 2 steps from it (B1,
+             kernels 13 and 14, exact) with a preview due; the g++-built
+             native decoder must have served batches; run_test writes its
+             TIFFs, labelled strips and metrics.txt
+Then the kernels line (the fifteen kernels and the seg forms of B1 and
+kernel 13), the card's nvidia-smi line and, last, {"ok": true,
+"device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 /usr/local/cuda/bin or on PATH)
@@ -683,23 +717,29 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
     return out
 
 
-def pinned_dense_block(x, ws, r, slopes):
+def pinned_dense_block(x, ws, r, slopes, seg=None):
     """B1's plain version with each lrelu replaced by a fixed slope map
     (1 or 0.2 per element, NHWC [B,H,W,4g]): equal to B1 wherever a
     pre-activation has the sign `slopes` gives it, and differentiable
-    with exactly that lrelu' pattern."""
+    with exactly that lrelu' pattern. With `seg`, the masked per-stage
+    chain of B1's plain seg form."""
+    from superresolution_tpu_torch.ops.dense_trunk import image_rows
+
     g = ws[0][0].shape[-1]
-    feats = [x.permute(0, 3, 1, 2)]
+    keep = 1.0 if seg is None else image_rows(
+        x.shape[1], seg, x.device).to(x.dtype)[:, None]
+    xc = x.permute(0, 3, 1, 2)
+    feats = [xc * keep]
     sl = slopes.permute(0, 3, 1, 2)
     for j, (k, b) in enumerate(ws):
         y = F.conv2d(torch.cat(feats, 1), k.permute(3, 2, 0, 1), b,
                      padding=1)
         if j < 4:
-            feats.append(y * sl[:, j * g:(j + 1) * g])
-    out = feats[0] + 0.2 * y
+            feats.append(y * sl[:, j * g:(j + 1) * g] * keep)
+    out = xc + 0.2 * y
     if r is not None:
         out = r.permute(0, 3, 1, 2) + 0.2 * out
-    return out.permute(0, 2, 3, 1)
+    return (out * keep).permute(0, 2, 3, 1)
 
 
 def check_dense_backward(ws, x: torch.Tensor, res: torch.Tensor,
@@ -1140,7 +1180,9 @@ def train_ops() -> dict:
 def step_grads(tr, apply, policy, lr, hr, kernel_loss: bool):
     """(loss, {name: grad}) of one step on (lr, hr) at the trainer's f32
     masters, with the forward `apply` under `policy`; the loss is the
-    trainer's own (kernel 14) or the plain star-weighted L1."""
+    trainer's own (kernel 14 for a star-weighted L1) or, with
+    kernel_loss False, the plain star-weighted L1 where the trainer's is
+    one (else the trainer's, which runs no kernel)."""
     from superresolution_tpu_torch.losses.basic import star_weighted_l1
 
     leaves = {k: v.detach().requires_grad_()
@@ -1148,22 +1190,25 @@ def step_grads(tr, apply, policy, lr, hr, kernel_loss: bool):
     pred = apply(policy.cast_to_compute(leaves),
                  lr.to(policy.compute_dtype)).float()
     lc = tr.cfg.loss
-    loss = (tr.loss_fn(pred, hr.float())[0] if kernel_loss else
-            star_weighted_l1(pred, hr.float(), lc.star_threshold,
-                             lc.star_weight))
+    loss = (star_weighted_l1(pred, hr.float(), lc.star_threshold,
+                             lc.star_weight)
+            if not kernel_loss and "star_l1" in lc.terms
+            else tr.loss_fn(pred, hr.float())[0])
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def check_train_step(tr, lr, hr, tag: str) -> None:
+def check_train_step(tr, lr, hr, tag: str, prefixes=None,
+                     against: str = "bf16") -> None:
     """One step through the kernels (the trainer's fused apply and loss)
-    against the same step through the plain model in bf16, on the same
-    f32 masters and batch: the loss within TOL_STEP_LOSS, the global
-    grad norm within TOL_STEP_GNORM, and, for each parameter under
-    leaf_prefixes (conv_first, the first, middle and last RRDB,
-    conv_body, stage 2's conv_first), its gradient within TOL_LEAF of
-    max |plain|. Each line also gives both paths' distance from the
-    plain step in f32."""
+    against the same step through the plain model in bf16 (or, with
+    against="f32", in f32), on the same f32 masters and batch: the loss
+    within TOL_STEP_LOSS, the global grad norm within TOL_STEP_GNORM,
+    and, for each parameter under `prefixes` (default leaf_prefixes:
+    conv_first, the first, middle and last RRDB, conv_body, stage 2's
+    conv_first), its gradient within TOL_LEAF of max |plain|. Each line
+    also gives both paths' distance from the plain step in f32 and the
+    kernel path's from the plain bf16 step."""
     from torch.func import functional_call
 
     from superresolution_tpu_torch.train.state import global_norm
@@ -1179,26 +1224,32 @@ def check_train_step(tr, lr, hr, tag: str) -> None:
         raise AssertionError(f"train_step/{tag}: non-finite loss or grads")
     lp, gp = step_grads(tr, plain, bf16, lr, hr, False)
     l32, g32 = step_grads(tr, plain, f32, lr, hr, False)
-    compare(f"train_step/{tag}/loss", lk, lp, TOL_STEP_LOSS,
-            rel_err_vs_f32=rel_err(lk, l32),
-            plain_rel_err_vs_f32=rel_err(lp, l32))
+    lref, gref = (lp, gp) if against == "bf16" else (l32, g32)
+    compare(f"train_step/{tag}/loss", lk, lref, TOL_STEP_LOSS,
+            against=against, rel_err_vs_f32=rel_err(lk, l32),
+            plain_rel_err_vs_f32=rel_err(lp, l32),
+            rel_err_vs_plain_bf16=rel_err(lk, lp))
     nk, np_, n32 = global_norm(gk), global_norm(gp), global_norm(g32)
-    compare(f"train_step/{tag}/grad_norm", nk, np_, TOL_STEP_GNORM,
+    compare(f"train_step/{tag}/grad_norm", nk, np_ if against == "bf16"
+            else n32, TOL_STEP_GNORM, against=against,
             rel_err_vs_f32=rel_err(nk, n32),
-            plain_rel_err_vs_f32=rel_err(np_, n32))
-    for pre in leaf_prefixes(tr.model.stage1.num_blocks):
+            plain_rel_err_vs_f32=rel_err(np_, n32),
+            rel_err_vs_plain_bf16=rel_err(nk, np_))
+    for pre in prefixes or leaf_prefixes(tr.model.stage1.num_blocks):
         # one line per group of leaves: its worst leaf, with the worst
         # distances from f32 of either path over the group
-        errs = sorted((rel_err(gk[k], gp[k]), k) for k in gk
+        errs = sorted((rel_err(gk[k], gref[k]), k) for k in gk
                       if k.startswith(pre))
         worst, k = errs[-1]
         line = {"check": f"train_step/{tag}/grad/{pre}*",
                 "leaves": len(errs), "worst_leaf": k, "max_rel_err": worst,
-                "tol": TOL_LEAF,
+                "tol": TOL_LEAF, "against": against,
                 "rel_err_vs_f32": max(rel_err(gk[n], g32[n])
                                       for _, n in errs),
                 "plain_rel_err_vs_f32": max(rel_err(gp[n], g32[n])
-                                            for _, n in errs)}
+                                            for _, n in errs),
+                "rel_err_vs_plain_bf16": max(rel_err(gk[n], gp[n])
+                                             for _, n in errs)}
         emit(line)
         if worst > TOL_LEAF:
             raise AssertionError(f"train_step/{tag}: gradient of {k} is "
@@ -3202,6 +3253,540 @@ def eval_folder_path(mc, model, gen: torch.Generator) -> None:
                              f"{ref}")
 
 
+# ---- 31-34: single-device training at the reference's defaults --------
+
+SEG_IMAGES, SEG_LR = 8, 48   # esrgan_x4_tiled: batch 8, LR 192 / 4
+SEG_FAULTS = ("stride_h", "valid_is_stride", "spacer_not_zeroed")
+DEFAULTS_DIR = "outputs/chip_smoke_defaults"    # .gitignore lists outputs/
+MANIFEST_DIR = "outputs/chip_smoke_manifest"
+PRESET_STEPS = {"esrgan_x4_tiled": 3, "edsr_baseline_x4": 3, "srcnn_x2": 2,
+                "espcn_x4": 2, "fsrcnn_x4": 2, "hybrid_astro": 2}
+TOL_DEGRADE = 1e-4        # LR made on the card against the CPU (f32)
+TOL_JPEG_SHARE = 0.01     # pixels past it allowed where a DCT coefficient
+                          # at a .5 quantization tie rounds the other way
+
+
+def seg_fault(fault: str | None, seg: tuple) -> tuple:
+    """(the seg the kernels are given, seg_plant) with `fault` planted:
+    stride_h, a spacer every H rows instead of every H + 1; valid_is_stride,
+    no row masked; spacer_not_zeroed, every store leaves the spacer rows
+    as computed."""
+    stride, valid = seg
+    return {None: (seg, 0), "stride_h": ((valid, valid - 1), 0),
+            "valid_is_stride": ((stride, stride), 0),
+            "spacer_not_zeroed": (seg, 1)}[fault]
+
+
+@contextlib.contextmanager
+def seg_planted(bit: int):
+    """Inside the block every conv launch gets seg_plant=bit."""
+    import functools
+
+    from superresolution_tpu_torch.ops import _build
+
+    real = _build.conv3x3
+    if bit:
+        _build.conv3x3 = functools.partial(real, seg_plant=bit)
+    try:
+        yield
+    finally:
+        _build.conv3x3 = real
+
+
+def spacer_rows_zero(name: str, t: torch.Tensor, seg: tuple) -> None:
+    """Raise unless every spacer row of the NHWC map t is exactly 0."""
+    from superresolution_tpu_torch.ops.dense_trunk import image_rows
+
+    sp = ~image_rows(t.shape[1], seg, t.device)
+    nonzero = int((t[:, sp] != 0).sum())
+    emit({"check": f"{name}/spacer_rows", "rows": int(sp.sum()),
+          "nonzero": nonzero})
+    if nonzero:
+        raise AssertionError(f"{name}: {nonzero} nonzero values on the "
+                             "spacer rows")
+
+
+def seg_forward_pairs(ws, x, res, seg, fault=None) -> dict:
+    """B1 with seg (and `fault` planted) against its plain seg form in f32
+    on the same upcast inputs, the RRDB residual folded: {check: (got,
+    ref, bar)}."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    kseg, bit = seg_fault(fault, seg)
+    with seg_planted(bit):
+        got = dt.fused_dense_block(x, ws, res, seg=kseg)
+    ref = dt.fused_dense_block_reference(x.float(), ws, res.float(), seg=seg)
+    return {"value": (got, ref, TOL_KERNEL)}
+
+
+def seg_backward_pairs(ws, x, res, dout, seg, fault=None) -> dict:
+    """Kernel 13 with seg through the training path's op (autograd through
+    fused_dense_block_train, `fault` planted) against autograd of the
+    plain seg form in f32 with lrelu' pinned to the kernel's own y
+    (check_dense_backward's reason): value, dx, each dW and db, dres."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    g = ws[0][0].shape[-1]
+    y = torch.empty((*x.shape[:3], 4 * g), dtype=x.dtype, device=x.device)
+    dt.fused_dense_block(x, ws, workspace=y, seg=seg)
+    slopes = torch.where(y.float() > 0, 1.0, 0.2)
+    kin = [t.detach().requires_grad_()
+           for t in [x, *(t for pair in ws for t in pair), res]]
+    kseg, bit = seg_fault(fault, seg)
+    with seg_planted(bit):
+        yk = dtt.fused_dense_block_train(
+            kin[0], list(zip(kin[1:11:2], kin[2:11:2])), kin[-1], seg=kseg)
+        got = torch.autograd.grad(yk, kin, dout)
+    leaves = [t.detach().float().requires_grad_() for t in kin]
+    out = pinned_dense_block(leaves[0], list(zip(leaves[1:11:2],
+                                                 leaves[2:11:2])),
+                             leaves[-1], slopes, seg)
+    ref = torch.autograd.grad(out, leaves, dout.float())
+    pairs = {"value": (yk.detach(), out.detach(), TOL_KERNEL),
+             "dx": (got[0], ref[0], TOL_KERNEL)}
+    for j in range(5):
+        pairs[f"dW{j + 1}"] = (got[1 + 2 * j], ref[1 + 2 * j], TOL_DW)
+        pairs[f"db{j + 1}"] = (got[2 + 2 * j], ref[2 + 2 * j], TOL_DW)
+    pairs["dres"] = (got[-1], ref[-1], 0.0)
+    return pairs
+
+
+def judge_pairs(name: str, pairs: dict, fault: str | None = None) -> dict:
+    """Without a fault, each pair within its bar (the worst line back);
+    with one, raise unless some pair misses by TOL_PLANT_FACTOR times its
+    bar (non-finite values count as caught)."""
+    if fault is None:
+        return max((compare(f"{name}/{k}", g, r, tol)
+                    for k, (g, r, tol) in pairs.items()),
+                   key=lambda e: e["max_rel_err"] / max(e["tol"], 1e-9))
+    worst, at = 0.0, None
+    for k, (g, r, tol) in pairs.items():
+        if tol == 0.0:
+            continue
+        finite = bool(torch.isfinite(g.float()).all())
+        ratio = rel_err(g, r) / tol if finite else float("inf")
+        if ratio > worst:
+            worst, at = ratio, k
+    emit({"planted_fault": f"{name}/{fault}", "worst_check": at,
+          "bars_missed_by": worst, "caught": worst > TOL_PLANT_FACTOR})
+    if not worst > TOL_PLANT_FACTOR:
+        raise AssertionError(f"{name}: planted fault {fault} shows only "
+                             f"{worst} x its bar")
+    return {}
+
+
+def check_seg_kernels(gen: torch.Generator) -> dict:
+    """Phase 31: B1 and kernel 13 with seg at esrgan_x4_tiled's packed
+    geometry [1, 8*49, 48, 64] (the RRDB residual folded, as in each
+    RRDB's third block) against their plain seg forms; spacer rows of the
+    value and of dx exactly 0; the three SEG_FAULTS each caught by 3x the
+    bar; timed packed, per image ([8,48,48,64], no seg) and plain."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+    from superresolution_tpu_torch.train.fused_apply import pack_batch_rows
+
+    t0 = time.perf_counter()
+    bf = torch.bfloat16
+    b, h, w, c, g = SEG_IMAGES, SEG_LR, SEG_LR, 64, 32
+    seg = (h + 1, h)
+    ws = dense_check_weights(gen, c, g)
+    x8 = rand(gen, b, h, w, c, scale=0.2, dtype=bf)
+    res8 = rand(gen, b, h, w, c, scale=0.05, dtype=bf)
+    dout8 = rand(gen, b, h, w, c, dtype=bf)
+    xp, resp = pack_batch_rows(x8), pack_batch_rows(res8)
+    # the cotangent is nonzero on the spacer rows too: the kernels must
+    # ignore it there
+    doutp = rand(gen, 1, b * (h + 1), w, c, dtype=bf)
+    fwd = seg_forward_pairs(ws, xp, resp, seg)
+    e1 = judge_pairs("fused_dense_block_seg", fwd)
+    spacer_rows_zero("fused_dense_block_seg/value", fwd["value"][0], seg)
+    bwd = seg_backward_pairs(ws, xp, resp, doutp, seg)
+    e13 = judge_pairs("dense_block_backward_seg", bwd)
+    spacer_rows_zero("dense_block_backward_seg/value", bwd["value"][0], seg)
+    spacer_rows_zero("dense_block_backward_seg/dx", bwd["dx"][0], seg)
+    for fault in SEG_FAULTS:
+        judge_pairs("fused_dense_block_seg",
+                    seg_forward_pairs(ws, xp, resp, seg, fault), fault)
+        judge_pairs("dense_block_backward_seg",
+                    seg_backward_pairs(ws, xp, resp, doutp, seg, fault),
+                    fault)
+
+    px = b * h * w                       # image pixels: the work
+    packed_bytes = xp.numel() * 2
+    flat = [t for pair in ws for t in pair]
+    leaves = [xp.detach().requires_grad_()] + [
+        t.detach().requires_grad_() for t in flat]
+    wsl = list(zip(leaves[1::2], leaves[2::2]))
+
+    def plain13():
+        y = dt.fused_dense_block_reference(leaves[0], wsl, seg=seg)
+        return torch.autograd.grad(y, leaves, doutp)
+
+    b1, by1 = bound(2 * px * B1_MACS, 3 * packed_bytes + 2 * B1_MACS
+                    + 4 * 192)
+    b13, by13 = bound(2 * px * (2 * B1_MACS + RECOMPUTE_MACS),
+                      3 * packed_bytes + 4 * B1_MACS + 8 * (4 * g + c))
+    out = {
+        "fused_dense_block_seg": {
+            "name": "fused_dense_block_seg", "route": "cuda", "source": SRC,
+            "replaces": "superresolution_tpu/ops/pallas_dense_trunk.py:237",
+            "shape": list(xp.shape), "seg": list(seg),
+            "max_abs_err": e1["max_abs_err"],
+            "max_rel_err": e1["max_rel_err"], "tol": TOL_KERNEL,
+            "ms": time_ms(lambda: dt.fused_dense_block(xp, ws, resp,
+                                                       seg=seg), 20),
+            "per_image_ms": time_ms(
+                lambda: dt.fused_dense_block(x8, ws, res8), 20),
+            "plain_ms": time_ms(lambda: dt.fused_dense_block_reference(
+                xp, ws, resp, seg=seg), 20),
+            "bound_ms": b1, "bound_by": by1, "library_ms": None},
+        "dense_block_backward_seg": {
+            "name": "dense_block_backward_seg", "route": "cuda",
+            "source": TRAIN_SRC, "sources": [TRAIN_SRC, SRC],
+            "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
+            "shape": list(xp.shape), "seg": list(seg),
+            "max_abs_err": e13["max_abs_err"],
+            "max_rel_err": e13["max_rel_err"], "tol": e13["tol"],
+            "ms": time_ms(lambda: dtt.dense_block_backward(
+                xp, ws, resp, doutp, seg), 10),
+            "per_image_ms": time_ms(lambda: dtt.dense_block_backward(
+                x8, ws, res8, dout8), 10),
+            "plain_ms": time_ms(plain13, 10),
+            "bound_ms": b13, "bound_by": by13, "library_ms": None}}
+    for row in out.values():
+        emit({"phase": "kernel_time", **row})
+    emit({"phase": "seg_kernels", "seconds": time.perf_counter() - t0})
+    return out
+
+
+def preset_trainer(name: str, workdir: str, **train):
+    """The preset at its own widths and data settings, cut in length to
+    PRESET_STEPS[name] steps over a synthetic set of that many batches,
+    one eval at the end; `train` overrides TrainConfig fields."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch.train.trainer import Trainer
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset(name)
+    steps = PRESET_STEPS[name]
+    data = dataclasses.replace(
+        cfg.data, synthetic_len=steps * cfg.data.batch_size, num_workers=4)
+    tc = dict(epochs=1, steps_per_epoch=steps, eval_every=1, resume=False)
+    tc.update(train)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return Trainer(cfg.replace(data=data, train=dataclasses.replace(
+        cfg.train, **tc)), workdir)
+
+
+def fit_counted(tr, expected: dict, tag: str) -> dict:
+    """tr.fit() with every kernel's count (and B1's and kernel 13's seg
+    counts) set to 0 just before and read just after, held to
+    `expected` (names not in it: 0)."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    ops = zero_counts()
+    dt.fused_dense_block.seg_launches = 0
+    dtt.dense_block_backward.seg_launches = 0
+    t0 = time.perf_counter()
+    out = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {k: op.launches for k, op in ops.items()}
+    launches["fused_dense_block_seg"] = dt.fused_dense_block.seg_launches
+    launches["dense_block_backward_seg"] = (
+        dtt.dense_block_backward.seg_launches)
+    check_launches(tag, launches, {k: expected.get(k, 0) for k in launches})
+    with open(f"{tr.workdir}/logs/metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    log = next(r for r in recs if "train/total" in r)
+    vals = [log["train/total"], log["train/grad_norm"], out["best"]["psnr"]]
+    if not all(np.isfinite(vals)):
+        raise AssertionError(f"{tag}: non-finite loss, grad norm or PSNR "
+                             f"{vals}")
+    return {"fit_s": fit_s, "steps": out["final_step"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "train_loss": log["train/total"],
+            "grad_norm": log["train/grad_norm"],
+            "val_psnr": out["best"]["psnr"]}
+
+
+def step_ms(step, state, batch, runs: int = TIME_STEPS) -> float:
+    """Host ms per call of step(state, batch, None) after one warm-up."""
+    step(state, batch, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        step(state, batch, None)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+def packed_train_path(card: str) -> dict:
+    """Phase 32: esrgan_x4_tiled (23 RRDBs x 64, growth 32, batch 8, hr
+    192, bicubic, bf16) trains 3 steps row-packed through B1 and kernel
+    13 with seg (fused_trunk=True), launches exact; then once with
+    fused_trunk=None under SRTPU_PACKED_TRAIN (and off without it); one
+    step against the plain f32 step; ms/step packed, per image and
+    plain, and a profiled step's busy share. Returns the launches of the
+    3-step fit."""
+    from superresolution_tpu_torch.data.loader import prefetch_to_device
+    from superresolution_tpu_torch.train.fused_apply import (
+        make_fused_train_apply)
+    from superresolution_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    wd = f"{DEFAULTS_DIR}/esrgan_x4_tiled"
+    steps = PRESET_STEPS["esrgan_x4_tiled"]
+    with preset_trainer("esrgan_x4_tiled", wd, fused_trunk=True) as tr:
+        if tr.fused_apply is None or tr.batch_size != SEG_IMAGES:
+            raise AssertionError("esrgan_x4_tiled: no fused apply or batch "
+                                 f"{tr.batch_size}")
+        nb = tr.model.num_blocks
+        per_step = {"fused_dense_block": 3 * nb * 9,
+                    "dense_block_backward": 3 * nb}
+        per_step.update(
+            fused_dense_block_seg=per_step["fused_dense_block"],
+            dense_block_backward_seg=per_step["dense_block_backward"])
+        res = fit_counted(tr, {k: steps * v for k, v in per_step.items()},
+                          "esrgan_x4_tiled")
+        emit({"phase": "packed_train", **res})
+        # one fixed batch: the first training batch, degraded, no
+        # augmentation
+        lr, hr = tr.eval_input_fn(
+            next(iter(prefetch_to_device(tr.train_loader))), None)
+        # held against the plain step in f32: at 23 RRDBs the plain bf16
+        # step's own roundings put its first RRDB's gradients 0.039 of
+        # max from f32 (an H100 80GB HBM3 at 700 W), farther than the
+        # packed kernel path's 0.013, so it cannot be the reference at
+        # the 0.03 bar; the bf16 distances are printed beside
+        check_train_step(tr, lr, hr, "esrgan_x4_tiled_packed", prefixes=(
+            "conv_first.", "body.0.", f"body.{nb // 2}.", f"body.{nb - 1}.",
+            "conv_body.", "conv_hr."), against="f32")
+        dev_batch = {"lr": lr, "hr": hr}
+        per_image = make_train_step(
+            tr.model, tr.loss_fn, tr.tx, tr.policy, tr.eval_input_fn,
+            apply_fn=make_fused_train_apply(tr.model, row_pack=False))
+        plain = make_train_step(tr.model, tr.loss_fn, tr.tx, tr.policy,
+                                tr.eval_input_fn)
+        packed = make_train_step(tr.model, tr.loss_fn, tr.tx, tr.policy,
+                                 tr.eval_input_fn, apply_fn=tr.fused_apply)
+        times = {"packed_ms_per_step": step_ms(packed, tr.state, dev_batch),
+                 "per_image_ms_per_step": step_ms(per_image, tr.state,
+                                                  dev_batch),
+                 "plain_ms_per_step": step_ms(plain, tr.state, dev_batch)}
+        prof = frame_profile(lambda: packed(tr.state, dev_batch, None))
+        prof1 = frame_profile(lambda: per_image(tr.state, dev_batch, None))
+        emit({"phase": "packed_train_times", "card": card,
+              "batch": SEG_IMAGES, "lr_patch": SEG_LR, **times,
+              "profiled_step_s": prof["profiled_frame_s"],
+              "device_ms_per_step": prof["device_ms_per_frame"],
+              "device_busy_share": prof["device_busy_share"],
+              "per_image_device_ms_per_step": prof1["device_ms_per_frame"],
+              "per_image_busy_share": prof1["device_busy_share"],
+              "top_device_kernels": prof["top_device_kernels"][:6],
+              "per_image_top_device_kernels":
+                  prof1["top_device_kernels"][:4]})
+    old = os.environ.pop("SRTPU_PACKED_TRAIN", None)
+    try:
+        with preset_trainer("esrgan_x4_tiled", wd, fused_trunk=None,
+                            steps_per_epoch=1) as tr:
+            if tr.fused_apply is not None:
+                raise AssertionError("fused_trunk=None packed without "
+                                     "SRTPU_PACKED_TRAIN")
+        os.environ["SRTPU_PACKED_TRAIN"] = "1"
+        with preset_trainer("esrgan_x4_tiled", wd, fused_trunk=None,
+                            steps_per_epoch=1) as tr:
+            if tr.fused_apply is None:
+                raise AssertionError("SRTPU_PACKED_TRAIN did not turn the "
+                                     "packed apply on")
+            env = fit_counted(tr, per_step, "esrgan_x4_tiled/env")
+    finally:
+        if old is None:
+            os.environ.pop("SRTPU_PACKED_TRAIN", None)
+        else:
+            os.environ["SRTPU_PACKED_TRAIN"] = old
+    emit({"phase": "packed_train_env", "launches": env["launches"],
+          "seconds": time.perf_counter() - t_phase})
+    return res["launches"]
+
+
+def degradation_on_card(gen: torch.Generator) -> None:
+    """blur_bicubic and bsr_light LR made on the card against the CPU from
+    the same fixed draws (sigma, noise sigma, quality, noise field): f32
+    within TOL_DEGRADE; for bsr_light, at most TOL_JPEG_SHARE of the
+    pixels past it."""
+    from superresolution_tpu_torch.ops.degradation import (
+        degrade_with_draws, draw_degradation)
+
+    hr = torch.rand((4, 192, 192, 3), generator=gen)
+    dr = draw_degradation(gen, 4)
+    noise = torch.randn((4, 48, 48, 3), generator=gen)
+    for mode in ("blur_bicubic", "bsr_light"):
+        args = (dr["sigma"], dr["noise_sigma"], dr["quality"], noise)
+        cpu = degrade_with_draws(hr, 4, mode, *args)
+        card = degrade_with_draws(hr.cuda(), 4, mode,
+                                  *(a.cuda() for a in args)).cpu()
+        d = (card - cpu).abs()
+        share = float((d > TOL_DEGRADE).float().mean())
+        emit({"check": f"degradation/{mode}/card_vs_cpu",
+              "max_abs_err": float(d.max()), "share_past_tol": share,
+              "tol": TOL_DEGRADE, "draws": {k: v.tolist()
+                                            for k, v in dr.items()}})
+        limit = 0.0 if mode == "blur_bicubic" else TOL_JPEG_SHARE
+        if share > limit:
+            raise AssertionError(f"degradation {mode}: {share} of the "
+                                 f"pixels past {TOL_DEGRADE}")
+
+
+def bicubic_presets_path(gen: torch.Generator, card: str) -> int:
+    """Phase 33: edsr_baseline_x4 at full width (16 x 64, hr 192, batch
+    16, bicubic) for 3 steps with eval_every=1 and preview_every=1: a
+    preview PNG a step, async checkpoints, kernel 15 launches exact;
+    finalize(probe=params_probe(...)), load_params_for_inference of the
+    promoted weights against the module restored to the best step
+    (restore_best), equal on a patch; then srcnn_x2 (fp32), espcn_x4
+    and fsrcnn_x4 for 2 steps each; ms/step for each; the degradation
+    modes on the card against the CPU. Returns kernel 15's launches."""
+    from superresolution_tpu_torch.data.loader import prefetch_to_device
+    from superresolution_tpu_torch.models.factory import build_from_config
+    from superresolution_tpu_torch.train.checkpoint import (
+        load_params_for_inference, params_probe)
+    from superresolution_tpu_torch.utils.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    k15 = 0
+    times = {}
+    wd = f"{DEFAULTS_DIR}/edsr_baseline_x4"
+    with preset_trainer("edsr_baseline_x4", wd, epochs=3, steps_per_epoch=1,
+                        preview_every=1) as tr:
+        per_fwd = 2                   # two x2 upsampler stages
+        want = 3 * per_fwd * (1 + len(tr.val_loader) + 1)
+        res = fit_counted(tr, {"conv3x3_depth_to_space": want},
+                          "edsr_baseline_x4")
+        k15 += want
+        previews = sorted(os.listdir(f"{wd}/previews"))
+        if previews != [f"epoch_{e:05d}.png" for e in (1, 2, 3)]:
+            raise AssertionError(f"edsr previews {previews}")
+        meta = json.load(open(f"{wd}/checkpoints/meta.json"))
+        if meta["last_step"] != 3 or not os.path.exists(
+                f"{wd}/checkpoints/step_{3:010d}/state.pt"):
+            raise AssertionError(f"edsr checkpoints {meta}")
+        key = "params/" + next(iter(tr.state.params))
+        best_dir = tr.finalize(probe=params_probe(key))
+        try:
+            params_probe("params/no_such.weight")(best_dir)
+        except KeyError:
+            pass
+        else:
+            raise AssertionError("params_probe passed a missing key")
+        params, cfg = load_params_for_inference(best_dir, with_config=True)
+        cfg.pop("output_size", None)
+        loaded = build_from_config(ModelConfig(**cfg))
+        loaded.load_state_dict(params)
+        restored = tr.ckpt.restore_best(tr.state)
+        best_model = build_from_config(ModelConfig(**cfg))
+        best_model.load_state_dict(restored.params)
+        x = torch.rand((1, 48, 48, 3), generator=gen).cuda()
+        with torch.inference_mode():
+            same = bool(torch.equal(loaded(x), best_model(x)))
+            same_trained = bool(torch.equal(loaded(x), tr.model(x)))
+        emit({"check": "edsr_baseline_x4/finalize_load", "probe": key,
+              "best_step": meta["best_step"], "last_step": 3,
+              "equal_to_best": same, "equal_to_trained": same_trained})
+        if not same or (meta["best_step"] == 3 and not same_trained):
+            raise AssertionError("the promoted weights do not give the "
+                                 "best step's output")
+        batch = next(iter(prefetch_to_device(tr.train_loader)))
+        times["edsr_baseline_x4"] = step_ms(tr._train_step, tr.state, batch)
+        emit({"phase": "edsr_train", **res, "previews": previews,
+              "ms_per_step": times["edsr_baseline_x4"]})
+    for name, per_fwd in (("srcnn_x2", 0), ("espcn_x4", 1),
+                          ("fsrcnn_x4", 0)):
+        with preset_trainer(name, f"{DEFAULTS_DIR}/{name}") as tr:
+            want = per_fwd * (PRESET_STEPS[name] + len(tr.val_loader))
+            res = fit_counted(tr, {"conv3x3_depth_to_space": want}, name)
+            k15 += want
+            batch = next(iter(prefetch_to_device(tr.train_loader)))
+            times[name] = step_ms(tr._train_step, tr.state, batch)
+            emit({"phase": f"{name}_train", **res,
+                  "ms_per_step": times[name]})
+    degradation_on_card(gen)
+    emit({"phase": "bicubic_presets", "card": card, "ms_per_step": times,
+          "seconds": time.perf_counter() - t_phase})
+    return k15
+
+
+def manifest_path(gen: torch.Generator, card: str) -> dict:
+    """Phase 34: 8 co-registered 128^2 / 512^2 16-bit TIFF pairs
+    (SyntheticHRDataset with lr_scale 4) and a train/val/test manifest
+    (prepare_splits); hybrid_astro at full width (batch 4, degradation
+    'none', star L1) trains 2 steps from it with a preview due, launches
+    exact (B1, kernels 13 and 14); the native decoder must have served
+    batches; run_test(labeled=True) writes its TIFFs, labelled strips and
+    metrics.txt. Returns the fit's launches."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch.data import native_io
+    from superresolution_tpu_torch.data.dataset import SyntheticHRDataset
+    from superresolution_tpu_torch.data.io import save_tiff16
+    from superresolution_tpu_torch.data.manifest import prepare_splits
+    from superresolution_tpu_torch.infer.evaluate import run_test
+    from superresolution_tpu_torch.train.trainer import Trainer
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MANIFEST_DIR, ignore_errors=True)
+    root = f"{MANIFEST_DIR}/pairs"
+    ds = SyntheticHRDataset(8, 512, 1, seed=3, lr_scale=4)
+    for i in range(len(ds)):
+        item = ds[i]
+        save_tiff16(item["hr"], f"{root}/pair_{i:04d}/hubble.tiff")
+        save_tiff16(item["lr"], f"{root}/pair_{i:04d}/observatory.tiff")
+    splits = prepare_splits(root, f"{MANIFEST_DIR}/splits")
+    cfg = get_preset("hybrid_astro")
+    data = dataclasses.replace(
+        cfg.data, train_manifest=splits["train"],
+        val_manifest=splits["val"], test_manifest=splits["test"],
+        num_workers=4)
+    train = dataclasses.replace(cfg.train, epochs=2, steps_per_epoch=1,
+                                eval_every=1, preview_every=2, resume=False)
+    if native_io.get_lib() is None:
+        raise AssertionError("the native TIFF decoder did not build")
+    native_io.decode_batch.batches = 0
+    wd = f"{MANIFEST_DIR}/train"
+    with Trainer(cfg.replace(data=data, train=train), wd) as tr:
+        nb = tr.model.stage1.num_blocks
+        per_step = {"fused_dense_block": 3 * nb * 9,
+                    "dense_block_backward": 3 * nb,
+                    "star_weighted_l1_cuda": 2}
+        res = fit_counted(tr, {k: 2 * v for k, v in per_step.items()},
+                          "hybrid_astro/manifest")
+        served = native_io.decode_batch.batches
+        if served == 0:
+            raise AssertionError("the native decoder served no batch")
+        if not os.path.exists(f"{wd}/previews/epoch_00002.png"):
+            raise AssertionError("no preview at epoch 2")
+        test = run_test(tr, labeled=True)
+        files = sorted(os.listdir(f"{wd}/test_results"))
+        n_test = len(tr.test_ds)
+        want = sorted([f"result_{i:04d}.tiff" for i in range(n_test)]
+                      + [f"comparison_{i:04d}.png" for i in range(n_test)]
+                      + ["metrics.txt"])
+        if files != want or not np.isfinite(test["psnr"]):
+            raise AssertionError(f"run_test wrote {files}, {test}")
+    emit({"phase": "manifest_train", "card": card, **res,
+          "native_batches": served, "splits": {
+              k: len(json.load(open(v))) for k, v in splits.items()},
+          "test": test, "test_files": files,
+          "seconds": time.perf_counter() - t_phase})
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3404,6 +3989,20 @@ def main() -> int:
         launches_by_frame={"edsr": edsr_launches, "espcn": espcn_launches})
     torch.cuda.empty_cache()
     eval_folder_path(edsr_mc, edsr, gen)
+    torch.cuda.empty_cache()
+
+    # ---- 31-34: training at the reference's defaults, seg kernels ----
+    gen = torch.Generator().manual_seed(SEED + 7)
+    kernels.update(check_seg_kernels(gen))
+    torch.cuda.empty_cache()
+    packed = packed_train_path(card)
+    for k in ("fused_dense_block_seg", "dense_block_backward_seg"):
+        kernels[k]["launches"] = packed.get(k, 0)
+    torch.cuda.empty_cache()
+    kernels["conv3x3_depth_to_space"]["launches_training"] = (
+        bicubic_presets_path(gen, card))
+    torch.cuda.empty_cache()
+    manifest_path(gen, card)
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

@@ -1,15 +1,104 @@
-"""Procedural synthetic HR data (numpy), with co-registered LR.
+"""Datasets: manifest-driven paired patches and procedural synthetic HR.
 
-The port's own copy of the numpy part of superresolution_tpu/data/
-dataset.py (make_synthetic_image, _gaussian_blur_2d,
-synthesize_observed_lr, SyntheticHRDataset): the same arithmetic, so the
-arrays come out bit-identical to the JAX package's. PairedDataset, the
-manifest-driven real pairs, waits for data/io and data/manifest.
+The port's own copy of superresolution_tpu/data/dataset.py (numpy only):
+PairedDataset, the reference's loader contract (items {'lr': [h,w,1],
+'hr': [H,W,1]} float32 in [0,1], a black tensor shaped like the last
+good item for a file that fails to load, and get_batch, the native
+batch decode the Loader takes first); make_synthetic_image,
+_gaussian_blur_2d, synthesize_observed_lr and SyntheticHRDataset with
+the same arithmetic, so the arrays come out bit-identical to the JAX
+package's.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from superresolution_tpu_torch.data.io import load_image
+from superresolution_tpu_torch.data.manifest import load_manifest
+
+
+class PairedDataset:
+    """Real LR/HR pairs from a JSON manifest."""
+
+    def __init__(self, manifest_path: str, base_path: str = "",
+                 lr_size: int | None = None, hr_size: int | None = None):
+        self.entries = load_manifest(manifest_path)
+        self.base = base_path
+        self.lr_size = lr_size
+        self.hr_size = hr_size
+        # shapes of the last pair that loaded: the black-tensor fallback
+        # must match the real items' shapes or the loader's stack fails
+        self._good_shapes: tuple | None = None
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def _resolve(self, p: str) -> str:
+        return p if os.path.isabs(p) else os.path.join(self.base, p)
+
+    @staticmethod
+    def _load(path: str) -> np.ndarray:
+        # the native decoder for the TIFF dataset format; PIL otherwise
+        if path.endswith((".tif", ".tiff")):
+            from superresolution_tpu_torch.data.native_io import decode_tiff
+
+            arr = decode_tiff(path)
+            if arr is not None:
+                return arr
+        return load_image(path)
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        e = self.entries[i]
+        try:
+            hr = self._load(self._resolve(e["hubble_path"]))
+            lr = self._load(self._resolve(e["ground_path"]))
+            if self.hr_size and hr.shape[0] != self.hr_size:
+                raise ValueError(f"hr size {hr.shape} != {self.hr_size}")
+            if self.lr_size and lr.shape[0] != self.lr_size:
+                raise ValueError(f"lr size {lr.shape} != {self.lr_size}")
+            self._good_shapes = (lr.shape, hr.shape)
+            return {"lr": lr, "hr": hr}
+        except Exception:
+            # black-tensor fallback (reference src/dataset.py:45-48),
+            # shaped like the real items once a good pair has loaded
+            if self._good_shapes is not None:
+                lshape, hshape = self._good_shapes
+            else:
+                ls = self.lr_size or 128
+                hs = self.hr_size or ls * 4
+                lshape, hshape = (ls, ls, 1), (hs, hs, 1)
+            return {"lr": np.zeros(lshape, np.float32),
+                    "hr": np.zeros(hshape, np.float32)}
+
+    def get_batch(self, indices) -> dict[str, np.ndarray] | None:
+        """One native call decodes every TIFF of the batch across a thread
+        pool (native/loader.cpp). None whenever that does not apply
+        (non-TIFF entries, multi-channel items, no toolchain, any decode
+        failure): the Loader then takes the per-item path, which also
+        gives the black-tensor semantics for corrupt files."""
+        from superresolution_tpu_torch.data.native_io import decode_batch
+
+        hp = [self._resolve(self.entries[i]["hubble_path"])
+              for i in indices]
+        lp = [self._resolve(self.entries[i]["ground_path"])
+              for i in indices]
+        if not all(p.endswith((".tif", ".tiff")) for p in hp + lp):
+            return None
+        if self._good_shapes is None:
+            self[indices[0]]  # prime the shapes (validates sizes too)
+        if self._good_shapes is None:
+            return None
+        lshape, hshape = self._good_shapes
+        if lshape[-1] != 1 or hshape[-1] != 1:
+            return None  # the native decoder is single-channel
+        hr = decode_batch(hp, hshape[:2])
+        lr = decode_batch(lp, lshape[:2])
+        if hr is None or lr is None:
+            return None
+        return {"lr": lr, "hr": hr}
 
 
 def make_synthetic_image(index: int, size: int, channels: int = 1,

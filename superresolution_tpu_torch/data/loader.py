@@ -1,9 +1,10 @@
 """Host batching loader with threaded decode, and device prefetch.
 
 Counterpart of superresolution_tpu/data/loader.py. `Loader` is the same
-numpy loader (threads decode and stack; shuffling from seed + epoch;
-drop_last; pad_to_batch with a `_valid` mask). `prefetch_to_device`
-keeps `size` batches in flight to the card: each batch is copied from
+numpy loader (threads decode and stack, through a dataset's get_batch
+when it has one; shuffling from seed + epoch; drop_last; pad_to_batch
+with a `_valid` mask). `prefetch_to_device` keeps `size` batches in
+flight to the card: each batch is copied from
 pinned host memory with non_blocking=True on a side CUDA stream, and the
 compute stream waits on that copy's event before it is handed out.
 """
@@ -43,8 +44,14 @@ class Loader:
         self.epoch = epoch
 
     def _fetch(self, idxs) -> dict[str, np.ndarray]:
-        items = [self.ds[int(i)] for i in idxs]
-        batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+        batch = None
+        if hasattr(self.ds, "get_batch"):
+            # the dataset's batch fast path (PairedDataset: the native TIFF
+            # batch decoder); None -> the per-item path
+            batch = self.ds.get_batch([int(i) for i in idxs])
+        if batch is None:
+            items = [self.ds[int(i)] for i in idxs]
+            batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
         n_items = len(idxs)
         if self.pad_to_batch and n_items < self.bs:
             pad = self.bs - n_items

@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     lib.sr_conv3x3.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                                _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
-                               _F, _P, _I, _P, _I, _P]
+                               _F, _P, _I, _P, _I, _I, _I, _I, _P]
     lib.sr_conv3x3.restype = _I
     lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
     lib.sr_conv_last.restype = _I
@@ -139,7 +139,7 @@ def library() -> ctypes.CDLL:
     lib.train_wgrad_chunks.argtypes = [_I] * 5
     lib.train_wgrad_chunks.restype = _I
     lib.train_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
-                                _I, _I, _P, _P, _P, _P]
+                                _I, _I, _I, _I, _P, _P, _P, _P]
     lib.train_wgrad.restype = _I
     lib.attn_window.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                                 _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
@@ -195,7 +195,8 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
             gate: torch.Tensor | None = None, gate_off: int = 0,
             add: torch.Tensor | None = None, add_scale: float = 1.0,
             xres: torch.Tensor | None = None,
-            res: torch.Tensor | None = None) -> None:
+            res: torch.Tensor | None = None,
+            seg: tuple[int, int] | None = None, seg_plant: int = 0) -> None:
     """One launch of the shared 3x3 SAME conv (see sr_kernels.cu).
 
     geom = (B, H, W) of the conv's logical input; every tensor is NHWC
@@ -203,9 +204,12 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
     bf16; bias: [cout] f32. The epilogue applies bias, then lrelu(0.2)
     or exact GELU, then the lrelu' gate (v *= 0.2 where gate's channel
     gate_off + o is not > 0), then v += add_scale * add, then the
-    residuals."""
+    residuals. seg = (stride, valid): row y is a spacer unless y % stride
+    < valid; spacers read as zero and are written as 0 (seg_plant 1, a
+    planted fault: not zeroed at the store)."""
     lib = library()
     b, h, wd = geom
+    stride, valid = seg or (0, 0)
     gate_ptr = None if gate is None else (
         gate.data_ptr() + gate_off * gate.element_size())
     rc = lib.sr_conv3x3(
@@ -216,7 +220,8 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
         gate_ptr, 0 if gate is None else gate.shape[-1],
         _ptr(add), 0 if add is None else add.shape[-1], add_scale,
         _ptr(xres), 0 if xres is None else xres.shape[-1],
-        _ptr(res), 0 if res is None else res.shape[-1], _stream(out))
+        _ptr(res), 0 if res is None else res.shape[-1], stride, valid,
+        seg_plant, _stream(out))
     _check(lib, rc, "sr_conv3x3")
 
 
@@ -448,13 +453,15 @@ def dense_scale(src: torch.Tensor, scale: float, out: torch.Tensor) -> None:
 
 def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
           d: torch.Tensor, d_off: int, cout: int, dw: torch.Tensor,
-          db: torch.Tensor | None) -> None:
+          db: torch.Tensor | None,
+          seg: tuple[int, int] | None = None) -> None:
     """Two launches (wgrad_kernel, wgrad_reduce_kernel): the weight grad
     dw [3,3,cin0+cin1,cout] of a 3x3 SAME conv whose input
     is [in0[..., :cin0], in1[..., :cin1]] and whose output cotangent is
     d[..., d_off:d_off+cout], and its bias grad db [cout] f32 if given.
     dw has the weight's type, bf16, as have all activations (NHWC, of one
-    [B,H,W] geometry)."""
+    [B,H,W] geometry). seg = (stride, valid): spacer rows of the input
+    and of d read as zero (see conv3x3)."""
     lib = library()
     b, h, w = in0.shape[:3]
     cin = cin0 + cin1
@@ -465,5 +472,6 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
         _ptr(in0), in0.shape[-1], cin0,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
         d.data_ptr() + d_off * d.element_size(), d.shape[-1], cout,
-        b, h, w, nchunk, _ptr(part), _ptr(dw), _ptr(db), _stream(in0))
+        b, h, w, *(seg or (0, 0)), nchunk, _ptr(part), _ptr(dw), _ptr(db),
+        _stream(in0))
     _check(lib, rc, "train_wgrad")

@@ -14,7 +14,11 @@
 //      and writes its g channels into the workspace; conv5 writes
 //      x + 0.2*conv5, or res + 0.2*(x + 0.2*conv5). Zero padding at every
 //      conv is exact by construction: each conv reads its input through
-//      the same zero-filled halo.
+//      the same zero-filled halo. With `seg` (ops/pallas_dense_trunk.py
+//      _roll_conv3's batch-packed rows: images stacked along H, stride
+//      rows apiece, the last stride - valid of them zero spacers) every
+//      launch also reads spacer rows as zero and writes them as 0, so
+//      each image sees exact SAME padding through all five convs.
 //   B2 up2_hr  (replaces ops/pallas_phase_tail.py:_up2hr_kernel): two
 //      launches of conv3x3_kernel, each reading its input through the
 //      depth_to_space(2) view: up2 (+bias, lrelu) at 2x, then conv_hr
@@ -80,6 +84,12 @@ struct ConvArgs {
   const __nv_bfloat16* in1;
   int in1_stride, cin1;
   int B, H, W;                  // geometry of the conv's (logical) input
+  // Batch-packed rows (B1 and kernel 13 with `seg`): row y of the map is
+  // an image row when y % seg_stride < seg_valid, else a spacer, which
+  // every load reads as zero padding and every store writes as 0.
+  // seg_stride 0: no spacers. seg_plant 1 (a planted fault, checks
+  // only): spacer rows are not zeroed at the store.
+  int seg_stride, seg_valid, seg_plant;
   const __nv_bfloat16* w;       // [3][3][cin0 + cin1][cout], HWIO
   const float* bias;            // [cout] or null
   __nv_bfloat16* out;           // [B, H, W, out_stride], channels from out_off
@@ -96,6 +106,11 @@ struct ConvArgs {
   const __nv_bfloat16* res;     // or null: v = res + 0.2 * v
   int res_stride;
 };
+
+// False for a spacer row of a batch-packed map (see ConvArgs).
+__device__ __forceinline__ bool image_row(const ConvArgs& a, int y) {
+  return a.seg_stride == 0 || y % a.seg_stride < a.seg_valid;
+}
 
 template <bool D2S>
 __device__ __forceinline__ float load_in(const ConvArgs& a, int b, int y,
@@ -155,7 +170,8 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& a, int t,
       const int gx = x0 + px - 1;
       const int c = c0 + ci;
       float v = 0.f;
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin)
+      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin &&
+          image_row(a, gy))
         v = load_in<D2S>(a, b, gy, gx, c);
       in_s[(ci * IH + py) * IW + px] = v;
     }
@@ -202,6 +218,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& a, int t,
 
   const int gy = y0 + ty;
   if (gy >= a.H) return;
+  const bool spacer = !image_row(a, gy) && !a.seg_plant;
 #pragma unroll
   for (int p = 0; p < PPT; ++p) {
     const int gx = x0 + tx + p;
@@ -223,6 +240,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& a, int t,
         v = __bfloat162float(a.xres[pix * a.xres_stride + o]) + 0.2f * v;
       if (a.res)
         v = __bfloat162float(a.res[pix * a.res_stride + o]) + 0.2f * v;
+      if (spacer) v = 0.f;
       a.out[pix * a.out_stride + a.out_off + o] = __float2bfloat16(v);
     }
   }
@@ -443,7 +461,8 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
                int out_off, int cout, int act, const void* gate,
                int gate_stride, const void* add, int add_stride,
                float add_scale, const void* xres, int xres_stride,
-               const void* res, int res_stride, void* stream) {
+               const void* res, int res_stride, int seg_stride,
+               int seg_valid, int seg_plant, void* stream) {
   ConvArgs a;
   a.in0 = static_cast<const __nv_bfloat16*>(in0);
   a.in0_stride = in0_stride;
@@ -470,7 +489,12 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
   a.xres_stride = xres_stride;
   a.res = static_cast<const __nv_bfloat16*>(res);
   a.res_stride = res_stride;
+  a.seg_stride = seg_stride;
+  a.seg_valid = seg_valid;
+  a.seg_plant = seg_plant;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seg_stride != 0 && (d2s || seg_valid < 1 || seg_valid > seg_stride))
+    return (int)cudaErrorInvalidValue;
   if (cout <= 32) return (int)launch_conv3x3<32>(a, d2s, s);
   return (int)launch_conv3x3<64>(a, d2s, s);
 }

@@ -15,6 +15,11 @@
 //       = sum_p in_j[p + tap] * dpre_j[p] (and of db_j = sum_p dpre_j[p]);
 //       wgrad_reduce_kernel sums the chunks in a fixed order and casts dW
 //       to the weight's type. No float atomics: two runs give the same bits.
+//     With `seg` (batch-packed rows, see sr_kernels.cu's B1) every conv
+//     launch above reads spacer rows as zero and writes them as 0, and
+//     wgrad_kernel reads them as zero in both its staged inputs, so dx
+//     and every cotangent are exactly 0 there (pallas_dense_trunk_vjp.py
+//     _mask_flat) and no spacer row enters dW or db.
 //   Kernel 14, the star-weighted L1 (replaces ops/pallas_loss.py:
 //   star_weighted_l1_pallas): star_l1_partial_kernel reduces |p - t| *
 //   (t > thr ? w : 1) into per-block f32 partials over a grid-stride loop,
@@ -57,10 +62,17 @@ struct WgradArgs {
   const __nv_bfloat16* d;  // dpre_j: channel o at d[pix * d_stride + o]
   int d_stride, cout;
   int B, H, W;
+  int seg_stride, seg_valid;  // batch-packed rows, as sr_kernels.cu's
+                              // ConvArgs: spacer rows of in_j and of
+                              // dpre_j read as zero (seg_stride 0: none)
   float* part_w;           // [nchunk][9][cin][cout]
   float* part_b;           // [nchunk][cout], or null
   int nchunk;
 };
+
+__device__ __forceinline__ bool image_row(const WgradArgs& a, int y) {
+  return a.seg_stride == 0 || y % a.seg_stride < a.seg_valid;
+}
 
 // Grid (nchunk, ci tiles, co tiles). Block `chunk` walks pixel tiles
 // chunk, chunk + nchunk, ...; each tile stages in_j with a 1-pixel zero
@@ -104,7 +116,8 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
       const int gx = x0 + px - 1;
       const int c = ci0 + ci;
       float v = 0.f;
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin) {
+      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin &&
+          image_row(a, gy)) {
         const size_t p = ((size_t)b * a.H + gy) * a.W + gx;
         v = __bfloat162float(c < a.cin0 ? a.in0[p * a.in0_stride + c]
                                         : a.in1[p * a.in1_stride + c - a.cin0]);
@@ -120,7 +133,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
       const int gx = x0 + px;
       const int o = co0 + co;
       float v = 0.f;
-      if (gy < a.H && gx < a.W && o < a.cout)
+      if (gy < a.H && gx < a.W && o < a.cout && image_row(a, gy))
         v = __bfloat162float(
             a.d[(((size_t)b * a.H + gy) * a.W + gx) * a.d_stride + o]);
       d_s[py][px][co] = v;
@@ -335,8 +348,9 @@ int train_wgrad_chunks(int B, int H, int W, int cin, int cout) {
 // nchunk * (9 * cin * cout + cout) floats).
 int train_wgrad(const void* in0, int in0_stride, int cin0, const void* in1,
                 int in1_stride, int cin1, const void* d, int d_stride,
-                int cout, int B, int H, int W, int nchunk, void* part,
-                void* dw, void* db, void* stream) {
+                int cout, int B, int H, int W, int seg_stride,
+                int seg_valid, int nchunk, void* part, void* dw, void* db,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int cin = cin0 + cin1;
   const size_t nw = (size_t)9 * cin * cout;
@@ -353,6 +367,10 @@ int train_wgrad(const void* in0, int in0_stride, int cin0, const void* in1,
   a.B = B;
   a.H = H;
   a.W = W;
+  a.seg_stride = seg_stride;
+  a.seg_valid = seg_valid;
+  if (seg_stride != 0 && (seg_valid < 1 || seg_valid > seg_stride))
+    return (int)cudaErrorInvalidValue;
   a.part_w = static_cast<float*>(part);
   a.part_b = db ? a.part_w + (size_t)nchunk * nw : nullptr;
   a.nchunk = nchunk;

@@ -10,7 +10,13 @@ Replaces superresolution_tpu/ops/pallas_dense_trunk.py:fused_dense_block
     out = x + 0.2 * (conv_5([x, y_1..y_4]) + b_5)
     out = residual + 0.2 * out                       (optional)
 
-with SAME zero padding at every conv. On the card this is five launches
+with SAME zero padding at every conv. With `seg` = (stride, valid) the
+input is batch-packed (train/fused_apply.pack_batch_rows: images stacked
+along H, `stride` rows apiece, the last stride - valid of them zero
+spacers), as the reference's seg option (pallas_dense_trunk.py
+_roll_conv3): at every conv a spacer row reads as zero padding and is
+written as exactly 0, so each image sees exact SAME padding and one
+spacer row suffices for the whole cascade. On the card this is five launches
 of the shared conv in csrc/sr_kernels.cu over one [B,H,W,4g] workspace:
 conv_j reads x and the first (j-1)*g workspace channels and writes its g
 channels after them; conv_5 applies both residual epilogues. Each conv
@@ -72,36 +78,71 @@ def dense_weights(kernels, biases, dtype: torch.dtype = torch.bfloat16,
             for k, b in zip(kernels, biases, strict=True)]
 
 
+Seg = tuple[int, int]
+
+
+def image_rows(h: int, seg: Seg | None,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """[h] bool: True on the image rows of an H = h map packed with `seg`
+    = (stride, valid) (row y is an image row when y % stride < valid);
+    all True without seg."""
+    y = torch.arange(h, device=device)
+    if seg is None:
+        return torch.ones(h, dtype=torch.bool, device=device)
+    return y % seg[0] < seg[1]
+
+
+def check_seg(seg: Seg | None) -> None:
+    if seg is not None and not (len(seg) == 2 and seg[0] >= 1
+                                and 1 <= seg[1] <= seg[0]):
+        raise ValueError(f"seg must be (stride, valid) with 1 <= valid <= "
+                         f"stride, got {seg}")
+
+
 def fused_dense_block_reference(x: torch.Tensor, weights: DenseWeights,
                                 residual: torch.Tensor | None = None,
-                                workspace: torch.Tensor | None = None
-                                ) -> torch.Tensor:
+                                workspace: torch.Tensor | None = None,
+                                seg: Seg | None = None) -> torch.Tensor:
     """Plain PyTorch version of B1 (F.conv2d per conv), NHWC in and out.
-    A `workspace` [B,H,W,4g] receives y_1..y_4, as the kernel's does."""
+    A `workspace` [B,H,W,4g] receives y_1..y_4, as the kernel's does.
+    With `seg`, the masked per-stage chain: the input and every y_j are
+    zeroed on spacer rows before a conv reads them, and the output is
+    zeroed there."""
+    check_seg(seg)
     xc = x.permute(0, 3, 1, 2)
-    feats = [xc]
+    keep = None
+    if seg is not None:
+        keep = image_rows(x.shape[1], seg, x.device).to(x.dtype)[:, None]
+    feats = [xc if keep is None else xc * keep]
     for j, (w, b) in enumerate(weights):
         y = F.conv2d(torch.cat(feats, 1), w.permute(3, 2, 0, 1).to(x.dtype),
                      b.to(x.dtype), padding=1)
         if j < 4:
-            feats.append(F.leaky_relu(y, 0.2))
+            a = F.leaky_relu(y, 0.2)
+            feats.append(a if keep is None else a * keep)
     if workspace is not None:
         workspace.copy_(torch.cat(feats[1:], 1).permute(0, 2, 3, 1))
     out = xc + y * 0.2
     if residual is not None:
         out = residual.permute(0, 3, 1, 2) + out * 0.2
+    if keep is not None:
+        out = out * keep
     return out.permute(0, 2, 3, 1).contiguous()
 
 
 def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
                       residual: torch.Tensor | None = None,
-                      workspace: torch.Tensor | None = None) -> torch.Tensor:
+                      workspace: torch.Tensor | None = None,
+                      seg: Seg | None = None) -> torch.Tensor:
     """B1. CPU tensors run the plain version; CUDA tensors launch the
     kernel (bf16 activations and kernels, f32 biases) or raise. The
     kernel writes y_1..y_4 into `workspace` [B,H,W,4g] when one is given
-    (so a check can read them), else into a fresh one."""
+    (so a check can read them), else into a fresh one. seg: (stride,
+    valid) of a batch-packed x, or None."""
     if x.device.type == "cpu":
-        return fused_dense_block_reference(x, weights, residual, workspace)
+        return fused_dense_block_reference(x, weights, residual, workspace,
+                                           seg)
+    check_seg(seg)
     if len(weights) != 5:
         raise ValueError(f"expected 5 (kernel, bias) pairs, got {len(weights)}")
     b, h, w, c = x.shape
@@ -126,19 +167,38 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
         raise ValueError("fused_dense_block: workspace shape "
                          f"{tuple(ws.shape)} != {(b, h, w, 4 * g)}")
     out = torch.empty_like(x)
-    dense_features(x, weights, ws)
-    k, bb = weights[4]
-    _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w), in1=ws,
-                   cin1=4 * g, xres=x, res=residual)
-    fused_dense_block.launches += 1
+    dense_block_launches(x, weights, residual, ws, out, seg)
     return out
 
 
 fused_dense_block.launches = 0
+fused_dense_block.seg_launches = 0  # those of them with seg
+
+
+def dense_block_launches(x: torch.Tensor, weights: DenseWeights,
+                         residual: torch.Tensor | None,
+                         workspace: torch.Tensor, out: torch.Tensor,
+                         seg: Seg | None = None) -> None:
+    """B1's five launches into `workspace` and `out`, each counted in
+    fused_dense_block.launches (and, with seg, in its seg_launches);
+    callers have validated the CUDA tensors."""
+    b, h, w, c = x.shape
+    dense_features(x, weights, workspace, seg)
+    k, bb = weights[4]
+    _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w), in1=workspace,
+                   cin1=workspace.shape[-1], xres=x, res=residual,
+                   **seg_kw(seg))
+    fused_dense_block.launches += 1
+    fused_dense_block.seg_launches += seg is not None
+
+
+def seg_kw(seg: Seg | None) -> dict:
+    """The launch helpers' seg keyword, given only for packed maps."""
+    return {} if seg is None else {"seg": tuple(seg)}
 
 
 def dense_features(x: torch.Tensor, weights: DenseWeights,
-                   workspace: torch.Tensor) -> None:
+                   workspace: torch.Tensor, seg: Seg | None = None) -> None:
     """B1's first four launches: y_1..y_4 into `workspace` [B,H,W,4g],
     each counted in fused_dense_block.launches. The dense block's
     backward (ops/dense_trunk_train.py) recomputes them with it; callers
@@ -147,8 +207,9 @@ def dense_features(x: torch.Tensor, weights: DenseWeights,
     g = weights[0][0].shape[-1]
     for j, (k, bb) in enumerate(weights[:4]):
         _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
-                       in1=workspace, cin1=j * g, lrelu=True)
+                       in1=workspace, cin1=j * g, lrelu=True, **seg_kw(seg))
         fused_dense_block.launches += 1
+        fused_dense_block.seg_launches += seg is not None
 
 
 def _conv(x: torch.Tensor, w: tuple[torch.Tensor, torch.Tensor]

@@ -38,8 +38,16 @@ per pixel and the recompute of y_1..y_4 (convs 1-4) 129,024, so 608,256
 in all, 8.0e10 FLOP a call, 0.081 ms at 989 TFLOP/s; bound by
 operations. Everything runs on the CUDA cores in f32.
 
+With `seg` (a batch-packed x, ops/dense_trunk.py) every launch masks
+the spacer rows as B1's do: each conv and transposed conv reads them as
+zero and writes them as 0, and the weight grads read them as zero in
+both inputs, so dx and every cotangent are exactly 0 there (the
+reference's _mask_flat) and dres is dout with its spacer rows zeroed,
+the gradient of an output whose spacer rows are 0.
+
 `dense_block_backward.launches` counts calls of the backward (one per
-call, 69 per hybrid_astro step). The plain version is autograd through
+call, 69 per hybrid_astro step), and its `seg_launches` those with seg.
+The plain version is autograd through
 ops/dense_trunk.fused_dense_block_reference; CPU tensors run it.
 """
 
@@ -50,17 +58,22 @@ import torch
 from superresolution_tpu_torch.ops import _build
 from superresolution_tpu_torch.ops.dense_trunk import (
     DenseWeights,
+    Seg,
+    check_seg,
     dense_features,
     fused_dense_block,
     fused_dense_block_reference,
+    image_rows,
+    seg_kw,
 )
 
 
 def fused_dense_block_train_reference(x: torch.Tensor, weights: DenseWeights,
-                                      residual: torch.Tensor | None = None
+                                      residual: torch.Tensor | None = None,
+                                      seg: Seg | None = None
                                       ) -> torch.Tensor:
     """The plain version: autograd differentiates it."""
-    return fused_dense_block_reference(x, weights, residual)
+    return fused_dense_block_reference(x, weights, residual, seg=seg)
 
 
 def flipped_weights(weights: DenseWeights, src: int) -> torch.Tensor:
@@ -78,9 +91,12 @@ def flipped_weights(weights: DenseWeights, src: int) -> torch.Tensor:
 
 
 def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
-                         residual: torch.Tensor | None, dout: torch.Tensor):
+                         residual: torch.Tensor | None, dout: torch.Tensor,
+                         seg: Seg | None = None):
     """Kernel 13 on CUDA tensors (bf16 activations and kernels, f32
-    biases) -> (dx, [(dW_j, db_j)] * 5, dres or None). Raises on others."""
+    biases) -> (dx, [(dW_j, db_j)] * 5, dres or None). Raises on others.
+    seg: (stride, valid) of a batch-packed x, or None."""
+    check_seg(seg)
     b, h, w, c = x.shape
     g = weights[0][0].shape[-1]
     _build.require_cuda(x, residual, dout, *(k for k, _ in weights),
@@ -97,41 +113,48 @@ def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
             raise ValueError(f"dense_block_backward: conv{j + 1} kernel "
                              f"{tuple(k.shape)}, expected {want}")
     s_acc, s_id = (0.2 * 0.2, 0.2) if residual is not None else (0.2, 1.0)
-    geom = (b, h, w)
+    geom, kw = (b, h, w), seg_kw(seg)
     y = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
-    dense_features(x, weights, y)
+    dense_features(x, weights, y, seg)
     d = torch.empty((b, h, w, 4 * g + c), dtype=x.dtype, device=x.device)
     _build.dense_scale(dout, s_acc, d)
     for i in (4, 3, 2, 1):
         n_in = c + (4 - i) * g
         _build.conv3x3(d, n_in, flipped_weights(weights, i), None, d, n_in,
-                       g, geom=geom, gate=y, gate_off=(i - 1) * g)
+                       g, geom=geom, gate=y, gate_off=(i - 1) * g, **kw)
     dx = torch.empty_like(x)
     _build.conv3x3(d, 4 * g + c, flipped_weights(weights, 0), None, dx, 0, c,
-                   geom=geom, add=dout, add_scale=s_id)
+                   geom=geom, add=dout, add_scale=s_id, **kw)
     grads = []
     for j, (k, bb) in enumerate(weights, 1):
         dk = torch.empty_like(k)
         db = torch.empty_like(bb)
         d_off = 0 if j == 5 else c + (4 - j) * g
         _build.wgrad(x, c, y if j > 1 else None, (j - 1) * g, d, d_off,
-                     k.shape[-1], dk, db)
+                     k.shape[-1], dk, db, **kw)
         grads.append((dk, db))
     dense_block_backward.launches += 1
-    return dx, grads, dout if residual is not None else None
+    dense_block_backward.seg_launches += seg is not None
+    dres = None
+    if residual is not None:
+        dres = dout if seg is None else dout * image_rows(
+            h, seg, dout.device).to(dout.dtype)[:, None, None]
+    return dx, grads, dres
 
 
 dense_block_backward.launches = 0
+dense_block_backward.seg_launches = 0  # those of them with seg
 
 
 class DenseBlockTrain(torch.autograd.Function):
     """B1 forward, kernel 13 backward; CUDA tensors only."""
 
     @staticmethod
-    def forward(ctx, x, residual, *flat):
+    def forward(ctx, x, residual, seg, *flat):
         weights = list(zip(flat[0::2], flat[1::2]))
-        out = fused_dense_block(x, weights, residual)
+        out = fused_dense_block(x, weights, residual, seg=seg)
         ctx.save_for_backward(x, residual, *flat)
+        ctx.seg = seg
         return out
 
     @staticmethod
@@ -139,17 +162,19 @@ class DenseBlockTrain(torch.autograd.Function):
         x, residual, *flat = ctx.saved_tensors
         weights = list(zip(flat[0::2], flat[1::2]))
         dx, grads, dres = dense_block_backward(
-            x, weights, residual, dout.to(x.dtype).contiguous())
-        return (dx, dres, *(t for pair in grads for t in pair))
+            x, weights, residual, dout.to(x.dtype).contiguous(), ctx.seg)
+        return (dx, dres, None, *(t for pair in grads for t in pair))
 
 
 def fused_dense_block_train(x: torch.Tensor, weights: DenseWeights,
-                            residual: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            residual: torch.Tensor | None = None,
+                            seg: Seg | None = None) -> torch.Tensor:
     """The differentiable dense block: gradients reach x, every weight
     and the residual. CPU tensors run the plain version; CUDA tensors
-    launch B1 forward and kernel 13 backward, or raise."""
+    launch B1 forward and kernel 13 backward, or raise. seg: (stride,
+    valid) of a batch-packed x (train/fused_apply.pack_batch_rows), or
+    None."""
     if x.device.type == "cpu":
-        return fused_dense_block_train_reference(x, weights, residual)
-    return DenseBlockTrain.apply(x, residual,
+        return fused_dense_block_train_reference(x, weights, residual, seg)
+    return DenseBlockTrain.apply(x, residual, seg,
                                  *(t for pair in weights for t in pair))

@@ -1,13 +1,17 @@
 """Checkpoints with best/last promotion and resume.
 
-Counterpart of superresolution_tpu/train/checkpoint.py:19-145, with the
-same directory layout: step_{step:010d}/ per saved step, meta.json
-(best_step, best_psnr, last_step), model_config.json, the best step kept
-by PSNR, at most `keep` steps, `finalize` copying best (else last) into
-out_dir/best. A step directory holds state.pt, torch.save of the train
-state's tree (step, params, opt_state, ema_params) on the host; it is
-written to a temporary directory and renamed, so an interrupted save
+Counterpart of superresolution_tpu/train/checkpoint.py:19-145 and
+186-201, with the same directory layout: step_{step:010d}/ per saved
+step, meta.json (best_step, best_psnr, last_step), model_config.json,
+the best step kept by PSNR, at most `keep` steps, `finalize` copying
+best (else last) into out_dir/best and checking it with a probe
+(params_probe). A step directory holds state.pt, torch.save of the
+train state's tree (step, params, opt_state, ema_params) on the host; it
+is written to a temporary directory and renamed, so an interrupted save
 leaves no partial step and `restore` falls back to the newest whole one.
+save(block=False) copies the state to the host before it returns and
+writes it on a background thread, at most one save in flight; wait()
+commits it, and restore, finalize and the next save wait first.
 
 load_params_for_inference (train/checkpoint.py:148-183 there) reads the
 weights alone for inference: from such a directory, from a finalized
@@ -22,6 +26,7 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -30,11 +35,11 @@ from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.train.state import TrainState
 
 
-def _to(tree, device):
+def _to(tree, device, copy: bool = False):
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return tree.detach().to(device, copy=copy)
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, copy) for k, v in tree.items()}
     return tree
 
 
@@ -44,6 +49,8 @@ class CheckpointManager:
         self.dir = os.path.abspath(directory)
         os.makedirs(self.dir, exist_ok=True)
         self.keep = keep
+        self._writer: threading.Thread | None = None
+        self._write_error: BaseException | None = None
         self._meta_path = os.path.join(self.dir, "meta.json")
         self.meta = {"best_step": None, "best_psnr": float("-inf"),
                      "last_step": None}
@@ -64,17 +71,36 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")
 
-    def save(self, state: TrainState, step: int,
-             psnr: float | None = None) -> bool:
-        """Save `state` at `step`; returns True if it is the new best by
-        PSNR."""
+    def _write(self, tree: dict, step: int) -> None:
         path = self._step_dir(step)
         tmp = tempfile.mkdtemp(prefix=f"step_{step:010d}.tmp-", dir=self.dir)
-        torch.save(_to(state.state_dict(), "cpu"),
-                   os.path.join(tmp, "state.pt"))
+        torch.save(tree, os.path.join(tmp, "state.pt"))
         if os.path.exists(path):
             shutil.rmtree(path)
         os.replace(tmp, path)
+
+    def _write_async(self, tree: dict, step: int) -> None:
+        try:
+            self._write(tree, step)
+        except BaseException as e:  # re-raised by wait()
+            self._write_error = e
+
+    def save(self, state: TrainState, step: int, psnr: float | None = None,
+             block: bool = True) -> bool:
+        """Save `state` at `step`; returns True if it is the new best by
+        PSNR. With block=False the host copy of the state is taken before
+        this returns (the next step may update the state in place) and
+        the disk write runs on a background thread while training goes
+        on; a later save, wait(), restore or finalize waits for it."""
+        self.wait()
+        tree = _to(state.state_dict(), "cpu", copy=True)
+        if block:
+            self._write(tree, step)
+        else:
+            self._writer = threading.Thread(
+                target=self._write_async, args=(tree, step),
+                name=f"ckpt-step-{step}", daemon=True)
+            self._writer.start()
         self.meta["last_step"] = step
         is_best = False
         if psnr is not None and psnr > self.meta.get("best_psnr",
@@ -85,6 +111,16 @@ class CheckpointManager:
         self._save_meta()
         self._gc()
         return is_best
+
+    def wait(self) -> None:
+        """Block until any in-flight async save has committed; raise its
+        error if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._write_error is not None:
+            err, self._write_error = self._write_error, None
+            raise RuntimeError("async checkpoint save failed") from err
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -103,6 +139,7 @@ class CheckpointManager:
                 step: int | None = None) -> TrainState | None:
         """The saved state at `step` (default: the last whole one) on
         `target`'s device, or None if there is none."""
+        self.wait()
         if step is None:
             committed = self.all_steps()
             last = self.meta.get("last_step")
@@ -118,8 +155,16 @@ class CheckpointManager:
                           opt_state=tree["opt_state"],
                           ema_params=tree["ema_params"])
 
-    def finalize(self, out_dir: str) -> str:
-        """Copy best (else last) to out_dir/best with model_config.json."""
+    def restore_best(self, target: TrainState) -> TrainState | None:
+        """The best step's state (else the last's), as restore gives it."""
+        best = self.meta.get("best_step")
+        return self.restore(target, step=best)
+
+    def finalize(self, out_dir: str, probe=None) -> str:
+        """Copy best (else last) to out_dir/best with model_config.json,
+        then call probe(out_dir/best) if given (params_probe: the
+        reference's structural check of the promoted weights)."""
+        self.wait()
         step = self.meta.get("best_step")
         if step is None:  # explicit: `or` would skip a best_step of 0
             step = self.meta.get("last_step")
@@ -133,7 +178,27 @@ class CheckpointManager:
         if os.path.exists(self._cfg_path):
             shutil.copy(self._cfg_path,
                         os.path.join(out_dir, "model_config.json"))
+        if probe is not None:
+            probe(dst)
         return dst
+
+
+def params_probe(expected_key_path: str):
+    """-> probe(path) raising KeyError unless the checkpoint directory at
+    `path` holds `expected_key_path`, a '/'-joined path into its saved
+    tree (e.g. 'params/stage1.conv_first.weight': the port's parameter
+    names are the state dict's)."""
+
+    def _probe(path: str) -> None:
+        node = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                          weights_only=True)
+        for part in expected_key_path.split("/"):
+            if not isinstance(node, dict) or part not in node:
+                raise KeyError(
+                    f"finalized checkpoint missing {expected_key_path!r}")
+            node = node[part]
+
+    return _probe
 
 
 def _unflatten(flat) -> dict:

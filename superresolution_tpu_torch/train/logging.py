@@ -1,7 +1,8 @@
 """Metrics logging: JSONL always; TensorBoard when it imports.
 
 Counterpart of superresolution_tpu/train/logging.py:29-70; as there, a
-set SRTPU_NO_TB keeps TensorBoard off.
+set SRTPU_NO_TB keeps TensorBoard off, and images (the preview strips)
+go to TensorBoard only.
 """
 
 from __future__ import annotations
@@ -9,6 +10,8 @@ from __future__ import annotations
 import json
 import os
 import time
+
+import numpy as np
 
 
 class MetricsLogger:
@@ -35,6 +38,12 @@ class MetricsLogger:
                 self._tb.add_scalar(name, float(v), step)
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
+
+    def image(self, step: int, name: str, img: np.ndarray) -> None:
+        """img: HWC float [0,1]."""
+        if self._tb is not None:
+            self._tb.add_image(name, np.transpose(
+                np.asarray(img, np.float32), (2, 0, 1)), step)
 
     def close(self) -> None:
         if not self._jsonl.closed:

@@ -1,5 +1,5 @@
-"""Train and eval steps: the device input stage, gradient accumulation,
-the bf16 policy.
+"""Train and eval steps: the device input stage (degradation,
+augmentation), gradient accumulation, the bf16 policy.
 
 Counterpart of superresolution_tpu/train/steps.py. The forward runs
 torch.func.functional_call(model, policy.cast_to_compute(params), lr)
@@ -19,6 +19,10 @@ from torch.func import functional_call
 
 from superresolution_tpu_torch.data.augment import paired_augment
 from superresolution_tpu_torch.metrics.psnr_ssim import psnr, ssim
+from superresolution_tpu_torch.ops.degradation import (
+    MODES,
+    degradation_pipeline,
+)
 from superresolution_tpu_torch.train.state import TrainState, global_norm
 from superresolution_tpu_torch.utils.config import DataConfig
 from superresolution_tpu_torch.utils.precision import Policy
@@ -27,18 +31,26 @@ from superresolution_tpu_torch.utils.precision import Policy
 def make_device_input(data_cfg: DataConfig, scale: int,
                       augment: bool | None = None) -> Callable:
     """-> input_fn(batch, generator) -> (lr, hr) on the batch's device.
-    Only degradation 'none' (real LR in the batch) is ported."""
+    A batch's own `lr` (real pairs) wins whatever the mode; otherwise LR
+    is made from `hr` by ops/degradation.degradation_pipeline under
+    data_cfg.degradation, each image with its own draws from `generator`
+    (then the augmentation draws, per pair)."""
     do_augment = data_cfg.augment if augment is None else augment
-    if data_cfg.degradation != "none":
-        raise NotImplementedError(
-            f"degradation {data_cfg.degradation!r} needs "
-            "ops/degradation.degradation_pipeline, which is not ported yet; "
-            "use degradation='none' with LR in the data")
+    mode = data_cfg.degradation
+    if mode not in MODES:
+        raise ValueError(f"unknown degradation mode {mode!r}")
 
     def input_fn(batch: dict, generator: torch.Generator | None):
-        if "lr" not in batch:
+        hr = batch["hr"]
+        if "lr" in batch:
+            lr = batch["lr"]
+        elif mode == "none":
             raise ValueError("degradation 'none' requires real LR data")
-        lr, hr = batch["lr"], batch["hr"]
+        else:
+            lr = degradation_pipeline(
+                generator, hr, scale, mode, blur_sigma=data_cfg.blur_sigma,
+                noise_sigma=data_cfg.noise_sigma,
+                jpeg_quality=data_cfg.jpeg_quality)
         if do_augment:
             pairs = [paired_augment(generator, a, b) for a, b in zip(lr, hr)]
             lr = torch.stack([a for a, _ in pairs])

@@ -1,29 +1,37 @@
 """Trainer: the end-to-end training run on one device.
 
 Counterpart of superresolution_tpu/train/trainer.py for one device:
-config -> synthetic data, model, loss, optimizer, steps; the epoch loop
-with validation every `eval_every` epochs, best-PSNR/last checkpoints
-with resume, and JSONL (and TensorBoard, if present) logs. The fused
-train apply (train/fused_apply.py: kernel 13 under every dense block) is
-on under the reference's gate (trainer.py:165-188) with "on the
-accelerator" read as "on CUDA": fused_trunk=None turns it on for LR
-patches of FUSED_TRUNK_AUTO_MIN_PATCH and more, True forces it.
+config -> data (a JSON manifest of real pairs, else the synthetic set),
+model, loss, optimizer, steps; the epoch loop with validation every
+`eval_every` epochs, best-PSNR/last checkpoints saved asynchronously
+with resume, preview strips every `preview_every` epochs, and JSONL
+(and TensorBoard, if present) logs. The fused train apply
+(train/fused_apply.py: B1 forward and kernel 13 backward under every
+dense block) is on under the reference's gate (trainer.py:157-188) with
+"on the TPU" read as "on CUDA": fused_trunk=None turns it on for LR
+patches of FUSED_TRUNK_AUTO_MIN_PATCH and more, and below that, where
+the batch is row-packed (seg spacer rows), under SRTPU_PACKED_TRAIN;
+True forces it.
 
 Not ported yet, and raising NotImplementedError: multi-device meshes
-(mesh.data or mesh.pipe > 1), GAN terms, manifest data (PairedDataset),
-and previews (a `preview_every` that falls due needs the preview strip,
-_save_preview).
+(mesh.data or mesh.pipe > 1) and GAN terms.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 
+import numpy as np
 import torch
 
-from superresolution_tpu_torch.data.dataset import SyntheticHRDataset
+from superresolution_tpu_torch.data.dataset import (
+    PairedDataset,
+    SyntheticHRDataset,
+)
+from superresolution_tpu_torch.data.io import save_png
 from superresolution_tpu_torch.data.loader import Loader, prefetch_to_device
 from superresolution_tpu_torch.losses.combined import CombinedLoss
 from superresolution_tpu_torch.metrics.psnr_ssim import Metrics
@@ -31,6 +39,7 @@ from superresolution_tpu_torch.models.factory import (
     build_from_config,
     total_scale,
 )
+from superresolution_tpu_torch.ops.resize import resize_nearest
 from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.train.checkpoint import CheckpointManager
 from superresolution_tpu_torch.train.fused_apply import (
@@ -124,12 +133,16 @@ class Trainer:
         if config.train.fused_trunk is not False:
             accum = max(1, min(config.train.accum_steps, self.batch_size))
             micro = self.batch_size // accum  # images per apply call
+            on_cuda = self.device.type == "cuda"
             big_patch = lr_patch >= FUSED_TRUNK_AUTO_MIN_PATCH
+            # below the patch gate the batch rides the trunk row-packed
+            # (one tall map, seg spacer rows); auto takes that form only
+            # under SRTPU_PACKED_TRAIN, as the reference does
             row_pack = not big_patch and micro > 1
-            # below the patch gate the reference packs rows (its
-            # SRTPU_PACKED_TRAIN opt-in); auto stays off there
-            auto = (config.train.fused_trunk is None
-                    and self.device.type == "cuda" and big_patch)
+            auto = (config.train.fused_trunk is None and on_cuda
+                    and big_patch)
+            if config.train.fused_trunk is None and row_pack and on_cuda:
+                auto = bool(os.environ.get("SRTPU_PACKED_TRAIN"))
             if ((config.train.fused_trunk or auto)
                     and supports_fused_train(self.model)):
                 self.fused_apply = make_fused_train_apply(self.model,
@@ -159,13 +172,33 @@ class Trainer:
                 self.state = restored
                 self.start_epoch = self.state.step // steps_per_epoch
 
+    @property
+    def test_ds(self):
+        """The test split for run_test: the test manifest when configured
+        (the reference evaluates test.json), else the validation set."""
+        dc = self.cfg.data
+        if dc.test_manifest:
+            lr_size = (dc.hr_patch // self.scale
+                       if dc.degradation == "none" else None)
+            return PairedDataset(dc.test_manifest, dc.base_path,
+                                 lr_size=lr_size)
+        return self.val_ds
+
     def _build_datasets(self):
         dc = self.cfg.data
         if dc.train_manifest:
-            raise NotImplementedError(
-                "manifest data (data/dataset.PairedDataset) needs "
-                "data/manifest and data/native_io, which are not ported "
-                "yet")
+            lr_size = (dc.hr_patch // self.scale
+                       if dc.degradation == "none" else None)
+            if dc.degradation != "none":
+                logging.getLogger(__name__).info(
+                    "manifest provides real LR pairs; the configured"
+                    " degradation %r is unused (real LR always wins —"
+                    " train/steps.py::make_device_input)", dc.degradation)
+            train = PairedDataset(dc.train_manifest, dc.base_path,
+                                  lr_size=lr_size)
+            val = PairedDataset(dc.val_manifest or dc.train_manifest,
+                                dc.base_path, lr_size=lr_size)
+            return train, val
         c = self.cfg.model.in_channels
         n = dc.synthetic_len or 64
         # degradation 'none' means real LR: with no manifest the
@@ -180,14 +213,6 @@ class Trainer:
     def fit(self, epochs: int | None = None) -> dict:
         cfg = self.cfg.train
         epochs = epochs if epochs is not None else cfg.epochs
-        due = [e + 1 for e in range(self.start_epoch, epochs)
-               if (e + 1) % cfg.preview_every == 0]
-        if due:
-            raise NotImplementedError(
-                f"a preview falls due at epoch {due[0]} (preview_every "
-                f"{cfg.preview_every}); previews need the preview strip "
-                "(superresolution_tpu/train/trainer.py:378-398, "
-                "_save_preview), which is not ported yet")
         best = {"psnr": float("-inf"), "ssim": 0.0}
         t_start = time.time()
         step = self.state.step
@@ -218,8 +243,15 @@ class Trainer:
             if (epoch + 1) % cfg.eval_every == 0 or epoch == epochs - 1:
                 val = self.evaluate()
                 self.logger.scalars(step, val, prefix="val/")
-                if self.ckpt.save(self.state, step, psnr=val["psnr"]):
+                # async: the disk write overlaps the next epoch
+                if self.ckpt.save(self.state, step, psnr=val["psnr"],
+                                  block=False):
                     best = dict(val)
+            # previews follow their own cadence (nested in the eval
+            # branch they would fall due at the LCM of the two)
+            if (epoch + 1) % cfg.preview_every == 0:
+                self._save_preview(epoch)
+        self.ckpt.wait()  # commit the last async save before returning
         return {"best": best, "epochs": epochs,
                 "wall_s": time.time() - t_start,
                 "final_step": self.state.step}
@@ -241,12 +273,35 @@ class Trainer:
             m.update_sums(*(float(v) for v in sums))
         return m.compute()
 
-    def finalize(self) -> str:
-        """Promote the best weights (else the last) to final_weights/."""
+    def _save_preview(self, epoch: int) -> None:
+        """The [LR-nearest-up | SR | HR] strip of the first validation
+        sample to previews/epoch_NNNNN.png (the reference's
+        scripts/Modello_supporto.py:187-190); one sample read directly,
+        through the eval step's input stage (a synthetic bicubic sample
+        carries no LR, so the stage degrades it)."""
+        batch = {k: torch.from_numpy(np.asarray(v)[None]).to(self.device)
+                 for k, v in self.val_ds[0].items()}
+        out = self._eval_step(self.state, batch,
+                              _step_generator(self.cfg.train.seed,
+                                              2 ** 31 - 1))
+        hr0 = out["hr"][0]
+        lr_up = resize_nearest(out["lr"][0].float(), tuple(hr0.shape[:2]))
+        strip = torch.cat([lr_up, out["pred"][0], hr0], 1).cpu().numpy()
+        path = os.path.join(self.workdir, "previews",
+                            f"epoch_{epoch + 1:05d}.png")
+        save_png(strip, path)
+        self.logger.image(self.state.step, "preview", strip)
+
+    def finalize(self, probe=None) -> str:
+        """Promote the best weights (else the last) to final_weights/,
+        checked by `probe` if given (train/checkpoint.params_probe)."""
         return self.ckpt.finalize(os.path.join(self.workdir,
-                                               "final_weights"))
+                                               "final_weights"), probe=probe)
 
     def close(self) -> None:
+        """Wait out any in-flight async checkpoint save and close the
+        logs."""
+        self.ckpt.wait()
         self.logger.close()
 
     def __enter__(self) -> "Trainer":

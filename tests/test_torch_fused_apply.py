@@ -112,8 +112,13 @@ def test_fused_apply_value_and_grads_match_jax():
 def test_fused_apply_gates():
     tm = build_from_config(ModelConfig(**MC), output_size=64, device="cpu")
     assert supports_fused_train(tm.stage1)
-    with pytest.raises(NotImplementedError, match="seg"):
-        make_fused_train_apply(tm, row_pack=True)
+    # row packing (seg spacer rows) computes the per-image function
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        (2, 16, 16, 1), dtype=np.float32))
+    params = {k: p.detach() for k, p in tm.named_parameters()}
+    packed = make_fused_train_apply(tm, row_pack=True)(params, x)
+    torch.testing.assert_close(packed, make_fused_train_apply(tm)(params, x),
+                               atol=1e-5, rtol=1e-5)
     plain = RRDBNet(scale=2, in_channels=1, out_channels=1, features=8,
                     num_blocks=1, growth=4, fused_dense=False, device="cpu")
     assert not supports_fused_train(plain)

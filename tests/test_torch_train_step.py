@@ -44,6 +44,7 @@ from superresolution_tpu_torch.data.dataset import SyntheticHRDataset
 from superresolution_tpu_torch.losses.combined import CombinedLoss
 from superresolution_tpu_torch.models import convert
 from superresolution_tpu_torch.models.factory import build_from_config
+from superresolution_tpu_torch.ops.degradation import degrade_bicubic
 from superresolution_tpu_torch.train.fused_apply import (
     make_fused_train_apply,
 )
@@ -183,9 +184,13 @@ def test_train_step_matches_jax(precision, accum, fused):
 
 
 def test_device_input_and_accum_errors():
+    # bicubic makes LR from the batch's HR: clip(degrade_bicubic(hr))
     dc = dataclasses.replace(tcfg.DataConfig(), degradation="bicubic")
-    with pytest.raises(NotImplementedError, match="degradation_pipeline"):
-        make_device_input(dc, 4)
+    hr = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 16, 16, 1), dtype=np.float32))
+    lr, hr_out = make_device_input(dc, 4, augment=False)({"hr": hr}, None)
+    torch.testing.assert_close(lr, degrade_bicubic(hr, 4).clamp(0.0, 1.0))
+    assert lr.shape == (2, 4, 4, 1) and torch.equal(hr_out, hr)
     fn = make_device_input(dataclasses.replace(dc, degradation="none"), 4)
     with pytest.raises(ValueError, match="real LR"):
         fn({"hr": torch.zeros(1, 8, 8, 1)}, None)

@@ -1,7 +1,7 @@
 """The port's Trainer (superresolution_tpu_torch/train/trainer.py) on the
 CPU at a tiny hybrid_astro-shaped config: fit runs, evaluates to a finite
 PSNR, keeps best/last checkpoints, finalizes and resumes; the parts not
-ported yet raise."""
+ported yet raise, and those ported since run."""
 
 import dataclasses
 import json
@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from superresolution_tpu_torch.data.dataset import PairedDataset
+from superresolution_tpu_torch.data.io import save_tiff16
+from superresolution_tpu_torch.data.manifest import prepare_splits
 from superresolution_tpu_torch.train.checkpoint import CheckpointManager
 from superresolution_tpu_torch.train.trainer import Trainer
 from superresolution_tpu_torch.utils.config import get_preset
@@ -92,21 +95,43 @@ def test_fused_trunk_forced_on_cpu_trains(tmp_path):
 
 
 def test_unported_parts_raise(tmp_path):
+    """Meshes and GAN terms still raise; manifests, bicubic degradation,
+    previews and row-packed batches now run."""
     base = _cfg()
     bad = [base.replace(mesh=dataclasses.replace(base.mesh, data=2)),
            base.replace(loss=dataclasses.replace(
-               base.loss, terms={"l1": 1.0, "gan": 0.005})),
-           base.replace(data=dataclasses.replace(base.data,
-                                                 train_manifest="m.json")),
-           base.replace(data=dataclasses.replace(base.data,
-                                                 degradation="bicubic"))]
+               base.loss, terms={"l1": 1.0, "gan": 0.005}))]
     for cfg in bad:
         with pytest.raises(NotImplementedError):
             Trainer(cfg, str(tmp_path), device="cpu")
-    with Trainer(_cfg(preview_every=2, resume=False), str(tmp_path),
+    # a manifest of real pairs: PairedDataset splits
+    for i in range(2):
+        pair = tmp_path / "pairs" / f"pair_{i}"
+        rng = np.random.default_rng(i)
+        save_tiff16(rng.random((64, 64, 1)), str(pair / "hubble.tiff"))
+        save_tiff16(rng.random((16, 16, 1)), str(pair / "observatory.tiff"))
+    man = prepare_splits(str(tmp_path / "pairs"), str(tmp_path / "splits"),
+                         mode="overfit")
+    cfg = base.replace(data=dataclasses.replace(
+        base.data, train_manifest=man["train"], val_manifest=man["val"]))
+    with Trainer(cfg, str(tmp_path / "m"), device="cpu") as tr:
+        assert isinstance(tr.train_ds, PairedDataset)
+        assert tr.train_ds[0]["lr"].shape == (16, 16, 1)
+        assert tr.test_ds is tr.val_ds
+    # bicubic: LR made from HR on the device
+    cfg = base.replace(data=dataclasses.replace(base.data,
+                                                degradation="bicubic"))
+    with Trainer(cfg, str(tmp_path / "b"), device="cpu") as tr:
+        lr, _ = tr.eval_input_fn({"hr": torch.rand(1, 64, 64, 1)}, None)
+        assert lr.shape == (1, 16, 16, 1)
+    # a preview due at epoch 2
+    wd = tmp_path / "p"
+    with Trainer(_cfg(preview_every=2, resume=False), str(wd),
                  device="cpu") as tr:
-        with pytest.raises(NotImplementedError, match="preview strip"):
-            tr.fit()
-    cfg = _cfg(fused_trunk=True)  # LR 16 with 2 images: row-packed
-    with pytest.raises(NotImplementedError, match="seg"):
-        Trainer(cfg, str(tmp_path), device="cpu")
+        assert np.isfinite(tr.fit()["best"]["psnr"])
+    assert sorted(os.listdir(wd / "previews")) == ["epoch_00002.png"]
+    # LR 16 with 2 images: row-packed through the seg form
+    with Trainer(_cfg(fused_trunk=True), str(tmp_path / "s"),
+                 device="cpu") as tr:
+        assert tr.fused_apply is not None
+        assert np.isfinite(tr.fit()["best"]["psnr"])
