@@ -190,9 +190,36 @@ from an eighth seed:
              kernels 13 and 14, exact) with a preview due; the g++-built
              native decoder must have served batches; run_test writes its
              TIFFs, labelled strips and metrics.txt
-Then the kernels line (the fifteen kernels and the seg forms of B1 and
-kernel 13), the card's nvidia-smi line and, last, {"ok": true,
-"device": {...}}.
+Then the reference's last Pallas kernels outside benchmarks/, which no
+path of the system runs: each phase drives the kernel's own entry point
+once at full shape with every count set to 0 just before (that kernel
+exactly, every other none; every earlier path counts them at 0), random
+values from a ninth seed:
+ 35 dense-valid     kernel 16 (fused_dense_block_valid, pad once, five
+             VALID convs) at B1's timed tile [24,376,256,64] on B1's check
+             weights: bf16 within 0.02 and f32 within 1e-4 of the plain
+             form, over the whole image and the 5-px border; the interior
+             within 0.02 of B1; two planted faults (SAME zeroing, caught
+             on the border; the 0.2 scale dropped) by 3x the bar; timed
+             beside the plain form and B1
+ 36 blur-kernel     kernel 17 (anti_checkerboard_kernel) at [4,256,256,1]
+             balanced, [4,512,512,1] balanced and light, [8,128,128,64]
+             strong: f32 within 1e-5, bf16 within 0.01; two planted
+             faults (row-sum normalizer, corner tap dropped) by 3x the f32
+             bar; timed beside the plain blur and the depthwise F.conv2d
+ 37 pack-conv       kernel 18 (pack_conv3x3, p 2) at the dense block's
+             five convs at the same tile: bf16 within 0.02, f32 within
+             1e-4, pad packs exactly 0; a chained lrelu pair; the backward
+             against autograd of the plain form; two planted faults (pad
+             packs kept, the cross-pack left tap dropped) by 3x the bar;
+             timed beside the plain form and F.conv2d
+ 38 passthrough     kernel 19 (make_pt) at [24,376,272,64] and
+             [24,376,136,128], rb 94: exact in bf16 and f32; the last band
+             left uncopied must be caught; timed beside x.clone() and
+             copy_; dma_probe's GB/s beside the nominal 3,350
+Then the kernels line (B1-19 and the seg forms of B1 and kernel 13,
+launches from each path's run), the card's nvidia-smi line and, last,
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 /usr/local/cuda/bin or on PATH)
@@ -1404,13 +1431,18 @@ def counted_ops() -> dict:
     from superresolution_tpu_torch.ops import dense_trunk_train as dtt
     from superresolution_tpu_torch.ops import flash_oca as fo
     from superresolution_tpu_torch.ops import hab, hab_strip
+    from superresolution_tpu_torch.ops.blur import anti_checkerboard_kernel
     from superresolution_tpu_torch.ops.dense_trunk import fused_dense_block
+    from superresolution_tpu_torch.ops.dense_valid import (
+        fused_dense_block_valid)
+    from superresolution_tpu_torch.ops.pairconv import pack_conv3x3
     from superresolution_tpu_torch.ops.phase_tail import (
         conv_last_phase, up2_hr)
     from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
     from superresolution_tpu_torch.ops.subpixel import conv3x3_depth_to_space
     from superresolution_tpu_torch.ops.window_attention import (
         flash_window_attention)
+    from superresolution_tpu_torch.utils.dma_probe import passthrough
 
     from superresolution_tpu_torch.ops import dense_trunk as dt
 
@@ -1427,7 +1459,10 @@ def counted_ops() -> dict:
             "dense_block_backward": dtt.dense_block_backward,
             "star_weighted_l1_cuda": star_weighted_l1_cuda,
             "flash_window_attention": flash_window_attention,
-            "conv3x3_depth_to_space": conv3x3_depth_to_space}
+            "conv3x3_depth_to_space": conv3x3_depth_to_space,
+            "fused_dense_block_valid": fused_dense_block_valid,
+            "anti_checkerboard_kernel": anti_checkerboard_kernel,
+            "pack_conv3x3": pack_conv3x3, "passthrough": passthrough}
 
 
 def zero_counts() -> dict:
@@ -3787,6 +3822,393 @@ def manifest_path(gen: torch.Generator, card: str) -> dict:
     return res["launches"]
 
 
+# ---- 35-38: the last TPU kernels outside benchmarks/, kernels 16-19 ----
+# No path of the system runs them: each phase drives the kernel's own
+# public entry point at the full shape of the layer it stands for.
+
+EXTRA_SRC = "superresolution_tpu_torch/ops/csrc/extra_kernels.cu"
+TOL_F32 = 1e-4            # kernels 16 and 18 in f32 against plain f32
+TOL_BLUR = 0.01           # kernel 17 in bf16: f32 sums rounded once
+TOL_BLUR_F32 = 1e-5
+TRUNK_TILE = (24, TILE[0] + 2 * HALO, TILE[1] + 2 * HALO)  # B1's timed tile
+BLUR_CASES = (("hybrid_256_balanced", (4, 256, 256, 1), "balanced"),
+              ("hybrid_512_balanced", (4, 512, 512, 1), "balanced"),
+              ("hybrid_512_light", (4, 512, 512, 1), "light"),
+              ("c64_strong", (8, 128, 128, 64), "strong"))
+PACK_CONVS = ((64, 192), (32, 160), (32, 128), (32, 96), (32, 64))
+PACK_P = 2                # W2 = 144 packs at the tile's 256 columns
+
+
+def entry_path(name: str, fn, want: int):
+    """fn(), the op `name`'s entry point, with every counted kernel's
+    count set to 0 just before and read just after: `name` launched
+    exactly `want` times and every other kernel none. Returns fn()'s
+    result."""
+    ops = zero_counts()
+    y = fn()
+    torch.cuda.synchronize()
+    launches = {k: op.launches for k, op in ops.items()}
+    check_launches(name, launches, {**{k: 0 for k in ops}, name: want})
+    emit({"phase": "entry_path", "op": name, "launches": want})
+    return y
+
+
+def border(t: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """The values of NHWC t within k px of the image's border."""
+    h, w = t.shape[1:3]
+    keep = torch.ones((h, w), dtype=torch.bool, device=t.device)
+    keep[k:h - k, k:w - k] = False
+    return t[:, keep]
+
+
+def check_dense_valid_kernel(gen: torch.Generator) -> dict:
+    """Phase 35: kernel 16 (fused_dense_block_valid) at B1's timed tile
+    [24,376,256,64], c 64, g 32, on B1's check weights (dense_check_weights,
+    MSRA x 2) mapped to the projection matrices by models/convert.
+    _fuse_dense: bf16 within 0.02 and f32 within 1e-4 of the plain form
+    in f32 (TF32 off) on the same values, over the whole image and over
+    the 5-px border alone; the interior [5:-5, 5:-5] within 0.02 of B1 on
+    the same weights, the border's distance from B1 printed. Two faults
+    planted in the kernel must miss by 3x the bar: the intermediates
+    zeroed outside the image (SAME semantics, judged on the border) and
+    the 0.2 residual scale dropped. Timed beside the plain form and B1.
+    Returns the kernels-line entry."""
+    from superresolution_tpu_torch.models.convert import _fuse_dense
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_valid as dv
+
+    bf = torch.bfloat16
+    c, g = 64, 32
+    b, h, w = TRUNK_TILE
+    ws = dense_check_weights(gen, c, g)
+    tree = _fuse_dense([k.float().cpu().numpy() for k, _ in ws],
+                       [bb.cpu().numpy() for _, bb in ws], c, g)
+    *wm, bias = [torch.from_numpy(m).cuda()
+                 for m in dv.pack_fused_weights(tree, c, g)]
+    x32 = rand(gen, b, h, w, c, scale=0.2)
+    xb = x32.to(bf)
+
+    def kern(x=xb):
+        return dv.fused_dense_block_valid(x, *wm, bias)
+
+    with torch.inference_mode():
+        got = entry_path("fused_dense_block_valid", kern, 5)
+        ref = dv.fused_dense_block_valid_reference(
+            xb.float(), *[m.to(bf).float() for m in wm], bias)
+        err = compare("fused_dense_block_valid/bf16", got, ref, TOL_KERNEL,
+                      plain_bf16_rel_err=rel_err(
+                          dv.fused_dense_block_valid_reference(xb, *wm, bias),
+                          ref))
+        compare("fused_dense_block_valid/bf16/border", border(got),
+                border(ref), TOL_KERNEL)
+        b1 = dt.fused_dense_block(xb, ws)
+        gap = rel_err(border(got), border(b1))
+        compare("fused_dense_block_valid/interior_vs_B1",
+                got[:, 5:-5, 5:-5], b1[:, 5:-5, 5:-5], TOL_KERNEL,
+                border_rel_err_vs_B1=gap)
+        del b1
+        for bit, fault, judge in (
+                (_build.PLANT_SAME, "same_padding", border),
+                (_build.PLANT_NO_SCALE, "residual_scale_dropped",
+                 lambda t: t)):
+            bad = planted("dense_valid_stage", bit, kern)
+            if bit == _build.PLANT_SAME:
+                emit({"planted_fault": fault, "interior_rel_err": rel_err(
+                    bad[:, 5:-5, 5:-5], ref[:, 5:-5, 5:-5])})
+            expect_margin(f"fused_dense_block_valid:{fault}", judge(bad),
+                          judge(ref), TOL_KERNEL)
+            del bad
+        del got, ref
+        torch.cuda.empty_cache()
+        got = kern(x32)
+        compare("fused_dense_block_valid/f32", got, dv.
+                fused_dense_block_valid_reference(x32, *wm, bias), TOL_F32)
+        del got, x32
+        torch.cuda.empty_cache()
+        macs = b * sum((h + 10 - 2 * j) * (w + 10 - 2 * j) * 9
+                       * (c + (j - 1) * g) * (g if j < 5 else c)
+                       for j in range(1, 6))
+        b_ms, b_by = bound(2 * macs, 2 * xb.numel() * 2
+                           + sum(m.numel() for m in wm) * 2 + bias.numel() * 4)
+        entry = {
+            "name": "fused_dense_block_valid", "route": "cuda",
+            "source": EXTRA_SRC, "sources": [EXTRA_SRC],
+            "replaces": "superresolution_tpu/ops/pallas_dense.py:135",
+            "shape": [b, h, w, c], "max_abs_err": err["max_abs_err"],
+            "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
+            "ms": time_ms(kern, 5),
+            "plain_ms": time_ms(
+                lambda: dv.fused_dense_block_valid_reference(xb, *wm, bias),
+                5),
+            "b1_ms": time_ms(lambda: dt.fused_dense_block(xb, ws), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": 5, "launches_system_paths": 0,
+            "path": "its entry point; no path of the system calls it"}
+    emit({"phase": "kernel_time", **entry})
+    return entry
+
+
+def check_blur_kernel(gen: torch.Generator) -> dict:
+    """Phase 36: kernel 17 (anti_checkerboard_kernel) at hybrid_astro's
+    blur shapes at batch 4 (256^2 and 512^2 balanced, 512^2 light) and
+    [8,128,128,64] strong, on images in [0, 1): f32 within 1e-5 and bf16
+    within 0.01 of the plain blur in f32 on the same values. Two faults
+    planted in the kernel (normalized by the binomial row's sum, the
+    top-left tap dropped) must miss by 3x the f32 bar at the 256^2 and
+    strong cases. Timed beside the plain blur and the depthwise F.conv2d
+    alone. Returns the kernels-line entry (512^2 balanced)."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import blur as bl
+
+    bf = torch.bfloat16
+    geometries = {}
+    for tag, shape, mode in BLUR_CASES:
+        size, norm = bl._MODES[mode]
+        x32 = torch.rand(shape, generator=gen).cuda()
+        xb = x32.to(bf)
+
+        def kern(x=xb, mode=mode):
+            return bl.anti_checkerboard_kernel(x, mode)
+
+        with torch.inference_mode():
+            if tag == "hybrid_512_balanced":
+                entry_path("anti_checkerboard_kernel", kern, 1)
+            for xd, tol in ((x32, TOL_BLUR_F32), (xb, TOL_BLUR)):
+                err = compare(f"anti_checkerboard_kernel/{tag}/{xd.dtype}",
+                              kern(xd), bl.anti_checkerboard(xd.float(), mode),
+                              tol)
+            if tag in ("hybrid_256_balanced", "c64_strong"):
+                ref = bl.anti_checkerboard(x32, mode)
+                for bit, fault in ((_build.PLANT_NORM, "row_sum_normalizer"),
+                                   (_build.PLANT_CORNER, "corner_tap_dropped")):
+                    expect_margin(f"anti_checkerboard_kernel:{tag}:{fault}",
+                                  planted("blur", bit, lambda: kern(x32)),
+                                  ref, TOL_BLUR_F32)
+            k = torch.as_tensor(bl.binomial_kernel(size, norm),
+                                device="cuda").to(bf)
+            kk = k.expand(shape[-1], 1, size, size)
+            xn = xb.permute(0, 3, 1, 2)
+            n = xb.numel()
+            b_ms, b_by = bound(2 * size * size * n, 2 * n * 2)
+            geometries[tag] = {
+                "shape": list(shape), "mode": mode,
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"],
+                "ms": time_ms(kern, 20),
+                "plain_ms": time_ms(lambda: bl.anti_checkerboard(xb, mode),
+                                    20),
+                "library_ms": time_ms(lambda: F.conv2d(
+                    xn, kk, padding=size // 2, groups=shape[-1]), 20),
+                "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_time", "name": "anti_checkerboard_kernel",
+              "geometry": tag, **geometries[tag]})
+    main = geometries["hybrid_512_balanced"]
+    return {"name": "anti_checkerboard_kernel", "route": "cuda",
+            "source": EXTRA_SRC, "sources": [EXTRA_SRC],
+            "replaces": "superresolution_tpu/ops/pallas_blur.py:50",
+            **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
+                                    "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "tol": TOL_BLUR, "launches": 1, "launches_system_paths": 0,
+            "path": "its entry point; the hybrid's blur stays the plain "
+                    "depthwise conv",
+            "geometries": geometries}
+
+
+def check_pack_conv_kernel(gen: torch.Generator) -> dict:
+    """Phase 37: kernel 18 (pack_conv3x3) at the five convs of the dense
+    block at B1's timed tile [24,376,256,c], p 2 (W2 144): bf16 within
+    0.02 and f32 within 1e-4 of the plain form in f32 on the same values,
+    every output pad pack exactly 0; a chained lrelu pair (64 -> 192 ->
+    64) in bf16; the backward (dx, dw, db, f32) against autograd of the
+    plain form within 1e-4. Two faults planted in the kernel (pad packs
+    not zeroed, the left tap across a pack edge dropped) must miss by 3x
+    the bar at 64 -> 192. Timed beside the plain form and F.conv2d on
+    the unpacked operands (cuDNN). Returns the kernels-line entry (64 ->
+    192)."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import pairconv as pc
+
+    bf = torch.bfloat16
+    b, h, w = TRUNK_TILE
+    p = PACK_P
+
+    def pads_zero(name, y, n):
+        full = y.reshape(y.shape[0], y.shape[1], -1, n)
+        if full[:, :, :p].any() or full[:, :, p + w:].any():
+            raise AssertionError(f"{name}: a pad pack is not 0")
+
+    def weights(c, n):
+        return ((torch.randn((3, 3, c, n), generator=gen)
+                 / (9 * c) ** 0.5).cuda(),
+                (0.5 * torch.randn(n, generator=gen)).cuda())
+
+    geometries = {}
+    for c, n in PACK_CONVS:
+        tag = f"c{c}_n{n}"
+        wt, bias = weights(c, n)
+        x32 = rand(gen, b, h, w, c)
+        with torch.inference_mode():
+            xp32 = pc.pack_input(x32, p)
+            xpb = xp32.to(bf)
+
+            def kern(xp=xpb):
+                return pc.pack_conv3x3(xp, wt, bias, p, w)
+
+            got = (entry_path("pack_conv3x3", kern, 1) if c == 64
+                   else kern())
+            ref = pc.pack_conv3x3_reference(xpb.float(), wt.to(bf).float(),
+                                            bias, p, w)
+            err = compare(f"pack_conv3x3/{tag}/bf16", got, ref, TOL_KERNEL)
+            pads_zero(f"pack_conv3x3/{tag}/bf16", got, n)
+            if c == 64:
+                for bit, fault in ((_build.PLANT_PAD_KEPT, "pads_not_zeroed"),
+                                   (_build.PLANT_DROP_CROSS,
+                                    "cross_pack_tap_dropped")):
+                    expect_margin(f"pack_conv3x3:{fault}",
+                                  planted("pack_conv", bit, kern), ref,
+                                  TOL_KERNEL)
+            del got, ref
+            got = kern(xp32)
+            compare(f"pack_conv3x3/{tag}/f32", got, pc.pack_conv3x3_reference(
+                xp32, wt, bias, p, w), TOL_F32)
+            pads_zero(f"pack_conv3x3/{tag}/f32", got, n)
+            del got, xp32
+            torch.cuda.empty_cache()
+            xn = x32.to(bf).permute(0, 3, 1, 2)
+            w_oihw = wt.to(bf).permute(3, 2, 0, 1).contiguous()
+            b_lib = bias.to(bf)
+            out_bytes = b * h * xpb.shape[2] * p * n * 2
+            b_ms, b_by = bound(2 * b * h * w * 9 * c * n,
+                               xpb.numel() * 2 + out_bytes + wt.numel() * 2
+                               + n * 4)
+            geometries[tag] = {
+                "shape": list(xpb.shape), "c_in": c, "c_out": n, "p": p,
+                "max_abs_err": err["max_abs_err"],
+                "max_rel_err": err["max_rel_err"],
+                "ms": time_ms(kern, 5),
+                "plain_ms": time_ms(lambda: pc.pack_conv3x3_reference(
+                    xpb, wt, bias, p, w), 5),
+                "library_ms": time_ms(lambda: F.conv2d(
+                    xn, w_oihw, b_lib, padding=1), 5),
+                "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "kernel_time", "name": "pack_conv3x3",
+              "geometry": tag, **geometries[tag]})
+        del x32, xpb, xn
+        torch.cuda.empty_cache()
+
+    # a chained lrelu pair: the pad packs the first writes are the zeros
+    # the second reads
+    (w1, b1), (w2, b2) = weights(64, 192), weights(192, 64)
+    with torch.inference_mode():
+        xpb = pc.pack_input(rand(gen, b, h, w, 64, dtype=bf), p)
+        y = pc.pack_conv3x3(pc.pack_conv3x3(xpb, w1, b1, p, w, "lrelu"), w2,
+                            b2, p, w)
+        y1 = pc.pack_conv3x3_reference(xpb.float(), w1.to(bf).float(), b1, p,
+                                       w, "lrelu")
+        compare("pack_conv3x3/chain_lrelu/bf16", y, pc.pack_conv3x3_reference(
+            y1, w2.to(bf).float(), b2, p, w), TOL_KERNEL)
+        pads_zero("pack_conv3x3/chain_lrelu/bf16", y, 64)
+        del xpb, y, y1
+    # the backward: autograd of the plain form, through the kernel's op
+    wt, bias = weights(32, 64)
+    xp = pc.pack_input(rand(gen, 4, 64, w, 32), p)
+    gout = rand(gen, 4, 64, xp.shape[2], p * 64)
+    leaves = [t.clone().requires_grad_(True) for t in (xp, wt, bias)]
+    y = pc.pack_conv3x3(*leaves, p, w, "lrelu")
+    grads = torch.autograd.grad(y, leaves, gout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (xp, wt, bias)]
+    yr = pc.pack_conv3x3_reference(*ref_leaves, p, w, "lrelu")
+    ref_grads = torch.autograd.grad(yr, ref_leaves, gout)
+    compare("pack_conv3x3/backward/value", y.detach(), yr.detach(), TOL_F32)
+    for name, gk, gr in zip(("dx", "dw", "db"), grads, ref_grads):
+        compare(f"pack_conv3x3/backward/{name}", gk, gr, TOL_F32)
+    del xp, gout, leaves, y, grads, ref_leaves, yr, ref_grads
+    torch.cuda.empty_cache()
+    main = geometries["c64_n192"]
+    return {"name": "pack_conv3x3", "route": "cuda", "source": EXTRA_SRC,
+            "sources": [EXTRA_SRC],
+            "replaces": "superresolution_tpu/ops/pallas_pairconv.py:194",
+            **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
+                                    "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "tol": TOL_KERNEL, "launches": 1, "launches_system_paths": 0,
+            "path": "its entry point; no path of the system calls it",
+            "geometries": geometries}
+
+
+def check_passthrough_kernel() -> dict:
+    """Phase 38: kernel 19 (make_pt's passthrough) at the reference's two
+    shapes, rb 94, bf16 and f32: the copy exactly equal to its input. A
+    fault planted in the kernel (the last band not copied) must be
+    caught, on fresh values so that stale memory cannot pass for a copy.
+    Timed beside the plain x.clone() and dst.copy_(src); then dma_probe,
+    the card's measured copy rate. Returns the kernels-line entry
+    ([24,376,272,64])."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.utils import dma_probe as dp
+
+    bf = torch.bfloat16
+    cg = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    geometries = {}
+    for tag, shape in dp.PROBE_SHAPES:
+        fn = dp.make_pt(shape, dp.PROBE_RB)
+        for dtype in (bf, torch.float32):
+            x = torch.randn(shape, generator=cg, device="cuda").to(dtype)
+            y = (entry_path("passthrough", lambda: fn(x), 1)
+                 if (tag, dtype) == ("lane64", bf) else fn(x))
+            if not torch.equal(y, x):
+                raise AssertionError(f"passthrough/{tag}/{dtype}: the copy "
+                                     "differs from its input")
+            emit({"check": f"passthrough/{tag}/{dtype}", "exact": True})
+            del y
+            if dtype != bf:
+                del x
+                continue
+            if tag == "lane64":
+                fresh = torch.randn(shape, generator=cg, device="cuda").to(bf)
+
+                def check():
+                    bad = planted("copy_bands", _build.PLANT_LAST_BAND,
+                                  lambda: fn(fresh))
+                    bands = [torch.equal(u, v) for u, v in zip(
+                        bad.reshape(-1, dp.PROBE_RB, *shape[2:]),
+                        fresh.reshape(-1, dp.PROBE_RB, *shape[2:]))]
+                    emit({"planted_fault": "last_band_not_copied",
+                          "bands_wrong": [i for i, ok in enumerate(bands)
+                                          if not ok]})
+                    if not all(bands):
+                        raise AssertionError("passthrough: a band differs")
+
+                expect_caught("passthrough:last_band_not_copied", check)
+                del fresh
+            dst = torch.empty_like(x)
+            nbytes = x.numel() * x.element_size()
+            b_ms, b_by = bound(0, 2 * nbytes)
+            ms = time_ms(lambda: fn(x), 20)
+            geometries[tag] = {
+                "shape": list(shape), "rb": dp.PROBE_RB, "max_abs_err": 0.0,
+                "ms": ms, "gbps": 2 * nbytes / 1e9 / (ms / 1e3),
+                "plain_ms": time_ms(lambda: dp.passthrough_reference(x), 20),
+                "library_ms": time_ms(lambda: dst.copy_(x), 20),
+                "bound_ms": b_ms, "bound_by": b_by}
+            emit({"phase": "kernel_time", "name": "passthrough",
+                  "geometry": tag, **geometries[tag]})
+            del x, dst
+    probe = dp.dma_probe()
+    emit({"phase": "dma_probe", **probe,
+          "nominal_gbps": PEAK_BYTES / 1e9})
+    main = geometries["lane64"]
+    return {"name": "passthrough", "route": "cuda", "source": EXTRA_SRC,
+            "sources": [EXTRA_SRC], "replaces": "bench.py:351",
+            **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            "tol": 0.0, "launches": 1, "launches_system_paths": 0,
+            "path": "its entry point (make_pt); bench.py's probe only",
+            "geometries": geometries, "dma_probe": probe}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3844,9 +4266,12 @@ def main() -> int:
                 w=W, channels=3)
     runner = make_tiled_infer_staged(trunk_fn, make_phase_tail(params),
                                      **geom)
+    extra = {k: op for k, op in counted_ops().items()
+             if k in ("fused_dense_block_valid", "anti_checkerboard_kernel",
+                      "pack_conv3x3", "passthrough")}
     ops = {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
            "conv_last_phase": conv_last_phase,
-           "conv3x3_depth_to_space": conv3x3_depth_to_space}
+           "conv3x3_depth_to_space": conv3x3_depth_to_space, **extra}
     for op in ops.values():
         op.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3857,7 +4282,8 @@ def main() -> int:
     launches = {k: op.launches for k, op in ops.items()}
     chunks = -(-ny * nx // TAIL_BATCH)
     expected = {"fused_dense_block": 69 * 5, "up2_hr": 2 * chunks,
-                "conv_last_phase": chunks, "conv3x3_depth_to_space": 0}
+                "conv_last_phase": chunks, "conv3x3_depth_to_space": 0,
+                **{k: 0 for k in extra}}
     if launches != expected:
         raise AssertionError(f"launches {launches} != expected {expected}")
     if tuple(out.shape) != (4 * H, 4 * W, 3):
@@ -4003,6 +4429,17 @@ def main() -> int:
         bicubic_presets_path(gen, card))
     torch.cuda.empty_cache()
     manifest_path(gen, card)
+    torch.cuda.empty_cache()
+
+    # ---- 35-38: kernels 16-19, each through its own entry point ----
+    gen = torch.Generator().manual_seed(SEED + 8)
+    kernels["fused_dense_block_valid"] = check_dense_valid_kernel(gen)
+    torch.cuda.empty_cache()
+    kernels["anti_checkerboard_kernel"] = check_blur_kernel(gen)
+    torch.cuda.empty_cache()
+    kernels["pack_conv3x3"] = check_pack_conv_kernel(gen)
+    torch.cuda.empty_cache()
+    kernels["passthrough"] = check_passthrough_kernel()
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

@@ -147,6 +147,16 @@ def library() -> ctypes.CDLL:
     lib.subpixel_conv3x3_d2s.argtypes = [_P, _L, _L, _L, _L, _I, _I, _I,
                                          _I, _P, _P, _I, _I, _P, _I, _I, _P]
     lib.subpixel_conv3x3_d2s.restype = _I
+    lib.extra_dense_valid_stage.argtypes = [_P, _P, _P, _P, _P, *[_I] * 8,
+                                            _P]
+    lib.extra_dense_valid_stage.restype = _I
+    lib.extra_blur.argtypes = [_P, _P, *[_I] * 5, ctypes.c_double, _I, _I,
+                               _P]
+    lib.extra_blur.restype = _I
+    lib.extra_pack_conv.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+    lib.extra_pack_conv.restype = _I
+    lib.extra_copy.argtypes = [_P, _P, _L, _L, _I, _P]
+    lib.extra_copy.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -475,3 +485,70 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
         b, h, w, *(seg or (0, 0)), nchunk, _ptr(part), _ptr(dw), _ptr(db),
         _stream(in0))
     _check(lib, rc, "train_wgrad")
+
+
+# Faults chip_smoke.py plants in kernels 16-19 (`plant`, a bit mask; 0 in
+# use; see extra_kernels.cu): 16's intermediates zeroed outside the image
+# (SAME semantics) or its 0.2 residual scale dropped; 17 normalized by
+# the binomial row's sum or missing its top-left tap; 18's pad packs not
+# zeroed or the left tap across a pack edge dropped; 19's last band not
+# copied.
+PLANT_SAME, PLANT_NO_SCALE = 1, 2
+PLANT_NORM, PLANT_CORNER = 1, 2
+PLANT_PAD_KEPT, PLANT_DROP_CROSS = 1, 2
+PLANT_LAST_BAND = 1
+
+
+def dense_valid_stage(x: torch.Tensor, ws: torch.Tensor, out: torch.Tensor,
+                      mats, bias: torch.Tensor, j: int,
+                      plant: int = 0) -> None:
+    """One launch of kernel 16's stage j (1..5), conv_kernel<DenseStage>
+    (extra_kernels.cu): x, out [B,H,W,c]; ws [B,H+8,W+8,4g]; mats the
+    five tap-major matrices (wx, w1..w4), all in x's type (bf16 or f32);
+    bias [4g+c] f32."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.extra_dense_valid_stage(
+        _ptr(x), _ptr(ws), _ptr(out), _ptrs(mats), _ptr(bias), b, h, w, c,
+        ws.shape[-1] // 4, j, int(x.dtype == torch.float32), plant,
+        _stream(x))
+    _check(lib, rc, "extra_dense_valid_stage")
+
+
+def blur(x: torch.Tensor, size: int, norm: float, out: torch.Tensor,
+         plant: int = 0) -> None:
+    """One launch of kernel 17, blur_kernel: out = the depthwise SAME blur
+    of x [B,H,W,C] (bf16 or f32) by the size x size binomial / norm."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.extra_blur(_ptr(x), _ptr(out), b, h, w, c, size, norm,
+                        int(x.dtype == torch.float32), plant, _stream(x))
+    _check(lib, rc, "extra_blur")
+
+
+def pack_conv(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+              out: torch.Tensor, p: int, width: int, lrelu: bool,
+              plant: int = 0) -> None:
+    """One launch of kernel 18, conv_kernel<PackConv>: xp [B,H,W2,p*c],
+    w [3,3,c,n] in xp's type (bf16 or f32), bias [n] f32, out
+    [B,H,W2,p*n]; the real pixels are columns [p, p + width) of the
+    unpacked [B,H,W2*p,*] view."""
+    lib = library()
+    b, h, w2, pc = xp.shape
+    c, n = w.shape[2], w.shape[3]
+    rc = lib.extra_pack_conv(
+        _ptr(xp), _ptr(w), _ptr(bias), _ptr(out), b, h, w2 * p, c, n, p,
+        width, int(lrelu), int(xp.dtype == torch.float32), plant,
+        _stream(xp))
+    _check(lib, rc, "extra_pack_conv")
+
+
+def copy_bands(src: torch.Tensor, dst: torch.Tensor, bands: int,
+               plant: int = 0) -> None:
+    """One launch of kernel 19, copy_kernel: dst = src, one block per
+    band of src.nbytes / bands bytes (a multiple of 16)."""
+    lib = library()
+    nbytes = src.numel() * src.element_size()
+    rc = lib.extra_copy(_ptr(src), _ptr(dst), bands, nbytes // bands, plant,
+                        _stream(src))
+    _check(lib, rc, "extra_copy")
