@@ -193,8 +193,10 @@ from an eighth seed:
 Then the reference's last Pallas kernels outside benchmarks/, which no
 path of the system runs: each phase drives the kernel's own entry point
 once at full shape with every count set to 0 just before (that kernel
-exactly, every other none; every earlier path counts them at 0), random
-values from a ninth seed:
+exactly, every other none), random values from a ninth seed. Every
+counted run of a system path above also counts kernels 16-19 and fails
+unless each is 0; the kernels line gives their sums over those runs
+(launches_system_paths) and how many runs were counted:
  35 dense-valid     kernel 16 (fused_dense_block_valid, pad once, five
              VALID convs) at B1's timed tile [24,376,256,64] on B1's check
              weights: bf16 within 0.02 and f32 within 1e-4 of the plain
@@ -219,7 +221,8 @@ values from a ninth seed:
              copy_; dma_probe's GB/s beside the nominal 3,350
 Then the kernels line (B1-19 and the seg forms of B1 and kernel 13,
 launches from each path's run), the card's nvidia-smi line and, last,
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Every phase line carries t_s, the seconds
+since the script started.
 
 Usage: python3 chip_smoke.py   (one CUDA GPU; nvcc in $CUDA_HOME/bin,
 /usr/local/cuda/bin or on PATH)
@@ -286,7 +289,15 @@ TOL_ANCHOR = 0.05         # VERDICT.md's bar for the anchor
 TOL_ANCHOR_BICUBIC = 0.002
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Prints obj as one JSON line; a phase line also gets t_s, the
+    seconds since the script started, so phases' times can be read off
+    the log."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1051,7 +1062,8 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
            "fused_cab_convs": hab.fused_cab_convs,
            "fused_hab_block": hab.fused_hab_block,
            "flash_oca_gathered": fo.flash_oca_gathered,
-           "conv3x3_depth_to_space": conv3x3_depth_to_space}
+           "conv3x3_depth_to_space": conv3x3_depth_to_space,
+           **unrouted_ops()}
     with torch.inference_mode():
         for op in ops.values():
             op.launches = 0
@@ -1066,10 +1078,9 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
                     "conv_last_phase": 0, "fused_cab_convs": 3 * n_hab,
                     "fused_hab_block": n_hab,
                     "flash_oca_gathered": len(model.stage2.depths),
-                    "conv3x3_depth_to_space": 0}
-        if launches != expected:
-            raise AssertionError(f"hybrid launches {launches} != "
-                                 f"expected {expected}")
+                    "conv3x3_depth_to_space": 0,
+                    **{k: 0 for k in UNROUTED}}
+        check_launches("hybrid", launches, expected)
         side = 4 * HYBRID_IN
         if tuple(y.shape) != (1, side, side, 1):
             raise AssertionError(f"hybrid output shape {tuple(y.shape)}")
@@ -1162,7 +1173,41 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
     return launches
 
 
-def check_launches(tag: str, launches: dict, expected: dict) -> None:
+# Kernels 16-19 run from their own entry points only: no path of the
+# system calls them. Every path's run adds its counts of them here and
+# fails unless they are 0; the kernels line reports the sums.
+UNROUTED = ("fused_dense_block_valid", "anti_checkerboard_kernel",
+            "pack_conv3x3", "passthrough")
+UNROUTED_SEEN = {k: 0 for k in UNROUTED}
+UNROUTED_PATHS: list = []
+
+
+def note_unrouted(tag: str, launches: dict) -> None:
+    """Adds a system path's launches of kernels 16-19 to the tally;
+    raises unless each was counted in that run and is 0."""
+    missing = [k for k in UNROUTED if k not in launches]
+    if missing:
+        raise AssertionError(f"{tag}: kernels {missing} not counted")
+    for k in UNROUTED:
+        UNROUTED_SEEN[k] += launches[k]
+    UNROUTED_PATHS.append(tag)
+    bad = {k: launches[k] for k in UNROUTED if launches[k]}
+    if bad:
+        raise AssertionError(f"{tag}: unrouted kernels launched {bad}")
+
+
+def unrouted_ops() -> dict:
+    ops = counted_ops()
+    return {k: ops[k] for k in UNROUTED}
+
+
+def check_launches(tag: str, launches: dict, expected: dict,
+                   system: bool = True) -> None:
+    """launches == expected; a system path's run (every caller but the
+    entry points of phases 35-38) also goes into the kernels 16-19
+    tally."""
+    if system:
+        note_unrouted(tag, launches)
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} != expected "
                              f"{expected}")
@@ -1201,7 +1246,8 @@ def train_ops() -> dict:
             "flash_oca_gathered": fo.flash_oca_gathered,
             "dense_block_backward": dtt.dense_block_backward,
             "star_weighted_l1_cuda": sl.star_weighted_l1_cuda,
-            "conv3x3_depth_to_space": subpixel.conv3x3_depth_to_space}
+            "conv3x3_depth_to_space": subpixel.conv3x3_depth_to_space,
+            **unrouted_ops()}
 
 
 def step_grads(tr, apply, policy, lr, hr, kernel_loss: bool):
@@ -1876,6 +1922,8 @@ def quality_anchor() -> dict:
         deploy = fused_rrdb_model(model.state_dict(), model)
         ops = zero_counts()
         sr = deploy(lr.to(torch.bfloat16)).float().clamp(0, 1)
+        note_unrouted("quality_anchor",
+                      {k: op.launches for k, op in ops.items()})
         launches = {k: op.launches for k, op in ops.items() if op.launches}
         up = resize_bicubic(lr, (hr.shape[1], hr.shape[2])).clamp(0, 1)
         p, s = float(psnr(sr, hr).mean()), float(ssim(sr, hr).mean())
@@ -2488,6 +2536,8 @@ def prebound_upscale(gen: torch.Generator) -> None:
         torch.cuda.synchronize()
         if not any(op.launches for op in ops.values()):
             raise AssertionError(f"prebound/{name}: no kernel launched")
+        note_unrouted(f"prebound/{name}",
+                      {k: op.launches for k, op in ops.items()})
         host = torch.from_numpy(api.upscale(img, 4, model=prebound,
                                             params={}, **kw))
         plain = api.upscale(img, 4, model=model, params=params,
@@ -3265,11 +3315,12 @@ def eval_folder_path(mc, model, gen: torch.Generator) -> None:
     want = sum(2 * math.ceil(math.ceil(h // scale / UP_TILE)
                              * math.ceil(w // scale / UP_TILE) / 8)
                for h, w in shapes)
-    conv3x3_depth_to_space.launches = 0
+    ops = zero_counts()
     t0 = time.perf_counter()
     got = evaluate_folder(up, hr_dir, scale)
     eval_s = time.perf_counter() - t0
     n_launch = conv3x3_depth_to_space.launches
+    note_unrouted("eval_folder", {k: op.launches for k, op in ops.items()})
     if n_launch != want:
         raise AssertionError(f"eval_folder: {n_launch} kernel-15 launches, "
                              f"expected {want}")
@@ -3848,7 +3899,8 @@ def entry_path(name: str, fn, want: int):
     y = fn()
     torch.cuda.synchronize()
     launches = {k: op.launches for k, op in ops.items()}
-    check_launches(name, launches, {**{k: 0 for k in ops}, name: want})
+    check_launches(name, launches, {**{k: 0 for k in ops}, name: want},
+                   system=False)
     emit({"phase": "entry_path", "op": name, "launches": want})
     return y
 
@@ -3943,7 +3995,7 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
                 5),
             "b1_ms": time_ms(lambda: dt.fused_dense_block(xb, ws), 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "launches": 5, "launches_system_paths": 0,
+            "launches": 5,
             "path": "its entry point; no path of the system calls it"}
     emit({"phase": "kernel_time", **entry})
     return entry
@@ -4010,7 +4062,7 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
-            "tol": TOL_BLUR, "launches": 1, "launches_system_paths": 0,
+            "tol": TOL_BLUR, "launches": 1,
             "path": "its entry point; the hybrid's blur stays the plain "
                     "depthwise conv",
             "geometries": geometries}
@@ -4133,7 +4185,7 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
-            "tol": TOL_KERNEL, "launches": 1, "launches_system_paths": 0,
+            "tol": TOL_KERNEL, "launches": 1,
             "path": "its entry point; no path of the system calls it",
             "geometries": geometries}
 
@@ -4204,7 +4256,7 @@ def check_passthrough_kernel() -> dict:
             "sources": [EXTRA_SRC], "replaces": "bench.py:351",
             **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
-            "tol": 0.0, "launches": 1, "launches_system_paths": 0,
+            "tol": 0.0, "launches": 1,
             "path": "its entry point (make_pt); bench.py's probe only",
             "geometries": geometries, "dma_probe": probe}
 
@@ -4266,12 +4318,10 @@ def main() -> int:
                 w=W, channels=3)
     runner = make_tiled_infer_staged(trunk_fn, make_phase_tail(params),
                                      **geom)
-    extra = {k: op for k, op in counted_ops().items()
-             if k in ("fused_dense_block_valid", "anti_checkerboard_kernel",
-                      "pack_conv3x3", "passthrough")}
     ops = {"fused_dense_block": fused_dense_block, "up2_hr": up2_hr,
            "conv_last_phase": conv_last_phase,
-           "conv3x3_depth_to_space": conv3x3_depth_to_space, **extra}
+           "conv3x3_depth_to_space": conv3x3_depth_to_space,
+           **unrouted_ops()}
     for op in ops.values():
         op.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4283,9 +4333,8 @@ def main() -> int:
     chunks = -(-ny * nx // TAIL_BATCH)
     expected = {"fused_dense_block": 69 * 5, "up2_hr": 2 * chunks,
                 "conv_last_phase": chunks, "conv3x3_depth_to_space": 0,
-                **{k: 0 for k in extra}}
-    if launches != expected:
-        raise AssertionError(f"launches {launches} != expected {expected}")
+                **{k: 0 for k in UNROUTED}}
+    check_launches("path", launches, expected)
     if tuple(out.shape) != (4 * H, 4 * W, 3):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -4440,6 +4489,11 @@ def main() -> int:
     kernels["pack_conv3x3"] = check_pack_conv_kernel(gen)
     torch.cuda.empty_cache()
     kernels["passthrough"] = check_passthrough_kernel()
+    for k in UNROUTED:
+        kernels[k]["launches_system_paths"] = UNROUTED_SEEN[k]
+        kernels[k]["system_paths_counted"] = len(UNROUTED_PATHS)
+    emit({"phase": "unrouted", "paths": UNROUTED_PATHS,
+          "launches": UNROUTED_SEEN})
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})
