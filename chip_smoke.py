@@ -137,15 +137,21 @@ from a seventh seed, bf16:
  27 subpixel-kernel kernel 15 against its plain version (F.conv2d and
              F.pixel_shuffle; f32 with TF32 off) at test_pallas.py's
              geometries, a ragged one (r 3) and the three path shapes
-             (EDSR stages 1 and 2, ESPCN's head): bf16 within 0.02 and
-             f32 within 1e-4 of max |plain|; three faults planted in the
-             kernel ((i, j) swapped in the store, the border clamped, the
-             bias dropped) must each miss by 3x the bar; timed at the path
-             shapes beside the plain version and F.conv2d alone (cuDNN)
+             (EDSR stages 1 and 2, ESPCN's head), in both bodies of the
+             conv engine (bf16 channels-last: tensor cores; f32 and NCHW:
+             direct; the direct body also in bf16 at the path shapes):
+             bf16 within 0.02 and f32 within 1e-4 of max |plain|; three
+             faults planted in the kernel ((i, j) swapped in the store,
+             the border clamped, the bias dropped) must each miss by 3x
+             the bar in each body; timed at the path shapes beside the
+             direct body, the plain version and F.conv2d alone (cuDNN);
+             registers and spills of each body (the tensor-core body
+             must not spill)
  28 edsr-upscale    EDSR-baseline x4 (16 resblocks x 64 features),
              conv_last fitted, a 1024^2 RGB frame through
              api.upscale(on_device=True, tile 256, halo 16, batch 8):
-             kernel 15 exactly 4 launches and every other kernel 0; 4096^2,
+             kernel 15 exactly 4 launches, all on the tensor cores, and
+             every other kernel 0; 4096^2,
              finite, in [0, 1]; within 0.03 of the same call with the
              plain op; the host tiler within 1e-3; frame s, MP/s, the
              plain frame, peak memory, device time by kernel
@@ -156,7 +162,8 @@ from a seventh seed, bf16:
              (load_params_for_inference, build_from_config, total_scale)
              and scored by evaluate_folder through api.upscale on 4
              synthetic HR PNGs (two ragged): PSNR within 0.05 dB and SSIM
-             within 0.002 of the same evaluation with the plain op
+             within 0.002 of the same evaluation with the plain op;
+             kernel 15 on the tensor cores
 Then single-device training at the reference's defaults, random weights
 from an eighth seed:
  31 seg-kernels     B1 and kernel 13 with `seg` (batch-packed rows, one
@@ -178,7 +185,8 @@ from an eighth seed:
              step's busy share
  33 bicubic-presets edsr_baseline_x4 at full width (16 x 64, hr 192,
              batch 16) for 3 steps, eval and a preview PNG every step,
-             async checkpoints, kernel 15's launches exact; the best step
+             async checkpoints, kernel 15's launches exact and on the
+             tensor cores (ESPCN's too); the best step
              finalized with params_probe and reloaded by
              load_params_for_inference, equal on a patch to the module
              restored by restore_best; srcnn_x2, espcn_x4, fsrcnn_x4 for 2
@@ -210,11 +218,13 @@ unless each is 0; the kernels line gives their sums over those runs
              faults (row-sum normalizer, corner tap dropped) by 3x the f32
              bar; timed beside the plain blur and the depthwise F.conv2d
  37 pack-conv       kernel 18 (pack_conv3x3, p 2) at the dense block's
-             five convs at the same tile: bf16 within 0.02, f32 within
-             1e-4, pad packs exactly 0; a chained lrelu pair; the backward
-             against autograd of the plain form; two planted faults (pad
-             packs kept, the cross-pack left tap dropped) by 3x the bar;
-             timed beside the plain form and F.conv2d
+             five convs at the same tile, in both bodies (bf16: tensor
+             cores, and direct through its helper; f32: direct): bf16
+             within 0.02, f32 within 1e-4, pad packs exactly 0; a chained
+             lrelu pair; the backward against autograd of the plain form;
+             two planted faults (pad packs kept, the cross-pack left tap
+             dropped) by 3x the bar in each body; timed beside the direct
+             body, the plain form and F.conv2d
  38 passthrough     kernel 19 (make_pt) at [24,376,272,64] and
              [24,376,136,128], rb 94: exact in bf16 and f32; the last band
              left uncopied must be caught; timed beside x.clone() and
@@ -235,6 +245,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1512,10 +1523,56 @@ def counted_ops() -> dict:
 
 
 def zero_counts() -> dict:
+    """Every counted kernel's launches set to 0, the conv engine's
+    per-body counts (kernels 15 and 18) too."""
     ops = counted_ops()
     for op in ops.values():
         op.launches = 0
+        if hasattr(op, "tc_launches"):
+            op.tc_launches = op.direct_launches = 0
     return ops
+
+
+def expect_tc_body(tag: str, op) -> dict:
+    """Raises unless every launch of `op` (kernel 15 or 18) since its
+    counts were zeroed went through the tensor-core body."""
+    res = {"launches": op.launches, "tc_launches": op.tc_launches,
+           "direct_launches": op.direct_launches}
+    if op.tc_launches != op.launches or op.direct_launches:
+        raise AssertionError(f"{tag}: {res}, not all on the tensor cores")
+    return res
+
+
+# The conv engine's kernels in nvcc's -Xptxas -v report (main fills it
+# from the build): {policy: {body: {"<type>_<columns>[_drop]":
+# {"registers": n, "spill_bytes": b}}}}; the tensor-core body must not
+# spill.
+PTXAS: dict = {}
+
+
+def ptxas_usage(report: str) -> dict:
+    out: dict = {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        k = re.search(r"Compiling entry function '\S*?(conv_tc_kernel|conv_kernel)"
+                      r"I\S*?(Subpixel|PackConv|DenseStage)I(13__nv_bfloat16|f)"
+                      r"EELi(\d+)E(Lb([01])E)?", line)
+        if not k:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        key = (("bf16_" if "bfloat16" in k.group(3) else "f32_") + k.group(4)
+               + ("_drop" if k.group(6) == "1" else ""))
+        body = "tc" if k.group(1) == "conv_tc_kernel" else "direct"
+        out.setdefault(k.group(2), {}).setdefault(body, {})[key] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": int(spill.group(1)) if spill else None}
+    spilled = {p: {k: v for k, v in b.get("tc", {}).items()
+                   if v["spill_bytes"]} for p, b in out.items()}
+    if any(spilled.values()):
+        raise AssertionError(f"the tensor-core body spills: {spilled}")
+    return out
 
 
 def attn_case(cg: torch.Generator, case: str, nb: int):
@@ -3029,6 +3086,7 @@ def hat_lever_paths(gen: torch.Generator, card: str) -> dict:
 # ---- 27-30: EDSR and ESPCN serving through kernel 15 ------------------
 
 SUB_SRC = "superresolution_tpu_torch/ops/csrc/subpixel_kernels.cu"
+ENGINE_SRC = "superresolution_tpu_torch/ops/csrc/conv_engine.cuh"
 TOL_SUB_F32 = 1e-4        # f32 kernel against the f32 plain version
 TOL_PSNR = 0.05           # VERDICT.md's bar, here kernel against plain op
 TOL_SSIM = 0.002
@@ -3060,48 +3118,69 @@ def subpixel_case(gen: torch.Generator, b, h, w, cin, cout, r, cl):
 
 
 def check_subpixel_kernel(gen: torch.Generator) -> dict:
-    """Phase 27: kernel 15 against its plain version at SUB_CASES, bf16
-    within 0.02 (the bar of the other conv kernels, B1-B3; CHIPEQ has no
-    row for it) and f32 within 1e-4 of max |plain| (plain in f32 with
-    TF32 off, on the same values); each fault planted in the kernel must
-    miss by 3x the bar at the ragged and EDSR stage-1 geometries in bf16;
-    timed at the path shapes beside the plain version and F.conv2d alone
+    """Phase 27: kernel 15 against its plain version at SUB_CASES in both
+    bodies of the conv engine: bf16 within 0.02 (the bar of the other
+    conv kernels, B1-B3; CHIPEQ has no row for it) and f32 within 1e-4
+    of max |plain| (plain in f32 with TF32 off, on the same values). The
+    route rule must pick the tensor-core body for bf16 channels-last
+    inputs (every case but the NCHW pallas_r4) and the direct body for
+    f32 and NCHW, as the per-body counts show; at the path shapes the
+    direct body also runs in bf16 through its launch helper. Each fault
+    planted in the kernel must miss by 3x the bar: in the tensor-core
+    body at the ragged and EDSR stage-1 geometries in bf16, in the
+    direct body at the ragged one in f32. Timed at the path shapes
+    beside the direct body in bf16, the plain version and F.conv2d alone
     (cuDNN). Returns the kernels-line entry (EDSR stage 1) with every
     path shape under 'geometries'."""
     from superresolution_tpu_torch.ops import _build
-    from superresolution_tpu_torch.ops.subpixel import (
-        conv3x3_depth_to_space as op, reference_conv3x3_depth_to_space as
-        plain)
+    from superresolution_tpu_torch.ops import subpixel as sp
 
+    op, plain = sp.conv3x3_depth_to_space, sp.reference_conv3x3_depth_to_space
     bf = torch.bfloat16
+    faults_at = {bf: ("ragged_r3", "edsr_stage1"), torch.float32: (
+        "ragged_r3",)}
     geometries = {}
     for tag, b, h, w, cin, cout, r, cl in SUB_CASES:
         x, wt, bias = subpixel_case(gen, b, h, w, cin, cout, r, cl)
         with torch.inference_mode():
             for dt, tol in ((torch.float32, TOL_SUB_F32), (bf, TOL_KERNEL)):
                 xd, wd, bd = x.to(dt), wt.to(dt), bias.to(dt)
-                before = op.launches
+                body = "tc" if dt == bf and cl else "direct"
+                if sp.uses_tensor_cores(xd) != (body == "tc"):
+                    raise AssertionError(f"conv3x3_depth_to_space/{tag}: the "
+                                         f"route rule does not pick {body}")
+                zero_counts()
                 got = op(xd, wd, bd, r)
-                if op.launches != before + 1:
+                if op.launches != 1 or getattr(op, f"{body}_launches") != 1:
                     raise AssertionError("conv3x3_depth_to_space: not one "
-                                         "counted launch")
+                                         f"counted {body} launch")
                 if got.dtype != dt or tuple(got.shape) != (b, cout, h * r,
                                                            w * r):
                     raise AssertionError(f"conv3x3_depth_to_space/{tag}: "
                                          f"{got.dtype} {tuple(got.shape)}")
                 ref = plain(xd.float(), wd.float(), bd.float(), r)
-                err = compare(f"conv3x3_depth_to_space/{tag}/{dt}", got, ref,
-                              tol)
+                err = compare(f"conv3x3_depth_to_space/{tag}/{dt}/{body}",
+                              got, ref, tol)
                 del got
-            if tag in ("ragged_r3", "edsr_stage1"):
-                for fault in SUB_FAULTS:
+                for fault in SUB_FAULTS if tag in faults_at[dt] else ():
                     expect_margin(
-                        f"conv3x3_depth_to_space:{tag}:{fault}",
+                        f"conv3x3_depth_to_space:{tag}:{body}:{fault}",
                         planted("conv3x3_d2s", getattr(_build, fault),
-                                lambda: op(xd, wd, bd, r)), ref, TOL_KERNEL)
-            del ref
+                                lambda: op(xd, wd, bd, r)), ref, tol)
             if not tag.startswith(("edsr", "espcn")):
                 continue
+            # the direct body in bf16 at the path shape, through its helper
+            wk, bk = sp.kmajor_weights(wd, bd, r, bf)
+            out = torch.empty((b, h * r, w * r, cout), dtype=bf,
+                              device="cuda")
+
+            def direct():
+                _build.conv3x3_d2s(xd, wk, bk, r, out, False)
+
+            direct()
+            d_err = compare(f"conv3x3_depth_to_space/{tag}/bf16/direct",
+                            out.permute(0, 3, 1, 2), ref, TOL_KERNEL)
+            del ref
             px = b * h * w
             b_ms, b_by = bound(2 * px * 9 * cin * cout * r * r,
                                2 * (px * cin + px * r * r * cout
@@ -3110,23 +3189,26 @@ def check_subpixel_kernel(gen: torch.Generator) -> dict:
                 "shape": [b, cin, h, w], "c_out": cout, "r": r,
                 "max_abs_err": err["max_abs_err"],
                 "max_rel_err": err["max_rel_err"],
+                "direct_max_rel_err": d_err["max_rel_err"],
                 "ms": time_ms(lambda: op(xd, wd, bd, r), 10),
+                "direct_ms": time_ms(direct, 2),
                 "plain_ms": time_ms(lambda: plain(xd, wd, bd, r), 10),
                 "library_ms": time_ms(
                     lambda: F.conv2d(xd, wd, bd, padding=1), 10),
                 "bound_ms": b_ms, "bound_by": b_by}
             emit({"phase": "kernel_time", "name": "conv3x3_depth_to_space",
                   "geometry": tag, **geometries[tag]})
-        del x, xd, wt, wd
+        del x, xd, wt, wd, out
         torch.cuda.empty_cache()
     main = geometries["edsr_stage1"]
     return {"name": "conv3x3_depth_to_space", "route": "cuda",
-            "source": SUB_SRC, "sources": [SUB_SRC],
+            "source": SUB_SRC, "sources": [SUB_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_kernels.py:64",
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
-            "tol": TOL_KERNEL, "geometries": geometries}
+                                    "library_ms", "direct_ms")},
+            "tol": TOL_KERNEL, "geometries": geometries,
+            "ptxas": PTXAS.get("Subpixel")}
 
 
 @contextlib.contextmanager
@@ -3230,6 +3312,7 @@ def sr_upscale_path(name: str, gen: torch.Generator, card: str,
     check_launches(name, launches, {**{k: 0 for k in ops},
                                     "conv3x3_depth_to_space":
                                     batches * stages})
+    bodies = expect_tc_body(name, ops["conv3x3_depth_to_space"])
     if tuple(y.shape) != (side, side, channels):
         raise AssertionError(f"{name}: output shape {tuple(y.shape)}")
     if not bool(torch.isfinite(y).all()) or float(y.min()) < 0 \
@@ -3237,7 +3320,7 @@ def sr_upscale_path(name: str, gen: torch.Generator, card: str,
         raise AssertionError(f"{name}: output not finite in [0, 1]")
     emit({"phase": f"{name}_upscale_path", "output_shape": list(y.shape),
           "first_run_s": first_s, "launches_per_frame": launches,
-          "batches": batches,
+          "kernel15_bodies": bodies, "batches": batches,
           "inside_0_1": float(((y > 0) & (y < 1)).float().mean()),
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     with plain_subpixel():
@@ -3324,6 +3407,7 @@ def eval_folder_path(mc, model, gen: torch.Generator) -> None:
     if n_launch != want:
         raise AssertionError(f"eval_folder: {n_launch} kernel-15 launches, "
                              f"expected {want}")
+    bodies = expect_tc_body("eval_folder", conv3x3_depth_to_space)
     with plain_subpixel():
         ref = evaluate_folder(up, hr_dir, scale)
     d_psnr, d_ssim = abs(got["psnr"] - ref["psnr"]), abs(got["ssim"]
@@ -3333,7 +3417,7 @@ def eval_folder_path(mc, model, gen: torch.Generator) -> None:
           "plain_psnr": ref["psnr"], "plain_ssim": ref["ssim"],
           "d_psnr": d_psnr, "d_ssim": d_ssim, "tol_psnr": TOL_PSNR,
           "tol_ssim": TOL_SSIM, "kernel15_launches": n_launch,
-          "eval_s": eval_s})
+          "kernel15_bodies": bodies, "eval_s": eval_s})
     if got["n"] != len(shapes) or d_psnr > TOL_PSNR or d_ssim > TOL_SSIM:
         raise AssertionError(f"eval_folder: {got} against the plain op's "
                              f"{ref}")
@@ -3753,6 +3837,8 @@ def bicubic_presets_path(gen: torch.Generator, card: str) -> int:
         want = 3 * per_fwd * (1 + len(tr.val_loader) + 1)
         res = fit_counted(tr, {"conv3x3_depth_to_space": want},
                           "edsr_baseline_x4")
+        res["kernel15_bodies"] = expect_tc_body(
+            "edsr_baseline_x4", counted_ops()["conv3x3_depth_to_space"])
         k15 += want
         previews = sorted(os.listdir(f"{wd}/previews"))
         if previews != [f"epoch_{e:05d}.png" for e in (1, 2, 3)]:
@@ -3795,6 +3881,9 @@ def bicubic_presets_path(gen: torch.Generator, card: str) -> int:
         with preset_trainer(name, f"{DEFAULTS_DIR}/{name}") as tr:
             want = per_fwd * (PRESET_STEPS[name] + len(tr.val_loader))
             res = fit_counted(tr, {"conv3x3_depth_to_space": want}, name)
+            if want:
+                res["kernel15_bodies"] = expect_tc_body(
+                    name, counted_ops()["conv3x3_depth_to_space"])
             k15 += want
             batch = next(iter(prefetch_to_device(tr.train_loader)))
             times[name] = step_ms(tr._train_step, tr.state, batch)
@@ -3985,7 +4074,7 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
                            + sum(m.numel() for m in wm) * 2 + bias.numel() * 4)
         entry = {
             "name": "fused_dense_block_valid", "route": "cuda",
-            "source": EXTRA_SRC, "sources": [EXTRA_SRC],
+            "source": EXTRA_SRC, "sources": [EXTRA_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense.py:135",
             "shape": [b, h, w, c], "max_abs_err": err["max_abs_err"],
             "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
@@ -4070,15 +4159,18 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
 
 def check_pack_conv_kernel(gen: torch.Generator) -> dict:
     """Phase 37: kernel 18 (pack_conv3x3) at the five convs of the dense
-    block at B1's timed tile [24,376,256,c], p 2 (W2 144): bf16 within
-    0.02 and f32 within 1e-4 of the plain form in f32 on the same values,
-    every output pad pack exactly 0; a chained lrelu pair (64 -> 192 ->
-    64) in bf16; the backward (dx, dw, db, f32) against autograd of the
-    plain form within 1e-4. Two faults planted in the kernel (pad packs
-    not zeroed, the left tap across a pack edge dropped) must miss by 3x
-    the bar at 64 -> 192. Timed beside the plain form and F.conv2d on
-    the unpacked operands (cuDNN). Returns the kernels-line entry (64 ->
-    192)."""
+    block at B1's timed tile [24,376,256,c], p 2 (W2 144), in both bodies
+    of the conv engine: bf16 (the tensor-core body, and the direct body
+    through its launch helper) within 0.02 and f32 (the direct body)
+    within 1e-4 of the plain form in f32 on the same values, every
+    output pad pack exactly 0; the per-body counts show the route rule's
+    pick; a chained lrelu pair (64 -> 192 -> 64) in bf16; the backward
+    (dx, dw, db, f32) against autograd of the plain form within 1e-4.
+    Two faults planted in the kernel (pad packs not zeroed, the left tap
+    across a pack edge dropped) must miss by 3x the bar at 64 -> 192 in
+    each body (bf16 tensor cores, f32 direct). Timed beside the direct
+    body in bf16, the plain form and F.conv2d on the unpacked operands
+    (cuDNN). Returns the kernels-line entry (64 -> 192)."""
     from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import pairconv as pc
 
@@ -4108,25 +4200,53 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
             def kern(xp=xpb):
                 return pc.pack_conv3x3(xp, wt, bias, p, w)
 
+            def counted(fn, body):
+                zero_counts()
+                y = fn()
+                if (pc.pack_conv3x3.launches != 1
+                        or getattr(pc.pack_conv3x3, f"{body}_launches") != 1):
+                    raise AssertionError(f"pack_conv3x3/{tag}: not one "
+                                         f"counted {body} launch")
+                return y
+
+            if not pc.uses_tensor_cores(xpb, wt):
+                raise AssertionError(f"pack_conv3x3/{tag}: bf16 not routed "
+                                     "to the tensor cores")
             got = (entry_path("pack_conv3x3", kern, 1) if c == 64
-                   else kern())
+                   else counted(kern, "tc"))
+            if c == 64:
+                expect_tc_body("pack_conv3x3", pc.pack_conv3x3)
             ref = pc.pack_conv3x3_reference(xpb.float(), wt.to(bf).float(),
                                             bias, p, w)
-            err = compare(f"pack_conv3x3/{tag}/bf16", got, ref, TOL_KERNEL)
-            pads_zero(f"pack_conv3x3/{tag}/bf16", got, n)
-            if c == 64:
-                for bit, fault in ((_build.PLANT_PAD_KEPT, "pads_not_zeroed"),
-                                   (_build.PLANT_DROP_CROSS,
-                                    "cross_pack_tap_dropped")):
-                    expect_margin(f"pack_conv3x3:{fault}",
-                                  planted("pack_conv", bit, kern), ref,
-                                  TOL_KERNEL)
+            err = compare(f"pack_conv3x3/{tag}/bf16/tc", got, ref, TOL_KERNEL)
+            pads_zero(f"pack_conv3x3/{tag}/bf16/tc", got, n)
+            faults = ((_build.PLANT_PAD_KEPT, "pads_not_zeroed"),
+                      (_build.PLANT_DROP_CROSS, "cross_pack_tap_dropped"))
+            for bit, fault in faults if c == 64 else ():
+                expect_margin(f"pack_conv3x3:tc:{fault}",
+                              planted("pack_conv", bit, kern), ref,
+                              TOL_KERNEL)
+            # the direct body in bf16, through its launch helper
+            wk = pc.kmajor_weights(wt, bf)
+            out = torch.empty_like(got)
+
+            def direct():
+                _build.pack_conv(xpb, wk, bias, out, p, w, False, False)
+
+            direct()
+            d_err = compare(f"pack_conv3x3/{tag}/bf16/direct", out, ref,
+                            TOL_KERNEL)
+            pads_zero(f"pack_conv3x3/{tag}/bf16/direct", out, n)
             del got, ref
-            got = kern(xp32)
-            compare(f"pack_conv3x3/{tag}/f32", got, pc.pack_conv3x3_reference(
-                xp32, wt, bias, p, w), TOL_F32)
-            pads_zero(f"pack_conv3x3/{tag}/f32", got, n)
-            del got, xp32
+            got = counted(lambda: kern(xp32), "direct")
+            ref = pc.pack_conv3x3_reference(xp32, wt, bias, p, w)
+            compare(f"pack_conv3x3/{tag}/f32/direct", got, ref, TOL_F32)
+            pads_zero(f"pack_conv3x3/{tag}/f32/direct", got, n)
+            for bit, fault in faults if c == 64 else ():
+                expect_margin(f"pack_conv3x3:direct:{fault}",
+                              planted("pack_conv", bit,
+                                      lambda: kern(xp32)), ref, TOL_F32)
+            del got, ref, xp32
             torch.cuda.empty_cache()
             xn = x32.to(bf).permute(0, 3, 1, 2)
             w_oihw = wt.to(bf).permute(3, 2, 0, 1).contiguous()
@@ -4139,7 +4259,9 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
                 "shape": list(xpb.shape), "c_in": c, "c_out": n, "p": p,
                 "max_abs_err": err["max_abs_err"],
                 "max_rel_err": err["max_rel_err"],
+                "direct_max_rel_err": d_err["max_rel_err"],
                 "ms": time_ms(kern, 5),
+                "direct_ms": time_ms(direct, 2),
                 "plain_ms": time_ms(lambda: pc.pack_conv3x3_reference(
                     xpb, wt, bias, p, w), 5),
                 "library_ms": time_ms(lambda: F.conv2d(
@@ -4147,7 +4269,7 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel_time", "name": "pack_conv3x3",
               "geometry": tag, **geometries[tag]})
-        del x32, xpb, xn
+        del x32, xpb, xn, out
         torch.cuda.empty_cache()
 
     # a chained lrelu pair: the pad packs the first writes are the zeros
@@ -4155,8 +4277,10 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
     (w1, b1), (w2, b2) = weights(64, 192), weights(192, 64)
     with torch.inference_mode():
         xpb = pc.pack_input(rand(gen, b, h, w, 64, dtype=bf), p)
+        zero_counts()
         y = pc.pack_conv3x3(pc.pack_conv3x3(xpb, w1, b1, p, w, "lrelu"), w2,
                             b2, p, w)
+        expect_tc_body("pack_conv3x3/chain_lrelu", pc.pack_conv3x3)
         y1 = pc.pack_conv3x3_reference(xpb.float(), w1.to(bf).float(), b1, p,
                                        w, "lrelu")
         compare("pack_conv3x3/chain_lrelu/bf16", y, pc.pack_conv3x3_reference(
@@ -4180,11 +4304,12 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
     torch.cuda.empty_cache()
     main = geometries["c64_n192"]
     return {"name": "pack_conv3x3", "route": "cuda", "source": EXTRA_SRC,
-            "sources": [EXTRA_SRC],
+            "sources": [EXTRA_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_pairconv.py:194",
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+                                    "library_ms", "direct_ms")},
+            "ptxas": PTXAS.get("PackConv"),
             "tol": TOL_KERNEL, "launches": 1,
             "path": "its entry point; no path of the system calls it",
             "geometries": geometries}
@@ -4290,7 +4415,9 @@ def main() -> int:
     print("\n".join(line for line in ptxas.splitlines()
                     if "registers" in line or "spill" in line),
           file=sys.stderr)
-    emit({"phase": "build", "seconds": build_s})
+    PTXAS.update(ptxas_usage(ptxas))
+    emit({"phase": "build", "seconds": build_s,
+          "conv_engine_ptxas": PTXAS or "not reported (cached build)"})
 
     gen = torch.Generator().manual_seed(SEED)
     model = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,
@@ -4461,6 +4588,7 @@ def main() -> int:
     _, _, espcn_launches = sr_upscale_path("espcn", gen, card, 1, 1)
     kernels["conv3x3_depth_to_space"].update(
         launches=edsr_launches + espcn_launches,
+        tc_launches=edsr_launches + espcn_launches,
         launches_by_frame={"edsr": edsr_launches, "espcn": espcn_launches})
     torch.cuda.empty_cache()
     eval_folder_path(edsr_mc, edsr, gen)

@@ -8,7 +8,10 @@ end, in the input's dtype; res_scale is cast to it too, as the reference
 does. Parameter names follow BasicSR's EDSR (conv_first, body.{i}.conv1
 /conv2, conv_after_body, upsample.{0,2,...}, conv_last), so the JAX
 trees bridged by models/convert.py load with strict=True. The public
-method takes and returns NHWC; the convs run NCHW inside.
+method takes and returns NHWC; the convs run NCHW-shaped on a
+channels-last activation (a view of a contiguous NHWC input, copied
+once otherwise), which is the layout kernel 15's tensor-core body
+takes.
 """
 
 from __future__ import annotations
@@ -86,7 +89,8 @@ class EDSR(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, in] -> [B, H*scale, W*scale, out]."""
-        x = x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         rgb = self.in_channels == 3
         if rgb:
             mean = self.mean.to(x.dtype)

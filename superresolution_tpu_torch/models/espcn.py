@@ -3,7 +3,9 @@ one with the depth_to_space after it is one launch of kernel 15.
 
 Counterpart of superresolution_tpu/models/espcn.py. Parameters: conv1
 (5x5, tanh), conv2 (3x3, tanh), conv3 (3x3 to out_channels * scale^2).
-The public method takes and returns NHWC; the convs run NCHW inside.
+The public method takes and returns NHWC; the convs run NCHW-shaped on
+a channels-last activation (as EDSR's do), the layout kernel 15's
+tensor-core body takes.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ class ESPCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, in] -> [B, H*scale, W*scale, out]."""
-        x = torch.tanh(self.conv1(x.permute(0, 3, 1, 2)))
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x = torch.tanh(self.conv1(x))
         x = torch.tanh(self.conv2(x))
         x = conv3x3_depth_to_space(x, self.conv3.weight, self.conv3.bias,
                                    self.scale)

@@ -145,7 +145,8 @@ def library() -> ctypes.CDLL:
                                 _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.attn_window.restype = _I
     lib.subpixel_conv3x3_d2s.argtypes = [_P, _L, _L, _L, _L, _I, _I, _I,
-                                         _I, _P, _P, _I, _I, _P, _I, _I, _P]
+                                         _I, _P, _I, _P, _I, _I, _P, _I, _I,
+                                         _I, _P]
     lib.subpixel_conv3x3_d2s.restype = _I
     lib.extra_dense_valid_stage.argtypes = [_P, _P, _P, _P, _P, *[_I] * 8,
                                             _P]
@@ -153,7 +154,7 @@ def library() -> ctypes.CDLL:
     lib.extra_blur.argtypes = [_P, _P, *[_I] * 5, ctypes.c_double, _I, _I,
                                _P]
     lib.extra_blur.restype = _I
-    lib.extra_pack_conv.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+    lib.extra_pack_conv.argtypes = [_P, _P, _P, _P, *[_I] * 11, _P]
     lib.extra_pack_conv.restype = _I
     lib.extra_copy.argtypes = [_P, _P, _L, _L, _I, _P]
     lib.extra_copy.restype = _I
@@ -412,18 +413,20 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 PLANT_SWAP_IJ, PLANT_CLAMP_BORDER, PLANT_NO_BIAS = 1, 2, 3
 
 
-def conv3x3_d2s(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
-                r: int, out: torch.Tensor, plant: int = 0) -> None:
-    """One launch of kernel 15, subpixel_kernel (subpixel_kernels.cu): x
-    [B, C_in, H, W] with any strides; w [C_out*r*r, C_in, 3, 3] and bias
-    [C_out*r*r] (or None) contiguous in x's type (bf16 or f32); out
-    contiguous [B, H*r, W*r, C_out] in x's type."""
+def conv3x3_d2s(x: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor | None,
+                r: int, out: torch.Tensor, tc: bool, plant: int = 0) -> None:
+    """One launch of kernel 15, the conv engine's Subpixel policy
+    (subpixel_kernels.cu): x [B, C_in, H, W] with any strides (tc: bf16,
+    channels-last); wk the K-major [9*C_in, ldw] in x's type and bias
+    [ldw] f32 (or None), both contiguous (ops/subpixel.kmajor_weights);
+    out contiguous [B, H*r, W*r, C_out] in x's type. tc: the tensor-core
+    body, else the direct body."""
     lib = library()
     b, cin, h, w_ = x.shape
     rc = lib.subpixel_conv3x3_d2s(
-        _ptr(x), *x.stride(), b, h, w_, cin, _ptr(w), _ptr(bias),
-        out.shape[-1], r, _ptr(out), int(x.dtype == torch.float32), plant,
-        _stream(x))
+        _ptr(x), *x.stride(), b, h, w_, cin, _ptr(wk), wk.shape[1],
+        _ptr(bias), out.shape[-1], r, _ptr(out),
+        int(x.dtype == torch.float32), int(tc), plant, _stream(x))
     _check(lib, rc, "subpixel_conv3x3_d2s")
 
 
@@ -491,8 +494,8 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
 # use; see extra_kernels.cu): 16's intermediates zeroed outside the image
 # (SAME semantics) or its 0.2 residual scale dropped; 17 normalized by
 # the binomial row's sum or missing its top-left tap; 18's pad packs not
-# zeroed or the left tap across a pack edge dropped; 19's last band not
-# copied.
+# zeroed or the left tap across a pack edge dropped (both in either
+# body); 19's last band not copied.
 PLANT_SAME, PLANT_NO_SCALE = 1, 2
 PLANT_NORM, PLANT_CORNER = 1, 2
 PLANT_PAD_KEPT, PLANT_DROP_CROSS = 1, 2
@@ -526,19 +529,21 @@ def blur(x: torch.Tensor, size: int, norm: float, out: torch.Tensor,
     _check(lib, rc, "extra_blur")
 
 
-def pack_conv(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              out: torch.Tensor, p: int, width: int, lrelu: bool,
+def pack_conv(xp: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
+              out: torch.Tensor, p: int, width: int, lrelu: bool, tc: bool,
               plant: int = 0) -> None:
-    """One launch of kernel 18, conv_kernel<PackConv>: xp [B,H,W2,p*c],
-    w [3,3,c,n] in xp's type (bf16 or f32), bias [n] f32, out
+    """One launch of kernel 18, the conv engine's PackConv policy
+    (extra_kernels.cu): xp [B,H,W2,p*c], wk the K-major [9c, n] in xp's
+    type (bf16 or f32; ops/pairconv.kmajor_weights), bias [n] f32, out
     [B,H,W2,p*n]; the real pixels are columns [p, p + width) of the
-    unpacked [B,H,W2*p,*] view."""
+    unpacked [B,H,W2*p,*] view. tc: the tensor-core body, else the
+    direct body."""
     lib = library()
     b, h, w2, pc = xp.shape
-    c, n = w.shape[2], w.shape[3]
+    c, n = wk.shape[0] // 9, wk.shape[1]
     rc = lib.extra_pack_conv(
-        _ptr(xp), _ptr(w), _ptr(bias), _ptr(out), b, h, w2 * p, c, n, p,
-        width, int(lrelu), int(xp.dtype == torch.float32), plant,
+        _ptr(xp), _ptr(wk), _ptr(bias), _ptr(out), b, h, w2 * p, c, n, p,
+        width, int(lrelu), int(xp.dtype == torch.float32), int(tc), plant,
         _stream(xp))
     _check(lib, rc, "extra_pack_conv")
 

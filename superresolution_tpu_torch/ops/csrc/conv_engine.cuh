@@ -1,0 +1,530 @@
+// The port's shared 3x3 SAME conv engine (sm_90a): two bodies that take
+// one policy struct, so kernels 15, 16 and 18 share their arithmetic and
+// differ only in how they load their input, read their weights and put
+// their output.
+//
+//   direct::conv_kernel<P, CO_T, DROP>  f32 FFMA on the CUDA cores, for
+//       f32 tensors and the shapes the tensor-core body does not take
+//       (kernel 16 always).
+//   tc::conv_tc_kernel<P, BN>  a bf16 implicit GEMM on the tensor cores
+//       (mma.sync m16n8k16, bf16 in, f32 accumulation), for bf16 tensors
+//       whose input pixels are 16-byte runs of C_in % 8 == 0 channels.
+//
+// Policy interface (all __device__ const members):
+//   both bodies:  B; cin(); cout(); rows(), cols_out() (the output
+//                 region); dropped(x, kx) (a planted fault: the tap kx of
+//                 output column x reads zero).
+//   direct body:  y0(), x0() (the region's origin in the input frame);
+//                 load(b, y, x, ci) -> f32 (zero outside the frame);
+//                 weight(tap, ci, o) -> f32; put(b, y, x, o, acc).
+//   tc body:      wk, ldw (the K-major bf16 weights [9 * cin][ldw], row
+//                 tap * cin + ci, ldw % 8 == 0, columns >= cout() zero);
+//                 tc_pixel(b, y, x) -> the pixel's channel run or null
+//                 (zero); drops() (the dropped() fault is planted);
+//                 skips(tx0) (every column of the tile at tx0 is stored as
+//                 0 whatever the sums: no products are formed);
+//                 bias_at(o) (0 past cout()) and finish(x, v), the value
+//                 stored for sum v at output column x (activation,
+//                 masking); tc_put<BN>(tile, stride, b, ty0, tx0, n0, tid)
+//                 stores the block's staged bf16 tile.
+//
+// The tensor-core body. GEMM rows (M) are the block's TH x TW output
+// pixels, columns (N) BN output channels, depth (K) 9 taps x C_in. The
+// block stages its input tile with a 1-pixel halo, all C_in channels,
+// channels-last in shared memory once (cp.async, 16 bytes a copy), and
+// streams the weights in slabs of one tap x KC channels through a ring
+// of STAGES buffers, so the next slabs load while the tensor cores work.
+// For tap (ky, kx) the A operand is the halo tile's window shifted by
+// (ky, kx): ldmatrix takes one address per row, so the shift is only an
+// address, and a masked row (the planted cross-pack fault) points at a
+// zero row. Row strides are padded by 8 elements, which puts the 8 rows
+// of an ldmatrix on distinct banks; B is read with ldmatrix.trans, and
+// each k-step's fragments load while the previous k-step's products
+// issue. Four warps, each 64 x BN/2, make a 128 x BN block of at most
+// 128 columns; wider N is split evenly over ceil(N / 128) column blocks,
+// adjacent in the grid, so a tile's second block finds its input in L2.
+// Two or three blocks share an SM (Shape), so one block's staging and
+// stores overlap another's products. The f32 sums plus the policy's
+// bias_at go through its finish into a bf16 tile in shared memory (one
+// rounding), which tc_put writes out, where its layout allows as bulk
+// copies (the TMA unit) that keep the stores off the load/store path
+// feeding the products, else in 16-byte or scalar stores.
+//
+// wgmma is not used: its shared-memory A operand needs the canonical
+// core-matrix layout, which a shifted window breaks. What bounds each
+// shape, and the times, are in the policies' sources.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace conv_engine {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ float lrelu(float v) {
+  return v >= 0.f ? v : 0.2f * v;
+}
+
+// ---- the direct body -------------------------------------------------
+//
+// One block: a TH x TW tile of the output region times CO_T output
+// channels. Per chunk of CK input channels, the input tile with a
+// 1-pixel halo (P::load gives zero where the op's frame has none) and
+// the chunk's weights are staged in shared memory as f32; each thread
+// accumulates PPT adjacent pixels times CO_T / NCG channels in
+// registers and hands each sum to P::put.
+
+namespace direct {
+
+constexpr int TH = 8;     // output rows per block
+constexpr int TW = 32;    // output columns per block
+constexpr int CK = 8;     // input channels staged per chunk
+constexpr int PPT = 4;    // adjacent output pixels per thread (along W)
+constexpr int NCG = 4;    // channel groups per block
+constexpr int NTHREADS = (TH * TW / PPT) * NCG;  // 256
+
+// Tile index: blockIdx.x columns, blockIdx.y rows, blockIdx.z = b *
+// n_co + output-channel group. DROP: consult P::dropped per tap (planted
+// faults only; the launches in use take DROP = false).
+template <class P, int CO_T, bool DROP>
+__global__ void __launch_bounds__(NTHREADS, 2) conv_kernel(const P a) {
+  constexpr int CPT = CO_T / NCG;
+  constexpr int IH = TH + 2, IW = TW + 2;
+  static_assert(CPT % 4 == 0, "CPT must be a multiple of 4");
+  __shared__ float in_s[CK * IH * IW];
+  __shared__ __align__(16) float w_s[9 * CK * CO_T];
+
+  const int cin = a.cin(), cout = a.cout();
+  const int n_co = (cout + CO_T - 1) / CO_T;
+  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
+  const int b = blockIdx.z / n_co;
+  const int co0 = (blockIdx.z % n_co) * CO_T;
+  const int fy = a.y0() + ty0, fx = a.x0() + tx0;  // the tile's frame origin
+
+  const int tid = threadIdx.x;
+  const int cg = tid % NCG;
+  const int pid = tid / NCG;
+  const int ty = pid / (TW / PPT);
+  const int tx = (pid % (TW / PPT)) * PPT;
+
+  float acc[PPT][CPT];
+#pragma unroll
+  for (int q = 0; q < PPT; ++q)
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) acc[q][k] = 0.f;
+
+  for (int c0 = 0; c0 < cin; c0 += CK) {
+    for (int e = tid; e < CK * IH * IW; e += NTHREADS) {
+      const int ci = e % CK;
+      const int pix = e / CK;
+      const int px = pix % IW;
+      const int py = pix / IW;
+      const int c = c0 + ci;
+      in_s[(ci * IH + py) * IW + px] =
+          c < cin ? a.load(b, fy + py - 1, fx + px - 1, c) : 0.f;
+    }
+    for (int e = tid; e < 9 * CK * CO_T; e += NTHREADS) {
+      const int co = e % CO_T;
+      const int ci = (e / CO_T) % CK;
+      const int tap = e / (CO_T * CK);
+      const int c = c0 + ci;
+      const int o = co0 + co;
+      w_s[(tap * CK + ci) * CO_T + co] =
+          (c < cin && o < cout) ? a.weight(tap, c, o) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int ci = 0; ci < CK; ++ci) {
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        float xv[PPT + 2];
+#pragma unroll
+        for (int q = 0; q < PPT + 2; ++q)
+          xv[q] = in_s[(ci * IH + ty + ky) * IW + tx + q];
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* wr = &w_s[((ky * 3 + kx) * CK + ci) * CO_T + cg * CPT];
+#pragma unroll
+          for (int k = 0; k < CPT; k += 4) {
+            const float4 wv = *reinterpret_cast<const float4*>(wr + k);
+#pragma unroll
+            for (int q = 0; q < PPT; ++q) {
+              const float xi =
+                  (DROP && a.dropped(fx + tx + q, kx)) ? 0.f : xv[q + kx];
+              acc[q][k + 0] = fmaf(xi, wv.x, acc[q][k + 0]);
+              acc[q][k + 1] = fmaf(xi, wv.y, acc[q][k + 1]);
+              acc[q][k + 2] = fmaf(xi, wv.z, acc[q][k + 2]);
+              acc[q][k + 3] = fmaf(xi, wv.w, acc[q][k + 3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (ty0 + ty >= a.rows()) return;
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int o = co0 + cg * CPT + k;
+    if (o >= cout) break;
+#pragma unroll
+    for (int q = 0; q < PPT; ++q) {
+      if (tx0 + tx + q >= a.cols_out()) break;
+      a.put(b, fy + ty, fx + tx + q, o, acc[q][k]);
+    }
+  }
+}
+
+template <class P, bool DROP>
+int launch(const P& a, cudaStream_t s) {
+  const int co_t = a.cout() <= 32 ? 32 : 64;
+  const long long nz = (long long)a.B * ((a.cout() + co_t - 1) / co_t);
+  const int ny = (a.rows() + TH - 1) / TH;
+  if (nz > 65535 || ny > 65535 || a.rows() < 1 || a.cols_out() < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.cols_out() + TW - 1) / TW, ny, (unsigned)nz);
+  if (co_t == 32)
+    conv_kernel<P, 32, DROP><<<grid, NTHREADS, 0, s>>>(a);
+  else
+    conv_kernel<P, 64, DROP><<<grid, NTHREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace direct
+
+// ---- PTX primitives ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 sums; not
+// volatile, so the compiler may schedule it against the loads it waits on
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bulk copy (the TMA unit) of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from shared to global memory, in this thread's bulk
+// group; the async proxy reads shared memory, so generic stores to it
+// must be fenced first.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk copies have read their shared source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- end PTX primitives -----------------------------------------------
+
+// ---- the tensor-core body ---------------------------------------------
+
+namespace tc {
+
+constexpr int TH = 8;             // output rows per block
+constexpr int TW = 16;            // output columns per block: one M fragment
+constexpr int WARPS_M = 2;        // warps over the rows, 2 over the columns
+constexpr int IH = TH + 2, IW = TW + 2;
+constexpr int KC = 64;            // K rows a weight slab: one tap, 64 channels
+constexpr int KSTEPS = KC / 16;   // mma k-steps per slab
+constexpr int STAGES = 3;         // weight slabs in flight
+constexpr int NTHREADS = 64 * WARPS_M;
+constexpr int MAX_CIN = 256;      // the staged input tile's channels
+constexpr int ZERO_BYTES = 128;   // a zero row for masked A rows, then the tile
+
+// The warp grid of a BN-column block: 2 x 2 warps, each MF tile rows
+// (16-row M fragments) times NF 8-column fragments. Up to 96 columns
+// three blocks share an SM (at most 168 registers a thread), and their
+// warps hide the B loads' latency; wider blocks fit two, and load each
+// k-step's B fragments one k-step ahead as they do A's.
+template <int BN>
+struct Shape {
+  static constexpr int WARPS_N = 2;
+  static constexpr int MF = TH / WARPS_M;
+  static constexpr int NF = BN / (8 * WARPS_N);
+  static constexpr int MIN_BLOCKS = BN <= 96 ? 3 : 2;
+  static constexpr bool B_AHEAD = MIN_BLOCKS == 2;
+  static_assert(NF >= 1 && NF <= 8 && NF * 8 * WARPS_N == BN, "BN");
+};
+
+template <int BN>
+constexpr size_t smem_bytes(int cin) {
+  const size_t cp = (size_t)((cin + 15) & ~15);
+  const size_t in_b = (size_t)IH * IW * (cp + 8) * 2;
+  const size_t w_b = (size_t)STAGES * KC * (BN + 8) * 2;
+  const size_t out_b = (size_t)TH * TW * (BN + 8) * 2;
+  return ZERO_BYTES + (in_b + w_b > out_b ? in_b + w_b : out_b);
+}
+
+// Grid: blockIdx.x = ((b * tiles_y + tile row) * tiles_x + tile column)
+// * column blocks + the BN-column block.
+template <class P, int BN>
+__global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
+    conv_tc_kernel(const P a) {
+  using S = Shape<BN>;
+  constexpr int BSTR = BN + 8;      // weight and output tile row stride
+  constexpr int VPR = BN / 8;       // 16-byte vectors per weight row
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int cin = a.cin();
+  const int cp = (cin + 15) & ~15;  // channels staged, zero past cin
+  const int pstr = cp + 8;          // input tile pixel stride
+  bf16* zero = reinterpret_cast<bf16*>(smem);
+  bf16* in_s = reinterpret_cast<bf16*>(smem + ZERO_BYTES);
+  bf16* w_s = in_s + IH * IW * pstr;
+  bf16* out_s = in_s;               // after the last slab
+
+  const int tiles_x = (a.cols_out() + TW - 1) / TW;
+  const int tiles_y = (a.rows() + TH - 1) / TH;
+  const int nblk = (a.cout() + BN - 1) / BN;
+  int t = blockIdx.x / nblk;
+  const int n0 = (blockIdx.x - t * nblk) * BN;
+  const int tx0 = (t % tiles_x) * TW;
+  t /= tiles_x;
+  const int ty0 = (t % tiles_y) * TH;
+  const int b = t / tiles_y;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  static_assert(S::MF * WARPS_M == TH, "one M fragment a tile row");
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+
+  const int nchunk = (cin + KC - 1) / KC;  // KC-channel chunks per tap
+  const int nslab = a.skips(tx0) ? 0 : 9 * nchunk;
+  if (tid < ZERO_BYTES / 16) reinterpret_cast<uint4*>(smem)[tid] = zero4;
+  const int cv = cp / 8;
+  for (int e = tid; nslab > 0 && e < IH * IW * cv; e += NTHREADS) {
+    const int pix = e / cv, v = e - pix * cv;
+    const int py = pix / IW, px = pix - py * IW;
+    const bf16* src =
+        v * 8 < cin ? a.tc_pixel(b, ty0 + py - 1, tx0 + px - 1) : nullptr;
+    bf16* dst = in_s + pix * pstr + v * 8;
+    if (src != nullptr)
+      cp_async16(smem_u32(dst), src + v * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero4;
+  }
+
+  auto load_slab = [&](int s) {
+    const int tap = s / nchunk, c0 = (s - tap * nchunk) * KC;
+    bf16* buf = w_s + (s % STAGES) * KC * BSTR;
+    for (int e = tid; e < KC * VPR; e += NTHREADS) {
+      const int k = e / VPR, v = e - k * VPR;
+      const int c = c0 + k, n = n0 + v * 8;
+      bf16* dst = buf + k * BSTR + v * 8;
+      if (c < cin && n < a.ldw)
+        cp_async16(smem_u32(dst), a.wk + (size_t)(tap * cin + c) * a.ldw + n);
+      else
+        *reinterpret_cast<uint4*>(dst) = zero4;
+    }
+  };
+  if (nslab > 0) load_slab(0);
+  cp_async_commit();  // group 0: the input tile and slab 0
+  for (int s = 1; s < STAGES - 1; ++s) {
+    if (s < nslab) load_slab(s);
+    cp_async_commit();
+  }
+
+  float acc[S::MF][S::NF][4];
+#pragma unroll
+  for (int f = 0; f < S::MF; ++f)
+#pragma unroll
+    for (int j = 0; j < S::NF; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
+
+  // ldmatrix addresses: A row = tile column lane & 15 of the warp's first
+  // tile row, channel offset (lane >> 4) * 8; B row = k lane & 15, column
+  // the warp's first plus (lane >> 4) * 8
+  const int a_col = lane & 15;
+  const bool a_drop = a.drops() && a.dropped(tx0 + a_col, 0);
+  const uint32_t zero_u = smem_u32(zero);
+  const uint32_t a_base = smem_u32(
+      in_s + (wm * S::MF * IW + a_col) * pstr + (lane >> 4) * 8);
+  const uint32_t b_base = smem_u32(
+      w_s + (lane & 15) * BSTR + wn * S::NF * 8 + (lane >> 4) * 8);
+  const uint32_t a_frag = IW * pstr * 2;  // bytes between tile rows
+
+  // fragments of k-step kk of the current slab: A for the warp's MF tile
+  // rows, B for its NF 8-column groups
+  uint32_t af[2][S::MF][4], bf[S::B_AHEAD ? 2 : 1][S::NF][2];
+  auto load_a = [&](uint32_t a_k, bool masked, uint32_t (&a4)[S::MF][4]) {
+#pragma unroll
+    for (int f = 0; f < S::MF; ++f)
+      ldmatrix_x4(a4[f], masked ? zero_u : a_k + f * a_frag);
+  };
+  auto load_b = [&](uint32_t b_k, uint32_t (&b2)[S::NF][2]) {
+#pragma unroll
+    for (int j = 0; j + 1 < S::NF; j += 2) {
+      uint32_t q[4];
+      ldmatrix_x4_trans(q, b_k + j * 16);
+      b2[j][0] = q[0], b2[j][1] = q[1];
+      b2[j + 1][0] = q[2], b2[j + 1][1] = q[3];
+    }
+    if constexpr (S::NF % 2 == 1)
+      ldmatrix_x2_trans(b2[S::NF - 1], b_k + (S::NF - 1) * 16);
+  };
+
+  for (int s = 0; s < nslab; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (s + STAGES - 1 < nslab) load_slab(s + STAGES - 1);
+    cp_async_commit();
+    const int tap = s / nchunk, c0 = (s - tap * nchunk) * KC;
+    const int ky = tap / 3, kx = tap - ky * 3;
+    const int nk = min(KSTEPS, (cp - c0) / 16);  // k-steps with channels
+    const bool masked = a_drop && kx == 0;
+    const uint32_t a_tap = a_base + ((ky * IW + kx) * pstr + c0) * 2;
+    const uint32_t b_slab = b_base + (s % STAGES) * KC * BSTR * 2;
+    constexpr uint32_t B_K = 16 * BSTR * 2;  // bytes between k-steps
+    // the next k-step's fragments load while this one's products issue
+    load_a(a_tap, masked, af[0]);
+    if constexpr (S::B_AHEAD) load_b(b_slab, bf[0]);
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      if (kk >= nk) break;
+      if (kk + 1 < nk) {
+        load_a(a_tap + (kk + 1) * 32, masked, af[(kk + 1) & 1]);
+        if constexpr (S::B_AHEAD)
+          load_b(b_slab + (kk + 1) * B_K, bf[(kk + 1) & 1]);
+      }
+      if constexpr (!S::B_AHEAD) load_b(b_slab + kk * B_K, bf[0]);
+      const int bi = S::B_AHEAD ? (kk & 1) : 0;
+#pragma unroll
+      for (int f = 0; f < S::MF; ++f)
+#pragma unroll
+        for (int j = 0; j < S::NF; ++j)
+          mma_bf16(acc[f][j], af[kk & 1][f], bf[bi][j][0], bf[bi][j][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // accumulator (f, j, q): tile row wm * MF + f, column (lane >> 2) + 8 *
+  // (q >> 1); GEMM column wn * NF * 8 + j * 8 + 2 * (lane & 3) + (q & 1)
+#pragma unroll
+  for (int j = 0; j < S::NF; ++j) {
+    const int n = wn * S::NF * 8 + j * 8 + 2 * (lane & 3);
+    const float b0 = a.bias_at(n0 + n), b1 = a.bias_at(n0 + n + 1);
+#pragma unroll
+    for (int f = 0; f < S::MF; ++f) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tx = (lane >> 2) + 8 * h;
+        bf16* row = out_s + ((wm * S::MF + f) * TW + tx) * BSTR;
+        *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(
+            a.finish(tx0 + tx, acc[f][j][2 * h] + b0),
+            a.finish(tx0 + tx, acc[f][j][2 * h + 1] + b1));
+      }
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  a.template tc_put<BN>(out_s, BSTR, b, ty0, tx0, n0, tid);
+  bulk_wait_read();
+}
+
+template <class P, int BN>
+int launch_bn(const P& a, cudaStream_t s) {
+  const size_t bytes = smem_bytes<BN>(a.cin());
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_tc_kernel<P, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)a.B * ((a.rows() + TH - 1) / TH) *
+                           ((a.cols_out() + TW - 1) / TW) *
+                           ((a.cout() + BN - 1) / BN);
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  conv_tc_kernel<P, BN><<<(unsigned)blocks, NTHREADS, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The body's own checks (the wrappers route only what passes them):
+// bf16 weights with 8 <= cin <= MAX_CIN, cin % 8 == 0, ldw % 8 == 0.
+template <class P>
+int launch(const P& a, cudaStream_t s) {
+  const int n = a.cout();
+  if (a.cin() < 8 || a.cin() % 8 || a.cin() > MAX_CIN || a.ldw % 8 ||
+      a.ldw < n || n < 1 || a.rows() < 1 || a.cols_out() < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (n + 127) / 128;
+  switch (((n + nblk - 1) / nblk + 15) / 16) {  // 16-column groups a block
+    case 1: return launch_bn<P, 16>(a, s);
+    case 2: return launch_bn<P, 32>(a, s);
+    case 3: return launch_bn<P, 48>(a, s);
+    case 4: return launch_bn<P, 64>(a, s);
+    case 5: return launch_bn<P, 80>(a, s);
+    case 6: return launch_bn<P, 96>(a, s);
+    case 7: return launch_bn<P, 112>(a, s);
+    default: return launch_bn<P, 128>(a, s);
+  }
+}
+
+}  // namespace tc
+
+}  // namespace conv_engine

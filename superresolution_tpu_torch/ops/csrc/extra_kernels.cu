@@ -5,7 +5,8 @@
 //   16 fused_dense_block_valid  (replaces superresolution_tpu/ops/
 //      pallas_dense.py:fused_dense_block_pallas, _kernel): one
 //      FusedDenseBlock on an input zero-padded by 5 ONCE, its five convs
-//      chained VALID. Five launches of conv_kernel<DenseStage>, stage j
+//      chained VALID. Five launches of the shared engine's direct body
+//      (conv_engine.cuh) with the DenseStage policy, stage j
 //      over the padded frame's region [j, H+10-j) x [j, W+10-j), each 2
 //      rows and 2 columns narrower than the one before. Stages 1-4 write
 //      y_j = lrelu(conv_j([x, y_1..y_{j-1}]) + b_j) into a [B, H+8, W+8,
@@ -25,13 +26,15 @@
 //   18 pack_conv3x3  (replaces ops/pallas_pairconv.py:pack_conv3x3,
 //      _kernel): a SAME 3x3 conv (+ f32 bias, optional lrelu 0.2) on the
 //      W-packed layout [B, H, W2, p*c], which is the unpacked [B, H,
-//      W2*p, c] in memory. One launch of conv_kernel<PackConv>: rows
-//      outside the image read as zero, columns are read as they lie, pad
-//      packs included (as the TPU kernel's taps read them), and every
-//      output column outside the real pixels [p, p + width) is written as
-//      0 so calls chain. The TPU kernel's banded pack GEMMs and rolls
-//      exist for the MXU's 128-deep contraction; here the pack is only an
-//      address.
+//      W2*p, c] in memory. One launch of the shared engine with the
+//      PackConv policy: the tensor-core body for bf16 with c % 8 == 0 and
+//      n % 8 == 0, the direct body otherwise. Rows outside the image read
+//      as zero, columns are read as they lie, pad packs included (as the
+//      TPU kernel's taps read them), and every output column outside the
+//      real pixels [p, p + width) is written as 0 so calls chain. The TPU
+//      kernel's banded pack GEMMs and rolls exist for the MXU's 128-deep
+//      contraction; here the pack is only an address, and the GEMM is M =
+//      the unpacked pixels, N = n, K = 9 c.
 //   19 passthrough  (replaces bench.py:dma_probe.make_pt): a copy, one
 //      block per band of rb rows as the reference's grid has, 16-byte
 //      loads and stores, four in flight a thread.
@@ -39,28 +42,21 @@
 // Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): 16 does B1's
 // 239,616 MACs per image pixel (plus the 5-px ring), bound by operations;
 // 18 at the dense block's widths (9 c n MACs per pixel for 2 (c + n)
-// bytes) by operations; 17 (k^2 FMAs per 2-4 bytes) and 19 by bytes. 16
-// and 18 run f32 FFMA on the CUDA cores (67 TFLOP/s, ~7% of the bf16
-// bound at best), as B1 and kernel 15 do; an implicit GEMM on the tensor
-// cores is later work.
+// bytes) by operations; 17 (k^2 FMAs per 2-4 bytes) and 19 by bytes. 18
+// in bf16 runs on the tensor cores (mma.sync, 989 TFLOP/s peak); 16, and
+// 18 in f32, run f32 FFMA on the CUDA cores (67 TFLOP/s, ~7% of the bf16
+// bound at best), as B1 does; 16 moves onto the tensor-core body later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "conv_engine.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-__device__ __forceinline__ float lrelu(float v) {
-  return v >= 0.f ? v : 0.2f * v;
-}
+using conv_engine::bf16;
+using conv_engine::lrelu;
+using conv_engine::store;
+using conv_engine::to_f;
 
 // Faults the checks in chip_smoke.py plant (0 in every other launch).
 constexpr int PLANT_SAME = 1;        // 16: intermediates zeroed outside
@@ -73,23 +69,6 @@ constexpr int PLANT_PAD_KEPT = 1;    // 18: pad packs not zeroed
 constexpr int PLANT_DROP_CROSS = 2;  // 18: the left tap across a pack
                                      //     edge dropped
 constexpr int PLANT_LAST_BAND = 1;   // 19: the last band not copied
-
-// ---- the direct 3x3 conv of kernels 16 and 18 ------------------------
-//
-// One block: a TH x TW tile of the output region times CO_T output
-// channels. Per chunk of CK input channels, the input tile with a
-// 1-pixel halo (P::load gives zero where the op's frame has none) and
-// the chunk's weights are staged in shared memory as f32; each thread
-// accumulates PPT adjacent pixels times CO_T / NCG channels in
-// registers and hands each sum to P::put. The same blocking as kernel
-// 15 (subpixel_kernels.cu).
-
-constexpr int TH = 8;     // output rows per block
-constexpr int TW = 32;    // output columns per block
-constexpr int CK = 8;     // input channels staged per chunk
-constexpr int PPT = 4;    // adjacent output pixels per thread (along W)
-constexpr int NCG = 4;    // channel groups per block
-constexpr int NTHREADS = (TH * TW / PPT) * NCG;  // 256
 
 // Kernel 16, stage j (1..5), in the frame of x padded by 5.
 template <typename T>
@@ -149,7 +128,8 @@ struct DenseStage {
 template <typename T>
 struct PackConv {
   const T* x;           // [B, H, Wp, c]
-  const T* w;           // [3][3][c][n], HWIO = [9c][n]
+  const T* wk;          // [3][3][c][n], HWIO = K-major [9c][ldw = n]
+  int ldw;
   const float* bias;    // [n]
   T* out;               // [B, H, Wp, n]
   int B, H, Wp, c, n, p, width, act, plant;
@@ -164,130 +144,59 @@ struct PackConv {
     return to_f(x[(((size_t)b * H + y) * Wp + xx) * c + ci]);
   }
   __device__ __forceinline__ float weight(int tap, int ci, int o) const {
-    return to_f(w[((size_t)tap * c + ci) * n + o]);
+    return to_f(wk[((size_t)tap * c + ci) * ldw + o]);
+  }
+  __device__ __forceinline__ float bias_at(int o) const {
+    return o < n ? bias[o] : 0.f;
+  }
+  // the optional lrelu; 0 on every pad-pack column (PLANT_PAD_KEPT: not)
+  __device__ __forceinline__ float finish(int xx, float v) const {
+    if (!((xx >= p && xx < p + width) || (plant & PLANT_PAD_KEPT))) return 0.f;
+    return act ? lrelu(v) : v;
   }
   __device__ __forceinline__ void put(int b, int y, int xx, int o,
                                       float acc) const {
-    float v = 0.f;
-    if ((xx >= p && xx < p + width) || (plant & PLANT_PAD_KEPT)) {
-      v = acc + bias[o];
-      if (act) v = lrelu(v);
-    }
-    store(&out[(((size_t)b * H + y) * Wp + xx) * n + o], v);
+    store(&out[(((size_t)b * H + y) * Wp + xx) * n + o],
+          finish(xx, acc + bias_at(o)));
   }
-  // PLANT_DROP_CROSS: the first pixel of each pack loses its left tap
+  // PLANT_DROP_CROSS: the first pixel of each pack loses its left tap (in
+  // the tensor-core body, a masked A row at kx = 0)
+  __device__ __forceinline__ bool drops() const {
+    return plant & PLANT_DROP_CROSS;
+  }
   __device__ __forceinline__ bool dropped(int xx, int kx) const {
     return kx == 0 && xx % p == 0;
   }
+  // a tile wholly in pad packs (the right pad of a 16-aligned W2) is 0
+  __device__ __forceinline__ bool skips(int tx0) const {
+    return !(plant & PLANT_PAD_KEPT) &&
+           (tx0 >= p + width || tx0 + conv_engine::tc::TW <= p);
+  }
+
+  // tensor-core body (T = bf16)
+  __device__ __forceinline__ const T* tc_pixel(int b, int y, int xx) const {
+    if (y < 0 || y >= H || xx < 0 || xx >= Wp) return nullptr;
+    return x + (((size_t)b * H + y) * Wp + xx) * c;
+  }
+  // One bulk copy per pixel of the tile: its nb = min(BN, n - n0)
+  // columns, contiguous in the output (the tensor-core route takes n % 8
+  // == 0, so every run is a multiple of 16 bytes).
+  template <int BN>
+  __device__ void tc_put(const bf16* tile, int tstr, int b, int ty0, int tx0,
+                         int n0, int tid) const {
+    using conv_engine::tc::TH;
+    using conv_engine::tc::TW;
+    const int nb = min(BN, n - n0);
+    for (int e = tid; e < TH * TW; e += conv_engine::tc::NTHREADS) {
+      const int ty = e / TW, tx = e - ty * TW;
+      const int y = ty0 + ty, xx = tx0 + tx;
+      if (y < H && xx < Wp)
+        conv_engine::bulk_store(
+            out + (((size_t)b * H + y) * Wp + xx) * n + n0,
+            conv_engine::smem_u32(tile + e * tstr), nb * 2);
+    }
+  }
 };
-
-// Tile index: blockIdx.x columns, blockIdx.y rows, blockIdx.z = b *
-// n_co + output-channel group. DROP: consult P::dropped per tap (planted
-// faults only; the launches in use take DROP = false).
-template <class P, int CO_T, bool DROP>
-__global__ void __launch_bounds__(NTHREADS, 2) conv_kernel(const P a) {
-  constexpr int CPT = CO_T / NCG;
-  constexpr int IH = TH + 2, IW = TW + 2;
-  static_assert(CPT % 4 == 0, "CPT must be a multiple of 4");
-  __shared__ float in_s[CK * IH * IW];
-  __shared__ __align__(16) float w_s[9 * CK * CO_T];
-
-  const int cin = a.cin(), cout = a.cout();
-  const int n_co = (cout + CO_T - 1) / CO_T;
-  const int tx0 = blockIdx.x * TW, ty0 = blockIdx.y * TH;
-  const int b = blockIdx.z / n_co;
-  const int co0 = (blockIdx.z % n_co) * CO_T;
-  const int fy = a.y0() + ty0, fx = a.x0() + tx0;  // the tile's frame origin
-
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int pid = tid / NCG;
-  const int ty = pid / (TW / PPT);
-  const int tx = (pid % (TW / PPT)) * PPT;
-
-  float acc[PPT][CPT];
-#pragma unroll
-  for (int q = 0; q < PPT; ++q)
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) acc[q][k] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += CK) {
-    for (int e = tid; e < CK * IH * IW; e += NTHREADS) {
-      const int ci = e % CK;
-      const int pix = e / CK;
-      const int px = pix % IW;
-      const int py = pix / IW;
-      const int c = c0 + ci;
-      in_s[(ci * IH + py) * IW + px] =
-          c < cin ? a.load(b, fy + py - 1, fx + px - 1, c) : 0.f;
-    }
-    for (int e = tid; e < 9 * CK * CO_T; e += NTHREADS) {
-      const int co = e % CO_T;
-      const int ci = (e / CO_T) % CK;
-      const int tap = e / (CO_T * CK);
-      const int c = c0 + ci;
-      const int o = co0 + co;
-      w_s[(tap * CK + ci) * CO_T + co] =
-          (c < cin && o < cout) ? a.weight(tap, c, o) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float xv[PPT + 2];
-#pragma unroll
-        for (int q = 0; q < PPT + 2; ++q)
-          xv[q] = in_s[(ci * IH + ty + ky) * IW + tx + q];
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float* wr = &w_s[((ky * 3 + kx) * CK + ci) * CO_T + cg * CPT];
-#pragma unroll
-          for (int k = 0; k < CPT; k += 4) {
-            const float4 wv = *reinterpret_cast<const float4*>(wr + k);
-#pragma unroll
-            for (int q = 0; q < PPT; ++q) {
-              const float xi =
-                  (DROP && a.dropped(fx + tx + q, kx)) ? 0.f : xv[q + kx];
-              acc[q][k + 0] = fmaf(xi, wv.x, acc[q][k + 0]);
-              acc[q][k + 1] = fmaf(xi, wv.y, acc[q][k + 1]);
-              acc[q][k + 2] = fmaf(xi, wv.z, acc[q][k + 2]);
-              acc[q][k + 3] = fmaf(xi, wv.w, acc[q][k + 3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (ty0 + ty >= a.rows()) return;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int o = co0 + cg * CPT + k;
-    if (o >= cout) break;
-#pragma unroll
-    for (int q = 0; q < PPT; ++q) {
-      if (tx0 + tx + q >= a.cols_out()) break;
-      a.put(b, fy + ty, fx + tx + q, o, acc[q][k]);
-    }
-  }
-}
-
-template <class P, bool DROP>
-int launch_conv(const P& a, cudaStream_t s) {
-  const int co_t = a.cout() <= 32 ? 32 : 64;
-  const long long nz = (long long)a.B * ((a.cout() + co_t - 1) / co_t);
-  const int ny = (a.rows() + TH - 1) / TH;
-  if (nz > 65535 || ny > 65535 || a.rows() < 1 || a.cols_out() < 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.cols_out() + TW - 1) / TW, ny, (unsigned)nz);
-  if (co_t == 32)
-    conv_kernel<P, 32, DROP><<<grid, NTHREADS, 0, s>>>(a);
-  else
-    conv_kernel<P, 64, DROP><<<grid, NTHREADS, 0, s>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ---- kernel 17 --------------------------------------------------------
 
@@ -374,7 +283,7 @@ int extra_dense_valid_stage(const void* x, void* ws, void* out,
       a.w[i] = static_cast<const float*>(w[i]);
       a.cols[i] = cols[i];
     }
-    return launch_conv<DenseStage<float>, false>(a, s);
+    return conv_engine::direct::launch<DenseStage<float>, false>(a, s);
   }
   DenseStage<bf16> a{static_cast<const bf16*>(x), static_cast<bf16*>(ws),
                      static_cast<bf16*>(out), {}, {}, bias, B, H, W, c, g, j,
@@ -383,7 +292,7 @@ int extra_dense_valid_stage(const void* x, void* ws, void* out,
     a.w[i] = static_cast<const bf16*>(w[i]);
     a.cols[i] = cols[i];
   }
-  return launch_conv<DenseStage<bf16>, false>(a, s);
+  return conv_engine::direct::launch<DenseStage<bf16>, false>(a, s);
 }
 
 // Kernel 17. coefficients row[dy] * row[dx] / norm from the binomial row
@@ -426,29 +335,32 @@ int extra_blur(const void* x, void* out, int B, int H, int W, int C, int k,
 
 // Kernel 18. xp viewed as [B, H, Wp, c], out [B, H, Wp, n], w [9c][n] in
 // the same type (f32: 1 for f32), bias [n] f32; real columns [p, p +
-// width); act 1: lrelu(0.2).
+// width); act 1: lrelu(0.2); tc: 1 for the tensor-core body (bf16, c % 8
+// == 0, n % 8 == 0), 0 for the direct body.
 int extra_pack_conv(const void* x, const void* w, const float* bias,
                     void* out, int B, int H, int Wp, int c, int n, int p,
-                    int width, int act, int f32, int plant, void* stream) {
+                    int width, int act, int f32, int tc, int plant,
+                    void* stream) {
   if (B < 1 || H < 1 || c < 1 || n < 1 || p < 1 || width < 1 ||
-      p + width > Wp)
+      p + width > Wp || (tc && (f32 || n % 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = plant & PLANT_DROP_CROSS;
   if (f32) {
     const PackConv<float> a{static_cast<const float*>(x),
-                            static_cast<const float*>(w), bias,
+                            static_cast<const float*>(w), n, bias,
                             static_cast<float*>(out), B, H, Wp, c, n, p,
                             width, act, plant};
-    return drop ? launch_conv<PackConv<float>, true>(a, s)
-                : launch_conv<PackConv<float>, false>(a, s);
+    return drop ? conv_engine::direct::launch<PackConv<float>, true>(a, s)
+                : conv_engine::direct::launch<PackConv<float>, false>(a, s);
   }
   const PackConv<bf16> a{static_cast<const bf16*>(x),
-                         static_cast<const bf16*>(w), bias,
+                         static_cast<const bf16*>(w), n, bias,
                          static_cast<bf16*>(out), B, H, Wp, c, n, p, width,
                          act, plant};
-  return drop ? launch_conv<PackConv<bf16>, true>(a, s)
-              : launch_conv<PackConv<bf16>, false>(a, s);
+  if (tc) return conv_engine::tc::launch(a, s);
+  return drop ? conv_engine::direct::launch<PackConv<bf16>, true>(a, s)
+              : conv_engine::direct::launch<PackConv<bf16>, false>(a, s);
 }
 
 // Kernel 19: bands blocks, each copying band_bytes (a multiple of 16;

@@ -8,248 +8,203 @@
 //      The shuffle is the store address: the C_out*r^2 intermediate never
 //      exists in device memory, which is the point of the TPU kernel.
 //
-// Layouts. x is the model's [B, C_in, H, W] activation as it lies in
-// memory, any strides (the port's convs hand it over channels-last); the
-// staging loop walks channels fastest when the channel stride is 1 and
-// columns fastest otherwise, so either layout is read in runs. w is the
-// conv's own OIHW [C_out*r^2, C_in, 3, 3] and bias [C_out*r^2] (or null),
-// both in x's type. out is [B, H*r, W*r, C_out], channels last. Every
-// value is accumulated in f32 and stored in x's type (bf16 or f32).
+// It is the Subpixel policy of the shared conv engine (conv_engine.cuh):
+// the tensor-core body for bf16 inputs whose pixels are channels-last
+// runs of C_in % 8 == 0 channels (EDSR's and ESPCN's heads), the direct
+// body for f32 and every other layout. The GEMM's columns are taken in
+// sub-pixel-major order, q = s*C_out + c with s = i*r + j, so a block that
+// holds r^2*C_out consecutive columns owns whole HR rows: the tensor-core
+// put writes each tile row's r HR rows as runs of TW*r*C_out contiguous
+// values, in 16-byte stores when C_out % 8 == 0.
 //
-// None of the TPU blocking carries over (pre-padded row bands fetched by
-// manual DMA, H % th == 0, the in-kernel 5-D relayout Mosaic refused):
-// one block takes a TH x TW tile of LR pixels times CO_T of the conv's
-// output channels, stages the input tile with a 1-pixel halo (zero
-// outside the image: SAME padding at every border, any H and W) and the
-// chunk's weights in shared memory as f32, CK input channels at a time,
-// and each thread accumulates PPT adjacent pixels times CO_T/NCG
-// channels in registers. The block's channels are taken in sub-pixel-
-// major order (q = s*C_out + c, s = i*r + j), so a thread holds
-// consecutive c of one sub-pixel and its stores run along the HR pixel's
-// channels.
+// Layouts. x is the model's [B, C_in, H, W] activation as it lies in
+// memory, any strides (the port's convs hand it over channels-last). wk
+// is the K-major matrix [9*C_in][ldw] (row tap*C_in + ci, column q,
+// zero past C_out*r^2) and bias [ldw] f32 (or null), both built by the
+// wrapper from the conv's OIHW weight and bias. out is [B, H*r, W*r,
+// C_out], channels last. Every value is accumulated in f32, the bias
+// added in f32, and stored in x's type (bf16 or f32) with one rounding.
 //
 // Bound on the H100 (989 TFLOP/s bf16, 3.35 TB/s; ridge ~295 FLOP a
 // byte): EDSR's stages (C_in 64 -> 256) do 9*64*256 MACs a pixel for
-// 128 + 512 bytes, so they are bound by operations; ESPCN's head (32 ->
-// 16) by bytes. This first form runs f32 FFMA on the CUDA cores (67
-// TFLOP/s peak, ~7% of the bf16 bound at best); an implicit GEMM on the
-// tensor cores (wgmma, TMA) is the way to the rest.
+// 128 + 512 bytes, so they are bound by operations, which the tensor-core
+// body targets; ESPCN's head (32 -> 16) by bytes, which the halo tile
+// read once and the 16-byte stores target.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "conv_engine.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int TH = 8;     // LR rows per block
-constexpr int TW = 32;    // LR columns per block
-constexpr int CK = 8;     // input channels staged per chunk
-constexpr int PPT = 4;    // adjacent LR pixels per thread (along W)
-constexpr int NCG = 4;    // channel groups per block
-constexpr int NTHREADS = (TH * TW / PPT) * NCG;  // 256
+using conv_engine::bf16;
+using conv_engine::to_f;
 
 // Faults the check in chip_smoke.py plants (0 in every other launch).
 constexpr int PLANT_SWAP_IJ = 1;  // sub-pixel (i, j) stored at (j, i)
 constexpr int PLANT_CLAMP = 2;    // border read clamped, not zero
 constexpr int PLANT_NO_BIAS = 3;  // bias dropped
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
+// The tensor-core put's work split: rows of `seg` vectors each. Threads
+// take vectors u0, u0 + ustep, ... and, within each, rows r0, r0 +
+// rstep, ...; false if this thread has none.
+__device__ __forceinline__ bool split_rows(int seg, int tid, int& u0,
+                                           int& ustep, int& r0, int& rstep) {
+  if (seg >= conv_engine::tc::NTHREADS) {
+    u0 = tid, ustep = conv_engine::tc::NTHREADS, r0 = 0, rstep = 1;
+    return true;
+  }
+  rstep = conv_engine::tc::NTHREADS / seg;
+  r0 = tid / seg;
+  u0 = tid - r0 * seg, ustep = seg;
+  return r0 < rstep;
 }
 
-struct Args {
-  const void* x;
+template <typename T>
+struct Subpixel {
+  const T* x;
   long long sb, sc, sy, sx;  // x's strides in elements, NCHW order
-  int B, H, W, cin;
-  const void* w;     // [cout*r*r][cin][3][3]
-  const void* bias;  // [cout*r*r] or null
-  void* out;         // [B][H*r][W*r][cout]
-  int cout, r, plant;
-};
+  int B, H, W, c_in;
+  const T* wk;               // [9 * c_in][ldw]
+  int ldw;
+  const float* bias;         // [ldw], sub-pixel-major, or null
+  T* out;                    // [B][H*r][W*r][c_out]
+  int c_out, r, plant;
 
-template <typename T, int CO_T>
-__global__ void __launch_bounds__(NTHREADS, 2) subpixel_kernel(const Args a) {
-  constexpr int CPT = CO_T / NCG;
-  constexpr int IH = TH + 2, IW = TW + 2;
-  static_assert(CPT % 4 == 0, "CPT must be a multiple of 4");
-  __shared__ float in_s[CK * IH * IW];
-  __shared__ __align__(16) float w_s[9 * CK * CO_T];
+  __host__ __device__ int cin() const { return c_in; }
+  __host__ __device__ int cout() const { return c_out * r * r; }
+  __host__ __device__ int y0() const { return 0; }
+  __host__ __device__ int x0() const { return 0; }
+  __host__ __device__ int rows() const { return H; }
+  __host__ __device__ int cols_out() const { return W; }
+  __device__ __forceinline__ bool drops() const { return false; }
+  __device__ __forceinline__ bool skips(int) const { return false; }
+  __device__ __forceinline__ bool dropped(int, int) const { return false; }
 
-  const T* x = static_cast<const T*>(a.x);
-  const T* wt = static_cast<const T*>(a.w);
-  const T* bias = static_cast<const T*>(a.bias);
-  T* out = static_cast<T*>(a.out);
-  const int rr = a.r * a.r;
-  const int nq = a.cout * rr;
-  const int n_qt = (nq + CO_T - 1) / CO_T;
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const int b = blockIdx.z / n_qt;
-  const int q0 = (blockIdx.z % n_qt) * CO_T;
-
-  const int tid = threadIdx.x;
-  const int cg = tid % NCG;
-  const int pid = tid / NCG;
-  const int ty = pid / (TW / PPT);
-  const int tx = (pid % (TW / PPT)) * PPT;
-  const bool chan_fast = a.sc == 1;
-  const T* xb = x + (size_t)b * a.sb;
-
-  float acc[PPT][CPT];
-#pragma unroll
-  for (int p = 0; p < PPT; ++p)
-#pragma unroll
-    for (int k = 0; k < CPT; ++k) acc[p][k] = 0.f;
-
-  for (int c0 = 0; c0 < a.cin; c0 += CK) {
-    for (int e = tid; e < CK * IH * IW; e += NTHREADS) {
-      int ci, pix;
-      if (chan_fast) {
-        ci = e % CK;
-        pix = e / CK;
-      } else {
-        ci = e / (IH * IW);
-        pix = e % (IH * IW);
-      }
-      const int px = pix % IW;
-      const int py = pix / IW;
-      int gy = y0 + py - 1;
-      int gx = x0 + px - 1;
-      const int c = c0 + ci;
-      if (a.plant == PLANT_CLAMP) {
-        gy = min(max(gy, 0), a.H - 1);
-        gx = min(max(gx, 0), a.W - 1);
-      }
-      float v = 0.f;
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < a.cin)
-        v = to_f(xb[c * a.sc + gy * a.sy + gx * a.sx]);
-      in_s[(ci * IH + py) * IW + px] = v;
+  // PLANT_CLAMP: the border read from the nearest pixel, not as zero
+  __device__ __forceinline__ bool at(int& y, int& xx) const {
+    if (plant == PLANT_CLAMP) {
+      y = min(max(y, 0), H - 1);
+      xx = min(max(xx, 0), W - 1);
     }
-    for (int e = tid; e < 9 * CK * CO_T; e += NTHREADS) {
-      const int co = e % CO_T;
-      const int ci = (e / CO_T) % CK;
-      const int tap = e / (CO_T * CK);
-      const int c = c0 + ci;
-      const int q = q0 + co;
-      float v = 0.f;
-      if (c < a.cin && q < nq) {
-        const int o = (q % a.cout) * rr + q / a.cout;
-        v = to_f(wt[((size_t)o * a.cin + c) * 9 + tap]);
-      }
-      w_s[(tap * CK + ci) * CO_T + co] = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float xv[PPT + 2];
-#pragma unroll
-        for (int j = 0; j < PPT + 2; ++j)
-          xv[j] = in_s[(ci * IH + ty + ky) * IW + tx + j];
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float* wr = &w_s[((ky * 3 + kx) * CK + ci) * CO_T + cg * CPT];
-#pragma unroll
-          for (int k = 0; k < CPT; k += 4) {
-            const float4 wv = *reinterpret_cast<const float4*>(wr + k);
-#pragma unroll
-            for (int p = 0; p < PPT; ++p) {
-              const float xi = xv[p + kx];
-              acc[p][k + 0] = fmaf(xi, wv.x, acc[p][k + 0]);
-              acc[p][k + 1] = fmaf(xi, wv.y, acc[p][k + 1]);
-              acc[p][k + 2] = fmaf(xi, wv.z, acc[p][k + 2]);
-              acc[p][k + 3] = fmaf(xi, wv.w, acc[p][k + 3]);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
+    return y >= 0 && y < H && xx >= 0 && xx < W;
   }
-
-  const int gy = y0 + ty;
-  if (gy >= a.H) return;
-  const int wr_ = a.W * a.r;
-  const size_t hr_rows = (size_t)a.H * a.r;
-#pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int q = q0 + cg * CPT + k;
-    if (q >= nq) break;
-    const int s = q / a.cout;
-    const int c = q - s * a.cout;
-    int i = s / a.r;
-    int j = s - i * a.r;
-    if (a.plant == PLANT_SWAP_IJ) {
+  __device__ __forceinline__ float load(int b, int y, int xx, int ci) const {
+    if (!at(y, xx)) return 0.f;
+    return to_f(x[b * sb + ci * sc + y * sy + xx * sx]);
+  }
+  __device__ __forceinline__ float weight(int tap, int ci, int q) const {
+    return to_f(wk[((size_t)tap * c_in + ci) * ldw + q]);
+  }
+  __device__ __forceinline__ float bias_at(int q) const {
+    return (bias != nullptr && plant != PLANT_NO_BIAS && q < cout()) ? bias[q]
+                                                                     : 0.f;
+  }
+  __device__ __forceinline__ float finish(int, float v) const { return v; }
+  // HR pixel (y*r + i, x*r + j), or (y*r + j, x*r + i) under PLANT_SWAP_IJ
+  __device__ __forceinline__ size_t hr(int b, int y, int xx, int i,
+                                       int j) const {
+    if (plant == PLANT_SWAP_IJ) {
       const int t = i;
       i = j;
       j = t;
     }
-    float bv = 0.f;
-    if (bias != nullptr && a.plant != PLANT_NO_BIAS)
-      bv = to_f(bias[c * rr + s]);
-    const size_t row = ((size_t)b * hr_rows + (size_t)gy * a.r + i) * wr_;
-#pragma unroll
-    for (int p = 0; p < PPT; ++p) {
-      const int gx = x0 + tx + p;
-      if (gx >= a.W) break;
-      store(&out[(row + (size_t)gx * a.r + j) * a.cout + c], acc[p][k] + bv);
+    return (((size_t)b * H * r + (size_t)y * r + i) * W * r +
+            (size_t)xx * r + j) * c_out;
+  }
+  __device__ __forceinline__ void put(int b, int y, int xx, int q,
+                                      float acc) const {
+    const int s = q / c_out, i = s / r;
+    conv_engine::store(&out[hr(b, y, xx, i, s - i * r) + (q - s * c_out)],
+                       acc + bias_at(q));
+  }
+
+  // tensor-core body (T = bf16, sc == 1)
+  __device__ __forceinline__ const T* tc_pixel(int b, int y, int xx) const {
+    if (!at(y, xx)) return nullptr;
+    return x + b * sb + y * sy + xx * sx;
+  }
+  // Each tile row's r HR rows: the segment of HR row (y*r + i) over the
+  // tile's columns is TW*r*c_out contiguous values, vector u of it
+  // holding HR pixel u / cv (LR column px / r, sub-pixel j = px % r) and
+  // channels (u % cv) * vec. Row index row = ty*r + i.
+  template <int BN>
+  __device__ void tc_put(const bf16* tile, int tstr, int b, int ty0, int tx0,
+                         int n0, int tid) const {
+    using conv_engine::tc::TH;
+    using conv_engine::tc::TW;
+    const int vec = c_out % 8 == 0 ? 8 : 1;
+    const int run = r * c_out;  // HR pixels (x*r + j, j < r) of one row
+    if (vec == 8 && plant != PLANT_SWAP_IJ &&
+        BN % run == 0) {
+      for (int e = tid; e < TH * r * TW; e += conv_engine::tc::NTHREADS) {
+        const int tx = e % TW, row = e / TW;
+        const int ty = row / r, i = row - ty * r;
+        const int y = ty0 + ty, xx = tx0 + tx, q = i * run;
+        if (y < H && xx < W && q >= n0 && q < n0 + BN)
+          conv_engine::bulk_store(
+              out + hr(b, y, xx, i, 0),
+              conv_engine::smem_u32(tile + (ty * TW + tx) * tstr + q - n0),
+              run * 2);
+      }
+      return;
+    }
+    const int cv = c_out / vec;
+    int u0, ustep, r0, rstep;
+    if (!split_rows(TW * r * cv, tid, u0, ustep, r0, rstep))
+      return;
+    for (int u = u0; u < TW * r * cv; u += ustep) {
+      const int px = u / cv, c = (u - px * cv) * vec;
+      const int tx = px / r, j = px - tx * r;
+      const int xx = tx0 + tx;
+      if (xx >= W) continue;
+      int ty = r0 / r, i = r0 - ty * r;
+      for (int row = r0; row < TH * r; row += rstep) {
+        const int y = ty0 + ty;
+        if (y >= H) break;
+        const int q = (i * r + j) * c_out + c;
+        if (q >= n0 && q < n0 + BN) {
+          const bf16* src = tile + (ty * TW + tx) * tstr + (q - n0);
+          T* dst = out + hr(b, y, xx, i, j) + c;
+          if (vec == 8)
+            *reinterpret_cast<uint4*>(dst) =
+                *reinterpret_cast<const uint4*>(src);
+          else
+            *dst = *src;
+        }
+        for (i += rstep; i >= r; i -= r) ++ty;
+      }
     }
   }
-}
-
-template <typename T>
-int launch(const Args& a, cudaStream_t s) {
-  const int nq = a.cout * a.r * a.r;
-  const int co_t = nq <= 16 ? 16 : (nq <= 32 ? 32 : 64);
-  const long long nz = (long long)a.B * ((nq + co_t - 1) / co_t);
-  if (nz > 65535 || (a.H + TH - 1) / TH > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, (unsigned)nz);
-  if (co_t == 16)
-    subpixel_kernel<T, 16><<<grid, NTHREADS, 0, s>>>(a);
-  else if (co_t == 32)
-    subpixel_kernel<T, 32><<<grid, NTHREADS, 0, s>>>(a);
-  else
-    subpixel_kernel<T, 64><<<grid, NTHREADS, 0, s>>>(a);
-  return (int)cudaGetLastError();
-}
+};
 
 }  // namespace
 
 extern "C" {
 
-// Kernel 15. f32: 1 for f32 tensors, 0 for bf16. x strides in elements
-// (NCHW order); plant is 0 but in the check that plants faults. Returns
-// the cudaError_t of the launch (0 on success).
+// Kernel 15. f32: 1 for f32 tensors, 0 for bf16; tc: 1 for the
+// tensor-core body (bf16, channels-last x: sc == 1), 0 for the direct
+// body. x strides in elements (NCHW order); wk [9*cin][ldw] in x's type;
+// bias [ldw] f32 or null; plant is 0 but in the check that plants
+// faults. Returns the cudaError_t of the launch (0 on success).
 int subpixel_conv3x3_d2s(const void* x, long long sb, long long sc,
                          long long sy, long long sx, int B, int H, int W,
-                         int cin, const void* w, const void* bias, int cout,
-                         int r, void* out, int f32, int plant, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 || r < 1)
+                         int cin, const void* wk, int ldw, const float* bias,
+                         int cout, int r, void* out, int f32, int tc,
+                         int plant, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1 || r < 1 ||
+      ldw < cout * r * r || (tc && (f32 || sc != 1)))
     return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = x;
-  a.sb = sb;
-  a.sc = sc;
-  a.sy = sy;
-  a.sx = sx;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.cin = cin;
-  a.w = w;
-  a.bias = bias;
-  a.out = out;
-  a.cout = cout;
-  a.r = r;
-  a.plant = plant;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? launch<float>(a, s) : launch<bf16>(a, s);
+  if (f32) {
+    const Subpixel<float> a{static_cast<const float*>(x), sb, sc, sy, sx,
+                            B, H, W, cin, static_cast<const float*>(wk), ldw,
+                            bias, static_cast<float*>(out), cout, r, plant};
+    return conv_engine::direct::launch<Subpixel<float>, false>(a, s);
+  }
+  const Subpixel<bf16> a{static_cast<const bf16*>(x), sb, sc, sy, sx,
+                         B, H, W, cin, static_cast<const bf16*>(wk), ldw,
+                         bias, static_cast<bf16*>(out), cout, r, plant};
+  return tc ? conv_engine::tc::launch(a, s)
+            : conv_engine::direct::launch<Subpixel<bf16>, false>(a, s);
 }
 
 }  // extern "C"

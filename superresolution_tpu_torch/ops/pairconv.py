@@ -7,8 +7,12 @@ W, c] becomes [B, H, W2, p*c], p adjacent pixels to a pack, one zero pack
 on the left and zero packs on the right up to a 16-aligned W2; an op's
 output keeps its pad packs at 0, so calls chain without unpacking.
 
-On CUDA tensors pack_conv3x3 launches the hand-written conv_kernel
-<PackConv> (csrc/extra_kernels.cu): it reads the packed input as it lies,
+On CUDA tensors pack_conv3x3 launches the PackConv policy of the shared
+conv engine (csrc/conv_engine.cuh, csrc/extra_kernels.cu), in its
+tensor-core body (a bf16 implicit GEMM) or its direct f32 body as
+uses_tensor_cores says; each launch counts on `launches` and on the
+body's own count (`tc_launches`, `direct_launches`). It reads the packed
+input as it lies,
 pad packs included (as the TPU kernel's taps do), rows outside the image
 as zero, accumulates in f32, adds the f32 bias, applies the optional
 LeakyReLU(0.2), writes 0 to every pad pack and rounds once to xp's type.
@@ -87,22 +91,48 @@ def _check(xp, w, bias, p, width, act) -> None:
                          f"output channels")
 
 
+# The tensor-core body stages c channels of each input pixel.
+TC_MAX_CIN = 256
+
+
+def uses_tensor_cores(xp: torch.Tensor, w: torch.Tensor) -> bool:
+    """The route rule: kernel 18 runs its tensor-core body when xp is bf16
+    and 16-byte aligned with 8 <= c <= TC_MAX_CIN, c % 8 == 0 and n % 8
+    == 0 (w [3, 3, c, n]), so that every input and output pixel is a
+    16-byte aligned run of channels; f32 and every other shape run the
+    direct body. Both bodies compute the same function."""
+    c, n = w.shape[2], w.shape[3]
+    return (xp.dtype == torch.bfloat16 and c % 8 == 0 and n % 8 == 0
+            and 8 <= c <= TC_MAX_CIN and xp.data_ptr() % 16 == 0)
+
+
+def kmajor_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The engine's K-major weights [9c, n] in `dtype`: HWIO [3, 3, c, n]
+    already is that matrix, row (ky*3 + kx)*c + ci."""
+    return w.to(dtype).reshape(9 * w.shape[2], w.shape[3]).contiguous()
+
+
 def _launch(xp, w, bias, p, width, act) -> torch.Tensor:
-    """Kernel 18 on CUDA tensors, or an error naming what it does not
-    take."""
+    """Kernel 18 on CUDA tensors, in the body uses_tensor_cores picks, or
+    an error naming what it does not take."""
     if xp.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"pack_conv3x3: the kernel takes bf16 or f32, got "
                         f"{xp.dtype}")
     xp = xp.contiguous()
-    wk = w.to(xp.dtype).contiguous()
+    wk = kmajor_weights(w, xp.dtype)
     bk = bias.float().contiguous()
     _build.require_cuda(xp, wk, dtype=xp.dtype, name="pack_conv3x3")
     _build.require_cuda(bk, dtype=torch.float32, name="pack_conv3x3")
     b, h, w2, _ = xp.shape
     out = torch.empty((b, h, w2, p * w.shape[3]), dtype=xp.dtype,
                       device=xp.device)
-    _build.pack_conv(xp, wk, bk, out, p, width, act == "lrelu")
+    tc = uses_tensor_cores(xp, w)
+    _build.pack_conv(xp, wk, bk, out, p, width, act == "lrelu", tc)
     pack_conv3x3.launches += 1
+    if tc:
+        pack_conv3x3.tc_launches += 1
+    else:
+        pack_conv3x3.direct_launches += 1
     return out
 
 
@@ -143,3 +173,5 @@ def pack_conv3x3(xp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 pack_conv3x3.launches = 0
+pack_conv3x3.tc_launches = 0
+pack_conv3x3.direct_launches = 0
