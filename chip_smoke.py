@@ -505,6 +505,8 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
                      TOL_KERNEL)
         if pt.conv_last_phase.launches <= before:
             raise AssertionError("conv_last_phase did not count launches")
+        if geom == "chipeq":
+            check_conv_last_faults(gen)
         if geom != "main":
             continue
 
@@ -513,19 +515,20 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
         lw_oihw = last_w[0].permute(3, 2, 0, 1).contiguous()
         y_nchw = y_ref.permute(0, 3, 1, 2)
         rows = [
-            ("fused_dense_block", "superresolution_tpu/ops/"
+            ("fused_dense_block", SRC, "superresolution_tpu/ops/"
              "pallas_dense_trunk.py:237",
              e1, lambda: dt.fused_dense_block(x, ws, res),
              lambda: dt.fused_dense_block_reference(x, ws, res), None, 5,
              2 * px * B1_MACS, 3 * px * 64 * 2 + 2 * B1_MACS + 4 * 192,
              [b, h, w, 64]),
-            ("up2_hr", "superresolution_tpu/ops/pallas_phase_tail.py:319", e2,
+            ("up2_hr", SRC, "superresolution_tpu/ops/pallas_phase_tail.py:319",
+             e2,
              lambda: pt.up2_hr(z1, *tail_w),
              lambda: pt.up2_hr_reference(z1, *tail_w), None, 3,
              2 * lr_px * B2_MACS,
              lr_px * 256 * 2 + hr_px * 64 * 2 + 2 * 9 * 64 * 320 + 4 * 320,
              [bt, h, w, 256]),
-            ("conv_last_phase", "superresolution_tpu/ops/"
+            ("conv_last_phase", STREAM_SRC, "superresolution_tpu/ops/"
              "pallas_phase_tail.py:340", e3,
              lambda: pt.conv_last_phase(y_ref, *last_w),
              lambda: pt.conv_last_phase_reference(y_ref, *last_w),
@@ -533,19 +536,63 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
              10, 2 * hr_px * B3_MACS, hr_px * (64 + 3) * 2 + 2 * 9 * 64 * 3,
              [bt, 4 * h, 4 * w, 64]),
         ]
-        for name, tpu, err, kern, plain, lib, iters, flops, nbytes, shape \
-                in rows:
+        for name, src, tpu, err, kern, plain, lib, iters, flops, nbytes, \
+                shape in rows:
             b_ms, b_by = bound(flops, nbytes)
             out[name] = {
-                "name": name, "route": "cuda", "source": SRC,
+                "name": name, "route": "cuda", "source": src,
                 "replaces": tpu, "shape": shape,
                 "max_abs_err": err["max_abs_err"],
                 "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
                 "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(lib, iters)}
+            if name == "conv_last_phase":
+                out[name].update(
+                    sources=[STREAM_SRC, ENGINE_SRC],
+                    ptxas=STENCIL_PTXAS.get("conv_last_kernel"))
             emit({"phase": "kernel_time", **out[name]})
+            if name == "conv_last_phase":
+                emit({"phase": "old_kernel", "name": name, "kernel": B3_OLD,
+                      "shape": shape, "ms": B3_OLD_MS,
+                      "from": "PERF.md row B3, not re-run"})
     return out
+
+
+# ---- B3 (stream_kernels.cu conv_last_kernel): its own check ----------
+
+STREAM_SRC = "superresolution_tpu_torch/ops/csrc/stream_kernels.cu"
+B3_MULTI = (3, 150, 260, 64)   # b >= 2; H, W not multiples of the band
+                               # (64 rows) or the strip (126 columns)
+B3_FAULTS = ("PLANT_ROW_CLAMP", "PLANT_WRONG_NEIGHBOUR", "PLANT_BIAS_DROPPED")
+# The kernel B3 replaced (sr_kernels.cu conv_last_kernel, one thread per
+# output pixel) at [8,1504,1024,64], as PERF.md's kernel table keeps it
+# (row B3). Printed as a reference, not re-run.
+B3_OLD = "sr_kernels.cu conv_last_kernel, one thread per output pixel"
+B3_OLD_MS = 6.89
+
+
+def check_conv_last_faults(gen: torch.Generator) -> None:
+    """B3 at B3_MULTI on its own check weights (MSRA kernels, N(0, 1)
+    biases, y N(0, 0.5^2), so the bias and every tap show in the output):
+    within TOL_KERNEL of the plain version in f32 on the same values, and
+    each of B3_FAULTS planted in the kernel missing by 3x the bar."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import phase_tail as pt
+
+    bf = torch.bfloat16
+    b, h, w, c = B3_MULTI
+    y = rand(gen, b, h, w, c, scale=0.5, dtype=bf)
+    k = rand(gen, 3, 3, c, 3, scale=(2 / (9 * c)) ** 0.5, dtype=bf)
+    bias = rand(gen, 3)
+    ref = pt.conv_last_phase_reference(y.float(), k.float(), bias)
+    compare("conv_last_phase/multi", pt.conv_last_phase(y, k, bias), ref,
+            TOL_KERNEL)
+    for fault in B3_FAULTS:
+        expect_margin(f"conv_last_phase:{fault}",
+                      planted("conv_last", getattr(_build, fault),
+                              lambda: pt.conv_last_phase(y, k, bias)),
+                      ref, TOL_KERNEL)
 
 
 def rand(gen: torch.Generator, *shape, scale: float = 1.0,
@@ -1572,6 +1619,38 @@ def ptxas_usage(report: str) -> dict:
                    if v["spill_bytes"]} for p, b in out.items()}
     if any(spilled.values()):
         raise AssertionError(f"the tensor-core body spills: {spilled}")
+    return out
+
+
+# Kernels 17 and B3 in the same report: {"blur_kernel": {"<type>_k<k>_
+# <taps>": {...}}, "conv_last_kernel": {"cout<n>": {...}}} (taps: 0 C 1
+# rows, 1 aligned vectors, 2 scalar); neither may spill.
+STENCIL_PTXAS: dict = {}
+BLUR_TAPS = ("row", "vec", "scalar")
+
+
+def stencil_ptxas(report: str) -> dict:
+    out: dict = {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        k = re.search(r"Compiling entry function '\S*?(blur_kernel|"
+                      r"conv_last_kernel)I(13__nv_bfloat16|f)?Li(\d+)E"
+                      r"(Li(\d)E)?", line)
+        if not k:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        key = (f"cout{k.group(3)}" if k.group(1) == "conv_last_kernel" else
+               ("bf16" if "bfloat16" in k.group(2) else "f32")
+               + f"_k{k.group(3)}_{BLUR_TAPS[int(k.group(5))]}")
+        out.setdefault(k.group(1), {})[key] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": int(spill.group(1)) if spill else None}
+    spilled = {n: {k: v for k, v in d.items() if v["spill_bytes"]}
+               for n, d in out.items()}
+    if any(spilled.values()):
+        raise AssertionError(f"kernel 17 or B3 spills: {spilled}")
     return out
 
 
@@ -2973,6 +3052,26 @@ def device_ms(fn) -> float | None:
     return us / 1e3 if us else None
 
 
+def launch_device_ms(fn, calls: int = 20) -> float | None:
+    """Device time of one call of fn, a call that launches each of its
+    kernels once: the sum over its kernels of their mean self time under
+    torch.profiler over `calls` calls, after a warm-up; None if the
+    profiler sees none. A mean, not device_ms's sum: after phase 32's
+    training the profiler drops the first kernel records of a profiled
+    block, more the later in the run (by phase 36, 8 of 10 calls)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    means = [e.self_device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    return sum(means) / 1e3 if means else None
+
+
 def lever_frame(model, params, x, z, lever: str, want: dict,
                 channels: dict, tag: str) -> dict:
     """One frame through fused_hybrid_model under `lever` (None: the
@@ -3975,6 +4074,18 @@ BLUR_CASES = (("hybrid_256_balanced", (4, 256, 256, 1), "balanced"),
               ("hybrid_512_balanced", (4, 512, 512, 1), "balanced"),
               ("hybrid_512_light", (4, 512, 512, 1), "light"),
               ("c64_strong", (8, 128, 128, 64), "strong"))
+# the kernel's other tap forms: scalar taps (C 3), two channel chunks
+# with scalar taps (C 130) and with vector taps and stores, the last chunk
+# part padding (C 96); checked, not timed
+BLUR_EXTRA = (("ragged_c3_balanced", (2, 37, 45, 3), "balanced"),
+              ("chunked_c130_strong", (1, 33, 20, 130), "strong"),
+              ("chunked_c96_strong", (1, 33, 20, 96), "strong"))
+# The kernel 17 replaced (one thread per output value, its k^2 taps
+# through L1) at BLUR_CASES, as PERF.md's kernel table keeps it (row 17).
+# Printed as a reference, not re-run.
+BLUR_OLD = "extra_kernels.cu blur_kernel, one thread per output value"
+BLUR_OLD_MS = {"hybrid_256_balanced": 0.0241, "hybrid_512_balanced": 0.0378,
+               "hybrid_512_light": 0.0225, "c64_strong": 0.449}
 PACK_CONVS = ((64, 192), (32, 160), (32, 128), (32, 96), (32, 64))
 PACK_P = 2                # W2 = 144 packs at the tile's 256 columns
 
@@ -4090,21 +4201,44 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
     return entry
 
 
+def blur_stays_inside(tag: str, x: torch.Tensor, size: int,
+                      norm: float) -> None:
+    """Kernel 17 launched into the head of a NaN-filled buffer twice x's
+    size: it writes every value of its output and nothing after it."""
+    from superresolution_tpu_torch.ops import _build
+
+    n = x.numel()
+    buf = torch.full((2 * n,), float("nan"), dtype=x.dtype, device=x.device)
+    _build.blur(x, size, norm, buf[:n].view(x.shape))
+    unwritten = int(buf[:n].isnan().sum())
+    past = int((~buf[n:].isnan()).sum())
+    emit({"check": f"anti_checkerboard_kernel/{tag}/stays_inside",
+          "unwritten": unwritten, "written_past_end": past})
+    if unwritten or past:
+        raise AssertionError(f"kernel 17 at {tag}: {unwritten} values not "
+                             f"written, {past} written past the output")
+
+
 def check_blur_kernel(gen: torch.Generator) -> dict:
     """Phase 36: kernel 17 (anti_checkerboard_kernel) at hybrid_astro's
     blur shapes at batch 4 (256^2 and 512^2 balanced, 512^2 light) and
     [8,128,128,64] strong, on images in [0, 1): f32 within 1e-5 and bf16
-    within 0.01 of the plain blur in f32 on the same values. Two faults
-    planted in the kernel (normalized by the binomial row's sum, the
-    top-left tap dropped) must miss by 3x the f32 bar at the 256^2 and
-    strong cases. Timed beside the plain blur and the depthwise F.conv2d
-    alone. Returns the kernels-line entry (512^2 balanced)."""
+    within 0.01 of the plain blur in f32 on the same values, writing
+    nothing past its output (blur_stays_inside); the same at BLUR_EXTRA.
+    Two faults planted in the kernel (normalized by the binomial row's
+    sum, the top-left tap dropped) must miss by 3x the f32 bar at the
+    256^2 and strong cases. Timed beside the plain blur and the
+    depthwise F.conv2d alone: CUDA-event ms over 20 back-to-back calls
+    (the wrappers' host work included) and torch.profiler device ms a
+    call (launch_device_ms), for the kernel and F.conv2d; once, an empty
+    kernel through the same ctypes path (the launch floor). Returns the
+    kernels-line entry (512^2 balanced)."""
     from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import blur as bl
 
     bf = torch.bfloat16
     geometries = {}
-    for tag, shape, mode in BLUR_CASES:
+    for tag, shape, mode in BLUR_CASES + BLUR_EXTRA:
         size, norm = bl._MODES[mode]
         x32 = torch.rand(shape, generator=gen).cuda()
         xb = x32.to(bf)
@@ -4119,6 +4253,7 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
                 err = compare(f"anti_checkerboard_kernel/{tag}/{xd.dtype}",
                               kern(xd), bl.anti_checkerboard(xd.float(), mode),
                               tol)
+                blur_stays_inside(f"{tag}/{xd.dtype}", xd, size, norm)
             if tag in ("hybrid_256_balanced", "c64_strong"):
                 ref = bl.anti_checkerboard(x32, mode)
                 for bit, fault in ((_build.PLANT_NORM, "row_sum_normalizer"),
@@ -4126,10 +4261,16 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
                     expect_margin(f"anti_checkerboard_kernel:{tag}:{fault}",
                                   planted("blur", bit, lambda: kern(x32)),
                                   ref, TOL_BLUR_F32)
+            if tag not in BLUR_OLD_MS:
+                continue
             k = torch.as_tensor(bl.binomial_kernel(size, norm),
                                 device="cuda").to(bf)
             kk = k.expand(shape[-1], 1, size, size)
             xn = xb.permute(0, 3, 1, 2)
+
+            def lib():
+                return F.conv2d(xn, kk, padding=size // 2, groups=shape[-1])
+
             n = xb.numel()
             b_ms, b_by = bound(2 * size * size * n, 2 * n * 2)
             geometries[tag] = {
@@ -4137,16 +4278,24 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
                 "max_abs_err": err["max_abs_err"],
                 "max_rel_err": err["max_rel_err"],
                 "ms": time_ms(kern, 20),
+                "device_ms": launch_device_ms(kern),
                 "plain_ms": time_ms(lambda: bl.anti_checkerboard(xb, mode),
                                     20),
-                "library_ms": time_ms(lambda: F.conv2d(
-                    xn, kk, padding=size // 2, groups=shape[-1]), 20),
+                "library_ms": time_ms(lib, 20),
+                "library_device_ms": launch_device_ms(lib),
                 "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel_time", "name": "anti_checkerboard_kernel",
               "geometry": tag, **geometries[tag]})
+        emit({"phase": "old_kernel", "name": "anti_checkerboard_kernel",
+              "geometry": tag, "kernel": BLUR_OLD, "shape": list(shape),
+              "ms": BLUR_OLD_MS[tag], "from": "PERF.md row 17, not re-run"})
+    x = torch.empty(16, device="cuda")
+    floor = {"noop_ms": time_ms(lambda: _build.noop(x), 20),
+             "noop_device_ms": launch_device_ms(lambda: _build.noop(x))}
+    emit({"phase": "kernel_time", "name": "launch_floor", **floor})
     main = geometries["hybrid_512_balanced"]
     return {"name": "anti_checkerboard_kernel", "route": "cuda",
-            "source": EXTRA_SRC, "sources": [EXTRA_SRC],
+            "source": EXTRA_SRC, "sources": [EXTRA_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_blur.py:50",
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4154,7 +4303,8 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
             "tol": TOL_BLUR, "launches": 1,
             "path": "its entry point; the hybrid's blur stays the plain "
                     "depthwise conv",
-            "geometries": geometries}
+            "geometries": geometries, "launch_floor": floor,
+            "ptxas": STENCIL_PTXAS.get("blur_kernel")}
 
 
 def check_pack_conv_kernel(gen: torch.Generator) -> dict:
@@ -4416,8 +4566,10 @@ def main() -> int:
                     if "registers" in line or "spill" in line),
           file=sys.stderr)
     PTXAS.update(ptxas_usage(ptxas))
+    STENCIL_PTXAS.update(stencil_ptxas(ptxas))
     emit({"phase": "build", "seconds": build_s,
-          "conv_engine_ptxas": PTXAS or "not reported (cached build)"})
+          "conv_engine_ptxas": PTXAS or "not reported (cached build)",
+          "stencil_ptxas": STENCIL_PTXAS or "not reported (cached build)"})
 
     gen = torch.Generator().manual_seed(SEED)
     model = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,

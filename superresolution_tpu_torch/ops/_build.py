@@ -105,8 +105,9 @@ def library() -> ctypes.CDLL:
                                _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
                                _F, _P, _I, _P, _I, _I, _I, _I, _P]
     lib.sr_conv3x3.restype = _I
-    lib.sr_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P, _P]
-    lib.sr_conv_last.restype = _I
+    lib.stream_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P,
+                                     _I, _P]
+    lib.stream_conv_last.restype = _I
     lib.sr_dense_prologue.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _P]
     lib.sr_dense_prologue.restype = _I
@@ -158,6 +159,8 @@ def library() -> ctypes.CDLL:
     lib.extra_pack_conv.restype = _I
     lib.extra_copy.argtypes = [_P, _P, _L, _L, _I, _P]
     lib.extra_copy.restype = _I
+    lib.extra_noop.argtypes = [_P]
+    lib.extra_noop.restype = _I
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
@@ -236,14 +239,21 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
     _check(lib, rc, "sr_conv3x3")
 
 
+# Faults chip_smoke.py plants in B3 (`plant`, a bit mask; 0 in use; see
+# stream_kernels.cu): the halo row outside the image clamped to the border
+# row, tap (ky 1, kx 0) taken from the wrong neighbour, the bias dropped.
+PLANT_ROW_CLAMP, PLANT_WRONG_NEIGHBOUR, PLANT_BIAS_DROPPED = 1, 2, 4
+
+
 def conv_last(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-              out: torch.Tensor) -> None:
-    """One launch of conv_last_kernel: y [B,H,W,cin] -> out [B,H,W,cout]."""
+              out: torch.Tensor, plant: int = 0) -> None:
+    """One launch of B3, conv_last_kernel (stream_kernels.cu): y
+    [B,H,W,cin] -> out [B,H,W,cout] = conv3x3_SAME(y, w) + bias."""
     lib = library()
     b, h, wd, cin = y.shape
-    rc = lib.sr_conv_last(_ptr(y), b, h, wd, cin, _ptr(w), _ptr(bias),
-                          out.shape[-1], _ptr(out), _stream(y))
-    _check(lib, rc, "sr_conv_last")
+    rc = lib.stream_conv_last(_ptr(y), b, h, wd, cin, _ptr(w), _ptr(bias),
+                              out.shape[-1], _ptr(out), plant, _stream(y))
+    _check(lib, rc, "stream_conv_last")
 
 
 def _ptrs(tensors) -> ctypes.Array:
@@ -520,8 +530,9 @@ def dense_valid_stage(x: torch.Tensor, ws: torch.Tensor, out: torch.Tensor,
 
 def blur(x: torch.Tensor, size: int, norm: float, out: torch.Tensor,
          plant: int = 0) -> None:
-    """One launch of kernel 17, blur_kernel: out = the depthwise SAME blur
-    of x [B,H,W,C] (bf16 or f32) by the size x size binomial / norm."""
+    """One launch of kernel 17, blur_kernel (extra_kernels.cu): out = the
+    depthwise SAME blur of x [B,H,W,C] (bf16 or f32) by the size x size
+    binomial / norm."""
     lib = library()
     b, h, w, c = x.shape
     rc = lib.extra_blur(_ptr(x), _ptr(out), b, h, w, c, size, norm,
@@ -557,3 +568,10 @@ def copy_bands(src: torch.Tensor, dst: torch.Tensor, bands: int,
     rc = lib.extra_copy(_ptr(src), _ptr(dst), bands, nbytes // bands, plant,
                         _stream(src))
     _check(lib, rc, "extra_copy")
+
+
+def noop(t: torch.Tensor) -> None:
+    """One launch of an empty kernel on t's device and stream, through the
+    same ctypes path as the kernels: the floor under a launch."""
+    lib = library()
+    _check(lib, lib.extra_noop(_stream(t)), "extra_noop")

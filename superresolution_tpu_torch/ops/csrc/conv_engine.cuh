@@ -214,6 +214,17 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                : "memory");
 }
 
+// cp_async16 that reads src_bytes (16 or 0) and zero-fills the rest: with
+// 0 it writes 16 zero bytes and reads nothing (src must still be a valid
+// address)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -526,5 +537,63 @@ int launch(const P& a, cudaStream_t s) {
 }
 
 }  // namespace tc
+
+// ---- launch set-up kept for the process --------------------------------
+//
+// A launcher that would read the SM count, raise a kernel's dynamic
+// shared-memory limit or ask its occupancy on every call reads or makes
+// each once a device instead: on small maps those calls cost about as
+// much as the kernel.
+
+constexpr int MAX_DEVICES = 64;
+
+// *sms = the current device's SM count.
+inline cudaError_t sm_count(int* sms) {
+  static int known[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= MAX_DEVICES)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!known[dev]) {
+    e = cudaDeviceGetAttribute(&known[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = known[dev];
+  return cudaSuccess;
+}
+
+// Lets Kernel take `bytes` of dynamic shared memory on the current device
+// (raised once for the largest size asked so far) and, where per_sm is
+// given, sets *per_sm to how many blocks of `threads` threads with `bytes`
+// fit an SM (asked again only when the block differs from the last one).
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes, int threads = 0, int* per_sm = nullptr) {
+  static size_t allowed[MAX_DEVICES];
+  static size_t asked[MAX_DEVICES];
+  static int asked_threads[MAX_DEVICES], fit[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool keep = dev < MAX_DEVICES;
+  if (!keep || bytes > allowed[dev]) {
+    e = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e != cudaSuccess) return e;
+    if (keep) allowed[dev] = bytes;
+  }
+  if (!per_sm) return cudaSuccess;
+  if (keep && fit[dev] && asked[dev] == bytes && asked_threads[dev] == threads) {
+    *per_sm = fit[dev];
+    return cudaSuccess;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, Kernel, threads,
+                                                    bytes);
+  if (e == cudaSuccess && keep)
+    asked[dev] = bytes, asked_threads[dev] = threads, fit[dev] = *per_sm;
+  return e;
+}
 
 }  // namespace conv_engine

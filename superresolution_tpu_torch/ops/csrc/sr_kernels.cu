@@ -1,8 +1,8 @@
 // Hand-written CUDA kernels of the ESRGAN RRDBNet x4 deploy path (sm_90a).
 //
 // One direct NHWC 3x3 SAME convolution routine with fused epilogues
-// carries two of the three ops; conv_last has its own small kernel. The
-// same routine also carries the two convs of the hybrid path's CAB
+// carries the dense block and the tail's up2_hr. The same routine also
+// carries the two convs of the hybrid path's CAB
 // (hat_kernels.cu, kernel 7), through its exact-GELU epilogue, and the
 // transposed convs of the dense block's backward (train_kernels.cu,
 // kernel 13), through its lrelu' gate and scaled-add epilogues.
@@ -23,9 +23,7 @@
 //      launches of conv3x3_kernel, each reading its input through the
 //      depth_to_space(2) view: up2 (+bias, lrelu) at 2x, then conv_hr
 //      (+bias, lrelu) at 4x.
-//   B3 conv_last  (replaces ops/pallas_phase_tail.py:_last_kernel):
-//      conv_last_kernel, one thread per output pixel with all its output
-//      channels, weights in shared memory.
+//   (B3 conv_last, which B2 feeds, is stream_kernels.cu's.)
 //
 //   4 fused_dense_block_prologue  (replaces ops/pallas_dense_trunk.py:
 //      fused_dense_block_prologue): conv_first then dense block 0, six
@@ -44,8 +42,7 @@
 // (x, out, residual) and B2 1.18 M MACs per LR pixel for 2.5 KB (z1 in,
 // the 4x 64-channel map out), so both are bound by operations, as are
 // kernels 4-6 (B1's MACs plus 9*Cin*64 for kernel 4, plus 36,864 for
-// kernel 5; three times B1's for kernel 6, 718,848 per pixel); B3
-// (64 -> 3 channels, 1.7 K MACs per 134 bytes) is bound by bytes.
+// kernel 5; three times B1's for kernel 6, 718,848 per pixel).
 //
 // What this simple design leaves on the table: B1/B2 accumulate on the
 // CUDA cores in f32 (FFMA, 67 TFLOP/s peak), not on the tensor cores, so
@@ -53,8 +50,6 @@
 // wgmma and TMA is the way to the rest. B1 also round-trips its 4g
 // workspace channels through device memory and B2 its 2x intermediate,
 // which a single launch with an in-shared-memory cascade would avoid.
-// B3 reads each input pixel nine times through L1 instead of staging a
-// tile, and reloads its 9 KB of weights in every block.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -396,60 +391,6 @@ cudaError_t launch_chain(ChainArgs& c, int plant, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-constexpr int LAST_MAX_CIN = 64;
-constexpr int LAST_MAX_COUT = 4;
-constexpr int LAST_THREADS = 256;
-
-// conv_last: [B,H,W,cin] bf16 -> [B,H,W,cout] bf16, + bias. One thread per
-// output pixel; cin % 8 == 0 so each tap pixel is read as 16-byte vectors.
-__global__ void __launch_bounds__(LAST_THREADS)
-    conv_last_kernel(const __nv_bfloat16* __restrict__ y, int B, int H,
-                     int W, int cin, const __nv_bfloat16* __restrict__ w,
-                     const float* __restrict__ bias, int cout,
-                     __nv_bfloat16* __restrict__ out) {
-  __shared__ float w_s[9 * LAST_MAX_CIN * LAST_MAX_COUT];
-  for (int e = threadIdx.x; e < 9 * cin * LAST_MAX_COUT; e += blockDim.x) {
-    const int co = e % LAST_MAX_COUT;
-    const int rest = e / LAST_MAX_COUT;  // tap * cin + ci
-    w_s[e] = co < cout ? __bfloat162float(w[(size_t)rest * cout + co]) : 0.f;
-  }
-  __syncthreads();
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)B * H * W;
-  if (idx >= total) return;
-  const int x = (int)(idx % W);
-  const int yy = (int)((idx / W) % H);
-  const int b = (int)(idx / ((size_t)W * H));
-  float acc[LAST_MAX_COUT] = {0.f, 0.f, 0.f, 0.f};
-  for (int ky = 0; ky < 3; ++ky) {
-    const int gy = yy + ky - 1;
-    if (gy < 0 || gy >= H) continue;
-    for (int kx = 0; kx < 3; ++kx) {
-      const int gx = x + kx - 1;
-      if (gx < 0 || gx >= W) continue;
-      const uint4* src = reinterpret_cast<const uint4*>(
-          y + (((size_t)b * H + gy) * W + gx) * cin);
-      const float* wt = &w_s[(ky * 3 + kx) * cin * LAST_MAX_COUT];
-      for (int c8 = 0; c8 < cin / 8; ++c8) {
-        const uint4 raw = src[c8];
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h2[j]);
-          const float* w0 = wt + (c8 * 8 + 2 * j) * LAST_MAX_COUT;
-#pragma unroll
-          for (int o = 0; o < LAST_MAX_COUT; ++o)
-            acc[o] = fmaf(f.x, w0[o], fmaf(f.y, w0[LAST_MAX_COUT + o],
-                                           acc[o]));
-        }
-      }
-    }
-  }
-  for (int o = 0; o < cout; ++o)
-    out[idx * cout + o] = __float2bfloat16(acc[o] + bias[o]);
-}
-
 }  // namespace
 
 extern "C" {
@@ -497,20 +438,6 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
     return (int)cudaErrorInvalidValue;
   if (cout <= 32) return (int)launch_conv3x3<32>(a, d2s, s);
   return (int)launch_conv3x3<64>(a, d2s, s);
-}
-
-int sr_conv_last(const void* y, int B, int H, int W, int cin, const void* w,
-                 const void* bias, int cout, void* out, void* stream) {
-  if (cin > LAST_MAX_CIN || cin % 8 != 0 || cout > LAST_MAX_COUT)
-    return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)B * H * W;
-  const unsigned blocks = (unsigned)((total + LAST_THREADS - 1) / LAST_THREADS);
-  conv_last_kernel<<<blocks, LAST_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(y), B, H, W, cin,
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      cout, static_cast<__nv_bfloat16*>(out));
-  return (int)cudaGetLastError();
 }
 
 // Kernels 4-6 return the cudaError_t of their one cooperative launch;
