@@ -11,7 +11,9 @@ superresolution_tpu_torch/ops/csrc/ at the start.
 Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
   1 env      torch / CUDA versions, the card's name and power limit
-  2 build    nvcc build of the kernels, seconds
+  2 build    nvcc build of the kernels, seconds; the registers and
+             spills of the conv engine, kernels 17, B3, 9 and 19 (none
+             may spill)
   3 kernel   each kernel against its plain PyTorch version on the card,
              at the CHIPEQ geometry, a ragged one and the main path's:
              max |kernel - plain| / max |plain| <= 0.02; timed there.
@@ -30,9 +32,12 @@ a second seed:
              9 (flash_oca_gathered) against their plain versions at a
              CHIPEQ-sized geometry, a ragged one and the main path's,
              within 0.02 (CAB) and 0.03 (HAB, OCA) of max |plain|, timed
-             at the latter; HAB also on out - x - cab, CAB also on its
-             GELU hidden map; at the first geometry each check must also
-             fail on each of six faults planted in the kernels' inputs
+             at the latter (kernel 9 with its exponentials' count and
+             floor beside its bound, and its replaced kernel's time from
+             PERF.md, not re-run); HAB also on out - x - cab, CAB also on
+             its GELU hidden map; at the first geometry each check must
+             also fail on each of six faults planted in the kernels'
+             inputs
   7 hybrid-path     one frame through fused_hybrid_model, launches counted
              (exact); shape and finiteness; stage 1, stage 2 and the
              frame after it (both fed the kernel path's own stage-2
@@ -101,7 +106,9 @@ seed, bf16:
 Then phases 16-21: kernels 4-6 against their plain versions with two
 planted faults each (16), the 2K frame under the trunk levers fold_ends
 and chain_rrdb (17, run right after phase 5), kernels 8-10 at window 16,
-head dim 20 and ows 10 (18), the hybrid_astro_h200-class frame (19), an
+head dim 20 and ows 10 (18; kernel 9 also at ws 16 on three images of
+48 x 80, three faults planted in it and two in its inputs each missing
+by 3x the bar), the hybrid_astro_h200-class frame (19), an
 ows 10 HATLite (20), api.upscale over both prebound fused models on both
 tilers (21). Then the fused HAT's deploy levers, random weights from a
 sixth seed:
@@ -227,8 +234,9 @@ unless each is 0; the kernels line gives their sums over those runs
              body, the plain form and F.conv2d
  38 passthrough     kernel 19 (make_pt) at [24,376,272,64] and
              [24,376,136,128], rb 94: exact in bf16 and f32; the last band
-             left uncopied must be caught; timed beside x.clone() and
-             copy_; dma_probe's GB/s beside the nominal 3,350
+             left unwritten must be caught, band 95 alone wrong; timed
+             beside x.clone(), copy_ and the replaced kernel's time from
+             PERF.md; dma_probe's GB/s beside the nominal 3,350
 Then the kernels line (B1-19 and the seg forms of B1 and kernel 13,
 launches from each path's run), the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Every phase line carries t_s, the seconds
@@ -286,6 +294,18 @@ TOL_STEP_GNORM = 0.03
 TOL_LEAF = 0.03           # per-leaf gradients, of max |plain|
 TIME_STEPS = 3            # steps timed after one warm-up
 ATTN_SRC = "superresolution_tpu_torch/ops/csrc/attn_kernels.cu"
+OCA_SRC = "superresolution_tpu_torch/ops/csrc/oca_kernels.cu"
+# the special-function units' exponentials a second: 132 SMs x 16 a clock
+# x 1.98 GHz (H100 SXM), a floor under kernel 9 beside its bound
+EXP_RATE = 132 * 16 * 1.98e9
+# The kernel 9 replaced (attn_kernels.cu attn_kernel<..., true>, one block
+# a window and head, f32 FMA on the CUDA cores) at each timed geometry, as
+# PERF.md's kernel table keeps it (row 9). Printed as a reference, not
+# re-run.
+OCA_OLD = "attn_kernels.cu attn_kernel<bf16, hd, n, m, true>, CUDA cores"
+OCA_OLD_MS = {"main": 0.374, "oca_c96_ws8_ows10": 0.287,
+              "oca_c96_ws16_ows24": 1.446, "oca_c120_ws16_ows24": 1.674,
+              "oca_c128_nh8_ws8_ows12": 0.483}
 TOL_ATTN = 1e-4           # CHIPEQ's bar for flash_window_attention (f32)
 TOL_ATTN_CROSS = 5e-4     # CHIPEQ's bar for flash_oca_stacked (f32, m 144)
 TOL_ATTN_BF16 = 0.02      # bf16 probabilities and output
@@ -348,6 +368,33 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def issue_ms(fn, iters: int) -> float:
+    """Host ms to issue one call of fn, over `iters` calls queued behind
+    a spin of the card (so that no call waits for it)."""
+    from superresolution_tpu_torch.utils.dma_probe import SPIN_CYCLES
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
+
+
+def card_state() -> str:
+    """The card's clocks, temperature, power draw and the reasons its
+    clocks are held down, as nvidia-smi reads them now."""
+    q = ("clocks.sm,clocks.mem,temperature.gpu,power.draw,"
+         "clocks_throttle_reasons.active")
+    r = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={q}",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True)
+    return (r.stdout or r.stderr).strip()
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -553,9 +600,7 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
                     ptxas=STENCIL_PTXAS.get("conv_last_kernel"))
             emit({"phase": "kernel_time", **out[name]})
             if name == "conv_last_phase":
-                emit({"phase": "old_kernel", "name": name, "kernel": B3_OLD,
-                      "shape": shape, "ms": B3_OLD_MS,
-                      "from": "PERF.md row B3, not re-run"})
+                old_kernel(name, B3_OLD, shape, B3_OLD_MS, "B3")
     return out
 
 
@@ -769,6 +814,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
         px, tok = side * side, b * nw * 64
         map_bytes = 2 * k_map.numel() * 2
         sdpa_q = q.reshape(-1, 64, 6, 16).transpose(1, 2)
+        frag9 = fo.bias_fragments(bias, 0.25)
         kw, vw = (extract_overlapping_windows(m, 8, 12, h // 8, w // 8)
                   .reshape(-1, 144, 6, 16).transpose(1, 2)
                   for m in (k_map, v_map))
@@ -787,7 +833,9 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              list(xw.shape), [HAT_SRC]),
             ("flash_oca_gathered",
              "superresolution_tpu/ops/pallas_flash_oca.py:165", e9,
-             lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 6, 8, 12),
+             # the bias re-laid once, as a model passes it
+             lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 6, 8, 12,
+                                           fragments=frag9),
              lambda: fo.flash_oca_gathered_reference(q, k_map, v_map, bias,
                                                      6, 8, 12),
              # the same attention on the pre-gathered windows (the gather
@@ -795,7 +843,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              lambda: F.scaled_dot_product_attention(
                  sdpa_q, kw, vw, attn_mask=bias.to(bf)),
              2 * tok * OCA_MACS, tok * 96 * 2 * 2 + map_bytes
-             + bias.numel() * 4, list(q.shape), [ATTN_SRC]),
+             + bias.numel() * 4, list(q.shape), [OCA_SRC, ENGINE_SRC]),
         ]
         for name, tpu, err, kern, plain, lib, flops, nbytes, shape, srcs \
                 in rows:
@@ -809,8 +857,34 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
                 "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 20),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(lib, 20)}
-            emit({"phase": "kernel_time", **out[name]})
+            extra = {}
+            if name == "flash_oca_gathered":
+                out[name]["ptxas"] = ATTN_COPY_PTXAS.get("oca_kernel")
+                # on this line alone: the exponentials, and the call that
+                # re-lays the bias itself
+                extra = {**oca_exps(tok, 6, 144), "relay_ms": time_ms(
+                    lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 6,
+                                                  8, 12), 20)}
+            emit({"phase": "kernel_time", **out[name], **extra})
+            if name == "flash_oca_gathered":
+                old_kernel(name, OCA_OLD, shape, OCA_OLD_MS["main"], "9")
     return out
+
+
+def oca_exps(queries: int, heads: int, keys: int) -> dict:
+    """Kernel 9's exponentials (one a logit) and the time the
+    special-function units need for them at EXP_RATE."""
+    exps = queries * heads * keys
+    return {"exps": exps, "exp_floor_ms": exps / EXP_RATE * 1e3}
+
+
+def old_kernel(name: str, kernel: str, shape, ms: float, row: str,
+               **extra) -> None:
+    """A redesigned kernel's predecessor's time at this shape, from
+    PERF.md's kernel table (row `row`): printed as a reference, not
+    re-run."""
+    emit({"phase": "old_kernel", "name": name, **extra, "kernel": kernel,
+          "shape": shape, "ms": ms, "from": f"PERF.md row {row}, not re-run"})
 
 
 def pinned_dense_block(x, ws, r, slopes, seg=None):
@@ -1654,6 +1728,39 @@ def stencil_ptxas(report: str) -> dict:
     return out
 
 
+# Kernels 9 and 19 in the same report: {"oca_kernel": {"c<C>_nh<heads>_
+# ws<ws>_ows<ows>[_planted]": {...}}, "copy_kernel": {...}}; neither may
+# spill.
+ATTN_COPY_PTXAS: dict = {}
+
+
+def attn_copy_ptxas(report: str) -> dict:
+    out: dict = {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        k = re.search(r"Compiling entry function '\S*?(oca_kernelILi(\d+)ELi"
+                      r"(\d+)ELi(\d+)ELi(\d+)ELb([01])E|copy_kernel)", line)
+        if not k:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        use = {"registers": int(regs.group(1)) if regs else None,
+               "spill_bytes": int(spill.group(1)) if spill else None}
+        if k.group(2):
+            out.setdefault("oca_kernel", {})[
+                f"c{k.group(2)}_nh{k.group(3)}_ws{k.group(4)}_ows{k.group(5)}"
+                + ("_planted" if k.group(6) == "1" else "")] = use
+        else:
+            out["copy_kernel"] = use
+    spilled = [n for n, u in [*out.get("oca_kernel", {}).items(),
+                              ("copy_kernel", out.get("copy_kernel", {}))]
+               if u.get("spill_bytes")]
+    if spilled:
+        raise AssertionError(f"kernel 9 or 19 spills: {spilled} ({out})")
+    return out
+
+
 def attn_case(cg: torch.Generator, case: str, nb: int):
     """Kernel 10's f32 inputs at the path's layout: q, k, v N(0, 1.5^2),
     so the logits spread over several units (printed), self-attention
@@ -2446,7 +2553,9 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
     unmasked and masked; the planted faults of phase 6 caught at window
     16, C 120; each timed at the h200 frame's stage-2 shapes (a 256^2
     map) beside its bound, the plain version and, for kernel 9, SDPA on
-    the pre-gathered windows. Returns the times by geometry."""
+    the pre-gathered windows, its exponentials and its replaced kernel's
+    time; then kernel 9 on several images with its planted faults
+    (check_oca_multi). Returns the times by geometry."""
     from superresolution_tpu_torch.models.hat_lite import shift_region_ids
     from superresolution_tpu_torch.ops import flash_oca as fo
     from superresolution_tpu_torch.ops import hab
@@ -2531,9 +2640,10 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
         b_ms, b_by = bound(2 * tok * 2 * ows * ows * c,
                            tok * c * 2 * 2 + 2 * k_map.numel() * 2
                            + bias.numel() * 4)
+        frag = fo.bias_fragments(bias, (c // 6) ** -0.5)  # once, as a model
         times[tag] = {
             "ms": time_ms(lambda: fo.flash_oca_gathered(
-                q, k_map, v_map, bias, 6, ws, ows), 10),
+                q, k_map, v_map, bias, 6, ws, ows, fragments=frag), 10),
             "plain_ms": time_ms(lambda: fo.flash_oca_gathered_reference(
                 q, k_map, v_map, bias, 6, ws, ows), 5),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -2541,10 +2651,64 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "shape": list(q.shape),
             "max_rel_err": e9["max_rel_err"]}
         emit({"phase": "kernel_time", "name": "flash_oca_gathered",
-              "case": tag, **times[tag]})
+              "case": tag, **times[tag], **oca_exps(tok, 6, ows * ows),
+              "relay_ms": time_ms(lambda: fo.flash_oca_gathered(
+                  q, k_map, v_map, bias, 6, ws, ows), 10)})
+        old_kernel("flash_oca_gathered", OCA_OLD, list(q.shape),
+                   OCA_OLD_MS[tag], "9", case=tag)
         del q, k_map, v_map, bias, sq, kw, vw
         torch.cuda.empty_cache()
+    check_oca_multi(gen)
     return times
+
+
+# Kernel 9 on several images at ws 16, ows 24 (phase 18b): B 3 of 48 x 80
+# maps, 45 windows (no multiple of a window's 4 blocks or of the SMs), 12
+# key tiles a window. Its faults are planted on inputs that let each one
+# show: q and k N(0, 1), v N(0, 1.5^2), bias N(0, 3^2), so a row's largest
+# logits come from the bias, the padded keys carry weight and later tiles
+# raise the row max.
+OCA_MULTI = (3, 48, 80)
+OCA_FAULTS = ("PLANT_PAD_MASKED", "PLANT_NO_RESCALE", "PLANT_ROW_STRIDE")
+
+
+def check_oca_multi(gen: torch.Generator) -> None:
+    """Kernel 9 at OCA_MULTI, C 96 and 120, within 0.03 of its plain
+    version; at C 120 each of OCA_FAULTS planted in the kernel and the
+    two faults of phase 6 planted in its inputs (bias zeroed, k map
+    shifted a column) must miss by 3x the bar."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import flash_oca as fo
+
+    bf = torch.bfloat16
+    b, h, w = OCA_MULTI
+    ws, ows = 16, 24
+    pad = (ows - ws) // 2
+    nw = b * (h // ws) * (w // ws)
+    for c in (96, 120):
+        tag = f"oca_c{c}_ws16_ows24_b{b}"
+        q = rand(gen, nw, ws * ws, c, dtype=bf)
+        k_map, v_map = (F.pad(rand(gen, b, h, w, c, scale=sc, dtype=bf),
+                              (0, 0, pad, pad, pad, pad)).contiguous()
+                        for sc in (1.0, 1.5))
+        bias = rand(gen, 6, ws * ws, ows * ows, scale=3.0)
+        check_oca(q, k_map, v_map, bias, tag, ws, ows)
+        if c != 120:
+            continue
+
+        def kernel(km=k_map, bs=bias):
+            return fo.flash_oca_gathered(q, km, v_map, bs, 6, ws, ows)
+
+        ref = fo.flash_oca_gathered_reference(q, k_map, v_map, bias, 6, ws,
+                                              ows)
+        for fault in OCA_FAULTS:
+            expect_margin(f"{tag}:{fault}",
+                          planted("oca", getattr(_build, fault), kernel),
+                          ref, TOL_HAB)
+        expect_margin(f"{tag}:oca_bias_zeroed",
+                      kernel(bs=torch.zeros_like(bias)), ref, TOL_HAB)
+        expect_margin(f"{tag}:oca_k_map_shifted",
+                      kernel(km=torch.roll(k_map, 1, 2)), ref, TOL_HAB)
 
 
 def h200_path(gen: torch.Generator, card: str) -> dict:
@@ -2977,9 +3141,10 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
     kw, vw = (extract_overlapping_windows(m, 8, 12, side // 8, side // 8)
               .reshape(-1, 144, 8, 16).transpose(1, 2)
               for m in (k_map, v_map))
+    frag = fo.bias_fragments(bias, 0.25)  # once, as a model passes it
     out["oca_c128_nh8_ws8_ows12"] = {
-        "ms": time_ms(lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 8,
-                                                    8, 12), 20),
+        "ms": time_ms(lambda: fo.flash_oca_gathered(
+            q, k_map, v_map, bias, 8, 8, 12, fragments=frag), 20),
         "plain_ms": time_ms(lambda: fo.flash_oca_gathered_reference(
             q, k_map, v_map, bias, 8, 8, 12), 10),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -2988,8 +3153,14 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * tok * 2 * 144 * cp, tok * cp * 2 * 2 + 2 * k_map.numel() * 2
             + bias.numel() * 4)))}
-    for tag, t in out.items():
-        emit({"phase": "kernel_time", "case": tag, **t})
+    relay = {**oca_exps(tok, 8, 144), "relay_ms": time_ms(
+        lambda: fo.flash_oca_gathered(q, k_map, v_map, bias, 8, 8, 12), 20)}
+    for tag, t in out.items():  # the exponentials, relay_ms on the line
+        emit({"phase": "kernel_time", "case": tag, **t, **(
+            relay if tag.startswith("oca_") else {})})
+    old_kernel("flash_oca_gathered", OCA_OLD, list(q.shape),
+               OCA_OLD_MS["oca_c128_nh8_ws8_ows12"], "9",
+               case="oca_c128_nh8_ws8_ows12")
     return out
 
 
@@ -4286,9 +4457,8 @@ def check_blur_kernel(gen: torch.Generator) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by}
         emit({"phase": "kernel_time", "name": "anti_checkerboard_kernel",
               "geometry": tag, **geometries[tag]})
-        emit({"phase": "old_kernel", "name": "anti_checkerboard_kernel",
-              "geometry": tag, "kernel": BLUR_OLD, "shape": list(shape),
-              "ms": BLUR_OLD_MS[tag], "from": "PERF.md row 17, not re-run"})
+        old_kernel("anti_checkerboard_kernel", BLUR_OLD, list(shape),
+                   BLUR_OLD_MS[tag], "17", geometry=tag)
     x = torch.empty(16, device="cuda")
     floor = {"noop_ms": time_ms(lambda: _build.noop(x), 20),
              "noop_device_ms": launch_device_ms(lambda: _build.noop(x))}
@@ -4465,13 +4635,23 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
             "geometries": geometries}
 
 
+# The kernel 19 replaced (extra_kernels.cu copy_kernel, one block a band
+# of rb rows) at dma_probe's shapes, as PERF.md's kernel table keeps it
+# (row 19). Printed as a reference, not re-run.
+COPY_OLD = "extra_kernels.cu copy_kernel, one block a band"
+COPY_OLD_MS = {"lane64": 0.2323, "lane128": 0.2329}
+
+
 def check_passthrough_kernel() -> dict:
     """Phase 38: kernel 19 (make_pt's passthrough) at the reference's two
     shapes, rb 94, bf16 and f32: the copy exactly equal to its input. A
     fault planted in the kernel (the last band not copied) must be
-    caught, on fresh values so that stale memory cannot pass for a copy.
-    Timed beside the plain x.clone() and dst.copy_(src); then dma_probe,
-    the card's measured copy rate. Returns the kernels-line entry
+    caught, on fresh values so that stale memory cannot pass for a copy,
+    band 95 alone wrong. Timed beside the plain x.clone(), dst.copy_(src)
+    and the replaced kernel's time, each on the card alone (its calls
+    queued behind a spin), and each unqueued as well, with the host's
+    time to issue a call and the card's clocks; then dma_probe, the
+    card's measured copy rate. Returns the kernels-line entry
     ([24,376,272,64])."""
     from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.utils import dma_probe as dp
@@ -4497,15 +4677,19 @@ def check_passthrough_kernel() -> dict:
                 fresh = torch.randn(shape, generator=cg, device="cuda").to(bf)
 
                 def check():
-                    bad = planted("copy_bands", _build.PLANT_LAST_BAND,
+                    bad = planted("stream_copy", _build.PLANT_LAST_BAND,
                                   lambda: fn(fresh))
                     bands = [torch.equal(u, v) for u, v in zip(
                         bad.reshape(-1, dp.PROBE_RB, *shape[2:]),
                         fresh.reshape(-1, dp.PROBE_RB, *shape[2:]))]
+                    wrong = [i for i, ok in enumerate(bands) if not ok]
                     emit({"planted_fault": "last_band_not_copied",
-                          "bands_wrong": [i for i, ok in enumerate(bands)
-                                          if not ok]})
-                    if not all(bands):
+                          "bands_wrong": wrong})
+                    if wrong not in ([], [len(bands) - 1]):
+                        # the fault leaves the last band alone unwritten
+                        raise RuntimeError(f"passthrough: bands {wrong} "
+                                           "differ, not the last alone")
+                    if wrong:
                         raise AssertionError("passthrough: a band differs")
 
                 expect_caught("passthrough:last_band_not_copied", check)
@@ -4513,22 +4697,36 @@ def check_passthrough_kernel() -> dict:
             dst = torch.empty_like(x)
             nbytes = x.numel() * x.element_size()
             b_ms, b_by = bound(0, 2 * nbytes)
-            ms = time_ms(lambda: fn(x), 20)
+            # device time, the calls queued behind a spin (dma_probe.
+            # copy_ms); the unqueued span and the host's time to issue a
+            # call beside it, on the line alone
+            ms = dp.copy_ms(fn, x, 20)
+            lib_ms = dp.copy_ms(dst.copy_, x, 20)
             geometries[tag] = {
                 "shape": list(shape), "rb": dp.PROBE_RB, "max_abs_err": 0.0,
                 "ms": ms, "gbps": 2 * nbytes / 1e9 / (ms / 1e3),
-                "plain_ms": time_ms(lambda: dp.passthrough_reference(x), 20),
-                "library_ms": time_ms(lambda: dst.copy_(x), 20),
-                "bound_ms": b_ms, "bound_by": b_by}
+                "plain_ms": dp.copy_ms(dp.passthrough_reference, x, 20),
+                "library_ms": lib_ms, "over_library": ms / lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "plan": {"blocks": dp.copy_grid(nbytes),
+                         "chunk_bytes": dp.COPY_CHUNK}}
             emit({"phase": "kernel_time", "name": "passthrough",
-                  "geometry": tag, **geometries[tag]})
+                  "geometry": tag, **geometries[tag],
+                  "unqueued_ms": time_ms(lambda: fn(x), 20),
+                  "unqueued_library_ms": time_ms(lambda: dst.copy_(x), 20),
+                  "issue_ms": issue_ms(lambda: fn(x), 20),
+                  "library_issue_ms": issue_ms(lambda: dst.copy_(x), 20),
+                  "card": card_state()})
+            old_kernel("passthrough", COPY_OLD, list(shape), COPY_OLD_MS[tag],
+                       "19", geometry=tag)
             del x, dst
     probe = dp.dma_probe()
     emit({"phase": "dma_probe", **probe,
           "nominal_gbps": PEAK_BYTES / 1e9})
     main = geometries["lane64"]
-    return {"name": "passthrough", "route": "cuda", "source": EXTRA_SRC,
-            "sources": [EXTRA_SRC], "replaces": "bench.py:351",
+    return {"name": "passthrough", "route": "cuda", "source": STREAM_SRC,
+            "sources": [STREAM_SRC, ENGINE_SRC], "replaces": "bench.py:351",
+            "ptxas": ATTN_COPY_PTXAS.get("copy_kernel"),
             **{k: main[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")},
             "tol": 0.0, "launches": 1,
@@ -4567,9 +4765,12 @@ def main() -> int:
           file=sys.stderr)
     PTXAS.update(ptxas_usage(ptxas))
     STENCIL_PTXAS.update(stencil_ptxas(ptxas))
+    ATTN_COPY_PTXAS.update(attn_copy_ptxas(ptxas))
     emit({"phase": "build", "seconds": build_s,
           "conv_engine_ptxas": PTXAS or "not reported (cached build)",
-          "stencil_ptxas": STENCIL_PTXAS or "not reported (cached build)"})
+          "stencil_ptxas": STENCIL_PTXAS or "not reported (cached build)",
+          "attn_copy_ptxas": ATTN_COPY_PTXAS
+          or "not reported (cached build)"})
 
     gen = torch.Generator().manual_seed(SEED)
     model = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,

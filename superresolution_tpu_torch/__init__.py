@@ -10,8 +10,8 @@ dense blocks and the x4 tail run through hand-written CUDA kernels
 (ops/csrc/sr_kernels.cu), built with nvcc at first use. Slice 2 covers
 the hybrid RRDBNet -> HAT x4 deploy path (infer/fused_hat.py): the HAT
 stage's CAB convs and HAB block bodies run through ops/csrc/
-hat_kernels.cu and its OCAB attention through ops/csrc/attn_kernels.cu,
-stage 1 through the slice-1 trunk. Slice 3
+hat_kernels.cu and its OCAB attention through ops/csrc/oca_kernels.cu
+(kernel 9), stage 1 through the slice-1 trunk. Slice 3
 covers hybrid_astro training on one device (train/trainer.py): the dense
 blocks' backward (kernel 13) and the star-weighted L1 (kernel 14) run
 through ops/csrc/train_kernels.cu, their forwards through B1. Slice 4

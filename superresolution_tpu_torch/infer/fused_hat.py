@@ -67,6 +67,7 @@ from superresolution_tpu_torch.models.hat_lite import (
 from superresolution_tpu_torch.models.hybrid import resize_to_output
 from superresolution_tpu_torch.ops.blur import anti_checkerboard
 from superresolution_tpu_torch.ops.flash_oca import (
+    bias_fragments,
     flash_oca_gathered,
     oca_gather_supported,
 )
@@ -155,12 +156,12 @@ def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
 
 
 def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
-          nh: int, bias: torch.Tensor,
+          nh: int, bias: torch.Tensor, fragments: torch.Tensor,
           c_real: int | None = None) -> torch.Tensor:
     """OverlappingCrossAttention: LN, q and kv denses, the kv maps
     zero-padded after the dense (asymmetric tail pad for odd ows - ws),
-    attention through kernel 9, kernel 10 or the plain form (see the
-    module docstring), proj, MLP."""
+    attention through kernel 9 (the bias re-laid once, as `fragments`),
+    kernel 10 or the plain form (see the module docstring), proj, MLP."""
     _, h, w, c = x.shape
     pad = (ows - ws) // 2
     y = _ln(x, p, f"{pre}.norm1", c_real)
@@ -173,7 +174,8 @@ def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
             and oca_gather_supported(ws, ows, h, w)):
         k_map, v_map = (kv[..., i * c:(i + 1) * c].contiguous()
                         for i in (0, 1))
-        out = flash_oca_gathered(q, k_map, v_map, bias, nh, ws, ows)
+        out = flash_oca_gathered(q, k_map, v_map, bias, nh, ws, ows,
+                                 fragments=fragments)
     else:
         k, v = extract_overlapping_windows(kv, ws, ows, h // ws,
                                            w // ws).split(c, dim=-1)
@@ -207,6 +209,7 @@ def make_fused_hat(params: Mapping, model: HATLite,
                                                        c_pad):
             p, nhp = pad_hat_params(p, model, c_pad)
             heads, c_real = (nhp,) * len(heads), c_model
+    c_q = p["conv_first.weight"].shape[0]  # the attention's channels
     layers = []
     for g, (depth, nh) in enumerate(zip(model.depths, heads)):
         blocks = [f"layers.{g}.residual_group.blocks.{i}"
@@ -219,7 +222,9 @@ def make_fused_hat(params: Mapping, model: HATLite,
                 n, ows * ows, nh).permute(2, 0, 1).float().contiguous()
         else:
             bias = torch.zeros((nh, n, ows * ows), device=dev)
-        layers.append((g, blocks, nh, bias))
+        # kernel 9's order of the bias, made once here for every frame
+        frag = bias_fragments(bias, float(c_q // nh) ** -0.5)
+        layers.append((g, blocks, nh, (bias, frag)))
     cast: dict = {}
     ids_at: dict = {}
 
@@ -249,7 +254,7 @@ def make_fused_hat(params: Mapping, model: HATLite,
         feat = param_conv(x, p, "conv_first")
         y = (_ln(feat, p, "patch_embed.norm", c_real) if model.hat_compat
              else feat)
-        for g, blocks, nh, bias in layers:
+        for g, blocks, nh, (bias, frag) in layers:
             y0 = y
             for i, pre in enumerate(blocks):
                 shift = 0 if i % 2 == 0 else ws // 2
@@ -257,7 +262,7 @@ def make_fused_hat(params: Mapping, model: HATLite,
                          conv_scale=model.conv_scale,
                          ids=ids if shift else None, c_real=c_real)
             y = _ocab(y, p, f"layers.{g}.overlap_attn", ws=ws, ows=ows,
-                      nh=nh, bias=bias, c_real=c_real)
+                      nh=nh, bias=bias, fragments=frag, c_real=c_real)
             y = y0 + param_conv(y, p, f"layers.{g}.conv")
         if model.hat_compat:
             y = _ln(y, p, "norm", c_real)

@@ -127,7 +127,7 @@ def library() -> ctypes.CDLL:
     lib.hat_cab_pair.argtypes = [_P, *[_I] * 4, *[_P] * 7, _I, _P]
     lib.hat_cab_pair.restype = _I
     lib.hat_oca.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _F, _P]
+                            _I, _I, _F, _I, _P]
     lib.hat_oca.restype = _I
     lib.train_star_l1_parts.argtypes = [_S]
     lib.train_star_l1_parts.restype = _I
@@ -157,8 +157,8 @@ def library() -> ctypes.CDLL:
     lib.extra_blur.restype = _I
     lib.extra_pack_conv.argtypes = [_P, _P, _P, _P, *[_I] * 11, _P]
     lib.extra_pack_conv.restype = _I
-    lib.extra_copy.argtypes = [_P, _P, _L, _L, _I, _P]
-    lib.extra_copy.restype = _I
+    lib.stream_copy.argtypes = [_P, _P, _L, _I, _L, _I, _P]
+    lib.stream_copy.restype = _I
     lib.extra_noop.argtypes = [_P]
     lib.extra_noop.restype = _I
     lib.sr_error_string.argtypes = [_I]
@@ -385,18 +385,27 @@ def cab_pair(x: torch.Tensor, weights, out: torch.Tensor,
     _check(lib, rc, "hat_cab_pair")
 
 
+# Faults chip_smoke.py plants in kernel 9 (`plant`, a bit mask; 0 in use;
+# see oca_kernels.cu): the padded keys masked out of the softmax, the
+# output not rescaled when a key tile raises the row max, the map rows
+# addressed at the wrong stride.
+PLANT_PAD_MASKED, PLANT_NO_RESCALE, PLANT_ROW_STRIDE = 1, 2, 4
+
+
 def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
         bias: torch.Tensor, num_heads: int, ws: int, ows: int,
-        grid: tuple[int, int, int], out: torch.Tensor) -> None:
-    """One launch of kernel 9 (attn_kernels.cu): q, out [nb, n, C]; k_map,
-    v_map [B, hp, wp, C] bf16; bias [nh, n, ows*ows] f32; grid = (B,
-    window rows, window columns)."""
+        grid: tuple[int, int, int], out: torch.Tensor,
+        plant: int = 0) -> None:
+    """One launch of kernel 9, oca_kernel (oca_kernels.cu): q, out [nb, n,
+    C]; k_map, v_map [B, hp, wp, C] bf16; bias the f32 [nh, n, ows*ows]
+    / hd^-1/2 in fragment order (ops/flash_oca.bias_fragments); grid =
+    (B, window rows, window columns)."""
     lib = library()
     b, nh_w, nw_w = grid
     _, hp, wp, c = k_map.shape
     rc = lib.hat_oca(_ptr(q), _ptr(k_map), _ptr(v_map), _ptr(bias),
                      _ptr(out), b, nh_w, nw_w, hp, wp, c, num_heads, ws,
-                     ows, float(c // num_heads) ** -0.5, _stream(q))
+                     ows, float(c // num_heads) ** -0.5, plant, _stream(q))
     _check(lib, rc, "hat_oca")
 
 
@@ -505,7 +514,7 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
 # (SAME semantics) or its 0.2 residual scale dropped; 17 normalized by
 # the binomial row's sum or missing its top-left tap; 18's pad packs not
 # zeroed or the left tap across a pack edge dropped (both in either
-# body); 19's last band not copied.
+# body); 19's last band not stored (stream_kernels.cu).
 PLANT_SAME, PLANT_NO_SCALE = 1, 2
 PLANT_NORM, PLANT_CORNER = 1, 2
 PLANT_PAD_KEPT, PLANT_DROP_CROSS = 1, 2
@@ -559,15 +568,18 @@ def pack_conv(xp: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
     _check(lib, rc, "extra_pack_conv")
 
 
-def copy_bands(src: torch.Tensor, dst: torch.Tensor, bands: int,
-               plant: int = 0) -> None:
-    """One launch of kernel 19, copy_kernel: dst = src, one block per
-    band of src.nbytes / bands bytes (a multiple of 16)."""
+def stream_copy(src: torch.Tensor, dst: torch.Tensor, blocks: int,
+                band_bytes: int, plant: int = 0) -> None:
+    """One launch of kernel 19, copy_kernel (stream_kernels.cu): dst =
+    src on `blocks` = utils/dma_probe.copy_grid(bytes), one block a 16 KB
+    chunk (the launch fails on another grid); bytes and band_bytes
+    multiples of 16. PLANT_LAST_BAND leaves the last band_bytes of dst
+    unwritten."""
     lib = library()
     nbytes = src.numel() * src.element_size()
-    rc = lib.extra_copy(_ptr(src), _ptr(dst), bands, nbytes // bands, plant,
-                        _stream(src))
-    _check(lib, rc, "extra_copy")
+    rc = lib.stream_copy(_ptr(src), _ptr(dst), nbytes, blocks, band_bytes,
+                         plant, _stream(src))
+    _check(lib, rc, "stream_copy")
 
 
 def noop(t: torch.Tensor) -> None:

@@ -1,4 +1,4 @@
-// Kernels 9 and 10: window attention, hand-written for sm_90a.
+// Kernel 10: window attention, hand-written for sm_90a.
 //
 // 10 flash_window_attention  (replaces superresolution_tpu/ops/
 //    pallas_attn.py: flash_window_attention, _flash_fwd_impl, _kernel,
@@ -13,15 +13,8 @@
 //    are arguments, so the split of a packed qkv projection is read in
 //    place); bias [nh, N, M] f32; ids [nw_img, N] int32 or null. T is bf16
 //    on the deploy path, f32 for the exact check.
-//  9 flash_oca_gathered  (replaces ops/pallas_flash_oca.py:
-//    flash_oca_gathered, _fwd_impl, _kernel): the same attention for the
-//    OCAB, whose keys and values are not windows of a tensor but ows x
-//    ows patches of the zero-padded key and value maps [B, hp, wp, C]:
-//    key j of query window (wr, wc) is the map pixel (wr*ws + j / ows,
-//    wc*ws + j % ows). The block reads its patch straight from the maps,
-//    so the gathered [nb, ows*ows, C] tensor is never written; the padded
-//    keys are zero vectors whose logits are the bias alone and take part
-//    in the softmax, as in the reference.
+//    (Kernel 9, the OCAB's attention over keys gathered from the padded
+//    maps, is FlashAttention-2 on the tensor cores: oca_kernels.cu.)
 //
 // The geometries (template instances): head dim 16 or 20; (N, M) of the
 // window attention (64, 64), (64, 100), (64, 121), (64, 144), (256, 256),
@@ -96,14 +89,11 @@ __device__ __forceinline__ float4 load4(const float* p, bool vec) {
 
 struct AttnArgs {
   const void* q;
-  const void* k;          // windows [nb, M, C], or the padded key map
+  const void* k;          // windows [nb, M, C]
   const void* v;
   long long q_bs, q_rs;   // window and row strides, in elements
   long long k_bs, k_rs;
   long long v_bs, v_rs;
-  // gathered keys (kernel 9): maps [B, hp, wp, C], windows in (B, nh_w,
-  // nw_w) order, ws x ws query windows, ows x ows key patches
-  int nh_w, nw_w, hp, wp, ws, ows;
   const float* bias;      // [nh, N, M]
   const int* ids;         // [nw_img, N] or null
   int nw_img;
@@ -113,27 +103,12 @@ struct AttnArgs {
   int vec;                // every row start of q, k, v is 4-element aligned
 };
 
-// Offset (in elements, before the head's column offset) of key row j of
-// window b in k or v.
-template <bool GATHER>
-__device__ __forceinline__ long long key_row(const AttnArgs& a, long long b,
-                                             int j, long long bs,
-                                             long long rs) {
-  if (!GATHER) return b * bs + j * rs;
-  const long long img = b / ((long long)a.nh_w * a.nw_w);
-  const int wr = (int)((b / a.nw_w) % a.nh_w);
-  const int wc = (int)(b % a.nw_w);
-  return ((img * a.hp + wr * a.ws + j / a.ows) * a.wp + wc * a.ws +
-          j % a.ows) *
-         (long long)a.C;
-}
-
 template <int HD, int M>
 constexpr size_t smem_bytes(int n) {
   return (size_t)2 * M * (HD + 4) * sizeof(float) + n * sizeof(int);
 }
 
-template <typename T, int HD, int N, int M, bool GATHER>
+template <typename T, int HD, int N, int M>
 __global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
   constexpr int LPQ = NT / N;   // lanes per query row
   constexpr int LD = HD + 4;    // f32 row stride: 16-byte rows, no bank
@@ -155,9 +130,9 @@ __global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
   for (int e = threadIdx.x; e < M * (HD / 4); e += NT) {
     const int j = e / (HD / 4), d = (e % (HD / 4)) * 4;
     *reinterpret_cast<float4*>(ks + j * LD + d) =
-        load4(kp + key_row<GATHER>(a, b, j, a.k_bs, a.k_rs) + d, vec);
+        load4(kp + b * a.k_bs + j * a.k_rs + d, vec);
     *reinterpret_cast<float4*>(vs + j * LD + d) =
-        load4(vp + key_row<GATHER>(a, b, j, a.v_bs, a.v_rs) + d, vec);
+        load4(vp + b * a.v_bs + j * a.v_rs + d, vec);
   }
   if (masked)
     for (int t = threadIdx.x; t < N; t += NT)
@@ -254,14 +229,14 @@ __global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
     if (d / DPL == g) put(orow + d, o[d] / l);
 }
 
-template <typename T, int HD, int N, int M, bool GATHER>
+template <typename T, int HD, int N, int M>
 int launch(const AttnArgs& a, long long nb, cudaStream_t stream) {
   const size_t bytes = smem_bytes<HD, M>(N);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<T, HD, N, M, GATHER>,
+      attn_kernel<T, HD, N, M>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  attn_kernel<T, HD, N, M, GATHER>
+  attn_kernel<T, HD, N, M>
       <<<(unsigned)(nb * a.nh), NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -271,15 +246,15 @@ int dispatch_window(const AttnArgs& a, long long nb, int n, int m,
                     cudaStream_t s) {
   if (n == 64) {
     switch (m) {
-      case 64: return launch<T, HD, 64, 64, false>(a, nb, s);
-      case 100: return launch<T, HD, 64, 100, false>(a, nb, s);
-      case 121: return launch<T, HD, 64, 121, false>(a, nb, s);
-      case 144: return launch<T, HD, 64, 144, false>(a, nb, s);
+      case 64: return launch<T, HD, 64, 64>(a, nb, s);
+      case 100: return launch<T, HD, 64, 100>(a, nb, s);
+      case 121: return launch<T, HD, 64, 121>(a, nb, s);
+      case 144: return launch<T, HD, 64, 144>(a, nb, s);
     }
   } else if (n == 256) {
     switch (m) {
-      case 256: return launch<T, HD, 256, 256, false>(a, nb, s);
-      case 576: return launch<T, HD, 256, 576, false>(a, nb, s);
+      case 256: return launch<T, HD, 256, 256>(a, nb, s);
+      case 576: return launch<T, HD, 256, 576>(a, nb, s);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -327,49 +302,6 @@ int attn_window(const void* q, long long q_bs, long long q_rs,
                : dispatch_window<bf16, 16>(a, nb, n, m, s);
   return f32 ? dispatch_window<float, 20>(a, nb, n, m, s)
              : dispatch_window<bf16, 20>(a, nb, n, m, s);
-}
-
-// One launch of kernel 9 on bf16 q [B*nh_w*nw_w, ws*ws, C] and maps
-// [B, hp, wp, C]; (C, nh, ws, ows) one of (96, 6, 8, 12), (96, 6, 8, 10),
-// (96, 6, 16, 24), (120, 6, 16, 24) and the lane-padded (128, 8, 8, 12):
-// C 96 padded to 128 at head dim 16, whose two pad heads read zero q, k
-// and v columns and write exactly zero.
-int hat_oca(const void* q, const void* kmap, const void* vmap,
-            const void* bias, void* out, int B, int nh_w, int nw_w, int hp,
-            int wp, int C, int nh, int ws, int ows, float scale,
-            void* stream) {
-  const bool ok = (nh == 6 && ((C == 96 && ws == 8 &&
-                                (ows == 12 || ows == 10)) ||
-                               ((C == 96 || C == 120) && ws == 16 &&
-                                ows == 24))) ||
-                  (nh == 8 && C == 128 && ws == 8 && ows == 12);
-  if (!ok || B < 1 || hp < nh_w * ws + ows - ws ||
-      wp < nw_w * ws + ows - ws)
-    return (int)cudaErrorInvalidValue;
-  AttnArgs a = {};
-  a.q = q;
-  a.k = kmap;
-  a.v = vmap;
-  a.q_bs = (long long)ws * ws * C;
-  a.q_rs = C;
-  a.nh_w = nh_w;
-  a.nw_w = nw_w;
-  a.hp = hp;
-  a.wp = wp;
-  a.ws = ws;
-  a.ows = ows;
-  a.bias = static_cast<const float*>(bias);
-  a.out = out;
-  a.C = C;
-  a.nh = nh;
-  a.scale = scale;
-  a.vec = 1;  // contiguous bf16 rows of C, a multiple of 8 elements
-  const long long nb = (long long)B * nh_w * nw_w;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 120) return launch<bf16, 20, 256, 576, true>(a, nb, s);
-  if (ws == 16) return launch<bf16, 16, 256, 576, true>(a, nb, s);
-  if (ows == 12) return launch<bf16, 16, 64, 144, true>(a, nb, s);
-  return launch<bf16, 16, 64, 100, true>(a, nb, s);
 }
 
 }  // extern "C"

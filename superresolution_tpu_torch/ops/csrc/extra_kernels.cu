@@ -1,6 +1,7 @@
 // Hand-written CUDA kernels of the reference's last Pallas kernels outside
-// benchmarks/ (sm_90a): 16, 17, 18 and 19. No path of the system runs
-// them; each is its own public op.
+// benchmarks/ (sm_90a): 16, 17 and 18 (19, the passthrough, is in
+// stream_kernels.cu). No path of the system runs them; each is its own
+// public op.
 //
 //   16 fused_dense_block_valid  (replaces superresolution_tpu/ops/
 //      pallas_dense.py:fused_dense_block_pallas, _kernel): one
@@ -38,15 +39,12 @@
 //      kernel's banded pack GEMMs and rolls exist for the MXU's 128-deep
 //      contraction; here the pack is only an address, and the GEMM is M =
 //      the unpacked pixels, N = n, K = 9 c.
-//   19 passthrough  (replaces bench.py:dma_probe.make_pt): a copy, one
-//      block per band of rb rows as the reference's grid has, 16-byte
-//      loads and stores, four in flight a thread.
 //
 // Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): 16 does B1's
 // 239,616 MACs per image pixel (plus the 5-px ring), bound by operations;
 // 18 at the dense block's widths (9 c n MACs per pixel for 2 (c + n)
-// bytes) by operations; 17 (k^2 MACs per 2-4 bytes in and out) and 19 by
-// bytes: 17 reads each input byte from HBM about once (the tile's halo
+// bytes) by operations; 17 (k^2 MACs per 2-4 bytes in and out) by
+// bytes: it reads each input byte from HBM about once (the tile's halo
 // rows and columns come again from L2) and does 2k FMAs an output. 18
 // in bf16 runs on the tensor cores (mma.sync, 989 TFLOP/s peak); 16, and
 // 18 in f32, run f32 FFMA on the CUDA cores (67 TFLOP/s, ~7% of the bf16
@@ -74,7 +72,6 @@ constexpr int PLANT_CORNER = 2;      // 17: the top-left tap dropped
 constexpr int PLANT_PAD_KEPT = 1;    // 18: pad packs not zeroed
 constexpr int PLANT_DROP_CROSS = 2;  // 18: the left tap across a pack
                                      //     edge dropped
-constexpr int PLANT_LAST_BAND = 1;   // 19: the last band not copied
 
 // Kernel 16, stage j (1..5), in the frame of x padded by 5.
 template <typename T>
@@ -403,29 +400,6 @@ int launch_blur(const BlurArgs& a, int taps, dim3 grid, dim3 block,
              : launch_blur<T, K, TAPS_SCALAR>(a, grid, block, bytes, s);
 }
 
-// ---- kernel 19 --------------------------------------------------------
-
-constexpr int COPY_THREADS = 1024;
-
-// Block i copies band i, `vecs` 16-byte words.
-__global__ void __launch_bounds__(COPY_THREADS) copy_kernel(
-    const uint4* __restrict__ src, uint4* __restrict__ dst, long long vecs,
-    int plant) {
-  if ((plant & PLANT_LAST_BAND) && blockIdx.x == gridDim.x - 1) return;
-  const uint4* s = src + (size_t)blockIdx.x * vecs;
-  uint4* d = dst + (size_t)blockIdx.x * vecs;
-  long long i = threadIdx.x;
-  for (; i + 3 * COPY_THREADS < vecs; i += 4 * COPY_THREADS) {
-    const uint4 v0 = s[i], v1 = s[i + COPY_THREADS],
-                v2 = s[i + 2 * COPY_THREADS], v3 = s[i + 3 * COPY_THREADS];
-    d[i] = v0;
-    d[i + COPY_THREADS] = v1;
-    d[i + 2 * COPY_THREADS] = v2;
-    d[i + 3 * COPY_THREADS] = v3;
-  }
-  for (; i < vecs; i += COPY_THREADS) d[i] = s[i];
-}
-
 }  // namespace
 
 extern "C" {
@@ -563,20 +537,6 @@ int extra_pack_conv(const void* x, const void* w, const float* bias,
   if (tc) return conv_engine::tc::launch(a, s);
   return drop ? conv_engine::direct::launch<PackConv<bf16>, true>(a, s)
               : conv_engine::direct::launch<PackConv<bf16>, false>(a, s);
-}
-
-// Kernel 19: bands blocks, each copying band_bytes (a multiple of 16;
-// src and dst 16-byte aligned).
-int extra_copy(const void* src, void* dst, long long bands,
-               long long band_bytes, int plant, void* stream) {
-  if (bands < 1 || bands > 0x7fffffffll || band_bytes < 16 ||
-      band_bytes % 16)
-    return (int)cudaErrorInvalidValue;
-  copy_kernel<<<(unsigned)bands, COPY_THREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst),
-      band_bytes / 16, plant);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

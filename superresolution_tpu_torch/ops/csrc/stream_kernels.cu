@@ -1,7 +1,8 @@
-// Input-streaming kernels (sm_90a): persistent blocks that walk row bands
-// of an NHWC map and stream its rows through a ring of shared-memory
-// buffers, so the HBM reads of the next rows overlap the work on this one
-// and every input byte is read from HBM about once.
+// Streaming kernels (sm_90a): persistent blocks, sized from the SM count,
+// that walk their share of a map or buffer with the next reads in flight
+// while they work on this one, so every input byte is read from HBM about
+// once. B3 streams the rows of an NHWC map through a ring of shared-memory
+// buffers; kernel 19 copies a buffer.
 //
 //   B3 conv_last  (replaces superresolution_tpu/ops/pallas_phase_tail.py:
 //      _last_kernel, called by _run_last): out = conv3x3_SAME(y, w) + b
@@ -43,6 +44,22 @@
 // outside the image: SAME padding), NBUF - 1 rows in flight, across unit
 // boundaries. The output row, 126 * cout bf16 values, is one contiguous run
 // in HBM, written by consecutive threads.
+//
+//   19 passthrough  (replaces bench.py: dma_probe's make_pt, a Pallas copy
+//      with one grid step per band of rb rows): dst = src, a whole buffer
+//      of 16-byte words. The band grid is the TPU's layout, not the
+//      contract: the copy walks chunks of the buffer, independent of rb.
+//
+// Kernel 19 is bound by bytes: it reads and writes each byte once, 0.188
+// ms for the probe's 314 MB at 3.35 TB/s. Block b copies the b-th chunk
+// of COPY_CHUNK words (16 KB; the grid is utils/dma_probe.copy_grid):
+// one 16-byte word for each of its 1024 threads. A grid of thousands of
+// short blocks, which the hardware keeps the card full with, beat every
+// persistent grid of 1 to 4 blocks an SM walking round-robin or
+// contiguous chunks, blocks of 8 to 128 KB, 2 or 4 words a thread in
+// flight, the non-coherent load and evict-first store forms, and a TMA
+// ring that moves the chunks through shared memory by bulk copies
+// (scripts/attn_copy_variants.py; PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -282,6 +299,29 @@ int launch_last(const LastArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// ---- kernel 19 --------------------------------------------------------
+
+constexpr int COPY_PLANT_LAST_BAND = 1;  // the last band's words not stored
+constexpr int COPY_THREADS = 1024;
+constexpr int COPY_WORDS = 1;            // 16-byte words a thread
+constexpr long long COPY_CHUNK = COPY_THREADS * COPY_WORDS;  // a block's
+
+// Block b copies words [b COPY_CHUNK, (b + 1) COPY_CHUNK) of the `words`
+// of src into dst, a thread's loads all in flight before its stores; a
+// word at or past `keep` is not stored (the planted fault).
+__global__ void __launch_bounds__(COPY_THREADS) copy_kernel(
+    const uint4* __restrict__ src, uint4* __restrict__ dst, long long words,
+    long long keep) {
+  const long long w0 = blockIdx.x * COPY_CHUNK + threadIdx.x;
+  uint4 v[COPY_WORDS];
+#pragma unroll
+  for (int u = 0; u < COPY_WORDS; ++u)
+    if (w0 + u * COPY_THREADS < words) v[u] = src[w0 + u * COPY_THREADS];
+#pragma unroll
+  for (int u = 0; u < COPY_WORDS; ++u)
+    if (w0 + u * COPY_THREADS < keep) dst[w0 + u * COPY_THREADS] = v[u];
+}
+
 }  // namespace
 
 extern "C" {
@@ -308,6 +348,27 @@ int stream_conv_last(const void* y, int B, int H, int W, int cin,
     case 3: return launch_last<3>(a, s);
     default: return launch_last<4>(a, s);
   }
+}
+
+// Kernel 19: dst = src, `bytes` (a multiple of 16; both 16-byte aligned),
+// on a grid of one block a chunk of COPY_CHUNK words: `blocks` must be
+// that grid. plant COPY_PLANT_LAST_BAND leaves the last band_bytes
+// unwritten. Returns the cudaError_t of the launch.
+int stream_copy(const void* src, void* dst, long long bytes, int blocks,
+                long long band_bytes, int plant, void* stream) {
+  if (bytes < 16 || bytes % 16 || band_bytes < 16 || band_bytes % 16 ||
+      band_bytes > bytes)
+    return (int)cudaErrorInvalidValue;
+  const long long words = bytes / 16;
+  if (blocks != (words + COPY_CHUNK - 1) / COPY_CHUNK)
+    return (int)cudaErrorInvalidValue;
+  const long long keep =
+      plant & COPY_PLANT_LAST_BAND ? words - band_bytes / 16 : words;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  copy_kernel<<<blocks, COPY_THREADS, 0, s>>>(static_cast<const uint4*>(src),
+                                              static_cast<uint4*>(dst), words,
+                                              keep);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

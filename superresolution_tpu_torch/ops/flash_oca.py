@@ -12,20 +12,22 @@ key and value maps [B, H+(ows-ws), W+(ows-ws), C] whose corner is at
 The maps are zero-padded after the kv dense, so the padded keys are
 zero vectors whose logits are the bias alone; they take part in the
 softmax and are not masked. On the card this is one launch of
-attn_kernel in its gathering form (csrc/attn_kernels.cu, kernel 10's
-attention body), one thread block per query window and head, which
-copies the head's patch from the maps into shared memory: the gathered
-[nb, ows*ows, C] tensor of the plain version is never written.
+oca_kernel (csrc/oca_kernels.cu): FlashAttention-2 on the tensor cores
+(mma.sync), one block for 64 queries of a window and all heads, the
+window's key and value patch streamed from the maps through a ring of
+key tiles in shared memory, so the gathered [nb, ows*ows, C] tensor of
+the plain version is never written.
 
 Bound on the H100: 2 * ows^2 * C MACs per query token (27,648 at C 96
 and ows 12), for 4C bytes of q and out plus one read of the two maps:
-bound by bytes at the bf16 tensor rate, by operations at the CUDA cores'
-f32 rate this first form runs at (see the source).
+bound by bytes at the bf16 tensor rate. The kernel also takes one
+exponential and one f32 bias value from L2 per logit (see the source).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from superresolution_tpu_torch.ops import _build
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
@@ -40,8 +42,8 @@ from superresolution_tpu_torch.ops.window_attention import (
 OCA_GEOMETRIES = ((96, 6, 8, 12), (96, 6, 8, 10), (96, 6, 16, 24),
                   (120, 6, 16, 24), (128, 8, 8, 12))
 
-__all__ = ["flash_oca_gathered", "flash_oca_gathered_reference",
-           "oca_gather_supported"]
+__all__ = ["bias_fragments", "flash_oca_gathered",
+           "flash_oca_gathered_reference", "oca_gather_supported"]
 
 
 def oca_gather_supported(ws: int, ows: int, h: int, w: int) -> bool:
@@ -78,14 +80,33 @@ def flash_oca_gathered_reference(q: torch.Tensor, k_map: torch.Tensor,
     return reference_window_attention(q, kw, vw, bias, num_heads)
 
 
+def bias_fragments(bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """bias [nh, n, m] / scale in the order the kernel's accumulator
+    fragments read it, flat f32: for head h, query tile qt (16 rows), key
+    tile kn (8 keys) and lane l = 4 g + t, four floats: rows 16 qt + g and
+    16 qt + g + 8, each at keys 8 kn + 2 t and + 1 (zero past m). The
+    kernel starts its q k^T sums from these and multiplies by scale. A
+    model makes them once with its biases (infer/fused_hat)."""
+    nh, n, m = bias.shape
+    mp = -(-m // 8) * 8
+    b = F.pad(bias.float() / scale, (0, mp - m))
+    # [h, qt, half, g, kn, t, e] -> [h, qt, kn, g, t, half, e]
+    return (b.reshape(nh, n // 16, 2, 8, mp // 8, 4, 2)
+            .permute(0, 1, 4, 3, 5, 2, 6).contiguous().reshape(-1))
+
+
 def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,
                        v_map: torch.Tensor, bias: torch.Tensor,
-                       num_heads: int, ws: int, ows: int) -> torch.Tensor:
+                       num_heads: int, ws: int, ows: int, *,
+                       fragments: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Kernel 9. q [B*nH*nW, ws*ws, C]; k_map, v_map [B, H+(ows-ws),
     W+(ows-ws), C]; bias [nh, ws*ws, ows*ows] f32 (zeros when the model
     has no OCA rel-pos table). Returns [B*nH*nW, ws*ws, C] in q's dtype.
     CPU tensors run the plain version; CUDA tensors launch the kernel
-    ((C, heads, ws, ows) in OCA_GEOMETRIES; bf16 q and maps) or raise."""
+    ((C, heads, ws, ows) in OCA_GEOMETRIES; bf16 q and maps) or raise.
+    fragments: bias_fragments(bias, hd^-1/2), for a caller that made
+    them once with the bias; None re-lays the bias at this call."""
     grid = _grid(q, k_map, ws, ows)
     if v_map.shape != k_map.shape:
         raise ValueError(f"flash_oca_gathered: v_map {tuple(v_map.shape)} "
@@ -100,10 +121,17 @@ def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,
         raise ValueError(f"flash_oca_gathered: the kernel takes (C, heads, "
                          f"ws, ows) in {OCA_GEOMETRIES}, got "
                          f"{(q.shape[-1], num_heads, ws, ows)}")
+    scale = float(q.shape[-1] // num_heads) ** -0.5
+    if fragments is None:
+        fragments = bias_fragments(bias, scale)
+    elif fragments.numel() != num_heads * ws * ws * -(-ows * ows // 8) * 8:
+        raise ValueError(f"flash_oca_gathered: {fragments.numel()} bias "
+                         f"fragments for a bias {tuple(bias.shape)}")
     _build.require_cuda(q, k_map, v_map, name="flash_oca_gathered")
-    _build.require_cuda(bias, dtype=torch.float32, name="flash_oca_gathered")
+    _build.require_cuda(bias, fragments, dtype=torch.float32,
+                        name="flash_oca_gathered")
     out = torch.empty_like(q)
-    _build.oca(q, k_map, v_map, bias, num_heads, ws, ows, grid, out)
+    _build.oca(q, k_map, v_map, fragments, num_heads, ws, ows, grid, out)
     flash_oca_gathered.launches += 1
     return out
 

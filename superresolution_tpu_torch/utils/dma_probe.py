@@ -3,9 +3,12 @@
 Counterpart of bench.py:dma_probe and its local make_pt (a Pallas copy,
 one grid step per band of rb rows), which the reference used to time its
 chip's copy rate at two layouts of equal bytes. On CUDA tensors the copy
-is the hand-written copy_kernel (csrc/extra_kernels.cu): one block per
-band of rb rows, as the reference's grid has, 16-byte loads and stores.
-On CPU tensors it is the plain x.clone().
+is the hand-written copy_kernel (ops/csrc/stream_kernels.cu): one block
+for each COPY_CHUNK bytes of the buffer (copy_grid), one 16-byte load
+and store a thread. The reference's
+band grid of rb rows is its TPU's layout, not the contract: rb is
+checked as the reference checks it, and names the band a planted fault
+leaves unwritten. On CPU tensors it is the plain x.clone().
 
 The numbers it gives are the card's measured copy rate, beside the
 nominal 3.35 TB/s of an H100 SXM that the port's bounds use.
@@ -24,6 +27,19 @@ PROBE_SHAPES = (("lane64", (24, 376, 272, 64)),
                 ("lane128", (24, 376, 136, 128)))
 PROBE_RB = 94
 PROBE_ITERS = 10  # timed copies a shape, as the reference's probe
+# clock cycles the card spins before a timed span (~25 ms at 2 GHz): far
+# longer than the host takes to issue the span's calls
+SPIN_CYCLES = 50_000_000
+WORD = 16         # bytes a load or store of the kernel moves
+# a block's chunk: a word for each of copy_kernel's 1024 threads
+COPY_CHUNK = 1024 * WORD
+
+
+def copy_grid(nbytes: int) -> int:
+    """Kernel 19's grid for a copy of nbytes (a multiple of WORD): one
+    block a chunk, block b copying bytes [b COPY_CHUNK, (b + 1)
+    COPY_CHUNK) of them."""
+    return max(1, -(-nbytes // COPY_CHUNK))
 
 
 def passthrough_reference(x: torch.Tensor) -> torch.Tensor:
@@ -32,10 +48,10 @@ def passthrough_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def passthrough(x: torch.Tensor, rb: int) -> torch.Tensor:
-    """Kernel 19: a copy of x [B, H, W, C] through copy_kernel, one block
-    per band of rb rows. CPU tensors run the plain version; CUDA tensors
+    """Kernel 19: a copy of x [B, H, W, C] through copy_kernel, on
+    copy_grid's grid. CPU tensors run the plain version; CUDA tensors
     launch the kernel or raise. Raises ValueError when H % rb != 0 or a
-    band is not a whole number of 16-byte words."""
+    band of rb rows is not a whole number of 16-byte words."""
     if x.ndim != 4:
         raise ValueError(f"passthrough: [B, H, W, C] expected, got shape "
                          f"{tuple(x.shape)}")
@@ -45,13 +61,14 @@ def passthrough(x: torch.Tensor, rb: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return passthrough_reference(x)
     band_bytes = rb * w * c * x.element_size()
-    if band_bytes % 16:
+    if band_bytes % WORD:
         raise ValueError(f"passthrough: a band of {band_bytes} bytes is not "
                          f"a multiple of 16")
     x = x.contiguous()
     _build.require_cuda(x, dtype=x.dtype, name="passthrough")
     out = torch.empty_like(x)
-    _build.copy_bands(x, out, b * (h // rb))
+    _build.stream_copy(x, out, copy_grid(b * (h // rb) * band_bytes),
+                       band_bytes)
     passthrough.launches += 1
     return out
 
@@ -75,19 +92,23 @@ def make_pt(shape, rb: int):
     return apply
 
 
-def copy_ms(fn, x: torch.Tensor) -> float:
-    """Mean device ms of fn(x) over PROBE_ITERS calls after one warm-up
-    (CUDA events)."""
+def copy_ms(fn, x: torch.Tensor, iters: int = PROBE_ITERS) -> float:
+    """Mean device ms of fn(x) over `iters` calls after one warm-up (CUDA
+    events). The calls are queued behind a spin of the card, so the span
+    holds the card's time alone and not the host's time to issue them:
+    a call of kernel 19's wrapper takes the host tens of microseconds,
+    which the first call of an unqueued span adds to it."""
     fn(x)
     torch.cuda.synchronize(x.device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
-    for _ in range(PROBE_ITERS):
+    for _ in range(iters):
         fn(x)
     end.record()
     torch.cuda.synchronize(x.device)
-    return start.elapsed_time(end) / PROBE_ITERS
+    return start.elapsed_time(end) / iters
 
 
 def dma_probe(device: str | torch.device | None = None) -> dict:
