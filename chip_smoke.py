@@ -12,15 +12,20 @@ Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
   1 env      torch / CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernels, seconds; the registers and
-             spills of the conv engine, kernels 17, B3, 9 and 19 (none
-             may spill)
+             spills of the conv engine (policies of B1, B2, 15, 16, 18),
+             kernels 17, B3, 9 and 19 (none may spill)
   3 kernel   each kernel against its plain PyTorch version on the card,
              at the CHIPEQ geometry, a ragged one and the main path's:
-             max |kernel - plain| / max |plain| <= 0.02; timed there.
-             B1 is held on its output, its conv part and each of its
-             four intermediates, and its check must fail on each of
-             B1_FAULTS planted in turn
-  4 path     the 2K frame through the kernels, launches counted; shape and
+             max |kernel - plain| / max |plain| <= 0.02; timed there,
+             beside the replaced kernels' times from PERF.md. B1 is held
+             on its output, its conv part and each of its four
+             intermediates, and each of B1_FAULTS planted in turn in its
+             tensor-core launches must miss by 3x the bar; B2 in both
+             layouts of z1, and at a multi-image ragged geometry with
+             each of B2_FAULTS planted missing by 3x the bar
+  4 path     the 2K frame through the kernels, launches counted (B1 and
+             B2 all on the tensor cores, as on every counted system path
+             below: the "<path>/b1_b2_bodies" lines); shape and
              finiteness; trunk features and the unclipped frame against
              the same path through the plain model within 0.03
   5 times    frame MP/s, trunk and tail ms
@@ -237,8 +242,9 @@ unless each is 0; the kernels line gives their sums over those runs
              left unwritten must be caught, band 95 alone wrong; timed
              beside x.clone(), copy_ and the replaced kernel's time from
              PERF.md; dma_probe's GB/s beside the nominal 3,350
-Then the kernels line (B1-19 and the seg forms of B1 and kernel 13,
-launches from each path's run), the card's nvidia-smi line and, last,
+Then B1's and B2's launches by body over every counted system path,
+the kernels line (B1-19 and the seg forms of B1 and kernel 13, launches
+from each path's run), the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Every phase line carries t_s, the seconds
 since the script started.
 
@@ -271,6 +277,8 @@ TOL_PATH = 0.03           # 69 chained bf16 blocks round more than one call
 PEAK_FLOPS = 989e12       # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SRC = "superresolution_tpu_torch/ops/csrc/sr_kernels.cu"
+DENSE_SRC = "superresolution_tpu_torch/ops/csrc/dense_kernels.cu"   # B1
+TAIL_SRC = "superresolution_tpu_torch/ops/csrc/tail_kernels.cu"     # B2
 HAT_SRC = "superresolution_tpu_torch/ops/csrc/hat_kernels.cu"
 TOL_HAB = 0.03            # CHIPEQ's bar for fused_hat_* and flash_oca
 HYBRID_IN = 128           # 128x128 -> stage 1 x2 -> stage 2 x2 -> 512x512
@@ -409,11 +417,14 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def dense_check_weights(gen: torch.Generator, c: int = 64, g: int = 32):
-    """B1's weights for its check: MSRA x 2 kernels and N(0, 0.1) biases.
-    At the model's MSRA x 0.1 the convs make up ~2% of B1's output and the
-    identity term x the rest, so a check of the output could not see
-    them; at x 2 they make up most of it (conv_share in the check line)."""
+def dense_check_weights(gen: torch.Generator, c: int = 64, g: int = 32,
+                        bias_scale: float = 0.1):
+    """B1's weights for its check: MSRA x 2 kernels and N(0, bias_scale^2)
+    biases. At the model's MSRA x 0.1 the convs make up ~2% of B1's output
+    and the identity term x the rest, so a check of the output could not
+    see them; at x 2 they make up most of it (conv_share in the check
+    line). Phase 3 takes biases of 0.5, at which a dropped bias of conv 3
+    or 5 misses the bar by 3x (at 0.1 by 2.5x and 1.6x)."""
     from superresolution_tpu_torch.ops import dense_trunk as dt
 
     ks, bs = [], []
@@ -421,56 +432,75 @@ def dense_check_weights(gen: torch.Generator, c: int = 64, g: int = 32):
         cin, cout = c + j * g, g if j < 4 else c
         ks.append(torch.randn(3, 3, cin, cout, generator=gen)
                   * 2 * (2 / (9 * cin)) ** 0.5)
-        bs.append(torch.randn(cout, generator=gen) * 0.1)
+        bs.append(torch.randn(cout, generator=gen) * bias_scale)
     return dt.dense_weights(ks, bs, device="cuda")
 
 
-def check_dense_block(ws, x: torch.Tensor, res: torch.Tensor,
-                      tag: str) -> dict:
+def dense_block_pairs(ws, x: torch.Tensor, res: torch.Tensor) -> dict:
     """B1 against its plain version in f32 on the same (upcast) inputs,
-    without and with `res`. Three kinds of check, each within TOL_KERNEL
-    of the plain one's max:
-      - the output;
+    without and with `res`: {check: (got, ref, bar)} for three kinds of
+    check, each within TOL_KERNEL of the plain one's max:
+      - the output ("out");
       - its conv part: (out - x) / 0.2, or (out - res - 0.2 x) / 0.04;
       - each of y_1..y_4 in the workspace; the kernel's starts as NaN, so
         a slice that no launch writes fails.
     The plain version runs in f32 because the conv part's 1/0.04 would
-    magnify its own bf16 roundings to about half the bar. Returns the
-    worse of the two output checks."""
+    magnify its own bf16 roundings to about half the bar."""
     from superresolution_tpu_torch.ops import dense_trunk as dt
 
     b, h, w, _ = x.shape
     g = ws[0][0].shape[-1]
-    worst = []
+    pairs = {}
     for suffix, r in (("", None), ("+residual", res)):
-        name = f"fused_dense_block/{tag}{suffix}"
         wk = torch.full((b, h, w, 4 * g), float("nan"), dtype=x.dtype,
                         device=x.device)
         wp = torch.empty(wk.shape, dtype=torch.float32, device=x.device)
         before = dt.fused_dense_block.launches
         got = dt.fused_dense_block(x, ws, r, workspace=wk)
         if dt.fused_dense_block.launches != before + 5:
-            raise AssertionError(f"{name}: launch count did not go up by 5")
+            raise AssertionError("fused_dense_block: launch count did not go "
+                                 "up by 5")
         ref = dt.fused_dense_block_reference(
             x.float(), ws, None if r is None else r.float(), workspace=wp)
-        worst.append(compare(name, got, ref, TOL_KERNEL))
+        pairs[f"out{suffix}"] = (got, ref, TOL_KERNEL)
         ident, k = ((x.float(), 0.2) if r is None
                     else (r.float() + 0.2 * x.float(), 0.04))
-        conv_ref = ref - ident
-        compare(f"{name}/conv_part", (got.float() - ident) / k, conv_ref / k,
-                TOL_KERNEL, conv_share=float(conv_ref.abs().max()
-                                             / ref.abs().max()))
+        pairs[f"conv_part{suffix}"] = ((got.float() - ident) / k,
+                                       (ref - ident) / k, TOL_KERNEL)
         for j in range(4):
             sl = slice(j * g, (j + 1) * g)
-            compare(f"{name}/y{j + 1}", wk[..., sl], wp[..., sl], TOL_KERNEL)
-    return max(worst, key=lambda e: e["max_rel_err"])
+            pairs[f"y{j + 1}{suffix}"] = (wk[..., sl], wp[..., sl],
+                                          TOL_KERNEL)
+    return pairs
+
+
+def check_dense_block(ws, x: torch.Tensor, res: torch.Tensor,
+                      tag: str) -> dict:
+    """dense_block_pairs, each within its bar (conv_share, the conv part's
+    share of the output's max, printed beside it); returns the worse of
+    the two output checks."""
+    pairs = dense_block_pairs(ws, x, res)
+    lines = {}
+    for k, (got, ref, tol) in pairs.items():
+        extra = {}
+        if k.startswith("conv_part"):
+            out_ref = pairs[k.replace("conv_part", "out")][1]
+            scale = 0.2 if k == "conv_part" else 0.04
+            extra["conv_share"] = float(ref.abs().max() * scale
+                                        / out_ref.abs().max())
+        lines[k] = compare(f"fused_dense_block/{tag}/{k}", got, ref, tol,
+                           **extra)
+    return max((lines["out"], lines["out+residual"]),
+               key=lambda e: e["max_rel_err"])
 
 
 # Faults planted in one of B1's five launches (0-based) by changing that
-# launch's arguments. check_dense_block must fail on every one of them.
+# launch's arguments to _build.dense_conv (the tensor-core route); the
+# check must miss each by TOL_PLANT_FACTOR times its bar or more.
 B1_FAULTS = {
     "conv1_no_lrelu": (0, lambda a: a.update(lrelu=False)),
-    "conv2_wrong_out_off": (1, lambda a: a.update(out_off=2 * a["cout"])),
+    "conv2_wrong_out_off": (1, lambda a: a.update(
+        out_off=2 * a["w"].shape[-1])),
     "conv3_no_bias": (2, lambda a: a.update(bias=None)),
     "conv5_no_bias": (4, lambda a: a.update(bias=None)),
     "conv5_skips_y4": (4, lambda a: a.update(
@@ -481,12 +511,12 @@ B1_FAULTS = {
 
 
 def check_dense_block_faults(ws, x: torch.Tensor, res: torch.Tensor) -> None:
-    """Run B1's check with each of B1_FAULTS planted; raise if the check
-    passes any of them."""
+    """B1's checks with each of B1_FAULTS planted in its tensor-core
+    launches; raise unless each misses by 3x the bar or more."""
     from superresolution_tpu_torch.ops import _build
 
-    real = _build.conv3x3
-    names = ("in0", "cin0", "w", "bias", "out", "out_off", "cout")
+    real = _build.dense_conv
+    names = ("x", "ws", "cin1", "w", "bias", "out", "out_off")
     for fault, (launch, change) in B1_FAULTS.items():
         count = [0]
 
@@ -497,15 +527,15 @@ def check_dense_block_faults(ws, x: torch.Tensor, res: torch.Tensor) -> None:
             count[0] += 1
             real(**a)
 
-        _build.conv3x3 = planted
+        _build.dense_conv = planted
         try:
-            check_dense_block(ws, x, res, f"fault:{fault}")
-        except AssertionError as e:
-            emit({"planted_fault": fault, "caught": True, "by": str(e)})
-            continue
+            pairs = dense_block_pairs(ws, x, res)
         finally:
-            _build.conv3x3 = real
-        raise AssertionError(f"B1's check passed with {fault} planted")
+            _build.dense_conv = real
+        if count[0] != 10:
+            raise AssertionError(f"B1 fault {fault}: {count[0]} tensor-core "
+                                 "launches, expected 10")
+        judge_pairs("fused_dense_block", pairs, fault)
 
 
 def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
@@ -518,7 +548,7 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     sd = model.state_dict()
-    ws = dense_check_weights(gen)
+    ws = dense_check_weights(gen, bias_scale=0.5)
     tail_w = [hwio(sd["conv_up2.weight"]).to(bf), sd["conv_up2.bias"].float(),
               hwio(sd["conv_hr.weight"]).to(bf), sd["conv_hr.bias"].float()]
     last_w = [hwio(sd["conv_last.weight"]).to(bf),
@@ -541,10 +571,13 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
         z1 = F.leaky_relu(randn(bt, h, w, 256, scale=0.3), 0.2)
         before = pt.up2_hr.launches
         y_ref = pt.up2_hr_reference(z1, *tail_w)
-        e2 = compare(f"up2_hr/{geom}", pt.up2_hr(z1, *tail_w), y_ref,
-                     TOL_KERNEL)
-        if pt.up2_hr.launches <= before:
-            raise AssertionError("up2_hr did not count launches")
+        compare(f"up2_hr/{geom}", pt.up2_hr(z1, *tail_w), y_ref, TOL_KERNEL)
+        if pt.up2_hr.launches != before + 2:
+            raise AssertionError("up2_hr did not count 2 launches")
+        # the path's form: z1 phase-major, conv_up2's operands made once
+        z1p, up2p = pt.to_phase_major(z1), pt.phase_major_up2(*tail_w[:2])
+        e2 = compare(f"up2_hr/{geom}/phase", pt.up2_hr(
+            z1p, *tail_w, layout="phase", up2_phase=up2p), y_ref, TOL_KERNEL)
         before = pt.conv_last_phase.launches
         e3 = compare(f"conv_last_phase/{geom}",
                      pt.conv_last_phase(y_ref, *last_w),
@@ -554,6 +587,8 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
             raise AssertionError("conv_last_phase did not count launches")
         if geom == "chipeq":
             check_conv_last_faults(gen)
+            check_up2hr_faults(gen)
+            check_direct_routes(gen)
         if geom != "main":
             continue
 
@@ -562,16 +597,17 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
         lw_oihw = last_w[0].permute(3, 2, 0, 1).contiguous()
         y_nchw = y_ref.permute(0, 3, 1, 2)
         rows = [
-            ("fused_dense_block", SRC, "superresolution_tpu/ops/"
+            ("fused_dense_block", DENSE_SRC, "superresolution_tpu/ops/"
              "pallas_dense_trunk.py:237",
              e1, lambda: dt.fused_dense_block(x, ws, res),
-             lambda: dt.fused_dense_block_reference(x, ws, res), None, 5,
+             lambda: dt.fused_dense_block_reference(x, ws, res), None, 10,
              2 * px * B1_MACS, 3 * px * 64 * 2 + 2 * B1_MACS + 4 * 192,
              [b, h, w, 64]),
-            ("up2_hr", SRC, "superresolution_tpu/ops/pallas_phase_tail.py:319",
-             e2,
-             lambda: pt.up2_hr(z1, *tail_w),
-             lambda: pt.up2_hr_reference(z1, *tail_w), None, 3,
+            ("up2_hr", TAIL_SRC,
+             "superresolution_tpu/ops/pallas_phase_tail.py:319", e2,
+             lambda: pt.up2_hr(z1p, *tail_w, layout="phase",
+                               up2_phase=up2p),
+             lambda: pt.up2_hr_reference(z1, *tail_w), None, 5,
              2 * lr_px * B2_MACS,
              lr_px * 256 * 2 + hr_px * 64 * 2 + 2 * 9 * 64 * 320 + 4 * 320,
              [bt, h, w, 256]),
@@ -598,10 +634,93 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
                 out[name].update(
                     sources=[STREAM_SRC, ENGINE_SRC],
                     ptxas=STENCIL_PTXAS.get("conv_last_kernel"))
+            else:
+                policy = ("DenseConv" if name == "fused_dense_block"
+                          else "PhaseUp")
+                out[name].update(sources=[src, ENGINE_SRC],
+                                 ptxas=PTXAS.get(policy))
             emit({"phase": "kernel_time", **out[name]})
-            if name == "conv_last_phase":
-                old_kernel(name, B3_OLD, shape, B3_OLD_MS, "B3")
+            kernel, ms, row = OLD_KERNELS[name]
+            old_kernel(name, kernel, shape, ms, row)
     return out
+
+
+# The kernels B1-B3 replaced, at the main path's shapes, as PERF.md's
+# kernel table keeps them (rows B1-B3): printed as references, not re-run.
+OLD_KERNELS = {
+    "fused_dense_block": ("sr_kernels.cu conv3x3_kernel x5, f32 FFMA",
+                          40.22, "B1"),
+    "up2_hr": ("sr_kernels.cu conv3x3_kernel<D2S> x2, f32 FFMA", 71.00,
+               "B2"),
+    "conv_last_phase": ("sr_kernels.cu conv_last_kernel, one thread per "
+                        "output pixel", 6.89, "B3"),
+}
+
+
+# ---- B2 (tail_kernels.cu, PhaseUp): its own check ----------------------
+
+B2_MULTI = (2, 37, 45, 64)   # b >= 2; ragged tiles at 2x and 4x
+B2_FAULTS = ("PLANT_SWAP_PHASE", "PLANT_CLAMP_EDGE", "PLANT_BIAS_OFF")
+
+
+def up2hr_check_weights(gen: torch.Generator, c: int):
+    """B2's own check weights: MSRA kernels and N(0, 0.5^2) biases, so
+    the bias and every tap show in the output."""
+    bf = torch.bfloat16
+    return [rand(gen, 3, 3, c, 4 * c, scale=(2 / (9 * c)) ** 0.5, dtype=bf),
+            rand(gen, 4 * c, scale=0.5),
+            rand(gen, 3, 3, c, c, scale=(2 / (9 * c)) ** 0.5, dtype=bf),
+            rand(gen, c, scale=0.5)]
+
+
+def check_up2hr_faults(gen: torch.Generator) -> None:
+    """B2 at B2_MULTI on its own check weights, z1 = lrelu(N(0, 1)): in
+    both z1 layouts within TOL_KERNEL of the plain version in f32 on the
+    same values, and each of B2_FAULTS planted in the kernel missing by
+    3x the bar."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import phase_tail as pt
+
+    b, h, w, c = B2_MULTI
+    z1 = F.leaky_relu(rand(gen, b, h, w, 4 * c), 0.2).to(torch.bfloat16)
+    tw = up2hr_check_weights(gen, c)
+    ref = pt.up2_hr_reference(z1.float(), tw[0].float(), tw[1],
+                              tw[2].float(), tw[3])
+    compare("up2_hr/multi", pt.up2_hr(z1, *tw), ref, TOL_KERNEL)
+    z1p, up2p = pt.to_phase_major(z1), pt.phase_major_up2(*tw[:2])
+    compare("up2_hr/multi/phase", pt.up2_hr(z1p, *tw, layout="phase",
+                                            up2_phase=up2p), ref, TOL_KERNEL)
+    for fault in B2_FAULTS:
+        expect_margin(f"up2_hr:{fault}",
+                      planted("up_conv", getattr(_build, fault),
+                              lambda: pt.up2_hr(z1, *tw)),
+                      ref, TOL_KERNEL)
+
+
+def check_direct_routes(gen: torch.Generator) -> None:
+    """The shapes B1's and B2's route rules send off the tensor cores (B1
+    at C 24, g 12; B2 at c 12) on the direct bodies, within TOL_KERNEL of
+    the plain versions in f32 on the same values, each launch counted on
+    direct_launches."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import phase_tail as pt
+
+    ws = dense_check_weights(gen, c=24, g=12, bias_scale=0.5)
+    x = rand(gen, 2, 37, 45, 24, scale=0.2, dtype=torch.bfloat16)
+    r = rand(gen, 2, 37, 45, 24, scale=0.05, dtype=torch.bfloat16)
+    ops = zero_counts()
+    compare("fused_dense_block/direct_c24_g12", dt.fused_dense_block(x, ws, r),
+            dt.fused_dense_block_reference(x.float(), ws, r.float()),
+            TOL_KERNEL)
+    c = 12
+    z1 = F.leaky_relu(rand(gen, 2, 9, 11, 4 * c), 0.2).to(torch.bfloat16)
+    tw = up2hr_check_weights(gen, c)
+    compare("up2_hr/direct_c12", pt.up2_hr(z1, *tw), pt.up2_hr_reference(
+        z1.float(), tw[0].float(), tw[1], tw[2].float(), tw[3]), TOL_KERNEL)
+    got = {k: [ops[k].tc_launches, ops[k].direct_launches] for k in BODY_OPS}
+    emit({"check": "direct_routes/bodies", **got})
+    if got != {"fused_dense_block": [0, 5], "up2_hr": [0, 2]}:
+        raise AssertionError(f"direct routes: bodies {got}")
 
 
 # ---- B3 (stream_kernels.cu conv_last_kernel): its own check ----------
@@ -610,11 +729,6 @@ STREAM_SRC = "superresolution_tpu_torch/ops/csrc/stream_kernels.cu"
 B3_MULTI = (3, 150, 260, 64)   # b >= 2; H, W not multiples of the band
                                # (64 rows) or the strip (126 columns)
 B3_FAULTS = ("PLANT_ROW_CLAMP", "PLANT_WRONG_NEIGHBOUR", "PLANT_BIAS_DROPPED")
-# The kernel B3 replaced (sr_kernels.cu conv_last_kernel, one thread per
-# output pixel) at [8,1504,1024,64], as PERF.md's kernel table keeps it
-# (row B3). Printed as a reference, not re-run.
-B3_OLD = "sr_kernels.cu conv_last_kernel, one thread per output pixel"
-B3_OLD_MS = 6.89
 
 
 def check_conv_last_faults(gen: torch.Generator) -> None:
@@ -1084,7 +1198,8 @@ def check_train_kernels(gen: torch.Generator) -> dict:
                           3 * px * c * 2 + 4 * B1_MACS + 8 * (4 * g + c))
         out["dense_block_backward"] = {
             "name": "dense_block_backward", "route": "cuda",
-            "source": TRAIN_SRC, "sources": [TRAIN_SRC, SRC],
+            "source": TRAIN_SRC,
+            "sources": [TRAIN_SRC, SRC, DENSE_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
             "shape": [b, h, w, c], "max_abs_err": e13["max_abs_err"],
             "max_rel_err": e13["max_rel_err"], "tol": TOL_KERNEL,
@@ -1197,8 +1312,7 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
            "conv3x3_depth_to_space": conv3x3_depth_to_space,
            **unrouted_ops()}
     with torch.inference_mode():
-        for op in ops.values():
-            op.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         y = fused(x)
@@ -1316,7 +1430,8 @@ UNROUTED_PATHS: list = []
 
 def note_unrouted(tag: str, launches: dict) -> None:
     """Adds a system path's launches of kernels 16-19 to the tally;
-    raises unless each was counted in that run and is 0."""
+    raises unless each was counted in that run and is 0, or unless B1's
+    and B2's launches all took the tensor-core body (expect_tc_bodies)."""
     missing = [k for k in UNROUTED if k not in launches]
     if missing:
         raise AssertionError(f"{tag}: kernels {missing} not counted")
@@ -1326,6 +1441,7 @@ def note_unrouted(tag: str, launches: dict) -> None:
     bad = {k: launches[k] for k in UNROUTED if launches[k]}
     if bad:
         raise AssertionError(f"{tag}: unrouted kernels launched {bad}")
+    expect_tc_bodies(tag)
 
 
 def unrouted_ops() -> dict:
@@ -1337,12 +1453,38 @@ def check_launches(tag: str, launches: dict, expected: dict,
                    system: bool = True) -> None:
     """launches == expected; a system path's run (every caller but the
     entry points of phases 35-38) also goes into the kernels 16-19
-    tally."""
+    tally (note_unrouted)."""
     if system:
         note_unrouted(tag, launches)
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} != expected "
                              f"{expected}")
+
+
+# B1's and B2's launches by engine body on each counted system path:
+# {path: {op: {"launches", "tc_launches", "direct_launches"}}}.
+BODY_OPS = ("fused_dense_block", "up2_hr")
+BODIES: dict = {}
+
+
+def expect_tc_bodies(tag: str) -> dict:
+    """Prints B1's and B2's launches by body since their counts were last
+    zeroed (one line a path, as kernel15_bodies) and records them in
+    BODIES; raises unless every launch went through the tensor-core
+    body."""
+    ops = counted_ops()
+    res = {k: {"launches": ops[k].launches,
+               "tc_launches": ops[k].tc_launches,
+               "direct_launches": ops[k].direct_launches}
+           for k in BODY_OPS}
+    BODIES[tag] = res
+    emit({"check": f"{tag}/b1_b2_bodies", **res})
+    bad = {k: v for k, v in res.items()
+           if v["direct_launches"] or v["tc_launches"] != v["launches"]}
+    if bad:
+        raise AssertionError(f"{tag}: B1 / B2 launches not all on the "
+                             f"tensor cores: {bad}")
+    return res
 
 
 def train_config():
@@ -1482,8 +1624,7 @@ def train_path(card: str) -> dict:
         if tr.fused_apply is None:
             raise AssertionError("the Trainer did not turn the fused "
                                  "train apply on")
-        for op in ops.values():
-            op.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = tr.fit()
@@ -1645,7 +1786,7 @@ def counted_ops() -> dict:
 
 def zero_counts() -> dict:
     """Every counted kernel's launches set to 0, the conv engine's
-    per-body counts (kernels 15 and 18) too."""
+    per-body counts (B1, B2, kernels 15 and 18) too."""
     ops = counted_ops()
     for op in ops.values():
         op.launches = 0
@@ -1655,8 +1796,8 @@ def zero_counts() -> dict:
 
 
 def expect_tc_body(tag: str, op) -> dict:
-    """Raises unless every launch of `op` (kernel 15 or 18) since its
-    counts were zeroed went through the tensor-core body."""
+    """Raises unless every launch of `op` (B1, B2, kernel 15 or 18) since
+    its counts were zeroed went through the tensor-core body."""
     res = {"launches": op.launches, "tc_launches": op.tc_launches,
            "direct_launches": op.direct_launches}
     if op.tc_launches != op.launches or op.direct_launches:
@@ -1665,7 +1806,8 @@ def expect_tc_body(tag: str, op) -> dict:
 
 
 # The conv engine's kernels in nvcc's -Xptxas -v report (main fills it
-# from the build): {policy: {body: {"<type>_<columns>[_drop]":
+# from the build; policies Subpixel 15, PackConv 18, DenseStage 16,
+# DenseConv B1, PhaseUp B2): {policy: {body: {"<type>_<columns>[_drop]":
 # {"registers": n, "spill_bytes": b}}}}; the tensor-core body must not
 # spill.
 PTXAS: dict = {}
@@ -1676,8 +1818,8 @@ def ptxas_usage(report: str) -> dict:
     lines = report.splitlines()
     for i, line in enumerate(lines):
         k = re.search(r"Compiling entry function '\S*?(conv_tc_kernel|conv_kernel)"
-                      r"I\S*?(Subpixel|PackConv|DenseStage)I(13__nv_bfloat16|f)"
-                      r"EELi(\d+)E(Lb([01])E)?", line)
+                      r"I\S*?(Subpixel|PackConv|DenseStage|DenseConv|PhaseUp)"
+                      r"I(13__nv_bfloat16|f)EELi(\d+)E(Lb([01])E)?", line)
         if not k:
             continue
         info = " ".join(lines[i + 1:i + 4])
@@ -3719,18 +3861,21 @@ def seg_fault(fault: str | None, seg: tuple) -> tuple:
 
 @contextlib.contextmanager
 def seg_planted(bit: int):
-    """Inside the block every conv launch gets seg_plant=bit."""
+    """Inside the block every conv launch (either body of B1, kernel 13's
+    transposed convs) gets seg_plant=bit."""
     import functools
 
     from superresolution_tpu_torch.ops import _build
 
-    real = _build.conv3x3
+    real = {k: getattr(_build, k) for k in ("conv3x3", "dense_conv")}
     if bit:
-        _build.conv3x3 = functools.partial(real, seg_plant=bit)
+        for k, fn in real.items():
+            setattr(_build, k, functools.partial(fn, seg_plant=bit))
     try:
         yield
     finally:
-        _build.conv3x3 = real
+        for k, fn in real.items():
+            setattr(_build, k, fn)
 
 
 def spacer_rows_zero(name: str, t: torch.Tensor, seg: tuple) -> None:
@@ -3869,7 +4014,8 @@ def check_seg_kernels(gen: torch.Generator) -> dict:
                       3 * packed_bytes + 4 * B1_MACS + 8 * (4 * g + c))
     out = {
         "fused_dense_block_seg": {
-            "name": "fused_dense_block_seg", "route": "cuda", "source": SRC,
+            "name": "fused_dense_block_seg", "route": "cuda",
+            "source": DENSE_SRC, "sources": [DENSE_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense_trunk.py:237",
             "shape": list(xp.shape), "seg": list(seg),
             "max_abs_err": e1["max_abs_err"],
@@ -3883,7 +4029,8 @@ def check_seg_kernels(gen: torch.Generator) -> dict:
             "bound_ms": b1, "bound_by": by1, "library_ms": None},
         "dense_block_backward_seg": {
             "name": "dense_block_backward_seg", "route": "cuda",
-            "source": TRAIN_SRC, "sources": [TRAIN_SRC, SRC],
+            "source": TRAIN_SRC,
+            "sources": [TRAIN_SRC, SRC, DENSE_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
             "shape": list(xp.shape), "seg": list(seg),
             "max_abs_err": e13["max_abs_err"],
@@ -4802,8 +4949,7 @@ def main() -> int:
            "conv_last_phase": conv_last_phase,
            "conv3x3_depth_to_space": conv3x3_depth_to_space,
            **unrouted_ops()}
-    for op in ops.values():
-        op.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = runner(img)
@@ -4826,6 +4972,8 @@ def main() -> int:
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     for k in ("fused_dense_block", "up2_hr", "conv_last_phase"):
         kernels[k]["launches"] = launches[k]
+    for k in BODY_OPS:
+        kernels[k]["launches_by_body"] = BODIES["path"][k]
 
     run_trunk, run_tail = make_tiled_infer_staged(
         trunk_fn, make_phase_tail(params, clip=False), split_stages=True,
@@ -4975,6 +5123,13 @@ def main() -> int:
         kernels[k]["system_paths_counted"] = len(UNROUTED_PATHS)
     emit({"phase": "unrouted", "paths": UNROUTED_PATHS,
           "launches": UNROUTED_SEEN})
+    for k in BODY_OPS:
+        kernels[k]["bodies_by_path"] = {
+            t: [v[k]["tc_launches"], v[k]["direct_launches"]]
+            for t, v in BODIES.items() if v[k]["launches"]}
+    emit({"phase": "b1_b2_bodies", "paths_counted": len(BODIES),
+          **{k: {body: sum(v[k][f"{body}_launches"] for v in BODIES.values())
+                 for body in ("tc", "direct")} for k in BODY_OPS}})
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})
 
     emit({"kernels": list(kernels.values())})

@@ -101,10 +101,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    lib.sr_conv3x3.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+    lib.sr_conv3x3.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I,
                                _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I,
                                _F, _P, _I, _P, _I, _I, _I, _I, _P]
     lib.sr_conv3x3.restype = _I
+    lib.dense_conv.argtypes = [_P, _P, *[_I] * 6, _P, _P, _P, *[_I] * 4,
+                               _P, _P, _I, _I, _I, _P]
+    lib.dense_conv.restype = _I
+    lib.tail_up_conv.argtypes = [_P, *[_I] * 4, _P, _P, _P, _I, _I, _I, _P]
+    lib.tail_up_conv.restype = _I
     lib.stream_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P,
                                      _I, _P]
     lib.stream_conv_last.restype = _I
@@ -205,15 +210,16 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
             bias: torch.Tensor | None, out: torch.Tensor, out_off: int,
             cout: int, *, geom: tuple[int, int, int],
             in1: torch.Tensor | None = None, cin1: int = 0,
-            d2s: bool = False, lrelu: bool = False, gelu: bool = False,
+            lrelu: bool = False, gelu: bool = False,
             gate: torch.Tensor | None = None, gate_off: int = 0,
             add: torch.Tensor | None = None, add_scale: float = 1.0,
             xres: torch.Tensor | None = None,
             res: torch.Tensor | None = None,
             seg: tuple[int, int] | None = None, seg_plant: int = 0) -> None:
-    """One launch of the shared 3x3 SAME conv (see sr_kernels.cu).
+    """One launch of the direct 3x3 SAME conv (sr_kernels.cu
+    conv3x3_kernel, on the CUDA cores).
 
-    geom = (B, H, W) of the conv's logical input; every tensor is NHWC
+    geom = (B, H, W) of the conv's input; every tensor is NHWC
     with its last dim as the channel stride. w: [3, 3, cin0+cin1, cout]
     bf16; bias: [cout] f32. The epilogue applies bias, then lrelu(0.2)
     or exact GELU, then the lrelu' gate (v *= 0.2 where gate's channel
@@ -229,7 +235,7 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
     rc = lib.sr_conv3x3(
         _ptr(in0), in0.shape[-1], cin0,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
-        int(d2s), b, h, wd, _ptr(w), _ptr(bias),
+        b, h, wd, _ptr(w), _ptr(bias),
         _ptr(out), out.shape[-1], out_off, cout, 1 if lrelu else 2 * gelu,
         gate_ptr, 0 if gate is None else gate.shape[-1],
         _ptr(add), 0 if add is None else add.shape[-1], add_scale,
@@ -237,6 +243,55 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
         _ptr(res), 0 if res is None else res.shape[-1], stride, valid,
         seg_plant, _stream(out))
     _check(lib, rc, "sr_conv3x3")
+
+
+def dense_conv(x: torch.Tensor, ws: torch.Tensor, cin1: int,
+               w: torch.Tensor, bias: torch.Tensor | None, out: torch.Tensor,
+               out_off: int, *, lrelu: bool = False,
+               xres: torch.Tensor | None = None,
+               res: torch.Tensor | None = None,
+               seg: tuple[int, int] | None = None,
+               seg_plant: int = 0) -> None:
+    """One launch of B1's conv on the conv engine's tensor cores
+    (dense_kernels.cu, the DenseConv policy): out[..., out_off:out_off +
+    cout] = epilogue(conv3x3_SAME([x, ws[..., :cin1]], w) + bias).
+
+    x [B,H,W,C], ws [B,H,W,4g] (its first cin1 channels are the second
+    source), out [B,H,W,*], xres / res [B,H,W,C], all bf16 NHWC; w the
+    HWIO [3, 3, C + cin1, cout] bf16; bias [cout] f32 or None. The
+    epilogue: bias, lrelu(0.2) when asked, then v = xres + 0.2 v, then
+    v = res + 0.2 v, in f32, one rounding. C, cin1, cout, out_off and
+    out's channels are multiples of 8. seg and seg_plant as conv3x3's."""
+    lib = library()
+    b, h, wd, c = x.shape
+    stride, valid = seg or (0, 0)
+    rc = lib.dense_conv(
+        _ptr(x), _ptr(ws), b, h, wd, c, ws.shape[-1], cin1, _ptr(w),
+        _ptr(bias), _ptr(out), out.shape[-1], out_off, w.shape[-1],
+        int(lrelu), _ptr(xres), _ptr(res), stride, valid, seg_plant,
+        _stream(x))
+    _check(lib, rc, "dense_conv")
+
+
+# Faults chip_smoke.py plants in B2 (`plant`; 0 in use; see
+# tail_kernels.cu): the sub-pixel phases (Y & 1, X & 1) read swapped, the
+# border read clamped and not zero, the bias dropped.
+PLANT_SWAP_PHASE, PLANT_CLAMP_EDGE, PLANT_BIAS_OFF = 1, 2, 3
+
+
+def up_conv(z: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+            out: torch.Tensor, tc: bool, plant: int = 0) -> None:
+    """One of B2's launches (tail_kernels.cu, the PhaseUp policy): out
+    [B,2h,2w,n] = lrelu(conv3x3_SAME(d2s(z, 2), w) + bias) for z [B,h,w,4c]
+    phase-major (channel p*c + f is sub-pixel p's channel f), w the HWIO
+    [3,3,c,n] bf16, bias [n] f32 or None, out bf16. tc: the tensor-core
+    body (c % 8 == 0, n % 8 == 0), else the direct body."""
+    lib = library()
+    b, h, wd, c4 = z.shape
+    rc = lib.tail_up_conv(_ptr(z), b, h, wd, c4 // 4, _ptr(w), _ptr(bias),
+                          _ptr(out), w.shape[-1], int(tc), plant,
+                          _stream(z))
+    _check(lib, rc, "tail_up_conv")
 
 
 # Faults chip_smoke.py plants in B3 (`plant`, a bit mask; 0 in use; see

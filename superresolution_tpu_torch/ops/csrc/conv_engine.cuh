@@ -19,14 +19,21 @@
 //                 weight(tap, ci, o) -> f32; put(b, y, x, o, acc).
 //   tc body:      wk, ldw (the K-major bf16 weights [9 * cin][ldw], row
 //                 tap * cin + ci, ldw % 8 == 0, columns >= cout() zero);
-//                 tc_pixel(b, y, x) -> the pixel's channel run or null
-//                 (zero); drops() (the dropped() fault is planted);
-//                 skips(tx0) (every column of the tile at tx0 is stored as
-//                 0 whatever the sums: no products are formed);
-//                 bias_at(o) (0 past cout()) and finish(x, v), the value
-//                 stored for sum v at output column x (activation,
-//                 masking); tc_put<BN>(tile, stride, b, ty0, tx0, n0, tid)
-//                 stores the block's staged bf16 tile.
+//                 tc_run(b, y, x, c) -> the 8-channel run of logical
+//                 channels c .. c + 7 (c % 8 == 0) of input pixel (y, x),
+//                 16-byte aligned, or null (zero), so a pixel's channels
+//                 may come from several sources and layouts; drops() (the
+//                 dropped() fault is planted); skips(tx0) (every column
+//                 of the tile at tx0 is stored as 0 whatever the sums: no
+//                 products are formed); bias_at(o) (0 past cout()) and
+//                 finish(b, y, x, o, v0, v1) -> float2, the values stored
+//                 for the sums v0, v1 (bias added) of output channels o,
+//                 o + 1 (o even) at output pixel (y, x) (activation,
+//                 residuals read per pixel, masking; called for every
+//                 pixel of the tile, also those past rows() or
+//                 cols_out(), which are not stored); tc_put<BN>(tile,
+//                 stride, b, ty0, tx0, n0, tid) stores the block's staged
+//                 bf16 tile.
 //
 // The tensor-core body. GEMM rows (M) are the block's TH x TW output
 // pixels, columns (N) BN output channels, depth (K) 9 taps x C_in. The
@@ -331,23 +338,25 @@ namespace tc {
 
 constexpr int TH = 8;             // output rows per block
 constexpr int TW = 16;            // output columns per block: one M fragment
-constexpr int WARPS_M = 2;        // warps over the rows, 2 over the columns
 constexpr int IH = TH + 2, IW = TW + 2;
 constexpr int KC = 64;            // K rows a weight slab: one tap, 64 channels
 constexpr int KSTEPS = KC / 16;   // mma k-steps per slab
 constexpr int STAGES = 3;         // weight slabs in flight
-constexpr int NTHREADS = 64 * WARPS_M;
+constexpr int NTHREADS = 128;     // four warps
 constexpr int MAX_CIN = 256;      // the staged input tile's channels
 constexpr int ZERO_BYTES = 128;   // a zero row for masked A rows, then the tile
 
-// The warp grid of a BN-column block: 2 x 2 warps, each MF tile rows
-// (16-row M fragments) times NF 8-column fragments. Up to 96 columns
-// three blocks share an SM (at most 168 registers a thread), and their
-// warps hide the B loads' latency; wider blocks fit two, and load each
+// The warp grid of a BN-column block: WARPS_M x WARPS_N = 2 x 2 warps,
+// each MF tile rows (16-row M fragments) times NF 8-column fragments; at
+// 32 columns (B1's convs 1-4) 4 x 1, so that a k-step's 8 products wait
+// on 2 A and 2 B fragment loads, not 4 and 1. Up to 96 columns three
+// blocks share an SM (at most 168 registers a thread), and their warps
+// hide the B loads' latency; wider blocks fit two, and load each
 // k-step's B fragments one k-step ahead as they do A's.
 template <int BN>
 struct Shape {
-  static constexpr int WARPS_N = 2;
+  static constexpr int WARPS_N = BN == 32 ? 1 : 2;
+  static constexpr int WARPS_M = NTHREADS / 32 / WARPS_N;
   static constexpr int MF = TH / WARPS_M;
   static constexpr int NF = BN / (8 * WARPS_N);
   static constexpr int MIN_BLOCKS = BN <= 96 ? 3 : 2;
@@ -393,7 +402,7 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
-  static_assert(S::MF * WARPS_M == TH, "one M fragment a tile row");
+  static_assert(S::MF * S::WARPS_M == TH, "one M fragment a tile row");
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
 
   const int nchunk = (cin + KC - 1) / KC;  // KC-channel chunks per tap
@@ -404,10 +413,11 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
     const int pix = e / cv, v = e - pix * cv;
     const int py = pix / IW, px = pix - py * IW;
     const bf16* src =
-        v * 8 < cin ? a.tc_pixel(b, ty0 + py - 1, tx0 + px - 1) : nullptr;
+        v * 8 < cin ? a.tc_run(b, ty0 + py - 1, tx0 + px - 1, v * 8)
+                    : nullptr;
     bf16* dst = in_s + pix * pstr + v * 8;
     if (src != nullptr)
-      cp_async16(smem_u32(dst), src + v * 8);
+      cp_async16(smem_u32(dst), src);
     else
       *reinterpret_cast<uint4*>(dst) = zero4;
   }
@@ -515,13 +525,16 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
     const float b0 = a.bias_at(n0 + n), b1 = a.bias_at(n0 + n + 1);
 #pragma unroll
     for (int f = 0; f < S::MF; ++f) {
+      const int ty = wm * S::MF + f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int tx = (lane >> 2) + 8 * h;
-        bf16* row = out_s + ((wm * S::MF + f) * TW + tx) * BSTR;
-        *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(
-            a.finish(tx0 + tx, acc[f][j][2 * h] + b0),
-            a.finish(tx0 + tx, acc[f][j][2 * h + 1] + b1));
+        bf16* row = out_s + (ty * TW + tx) * BSTR;
+        const float2 v =
+            a.finish(b, ty0 + ty, tx0 + tx, n0 + n, acc[f][j][2 * h] + b0,
+                     acc[f][j][2 * h + 1] + b1);
+        *reinterpret_cast<__nv_bfloat162*>(row + n) =
+            __floats2bfloat162_rn(v.x, v.y);
       }
     }
   }

@@ -153,14 +153,18 @@ struct PackConv {
     return o < n ? bias[o] : 0.f;
   }
   // the optional lrelu; 0 on every pad-pack column (PLANT_PAD_KEPT: not)
-  __device__ __forceinline__ float finish(int xx, float v) const {
+  __device__ __forceinline__ float value(int xx, float v) const {
     if (!((xx >= p && xx < p + width) || (plant & PLANT_PAD_KEPT))) return 0.f;
     return act ? lrelu(v) : v;
+  }
+  __device__ __forceinline__ float2 finish(int, int, int xx, int, float v0,
+                                           float v1) const {
+    return make_float2(value(xx, v0), value(xx, v1));
   }
   __device__ __forceinline__ void put(int b, int y, int xx, int o,
                                       float acc) const {
     store(&out[(((size_t)b * H + y) * Wp + xx) * n + o],
-          finish(xx, acc + bias_at(o)));
+          value(xx, acc + bias_at(o)));
   }
   // PLANT_DROP_CROSS: the first pixel of each pack loses its left tap (in
   // the tensor-core body, a masked A row at kx = 0)
@@ -177,9 +181,10 @@ struct PackConv {
   }
 
   // tensor-core body (T = bf16)
-  __device__ __forceinline__ const T* tc_pixel(int b, int y, int xx) const {
+  __device__ __forceinline__ const T* tc_run(int b, int y, int xx,
+                                             int ch) const {
     if (y < 0 || y >= H || xx < 0 || xx >= Wp) return nullptr;
-    return x + (((size_t)b * H + y) * Wp + xx) * c;
+    return x + (((size_t)b * H + y) * Wp + xx) * c + ch;
   }
   // One bulk copy per pixel of the tile: its nb = min(BN, n - n0)
   // columns, contiguous in the output (the tensor-core route takes n % 8

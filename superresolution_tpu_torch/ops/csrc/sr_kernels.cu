@@ -1,30 +1,18 @@
-// Hand-written CUDA kernels of the ESRGAN RRDBNet x4 deploy path (sm_90a).
+// Hand-written CUDA kernels of the RRDB trunk's levers and the direct
+// conv that several kernels share (sm_90a).
 //
-// One direct NHWC 3x3 SAME convolution routine with fused epilogues
-// carries the dense block and the tail's up2_hr. The same routine also
-// carries the two convs of the hybrid path's CAB
-// (hat_kernels.cu, kernel 7), through its exact-GELU epilogue, and the
-// transposed convs of the dense block's backward (train_kernels.cu,
-// kernel 13), through its lrelu' gate and scaled-add epilogues.
-//
-//   B1 fused_dense_block  (replaces superresolution_tpu/ops/
-//      pallas_dense_trunk.py:fused_dense_block): five launches of
-//      conv3x3_kernel, the plain DenseBlock form. conv_j reads x (source 0)
-//      and the first (j-1)*g channels of a [B,H,W,4g] workspace (source 1)
-//      and writes its g channels into the workspace; conv5 writes
-//      x + 0.2*conv5, or res + 0.2*(x + 0.2*conv5). Zero padding at every
-//      conv is exact by construction: each conv reads its input through
-//      the same zero-filled halo. With `seg` (ops/pallas_dense_trunk.py
-//      _roll_conv3's batch-packed rows: images stacked along H, stride
-//      rows apiece, the last stride - valid of them zero spacers) every
-//      launch also reads spacer rows as zero and writes them as 0, so
-//      each image sees exact SAME padding through all five convs.
-//   B2 up2_hr  (replaces ops/pallas_phase_tail.py:_up2hr_kernel): two
-//      launches of conv3x3_kernel, each reading its input through the
-//      depth_to_space(2) view: up2 (+bias, lrelu) at 2x, then conv_hr
-//      (+bias, lrelu) at 4x.
-//   (B3 conv_last, which B2 feeds, is stream_kernels.cu's.)
-//
+// One direct NHWC 3x3 SAME convolution routine on the CUDA cores (f32
+// FFMA sums of bf16 inputs) with fused epilogues, conv_tile. It carries:
+//   - B1's shapes that the tensor-core route does not take (C or g not a
+//     multiple of 8, C + 4g > 256; ops/dense_trunk.uses_tensor_cores):
+//     five launches of conv3x3_kernel. B1's route at the models' widths
+//     is dense_kernels.cu, on the conv engine's tensor cores; B2 is
+//     tail_kernels.cu's.
+//   - the two convs of the hybrid path's CAB (hat_kernels.cu, kernel 7),
+//     through its exact-GELU epilogue;
+//   - the transposed convs of the dense block's backward (train_kernels.
+//     cu, kernel 13), through its lrelu' gate and scaled-add epilogues;
+//   - kernels 4-6, the trunk's levers, as stages of conv_chain_kernel:
 //   4 fused_dense_block_prologue  (replaces ops/pallas_dense_trunk.py:
 //      fused_dense_block_prologue): conv_first then dense block 0, six
 //      stages of conv_chain_kernel in one cooperative launch.
@@ -37,19 +25,23 @@
 //   (See conv_chain_kernel for why one launch of stages separated by
 //      grid-wide barriers stands in for the TPU's in-VMEM halo cascade.)
 //
-// Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s; the ridge is
-// ~148 MACs per byte): B1 does 240 K MACs per pixel for 256-384 bytes
-// (x, out, residual) and B2 1.18 M MACs per LR pixel for 2.5 KB (z1 in,
-// the 4x 64-channel map out), so both are bound by operations, as are
-// kernels 4-6 (B1's MACs plus 9*Cin*64 for kernel 4, plus 36,864 for
-// kernel 5; three times B1's for kernel 6, 718,848 per pixel).
+// With `seg` (ops/pallas_dense_trunk.py _roll_conv3's batch-packed rows:
+// images stacked along H, stride rows apiece, the last stride - valid of
+// them zero spacers) a launch reads spacer rows as zero and writes them
+// as 0, so each image sees exact SAME padding through a chain of convs.
 //
-// What this simple design leaves on the table: B1/B2 accumulate on the
-// CUDA cores in f32 (FFMA, 67 TFLOP/s peak), not on the tensor cores, so
-// they can reach at most ~7% of the bf16 bound; an implicit-GEMM form with
-// wgmma and TMA is the way to the rest. B1 also round-trips its 4g
-// workspace channels through device memory and B2 its 2x intermediate,
-// which a single launch with an in-shared-memory cascade would avoid.
+// Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): a dense block
+// does 239,616 MACs per pixel for 256-384 bytes, so kernels 4-6 (B1's
+// MACs plus 9*Cin*64 for kernel 4, plus 36,864 for kernel 5; three times
+// B1's for kernel 6, 718,848 per pixel) are bound by operations.
+//
+// What this simple design leaves on the table: the sums run on the CUDA
+// cores in f32 (FFMA, 67 TFLOP/s peak), not on the tensor cores, so it
+// can reach at most ~7% of the bf16 bound; the conv engine's tensor-core
+// body (conv_engine.cuh, B1's and B2's route) is the way for 4-6 and 7's
+// convs too. Kernels 4-6 also round-trip the 4g workspace
+// channels through device memory, which an in-shared-memory cascade
+// would avoid.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -72,14 +64,13 @@ constexpr int NTHREADS = (TH * TW / PPT) * NCG;  // 256
 struct ConvArgs {
   // Logical input channel c < cin0 reads source 0, else source 1 at
   // channel c - cin0. Sources are NHWC with `stride` channels per pixel.
-  // With the depth_to_space(2) view, source 0 is [B, H/2, W/2, stride]
-  // and logical channel f at (y, x) is its channel f*4 + (y%2)*2 + (x%2).
   const __nv_bfloat16* in0;
   int in0_stride, cin0;
   const __nv_bfloat16* in1;
   int in1_stride, cin1;
-  int B, H, W;                  // geometry of the conv's (logical) input
-  // Batch-packed rows (B1 and kernel 13 with `seg`): row y of the map is
+  int B, H, W;                  // geometry of the conv's input
+  // Batch-packed rows (B1's direct route and kernel 13 with `seg`): row
+  // y of the map is
   // an image row when y % seg_stride < seg_valid, else a spacer, which
   // every load reads as zero padding and every store writes as 0.
   // seg_stride 0: no spacers. seg_plant 1 (a planted fault, checks
@@ -107,15 +98,8 @@ __device__ __forceinline__ bool image_row(const ConvArgs& a, int y) {
   return a.seg_stride == 0 || y % a.seg_stride < a.seg_valid;
 }
 
-template <bool D2S>
 __device__ __forceinline__ float load_in(const ConvArgs& a, int b, int y,
                                          int x, int c) {
-  if (D2S) {
-    const size_t pix =
-        ((size_t)b * (a.H >> 1) + (y >> 1)) * (a.W >> 1) + (x >> 1);
-    return __bfloat162float(
-        a.in0[pix * a.in0_stride + c * 4 + (y & 1) * 2 + (x & 1)]);
-  }
   const size_t pix = ((size_t)b * a.H + y) * a.W + x;
   if (c < a.cin0) return __bfloat162float(a.in0[pix * a.in0_stride + c]);
   return __bfloat162float(a.in1[pix * a.in1_stride + (c - a.cin0)]);
@@ -128,7 +112,7 @@ __device__ __forceinline__ float load_in(const ConvArgs& a, int b, int y,
 // memory as f32 (in_s [CK][TH+2][TW+2], w_s [9][CK][CO_T]); each thread
 // accumulates PPT x (CO_T / NCG) outputs in registers. Every thread of
 // the block calls it for the same tile.
-template <int CO_T, bool D2S>
+template <int CO_T>
 __device__ __forceinline__ void conv_tile(const ConvArgs& a, int t,
                                           float* in_s, float* w_s) {
   constexpr int CPT = CO_T / NCG;
@@ -167,7 +151,7 @@ __device__ __forceinline__ void conv_tile(const ConvArgs& a, int t,
       float v = 0.f;
       if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin &&
           image_row(a, gy))
-        v = load_in<D2S>(a, b, gy, gx, c);
+        v = load_in(a, b, gy, gx, c);
       in_s[(ci * IH + py) * IW + px] = v;
     }
     for (int e = tid; e < 9 * CK * CO_T; e += NTHREADS) {
@@ -246,27 +230,22 @@ __host__ __device__ inline int conv_tiles(const ConvArgs& a, int co_t) {
          ((a.cout + co_t - 1) / co_t);
 }
 
-// One launch, one tile per block. Two blocks per SM: without the bound
-// the depth_to_space instance takes 130 registers a thread, one block an
-// SM (B2 33% slower on the H100 than its 127-register form).
-template <int CO_T, bool D2S>
+// One launch, one tile per block, two blocks per SM.
+template <int CO_T>
 __global__ void __launch_bounds__(NTHREADS, 2)
     conv3x3_kernel(const ConvArgs a) {
   __shared__ float in_s[CK * (TH + 2) * (TW + 2)];
   __shared__ __align__(16) float w_s[9 * CK * CO_T];
-  conv_tile<CO_T, D2S>(
+  conv_tile<CO_T>(
       a, blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z), in_s,
       w_s);
 }
 
 template <int CO_T>
-cudaError_t launch_conv3x3(const ConvArgs& a, int d2s, cudaStream_t s) {
+cudaError_t launch_conv3x3(const ConvArgs& a, cudaStream_t s) {
   const int n_co = (a.cout + CO_T - 1) / CO_T;
   const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, a.B * n_co);
-  if (d2s)
-    conv3x3_kernel<CO_T, true><<<grid, NTHREADS, 0, s>>>(a);
-  else
-    conv3x3_kernel<CO_T, false><<<grid, NTHREADS, 0, s>>>(a);
+  conv3x3_kernel<CO_T><<<grid, NTHREADS, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -304,9 +283,9 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     const int tiles = conv_tiles(a, narrow ? 32 : 64);
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       if (narrow)
-        conv_tile<32, false>(a, t, in_s, w_s);
+        conv_tile<32>(a, t, in_s, w_s);
       else
-        conv_tile<64, false>(a, t, in_s, w_s);
+        conv_tile<64>(a, t, in_s, w_s);
     }
     if (s + 1 < c.n) grid.sync();
   }
@@ -397,7 +376,7 @@ extern "C" {
 
 // Returns the cudaError_t of the launch (0 on success).
 int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
-               int in1_stride, int cin1, int d2s, int B, int H, int W,
+               int in1_stride, int cin1, int B, int H, int W,
                const void* w, const void* bias, void* out, int out_stride,
                int out_off, int cout, int act, const void* gate,
                int gate_stride, const void* add, int add_stride,
@@ -434,10 +413,10 @@ int sr_conv3x3(const void* in0, int in0_stride, int cin0, const void* in1,
   a.seg_valid = seg_valid;
   a.seg_plant = seg_plant;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seg_stride != 0 && (d2s || seg_valid < 1 || seg_valid > seg_stride))
+  if (seg_stride != 0 && (seg_valid < 1 || seg_valid > seg_stride))
     return (int)cudaErrorInvalidValue;
-  if (cout <= 32) return (int)launch_conv3x3<32>(a, d2s, s);
-  return (int)launch_conv3x3<64>(a, d2s, s);
+  if (cout <= 32) return (int)launch_conv3x3<32>(a, s);
+  return (int)launch_conv3x3<64>(a, s);
 }
 
 // Kernels 4-6 return the cudaError_t of their one cooperative launch;

@@ -98,7 +98,10 @@ struct Subpixel {
     return (bias != nullptr && plant != PLANT_NO_BIAS && q < cout()) ? bias[q]
                                                                      : 0.f;
   }
-  __device__ __forceinline__ float finish(int, float v) const { return v; }
+  __device__ __forceinline__ float2 finish(int, int, int, int, float v0,
+                                         float v1) const {
+    return make_float2(v0, v1);
+  }
   // HR pixel (y*r + i, x*r + j), or (y*r + j, x*r + i) under PLANT_SWAP_IJ
   __device__ __forceinline__ size_t hr(int b, int y, int xx, int i,
                                        int j) const {
@@ -118,9 +121,10 @@ struct Subpixel {
   }
 
   // tensor-core body (T = bf16, sc == 1)
-  __device__ __forceinline__ const T* tc_pixel(int b, int y, int xx) const {
+  __device__ __forceinline__ const T* tc_run(int b, int y, int xx,
+                                             int c) const {
     if (!at(y, xx)) return nullptr;
-    return x + b * sb + y * sy + xx * sx;
+    return x + b * sb + y * sy + xx * sx + c;
   }
   // Each tile row's r HR rows: the segment of HR row (y*r + i) over the
   // tile's columns is TW*r*c_out contiguous values, vector u of it

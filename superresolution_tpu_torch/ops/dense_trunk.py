@@ -17,18 +17,23 @@ spacers), as the reference's seg option (pallas_dense_trunk.py
 _roll_conv3): at every conv a spacer row reads as zero padding and is
 written as exactly 0, so each image sees exact SAME padding and one
 spacer row suffices for the whole cascade. On the card this is five launches
-of the shared conv in csrc/sr_kernels.cu over one [B,H,W,4g] workspace:
-conv_j reads x and the first (j-1)*g workspace channels and writes its g
-channels after them; conv_5 applies both residual epilogues. Each conv
-reads its input through a zero-filled halo, so the padding is exact by
-construction (the trap pallas_dense_trunk.py:19-27 records for a single
-border mask cannot arise).
+over one [B,H,W,4g] workspace: conv_j reads x and the first (j-1)*g
+workspace channels and writes its g channels after them; conv_5 applies
+both residual epilogues. Each conv reads its input through a zero-filled
+halo, so the padding is exact by construction (the trap
+pallas_dense_trunk.py:19-27 records for a single border mask cannot
+arise). uses_tensor_cores is the route rule: bf16 with C and g multiples
+of 8 and C + 4g <= 256 (every model's 64 / 32) runs the conv engine's
+tensor-core body under the DenseConv policy (csrc/dense_kernels.cu, a
+bf16 implicit GEMM on mma.sync); any other shape the direct conv of
+csrc/sr_kernels.cu (f32 FFMA on the CUDA cores). Both compute the same
+function (f32 sums, bias and epilogue, one rounding), and each launch
+counts on `launches` and on its body's count (`tc_launches`,
+`direct_launches`).
 
 Bound on the H100 at the main-path shape x [24,376,256,64] bf16: 239,616
 MACs per pixel, 1.11 TFLOP per call -> 1.12 ms at 989 TFLOP/s, against
 0.27 ms for its ~0.9 GB of x, residual and output; bound by operations.
-The simple kernel runs on the CUDA cores (see sr_kernels.cu for what it
-leaves on the table).
 
 Kernels 4-6, the levers of the trunk (infer/fused_trunk.make_fused_trunk
 fold_ends / chain_rrdb), each ONE cooperative launch of conv_chain_kernel
@@ -79,6 +84,18 @@ def dense_weights(kernels, biases, dtype: torch.dtype = torch.bfloat16,
 
 
 Seg = tuple[int, int]
+
+# The tensor-core body stages C + 4g channels of each input pixel.
+TC_MAX_CIN = 256
+
+
+def uses_tensor_cores(x: torch.Tensor, c: int, g: int) -> bool:
+    """The route rule: B1's five convs run the conv engine's tensor-core
+    body when x is bf16, C and g are multiples of 8 (every staged run of
+    8 channels is 16 bytes from one source) and C + 4g <= TC_MAX_CIN;
+    every other shape runs the direct conv. It routes by shape alone."""
+    return (x.dtype == torch.bfloat16 and c % 8 == 0 and g % 8 == 0
+            and c + 4 * g <= TC_MAX_CIN)
 
 
 def image_rows(h: int, seg: Seg | None,
@@ -135,7 +152,8 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
                       workspace: torch.Tensor | None = None,
                       seg: Seg | None = None) -> torch.Tensor:
     """B1. CPU tensors run the plain version; CUDA tensors launch the
-    kernel (bf16 activations and kernels, f32 biases) or raise. The
+    kernel (bf16 activations and kernels, f32 biases; the body
+    uses_tensor_cores picks) or raise. The
     kernel writes y_1..y_4 into `workspace` [B,H,W,4g] when one is given
     (so a check can read them), else into a fresh one. seg: (stride,
     valid) of a batch-packed x, or None."""
@@ -173,6 +191,8 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
 
 fused_dense_block.launches = 0
 fused_dense_block.seg_launches = 0  # those of them with seg
+fused_dense_block.tc_launches = 0   # by body
+fused_dense_block.direct_launches = 0
 
 
 def dense_block_launches(x: torch.Tensor, weights: DenseWeights,
@@ -180,16 +200,30 @@ def dense_block_launches(x: torch.Tensor, weights: DenseWeights,
                          workspace: torch.Tensor, out: torch.Tensor,
                          seg: Seg | None = None) -> None:
     """B1's five launches into `workspace` and `out`, each counted in
-    fused_dense_block.launches (and, with seg, in its seg_launches);
-    callers have validated the CUDA tensors."""
+    fused_dense_block.launches, its body's count (and, with seg, in its
+    seg_launches); callers have validated the CUDA tensors."""
     b, h, w, c = x.shape
     dense_features(x, weights, workspace, seg)
     k, bb = weights[4]
-    _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w), in1=workspace,
-                   cin1=workspace.shape[-1], xres=x, res=residual,
-                   **seg_kw(seg))
+    n_ws = workspace.shape[-1]
+    tc = uses_tensor_cores(x, c, weights[0][0].shape[-1])
+    if tc:
+        _build.dense_conv(x, workspace, n_ws, k, bb, out, 0, xres=x,
+                          res=residual, **seg_kw(seg))
+    else:
+        _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w),
+                       in1=workspace, cin1=n_ws, xres=x, res=residual,
+                       **seg_kw(seg))
+    _count(tc, seg)
+
+
+def _count(tc: bool, seg: Seg | None) -> None:
     fused_dense_block.launches += 1
     fused_dense_block.seg_launches += seg is not None
+    if tc:
+        fused_dense_block.tc_launches += 1
+    else:
+        fused_dense_block.direct_launches += 1
 
 
 def seg_kw(seg: Seg | None) -> dict:
@@ -200,16 +234,21 @@ def seg_kw(seg: Seg | None) -> dict:
 def dense_features(x: torch.Tensor, weights: DenseWeights,
                    workspace: torch.Tensor, seg: Seg | None = None) -> None:
     """B1's first four launches: y_1..y_4 into `workspace` [B,H,W,4g],
-    each counted in fused_dense_block.launches. The dense block's
-    backward (ops/dense_trunk_train.py) recomputes them with it; callers
-    have validated the CUDA tensors."""
+    each counted in fused_dense_block.launches and its body's count. The
+    dense block's backward (ops/dense_trunk_train.py) recomputes them with
+    it; callers have validated the CUDA tensors."""
     b, h, w, c = x.shape
     g = weights[0][0].shape[-1]
+    tc = uses_tensor_cores(x, c, g)
     for j, (k, bb) in enumerate(weights[:4]):
-        _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
-                       in1=workspace, cin1=j * g, lrelu=True, **seg_kw(seg))
-        fused_dense_block.launches += 1
-        fused_dense_block.seg_launches += seg is not None
+        if tc:
+            _build.dense_conv(x, workspace, j * g, k, bb, workspace, j * g,
+                              lrelu=True, **seg_kw(seg))
+        else:
+            _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
+                           in1=workspace, cin1=j * g, lrelu=True,
+                           **seg_kw(seg))
+        _count(tc, seg)
 
 
 def _conv(x: torch.Tensor, w: tuple[torch.Tensor, torch.Tensor]

@@ -36,7 +36,9 @@ Bound on the H100 at hybrid_astro's [4,128,128,64] (c 64, g 32): the
 transposed convs and the weight grads each do the forward's 239,616 MACs
 per pixel and the recompute of y_1..y_4 (convs 1-4) 129,024, so 608,256
 in all, 8.0e10 FLOP a call, 0.081 ms at 989 TFLOP/s; bound by
-operations. Everything runs on the CUDA cores in f32.
+operations. The transposed convs and the weight grads run on the CUDA
+cores in f32; the recompute takes B1's route (the tensor cores at the
+models' widths, ops/dense_trunk.uses_tensor_cores).
 
 With `seg` (a batch-packed x, ops/dense_trunk.py) every launch masks
 the spacer rows as B1's do: each conv and transposed conv reads them as

@@ -8,13 +8,25 @@ _last_kernel via phase_hr_last). From z1 = lrelu(up1 conv) at LR,
                         y = lrelu(conv_hr(d2s(t, 2)) + b)       [B,4H,4W,c]
     B3 conv_last_phase: out = conv_last(y) + b                  [B,4H,4W,cout]
 
-Both B2 launches read their input through the depth_to_space(2) view of
-the shared conv (csrc/sr_kernels.cu), so no pixel-shuffle copy is made,
-and lrelu commutes with depth_to_space, so it rides the conv epilogue.
-Out-of-image rows and columns read as zero, which is conv_hr's and
-conv_last's SAME padding at 2x and 4x by construction (the subtle point
-of pallas_phase_tail.py:33-36). B3 writes HR layout directly, so the
-caller needs no depth_to_space(4).
+Both B2 launches (csrc/tail_kernels.cu, the PhaseUp policy of the conv
+engine) read their input through the depth_to_space(2) view, so no
+pixel-shuffle copy is made, and lrelu commutes with depth_to_space, so it
+rides the conv epilogue. Out-of-image rows and columns read as zero,
+which is conv_hr's and conv_last's SAME padding at 2x and 4x by
+construction (the subtle point of pallas_phase_tail.py:33-36). B3 writes
+HR layout directly, so the caller needs no depth_to_space(4).
+
+Layouts. depth_to_space takes channel f*4 + p of an LR pixel to
+sub-pixel p = i*2 + j, channel f, so one HR pixel's channels lie 4 apart.
+The kernel reads them as contiguous runs from the phase-major layout
+(channel p*c + f holds channel f*4 + p; to_phase_major): B2's own
+intermediate t is written so by permuting conv_up2's output columns and
+bias (phase_major_up2, built once by the caller), and z1 comes so from a
+model whose conv_up1 output channels were permuted the same way
+(infer/phase_tail.make_phase_tail does it once); up2_hr's `layout` says
+which z1 it holds. uses_tensor_cores routes the launches: bf16 with
+c % 8 == 0 runs the engine's tensor-core body, any other c its direct
+body; each launch counts on `launches` and on its body's count.
 
 Bounds on the H100 per LR pixel: B2 does 1.18 M MACs (4 x 9*64*256 at 2x
 plus 16 x 9*64*64 at 4x), ~5.5 TFLOP per 2K frame -> 5.5 ms at 989
@@ -40,8 +52,34 @@ def _conv_hwio(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
-def up2_hr_reference(z1, up2_w, up2_b, hr_w, hr_b) -> torch.Tensor:
-    """Plain PyTorch version of B2."""
+def to_phase_major(z: torch.Tensor) -> torch.Tensor:
+    """[..., 4c] in depth_to_space's channel order (f*4 + p) -> the
+    phase-major order (p*c + f), a new contiguous tensor; works on an
+    HWIO kernel's output columns and a bias too."""
+    c = z.shape[-1] // 4
+    return z.unflatten(-1, (c, 4)).transpose(-1, -2).flatten(-2).contiguous()
+
+
+def from_phase_major(z: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_phase_major."""
+    c = z.shape[-1] // 4
+    return z.unflatten(-1, (4, c)).transpose(-1, -2).flatten(-2).contiguous()
+
+
+def phase_major_up2(up2_w: torch.Tensor, up2_b: torch.Tensor) -> tuple:
+    """conv_up2's HWIO kernel [3,3,c,4c] and bias [4c] with the output
+    columns in phase-major order, so that its output t is phase-major: the
+    operands of B2's first launch, built once by a model (up2_hr's
+    `up2_phase`)."""
+    return to_phase_major(up2_w), to_phase_major(up2_b)
+
+
+def up2_hr_reference(z1, up2_w, up2_b, hr_w, hr_b,
+                     layout: str = "channel") -> torch.Tensor:
+    """Plain PyTorch version of B2; z1 in `layout` ("channel": as
+    conv_up1 computes it, "phase": to_phase_major of that)."""
+    if layout == "phase":
+        z1 = from_phase_major(z1)
     t = F.leaky_relu(_conv_hwio(depth_to_space(z1, 2), up2_w, up2_b), 0.2)
     y = F.leaky_relu(_conv_hwio(depth_to_space(t, 2), hr_w, hr_b), 0.2)
     return y.contiguous()
@@ -52,14 +90,33 @@ def conv_last_phase_reference(y, last_w, last_b) -> torch.Tensor:
     return _conv_hwio(y, last_w, last_b).contiguous()
 
 
+# The tensor-core body stages c channels of each input pixel.
+TC_MAX_CIN = 256
+
+
+def uses_tensor_cores(z1: torch.Tensor, c: int) -> bool:
+    """The route rule: both B2 launches run the conv engine's tensor-core
+    body when z1 is bf16 and 8 <= c <= TC_MAX_CIN with c % 8 == 0 (every
+    staged run of 8 channels is 16 bytes), else its direct body. It
+    routes by shape alone."""
+    return (z1.dtype == torch.bfloat16 and c % 8 == 0
+            and 8 <= c <= TC_MAX_CIN)
+
+
 def up2_hr(z1: torch.Tensor, up2_w: torch.Tensor, up2_b: torch.Tensor,
-           hr_w: torch.Tensor, hr_b: torch.Tensor) -> torch.Tensor:
-    """B2: z1 [B,H,W,4c] -> y [B,4H,4W,c]. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (two launches) or raise."""
+           hr_w: torch.Tensor, hr_b: torch.Tensor, layout: str = "channel",
+           up2_phase: tuple | None = None) -> torch.Tensor:
+    """B2: z1 [B,H,W,4c] -> y [B,4H,4W,c]; z1 in `layout` ("channel" or
+    "phase", see to_phase_major); up2_phase: phase_major_up2(up2_w,
+    up2_b), made once by the caller (else made in the call). CPU tensors
+    run the plain version; CUDA tensors launch the kernel (two launches)
+    or raise. A channel-layout z1 on the card is re-laid by one copy
+    first."""
+    if layout not in ("channel", "phase"):
+        raise ValueError(f"up2_hr: layout {layout!r}, expected 'channel' or "
+                         "'phase'")
     if z1.device.type == "cpu":
-        return up2_hr_reference(z1, up2_w, up2_b, hr_w, hr_b)
-    _build.require_cuda(z1, up2_w, hr_w, name="up2_hr")
-    _build.require_cuda(up2_b, hr_b, dtype=torch.float32, name="up2_hr")
+        return up2_hr_reference(z1, up2_w, up2_b, hr_w, hr_b, layout)
     b, h, w, c4 = z1.shape
     c = c4 // 4
     if (c4 % 4 or tuple(up2_w.shape) != (3, 3, c, c4)
@@ -70,18 +127,45 @@ def up2_hr(z1: torch.Tensor, up2_w: torch.Tensor, up2_b: torch.Tensor,
             f"{tuple(up2_b.shape)}, hr {tuple(hr_w.shape)}/"
             f"{tuple(hr_b.shape)} do not fit [B,H,W,4c], [3,3,c,4c], "
             "[3,3,c,c]")
+    wp, bp = up2_phase or phase_major_up2(up2_w, up2_b)
+    if wp.shape != up2_w.shape or bp.shape != up2_b.shape:
+        raise ValueError("up2_hr: up2_phase does not match conv_up2's shapes")
+    _build.require_cuda(z1, wp, hr_w, name="up2_hr")
+    _build.require_cuda(bp, hr_b, dtype=torch.float32, name="up2_hr")
+    if layout == "channel":
+        z1 = to_phase_major(z1)
+    return up2_hr_launches(z1, wp, bp, hr_w, hr_b)
+
+
+def up2_hr_launches(z1: torch.Tensor, up2_wp: torch.Tensor,
+                    up2_bp: torch.Tensor, hr_w: torch.Tensor,
+                    hr_b: torch.Tensor) -> torch.Tensor:
+    """B2's two launches on a phase-major z1 with conv_up2's phase-major
+    operands, in the body uses_tensor_cores picks, each counted; callers
+    have validated the CUDA tensors."""
+    b, h, w, c4 = z1.shape
+    c = c4 // 4
+    tc = uses_tensor_cores(z1, c)
     t = torch.empty((b, 2 * h, 2 * w, c4), dtype=z1.dtype, device=z1.device)
-    _build.conv3x3(z1, c, up2_w, up2_b, t, 0, c4, geom=(b, 2 * h, 2 * w),
-                   d2s=True, lrelu=True)
-    up2_hr.launches += 1
+    _build.up_conv(z1, up2_wp, up2_bp, t, tc)
+    _count(tc)
     y = torch.empty((b, 4 * h, 4 * w, c), dtype=z1.dtype, device=z1.device)
-    _build.conv3x3(t, c, hr_w, hr_b, y, 0, c, geom=(b, 4 * h, 4 * w),
-                   d2s=True, lrelu=True)
-    up2_hr.launches += 1
+    _build.up_conv(t, hr_w, hr_b, y, tc)
+    _count(tc)
     return y
 
 
+def _count(tc: bool) -> None:
+    up2_hr.launches += 1
+    if tc:
+        up2_hr.tc_launches += 1
+    else:
+        up2_hr.direct_launches += 1
+
+
 up2_hr.launches = 0
+up2_hr.tc_launches = 0   # by body
+up2_hr.direct_launches = 0
 
 
 def conv_last_phase(y: torch.Tensor, last_w: torch.Tensor,
@@ -109,11 +193,13 @@ def conv_last_phase(y: torch.Tensor, last_w: torch.Tensor,
 conv_last_phase.launches = 0
 
 
-def phase_hr_last(z1, up2_w, up2_b, hr_w, hr_b, last_w,
-                  last_b) -> torch.Tensor:
-    """z1 [B,H,W,4c] -> [B,4H,4W,cout]: B2 then B3.
+def phase_hr_last(z1, up2_w, up2_b, hr_w, hr_b, last_w, last_b,
+                  layout: str = "channel",
+                  up2_phase: tuple | None = None) -> torch.Tensor:
+    """z1 [B,H,W,4c] -> [B,4H,4W,cout]: B2 then B3 (layout and up2_phase
+    as up2_hr's).
 
     The JAX phase_hr_last returns [B,H,W,16*cout] phase slabs for one
     depth_to_space(4); this one returns the HR image directly."""
-    return conv_last_phase(up2_hr(z1, up2_w, up2_b, hr_w, hr_b),
-                           last_w, last_b)
+    return conv_last_phase(up2_hr(z1, up2_w, up2_b, hr_w, hr_b, layout,
+                                  up2_phase), last_w, last_b)

@@ -25,8 +25,10 @@ from superresolution_tpu.ops.pallas_dense_trunk_vjp import (
 )
 from superresolution_tpu_torch.models import convert
 from superresolution_tpu_torch.ops import _build
+from superresolution_tpu_torch.ops import dense_trunk as dt
 from superresolution_tpu_torch.ops import dense_trunk_train as dtt
 from superresolution_tpu_torch.ops.dense_trunk import dense_weights
+from superresolution_tpu_torch.utils.dense_tail_forms import dense_conv_form
 
 
 @pytest.fixture(autouse=True)
@@ -100,9 +102,9 @@ def test_grads_match_jax_fused_train(with_res, rb):
 
 
 def _emu_conv3x3(in0, cin0, w, bias, out, out_off, cout, *, geom, in1=None,
-                 cin1=0, d2s=False, lrelu=False, gelu=False, gate=None,
+                 cin1=0, lrelu=False, gelu=False, gate=None,
                  gate_off=0, add=None, add_scale=1.0, xres=None, res=None):
-    assert not (d2s or gelu)
+    assert not gelu
     src = [in0[..., :cin0]] + ([in1[..., :cin1]] if cin1 else [])
     v = F.conv2d(torch.cat(src, -1).permute(0, 3, 1, 2),
                  w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
@@ -135,20 +137,31 @@ def _emu_scale(src, scale, out):
     out[..., :src.shape[-1]] = scale * src
 
 
+@pytest.mark.parametrize("route", ["direct", "tc"])
 @pytest.mark.parametrize("with_res", [False, True])
-def test_backward_launch_sequence_matches_autograd(monkeypatch, with_res):
+def test_backward_launch_sequence_matches_autograd(monkeypatch, with_res,
+                                                   route):
+    """The recompute of y_1..y_4 on either of B1's routes (the direct
+    conv's emulation, or the tensor-core body's GEMM form picked by
+    forcing ops/dense_trunk.uses_tensor_cores)."""
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "conv3x3", _emu_conv3x3)
+    monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
+    monkeypatch.setattr(dt, "uses_tensor_cores",
+                        lambda x, c, g: route == "tc")
     monkeypatch.setattr(_build, "wgrad", _emu_wgrad)
     monkeypatch.setattr(_build, "dense_scale", _emu_scale)
     x, res, cot, dp = _inputs(11 + with_res, 10, 13, b=2)
     _, dx_ref, dws_ref, dres_ref = _port_grads(x, res, cot, dp, with_res)
     ws = dense_weights(*convert._unfuse_dense(dp, C, G), dtype=torch.float32)
     before = dtt.dense_block_backward.launches
+    tc = dt.fused_dense_block.tc_launches
     dx, dws, dres = dtt.dense_block_backward(
         torch.from_numpy(x), ws, torch.from_numpy(res) if with_res else None,
         torch.from_numpy(cot))
     assert dtt.dense_block_backward.launches == before + 1
+    assert dt.fused_dense_block.tc_launches == tc + (4 if route == "tc"
+                                                     else 0)
     torch.testing.assert_close(dx, dx_ref, atol=1e-4, rtol=1e-4)
     for (dk, db), (rk, rbias) in zip(dws, dws_ref):
         torch.testing.assert_close(dk, rk, atol=1e-4, rtol=1e-4)

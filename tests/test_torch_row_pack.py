@@ -51,6 +51,7 @@ from superresolution_tpu_torch.train.fused_apply import (
     pack_batch_rows,
     unpack_batch_rows,
 )
+from superresolution_tpu_torch.utils.dense_tail_forms import dense_conv_form
 
 
 @pytest.fixture(autouse=True)
@@ -201,12 +202,12 @@ def _keep(t, seg):
 
 
 def _emu_conv3x3(in0, cin0, w, bias, out, out_off, cout, *, geom, in1=None,
-                 cin1=0, d2s=False, lrelu=False, gelu=False, gate=None,
+                 cin1=0, lrelu=False, gelu=False, gate=None,
                  gate_off=0, add=None, add_scale=1.0, xres=None, res=None,
                  seg=None, seg_plant=0):
     """sr_kernels.cu's conv3x3_kernel: spacer rows read as zero and are
     written as 0 (not with seg_plant)."""
-    assert not (d2s or gelu)
+    assert not gelu
     src = [in0[..., :cin0]] + ([in1[..., :cin1]] if cin1 else [])
     u = torch.cat(src, -1)
     keep = _keep(u, seg)
@@ -260,19 +261,33 @@ def _launch_grads(x, res, cot, dp, with_res, seg, plant=0):
     dout = pack_batch_rows(torch.from_numpy(cot))
     out = torch.empty_like(xt)
     y = torch.empty((*xt.shape[:3], 4 * G))
-    real = _build.conv3x3
+    real = {k: getattr(_build, k) for k in ("conv3x3", "dense_conv")}
     if plant:
-        _build.conv3x3 = lambda *a, **k: real(*a, **k, seg_plant=plant)
+        for k, fn in real.items():
+            setattr(_build, k,
+                    lambda *a, fn=fn, **kw: fn(*a, **kw, seg_plant=plant))
     try:
         dt.dense_block_launches(xt, ws, rt, y, out, seg)
     finally:
-        _build.conv3x3 = real
+        for k, fn in real.items():
+            setattr(_build, k, fn)
     dx, dws, dres = dtt.dense_block_backward(xt, ws, rt, dout, seg)
     return out, dx, dws, dres
 
 
+@pytest.fixture(params=["direct", "tc"])
+def route(request, monkeypatch):
+    """B1's launches on the direct conv's emulation or on the tensor-core
+    body's GEMM form (utils/dense_tail_forms.dense_conv_form), picked by
+    forcing ops/dense_trunk.uses_tensor_cores."""
+    monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
+    monkeypatch.setattr(dt, "uses_tensor_cores",
+                        lambda x, c, g: request.param == "tc")
+    return request.param
+
+
 @pytest.mark.parametrize("with_res", [False, True])
-def test_seg_launch_sequence_matches_autograd(monkeypatch, with_res):
+def test_seg_launch_sequence_matches_autograd(monkeypatch, route, with_res):
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "conv3x3", _emu_conv3x3)
     monkeypatch.setattr(_build, "wgrad", _emu_wgrad)
@@ -281,9 +296,11 @@ def test_seg_launch_sequence_matches_autograd(monkeypatch, with_res):
     out_ref, dx_ref, dws_ref, dres_ref = _port_seg_grads(x, res, cot, dp,
                                                         with_res)
     b1, k13 = dt.fused_dense_block.launches, dtt.dense_block_backward.launches
+    tc = dt.fused_dense_block.tc_launches
     out, dx, dws, dres = _launch_grads(x, res, cot, dp, with_res, SEG)
     # B1's five launches, then the backward's recompute of y_1..y_4
     assert dt.fused_dense_block.launches == b1 + 9
+    assert dt.fused_dense_block.tc_launches == tc + (9 if route == "tc" else 0)
     assert dtt.dense_block_backward.launches == k13 + 1
     torch.testing.assert_close(out, out_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(dx, dx_ref, atol=1e-4, rtol=1e-4)
@@ -301,7 +318,7 @@ def test_seg_launch_sequence_matches_autograd(monkeypatch, with_res):
 
 @pytest.mark.parametrize("fault", ["stride_h", "valid_is_stride",
                                    "spacer_not_zeroed"])
-def test_seg_faults_move_the_result(monkeypatch, fault):
+def test_seg_faults_move_the_result(monkeypatch, route, fault):
     """The three faults chip_smoke.py plants in the kernels' seg: each
     moves the packed value or dx by more than 0.06 of its max (3x the
     0.02 bar), with chip_smoke.py's check weights (MSRA x 2 kernels, so
