@@ -12,8 +12,10 @@ Phases, each printing one JSON line; any failure raises, so the exit code
 is not 0:
   1 env      torch / CUDA versions, the card's name and power limit
   2 build    nvcc build of the kernels, seconds; the registers and
-             spills of the conv engine (policies of B1, B2, 15, 16, 18),
-             kernels 17, B3, 9 and 19 (none may spill)
+             spills of the conv engine (policies of B1, B2, 13's
+             transposed convs, 15, 16, 18), kernels 17, B3, 9 and 19 (none
+             may spill), kernel 6's rrdb_tc_kernel (may not spill) and 13's
+             wgrad_tc_kernel and flip_weights_kernel
   3 kernel   each kernel against its plain PyTorch version on the card,
              at the CHIPEQ geometry, a ragged one and the main path's:
              max |kernel - plain| / max |plain| <= 0.02; timed there,
@@ -24,8 +26,8 @@ is not 0:
              layouts of z1, and at a multi-image ragged geometry with
              each of B2_FAULTS planted missing by 3x the bar
   4 path     the 2K frame through the kernels, launches counted (B1 and
-             B2 all on the tensor cores, as on every counted system path
-             below: the "<path>/b1_b2_bodies" lines); shape and
+             B2 all on the tensor cores, as B1, B2, 6 and 13 on every
+             counted system path below: the "<path>/tc_bodies" lines); shape and
              finiteness; trunk features and the unclipped frame against
              the same path through the plain model within 0.03
   5 times    frame MP/s, trunk and tail ms
@@ -61,11 +63,14 @@ random weights from the Trainer's seed:
              version in f32 (its lrelu slopes pinned to the kernel's
              forward), at a CHIPEQ-sized geometry, a ragged one and the
              main shape: value and dx within 0.02, each dW and db within
-             0.03, dres exactly; kernel 14, autograd through
-             star_weighted_l1_cuda, value and gradient within 1e-4 at
-             [4,512,512,1] and a ragged n; each check must fail on each
-             fault planted in it (four in kernel 13's launches, two in
-             kernel 14's inputs); both timed at the main shapes
+             0.03, dres exactly, every call on the tensor cores, two
+             calls giving the same bits of dW and db; kernel 14, autograd
+             through star_weighted_l1_cuda, value and gradient within 1e-4
+             at [4,512,512,1] and a ragged n; each check must fail on
+             each fault planted in it (four in kernel 13's launch
+             helpers, two in kernel 14's inputs); both timed at the main
+             shapes, 13 beside its direct launches (the parent kernel's)
+             and split by launch on both routes ("k13_split")
  10 train-path      the port's Trainer fits TRAIN_STEPS steps, evaluates
              once and writes a checkpoint, launches counted (exact per
              step: B1 621, kernel 13 69, kernel 14 2, the deploy kernels
@@ -109,7 +114,9 @@ seed, bf16:
              quality data: PSNR within 0.05 dB of the reference's
              25.595, bicubic PSNR within 0.002 dB of 23.599; SSIM printed
 Then phases 16-21: kernels 4-6 against their plain versions with two
-planted faults each (16), the 2K frame under the trunk levers fold_ends
+planted faults each, kernel 6's tensor-core launch also with its stage
+barrier skipped (on NaN-filled scratch), kernel 6 timed beside three B1
+calls and its direct chain (16), the 2K frame under the trunk levers fold_ends
 and chain_rrdb (17, run right after phase 5), kernels 8-10 at window 16,
 head dim 20 and ows 10 (18; kernel 9 also at ws 16 on three images of
 48 x 80, three faults planted in it and two in its inputs each missing
@@ -242,7 +249,8 @@ unless each is 0; the kernels line gives their sums over those runs
              left unwritten must be caught, band 95 alone wrong; timed
              beside x.clone(), copy_ and the replaced kernel's time from
              PERF.md; dma_probe's GB/s beside the nominal 3,350
-Then B1's and B2's launches by body over every counted system path,
+Then B1's, B2's, 6's and 13's launches by body over every counted
+system path,
 the kernels line (B1-19 and the seg forms of B1 and kernel 13, launches
 from each path's run), the card's nvidia-smi line and, last,
 {"ok": true, "device": {...}}. Every phase line carries t_s, the seconds
@@ -292,6 +300,7 @@ CAB_MACS = 2 * 9 * 96 * 32                        # per pixel
 HAB_MACS = 96 * 288 + 96 * 96 + 2 * 96 * 192 + 2 * 64 * 96  # per token
 OCA_MACS = 2 * 144 * 96                           # per query token
 TRAIN_SRC = "superresolution_tpu_torch/ops/csrc/train_kernels.cu"
+TRAIN_TC_SRC = "superresolution_tpu_torch/ops/csrc/train_tc_kernels.cu"
 TOL_DW = 0.03             # CHIPEQ's bar for dense_train_dw*
 TOL_STAR = 1e-4           # CHIPEQ's bar for star_l1_*
 TRAIN_BATCH, TRAIN_LR, TRAIN_SCALE = 4, 128, 4   # hybrid_astro: 128 -> 512
@@ -645,8 +654,10 @@ def check_kernels(model, gen: torch.Generator, n_tiles: int) -> dict:
     return out
 
 
-# The kernels B1-B3 replaced, at the main path's shapes, as PERF.md's
-# kernel table keeps them (rows B1-B3): printed as references, not re-run.
+# The kernels B1-B3, 6 and 13 replaced, at the main path's shapes, as
+# PERF.md's kernel table keeps them (rows B1-B3, 6, 13): printed as
+# references, not re-run (6's and 13's also run live beside them, on the
+# direct route, as parent_kernel_ms).
 OLD_KERNELS = {
     "fused_dense_block": ("sr_kernels.cu conv3x3_kernel x5, f32 FFMA",
                           40.22, "B1"),
@@ -654,6 +665,12 @@ OLD_KERNELS = {
                "B2"),
     "conv_last_phase": ("sr_kernels.cu conv_last_kernel, one thread per "
                         "output pixel", 6.89, "B3"),
+    "fused_rrdb": ("sr_kernels.cu conv_chain_kernel, 15 stages of f32 FFMA "
+                   "conv_tile", 162.64, "6"),
+    "dense_block_backward": ("train_kernels.cu wgrad_kernel x5 + "
+                             "sr_kernels.cu conv3x3_kernel x5, f32 FFMA",
+                             3.562, "13"),
+    "dense_block_backward_seg": ("the same with seg", 1.741, "13"),
 }
 
 
@@ -698,10 +715,11 @@ def check_up2hr_faults(gen: torch.Generator) -> None:
 
 
 def check_direct_routes(gen: torch.Generator) -> None:
-    """The shapes B1's and B2's route rules send off the tensor cores (B1
-    at C 24, g 12; B2 at c 12) on the direct bodies, within TOL_KERNEL of
-    the plain versions in f32 on the same values, each launch counted on
-    direct_launches."""
+    """The shapes the route rules send off the tensor cores (B1, kernels 6
+    and 13 at C 24, g 12; B2 at c 12) on the direct bodies, within
+    TOL_KERNEL of the plain versions in f32 on the same values (kernel
+    13 through check_dense_backward's bars), each launch counted on
+    direct_launches and none on tc_launches."""
     from superresolution_tpu_torch.ops import dense_trunk as dt
     from superresolution_tpu_torch.ops import phase_tail as pt
 
@@ -717,9 +735,15 @@ def check_direct_routes(gen: torch.Generator) -> None:
     tw = up2hr_check_weights(gen, c)
     compare("up2_hr/direct_c12", pt.up2_hr(z1, *tw), pt.up2_hr_reference(
         z1.float(), tw[0].float(), tw[1], tw[2].float(), tw[3]), TOL_KERNEL)
+    ws3 = [ws] + [dense_check_weights(gen, c=24, g=12) for _ in range(2)]
+    compare("fused_rrdb/direct_c24_g12", dt.fused_rrdb(x, *ws3),
+            dt.fused_rrdb_reference(x.float(), *ws3), TOL_KERNEL)
+    check_dense_backward(ws3[1], x, r, rand(gen, 2, 37, 45, 24,
+                                            dtype=torch.bfloat16),
+                         "direct_c24_g12")
     got = {k: [ops[k].tc_launches, ops[k].direct_launches] for k in BODY_OPS}
     emit({"check": "direct_routes/bodies", **got})
-    if got != {"fused_dense_block": [0, 5], "up2_hr": [0, 2]}:
+    if any(t or not d for t, d in got.values()):
         raise AssertionError(f"direct routes: bodies {got}")
 
 
@@ -1088,27 +1112,120 @@ def check_dense_backward(ws, x: torch.Tensor, res: torch.Tensor,
 
 
 def _planted_launches(fault: str):
-    """Replace one of kernel 13's launch helpers with a faulty one;
-    returns (helper name, replacement)."""
+    """Replace one of kernel 13's tensor-core launch helpers with a faulty
+    one; returns (helper name, replacement)."""
     from superresolution_tpu_torch.ops import _build
 
-    real = getattr(_build, {"dlrelu_slope_1": "conv3x3",
-                            "dacc5_without_s_acc": "dense_scale"}.get(
-                                fault, "wgrad"))
+    attr = {"dlrelu_slope_1": "grad_conv",
+            "dacc5_without_s_acc": "dense_scale"}.get(fault, "wgrad_tc")
+    real = getattr(_build, attr)
     if fault == "dlrelu_slope_1":
         def planted(*a, gate=None, gate_off=0, **kw):
             real(*a, **kw)  # the transposed convs lose their lrelu' gate
-        return "conv3x3", planted
+        return attr, planted
     if fault == "dacc5_without_s_acc":
-        return "dense_scale", lambda src, scale, out: real(src, 1.0, out)
+        return attr, lambda src, scale, out: real(src, 1.0, out)
 
-    def planted(in0, cin0, in1, cin1, d, d_off, cout, dw, db):
-        real(in0, cin0, in1, cin1, d, d_off, cout, dw, db)
+    def planted(in0, cin0, in1, cin1, d, d_off, cout, dw, db, **kw):
+        real(in0, cin0, in1, cin1, d, d_off, cout, dw, db, **kw)
         if fault == "wgrad_taps_dy_swapped":
             dw.copy_(dw.flip(0))
         else:  # bias_grad_zeroed
             db.zero_()
-    return "wgrad", planted
+    return attr, planted
+
+
+def check_k13_bits(ws, x, res, dout, tag: str) -> None:
+    """Two kernel 13 calls on the same inputs give the same bits of every
+    dW and db (the weight grads sum fixed chunks in a fixed order)."""
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    a = dtt.dense_block_backward(x, ws, res, dout)[1]
+    b = dtt.dense_block_backward(x, ws, res, dout)[1]
+    same = all(torch.equal(p, q) for pa, pb in zip(a, b)
+               for p, q in zip(pa, pb))
+    emit({"check": f"dense_block_backward/{tag}/dW_db_bitwise",
+          "identical": same})
+    if not same:
+        raise AssertionError(f"dense_block_backward/{tag}: two calls gave "
+                             "different dW or db bits")
+
+
+@contextlib.contextmanager
+def k13_direct():
+    """Kernel 13's own launches on the direct route, as the parent ran
+    them: its module's view of the route rule answers False, while B1's
+    recompute keeps the rule it reads in ops/dense_trunk."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    dtt.dense_trunk = type(dt)("dense_trunk_direct")
+    dtt.dense_trunk.uses_tensor_cores = lambda x, c, g: False
+    try:
+        yield
+    finally:
+        dtt.dense_trunk = dt
+
+
+# Kernel 13's launches by name, for its per-launch split: (part, name
+# fragments), matched in order; anything else on the card is the glue.
+K13_PARTS = (("recompute", ("DenseConv<",)),
+             ("dense_scale", ("dense_scale",)),
+             ("flip_weights", ("flip_weights",)),
+             ("transposed_convs", ("DenseGradConv", "conv3x3_kernel")),
+             ("wgrad_reduce", ("wgrad_reduce",)),
+             ("wgrad", ("wgrad_tc_kernel", "wgrad_kernel")))
+
+
+def backward_split(fn, calls: int = 3) -> dict:
+    """Device ms and launches by K13_PARTS of one call of fn (a kernel 13
+    call), the rest as glue (the torch ops around the kernels): the last
+    of `calls` calls under torch.profiler, after a warm-up, found on the
+    device timeline after a spin kernel launched just before it (the
+    profiler can drop a block's first kernel records); and the host ms
+    of the call before it, which waits on no spin. last_call_only False:
+    no spin kernel was seen, and the parts are the block's means a
+    call."""
+    from superresolution_tpu_torch.utils.dma_probe import SPIN_CYCLES
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            if i == calls - 1:
+                torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i == calls - 2:
+                host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kernels) if "spin" in e.name.lower()
+             or "sleep" in e.name.lower()]
+    last = kernels[marks[-1] + 1:] if marks else kernels
+    share = 1.0 if marks else 1.0 / calls
+    ms = {k: 0.0 for k, _ in K13_PARTS}
+    ms["glue"] = 0.0
+    n = dict.fromkeys(ms, 0)
+    glue = []
+    for e in last:
+        part = next((k for k, frags in K13_PARTS
+                     if any(f in e.name for f in frags)), "glue")
+        ms[part] += share * e.time_range.elapsed_us() / 1e3
+        n[part] += 1
+        if part == "glue":
+            glue.append(e.name[:50])
+    if not marks:
+        n = {k: v / calls for k, v in n.items()}
+    total = sum(ms.values())
+    return {"host_ms": host_ms, "device_ms": total or None, "ms": ms,
+            "launches": n, "last_call_only": bool(marks),
+            "glue_share": ms["glue"] / total if total else None,
+            "glue_kernels": sorted(set(glue))[:12]}
 
 
 K13_FAULTS = ("dlrelu_slope_1", "wgrad_taps_dy_swapped",
@@ -1171,7 +1288,12 @@ def check_train_kernels(gen: torch.Generator) -> dict:
         x = rand(gen, b, h, w, c, scale=0.2, dtype=bf)
         res = rand(gen, b, h, w, c, scale=0.05, dtype=bf)
         dout = rand(gen, b, h, w, c, dtype=bf)
+        tc0 = dtt.dense_block_backward.tc_launches
         e13 = check_dense_backward(ws, x, res, dout, geom)
+        if dtt.dense_block_backward.tc_launches != tc0 + 2:
+            raise AssertionError(f"dense_block_backward/{geom}: not on the "
+                                 "tensor cores")
+        check_k13_bits(ws, x, res, dout, geom)
         if geom == "chipeq":
             for fault in K13_FAULTS:
                 attr, planted = _planted_launches(fault)
@@ -1198,16 +1320,35 @@ def check_train_kernels(gen: torch.Generator) -> dict:
                           3 * px * c * 2 + 4 * B1_MACS + 8 * (4 * g + c))
         out["dense_block_backward"] = {
             "name": "dense_block_backward", "route": "cuda",
-            "source": TRAIN_SRC,
-            "sources": [TRAIN_SRC, SRC, DENSE_SRC, ENGINE_SRC],
+            "source": TRAIN_TC_SRC,
+            "sources": [TRAIN_TC_SRC, TRAIN_SRC, DENSE_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
             "shape": [b, h, w, c], "max_abs_err": e13["max_abs_err"],
             "max_rel_err": e13["max_rel_err"], "tol": TOL_KERNEL,
             "ms": time_ms(lambda: dtt.dense_block_backward(x, ws, None, dout),
                           10),
             "plain_ms": time_ms(plain13, 10), "bound_ms": b13,
-            "bound_by": by13, "library_ms": None}
+            "bound_by": by13, "library_ms": None,
+            "parent_kernel": OLD_KERNELS["dense_block_backward"][0]}
+        with k13_direct():
+            out["dense_block_backward"]["parent_kernel_ms"] = time_ms(
+                lambda: dtt.dense_block_backward(x, ws, None, dout), 10)
+        split = {}
+        for route in (False, True):
+            with k13_direct() if not route else contextlib.nullcontext():
+                split[route] = backward_split(
+                    lambda: dtt.dense_block_backward(x, ws, None, dout))
+            emit({"phase": "k13_split", "route": "tc" if route else "direct",
+                  "shape": [b, h, w, c], **split[route]})
+        # the events time calls queued back to back, which the host's
+        # issue of a call's launches can outlast: the profiled device ms
+        # beside
+        out["dense_block_backward"].update(
+            device_ms=split[True]["device_ms"],
+            parent_kernel_device_ms=split[False]["device_ms"])
         emit({"phase": "kernel_time", **out["dense_block_backward"]})
+        kernel, ms, row = OLD_KERNELS["dense_block_backward"]
+        old_kernel("dense_block_backward", kernel, [b, h, w, c], ms, row)
 
     side = TRAIN_LR * TRAIN_SCALE
     worst = None
@@ -1461,29 +1602,31 @@ def check_launches(tag: str, launches: dict, expected: dict,
                              f"{expected}")
 
 
-# B1's and B2's launches by engine body on each counted system path:
-# {path: {op: {"launches", "tc_launches", "direct_launches"}}}.
-BODY_OPS = ("fused_dense_block", "up2_hr")
+# B1's, B2's, kernel 6's and kernel 13's launches by body on each counted
+# system path: {path: {op: {"launches", "tc_launches",
+# "direct_launches"}}}.
+BODY_OPS = ("fused_dense_block", "up2_hr", "fused_rrdb",
+            "dense_block_backward")
 BODIES: dict = {}
 
 
 def expect_tc_bodies(tag: str) -> dict:
-    """Prints B1's and B2's launches by body since their counts were last
-    zeroed (one line a path, as kernel15_bodies) and records them in
-    BODIES; raises unless every launch went through the tensor-core
-    body."""
+    """Prints B1's, B2's, kernel 6's and kernel 13's launches by body
+    since their counts were last zeroed (one line a path, as
+    kernel15_bodies) and records them in BODIES; raises unless every
+    launch went through the tensor-core body."""
     ops = counted_ops()
     res = {k: {"launches": ops[k].launches,
                "tc_launches": ops[k].tc_launches,
                "direct_launches": ops[k].direct_launches}
            for k in BODY_OPS}
     BODIES[tag] = res
-    emit({"check": f"{tag}/b1_b2_bodies", **res})
+    emit({"check": f"{tag}/tc_bodies", **res})
     bad = {k: v for k, v in res.items()
            if v["direct_launches"] or v["tc_launches"] != v["launches"]}
     if bad:
-        raise AssertionError(f"{tag}: B1 / B2 launches not all on the "
-                             f"tensor cores: {bad}")
+        raise AssertionError(f"{tag}: B1 / B2 / 6 / 13 launches not all "
+                             f"on the tensor cores: {bad}")
     return res
 
 
@@ -1807,7 +1950,8 @@ def expect_tc_body(tag: str, op) -> dict:
 
 # The conv engine's kernels in nvcc's -Xptxas -v report (main fills it
 # from the build; policies Subpixel 15, PackConv 18, DenseStage 16,
-# DenseConv B1, PhaseUp B2): {policy: {body: {"<type>_<columns>[_drop]":
+# DenseConv B1, PhaseUp B2, DenseGradConv 13's transposed convs): {policy:
+# {body: {"<type>_<columns>[_drop]":
 # {"registers": n, "spill_bytes": b}}}}; the tensor-core body must not
 # spill.
 PTXAS: dict = {}
@@ -1818,14 +1962,16 @@ def ptxas_usage(report: str) -> dict:
     lines = report.splitlines()
     for i, line in enumerate(lines):
         k = re.search(r"Compiling entry function '\S*?(conv_tc_kernel|conv_kernel)"
-                      r"I\S*?(Subpixel|PackConv|DenseStage|DenseConv|PhaseUp)"
-                      r"I(13__nv_bfloat16|f)EELi(\d+)E(Lb([01])E)?", line)
+                      r"I\S*?(Subpixel|PackConv|DenseStage|DenseConv|PhaseUp|"
+                      r"DenseGradConv)"
+                      r"(?:I(13__nv_bfloat16|f)E)?ELi(\d+)E(Lb([01])E)?",
+                      line)
         if not k:
             continue
         info = " ".join(lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", info)
         spill = re.search(r"(\d+) bytes spill stores", info)
-        key = (("bf16_" if "bfloat16" in k.group(3) else "f32_") + k.group(4)
+        key = (("f32_" if k.group(3) == "f" else "bf16_") + k.group(4)
                + ("_drop" if k.group(6) == "1" else ""))
         body = "tc" if k.group(1) == "conv_tc_kernel" else "direct"
         out.setdefault(k.group(2), {}).setdefault(body, {})[key] = {
@@ -1835,6 +1981,33 @@ def ptxas_usage(report: str) -> dict:
                    if v["spill_bytes"]} for p, b in out.items()}
     if any(spilled.values()):
         raise AssertionError(f"the tensor-core body spills: {spilled}")
+    return out
+
+
+# Kernel 6's persistent rrdb_tc_kernel and kernel 13's wgrad_tc_kernel
+# (by its CO columns) and flip_weights_kernel in the same report:
+# {kernel: {"registers": n, "spill_bytes": b}}; printed, and rrdb_tc_kernel
+# (the conv engine's tile body) must not spill.
+CHAIN_GRAD_PTXAS: dict = {}
+
+
+def chain_grad_ptxas(report: str) -> dict:
+    out: dict = {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        k = re.search(r"Compiling entry function '\S*?(rrdb_tc_kernel|"
+                      r"wgrad_tc_kernelILi(\d+)E|flip_weights_kernel)", line)
+        if not k:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        name = (f"wgrad_tc_kernel<{k.group(2)}>" if k.group(2)
+                else k.group(1))
+        out[name] = {"registers": int(regs.group(1)) if regs else None,
+                     "spill_bytes": int(spill.group(1)) if spill else None}
+    if (out.get("rrdb_tc_kernel") or {}).get("spill_bytes"):
+        raise AssertionError(f"rrdb_tc_kernel spills: {out}")
     return out
 
 
@@ -2342,6 +2515,10 @@ TRUNK_OPS = ("fused_dense_block_prologue", "fused_dense_block_epilogue",
 # Faults planted in kernels 4-6 through their launch helpers' `plant`
 # (ops/_build.py): each check must fail on every one.
 CHAIN_FAULTS = ("residual_dropped", "first_stages_swapped")
+# Faults planted in kernel 6's tensor-core launch alone (_build's bits):
+# no grid barrier between its stages. Checked on fresh inputs and
+# NaN-filled scratch, so a read of a tile not yet written shows.
+RRDB_TC_FAULTS = {"stage_barrier_skipped": "PLANT_NO_BARRIER"}
 
 
 def end_conv_weights(gen: torch.Generator, cin: int, cout: int = 64):
@@ -2381,7 +2558,7 @@ def trunk_cases(gen: torch.Generator, b: int, h: int, w: int, ws3, ends):
             "dense_epilogue"),
         "fused_rrdb": (
             lambda: dt.fused_rrdb(x, *ws3),
-            lambda: dt.fused_rrdb_reference(x.float(), *ws3), "rrdb"),
+            lambda: dt.fused_rrdb_reference(x.float(), *ws3), "rrdb_tc"),
     }, (x_raw, x, res, head)
 
 
@@ -2436,6 +2613,7 @@ def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
                             name, kern, plain, f"fault:{fault}"))
                     finally:
                         setattr(_build, helper, real)
+            check_rrdb_tc_faults(gen, ws3, b, h, w)
         if geom != "main":
             continue
         del cases
@@ -2495,8 +2673,47 @@ def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
                 "ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
                 "default_path_ms": time_ms(default, iters),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            if name == "fused_rrdb":  # on the tensor-core launch
+                flat = [p for ws in ws3 for p in ws]
+                scratch = (torch.empty((b, h, w, 128), dtype=x.dtype,
+                                       device="cuda"),
+                           torch.empty_like(x), torch.empty_like(x))
+                out[name].update(
+                    source=DENSE_SRC, sources=[DENSE_SRC, ENGINE_SRC],
+                    three_b1_ms=out[name]["default_path_ms"],
+                    parent_kernel_ms=time_ms(
+                        lambda: _build.rrdb(x, flat, *scratch), 2),
+                    parent_kernel="sr_kernels.cu conv_chain_kernel, 15 "
+                                  "stages of f32 FFMA conv_tile")
+                del scratch
             emit({"phase": "kernel_time", **out[name]})
+    kernel, ms, row = OLD_KERNELS["fused_rrdb"]
+    old_kernel("fused_rrdb", kernel, [b, h, w, 64], ms, row)
     return out
+
+
+def check_rrdb_tc_faults(gen: torch.Generator, ws3, b: int, h: int,
+                         w: int) -> None:
+    """Kernel 6's own planted faults (RRDB_TC_FAULTS), each on a fresh x
+    with its scratch and output filled with NaN: must miss the bar by
+    3x."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    flat = [p for ws in ws3 for p in ws]
+
+    def run(bit: int):
+        x = rand(gen, b, h, w, 64, scale=0.2, dtype=torch.bfloat16)
+        ws = torch.full((b, h, w, 128), float("nan"), dtype=x.dtype,
+                        device="cuda")
+        tmp = torch.full_like(x, float("nan"))
+        out = torch.full_like(x, float("nan"))
+        _build.rrdb_tc(x, flat, ws, tmp, out, plant=bit)
+        return out, dt.fused_rrdb_reference(x.float(), *ws3)
+
+    for fault, attr in RRDB_TC_FAULTS.items():
+        expect_margin(f"fused_rrdb:{fault}", *run(getattr(_build, attr)),
+                      TOL_KERNEL)
 
 
 def lever_frames(model, params, img, geom: dict, default_feats,
@@ -3862,12 +4079,13 @@ def seg_fault(fault: str | None, seg: tuple) -> tuple:
 @contextlib.contextmanager
 def seg_planted(bit: int):
     """Inside the block every conv launch (either body of B1, kernel 13's
-    transposed convs) gets seg_plant=bit."""
+    transposed convs on either route) gets seg_plant=bit."""
     import functools
 
     from superresolution_tpu_torch.ops import _build
 
-    real = {k: getattr(_build, k) for k in ("conv3x3", "dense_conv")}
+    real = {k: getattr(_build, k)
+            for k in ("conv3x3", "dense_conv", "grad_conv")}
     if bit:
         for k, fn in real.items():
             setattr(_build, k, functools.partial(fn, seg_plant=bit))
@@ -4029,8 +4247,8 @@ def check_seg_kernels(gen: torch.Generator) -> dict:
             "bound_ms": b1, "bound_by": by1, "library_ms": None},
         "dense_block_backward_seg": {
             "name": "dense_block_backward_seg", "route": "cuda",
-            "source": TRAIN_SRC,
-            "sources": [TRAIN_SRC, SRC, DENSE_SRC, ENGINE_SRC],
+            "source": TRAIN_TC_SRC,
+            "sources": [TRAIN_TC_SRC, TRAIN_SRC, DENSE_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense_trunk_vjp.py:386",
             "shape": list(xp.shape), "seg": list(seg),
             "max_abs_err": e13["max_abs_err"],
@@ -4040,9 +4258,21 @@ def check_seg_kernels(gen: torch.Generator) -> dict:
             "per_image_ms": time_ms(lambda: dtt.dense_block_backward(
                 x8, ws, res8, dout8), 10),
             "plain_ms": time_ms(plain13, 10),
-            "bound_ms": b13, "bound_by": by13, "library_ms": None}}
+            "bound_ms": b13, "bound_by": by13, "library_ms": None,
+            "parent_kernel": OLD_KERNELS["dense_block_backward_seg"][0],
+            "device_ms": backward_split(lambda: dtt.dense_block_backward(
+                xp, ws, resp, doutp, seg))["device_ms"]}}
+    with k13_direct():
+        out["dense_block_backward_seg"].update(
+            parent_kernel_ms=time_ms(lambda: dtt.dense_block_backward(
+                xp, ws, resp, doutp, seg), 10),
+            parent_kernel_device_ms=backward_split(
+                lambda: dtt.dense_block_backward(
+                    xp, ws, resp, doutp, seg))["device_ms"])
     for row in out.values():
         emit({"phase": "kernel_time", **row})
+    kernel, ms, row = OLD_KERNELS["dense_block_backward_seg"]
+    old_kernel("dense_block_backward_seg", kernel, list(xp.shape), ms, row)
     emit({"phase": "seg_kernels", "seconds": time.perf_counter() - t0})
     return out
 
@@ -4913,7 +5143,10 @@ def main() -> int:
     PTXAS.update(ptxas_usage(ptxas))
     STENCIL_PTXAS.update(stencil_ptxas(ptxas))
     ATTN_COPY_PTXAS.update(attn_copy_ptxas(ptxas))
+    CHAIN_GRAD_PTXAS.update(chain_grad_ptxas(ptxas))
     emit({"phase": "build", "seconds": build_s,
+          "chain_grad_ptxas": CHAIN_GRAD_PTXAS
+          or "not reported (cached build)",
           "conv_engine_ptxas": PTXAS or "not reported (cached build)",
           "stencil_ptxas": STENCIL_PTXAS or "not reported (cached build)",
           "attn_copy_ptxas": ATTN_COPY_PTXAS
@@ -4972,7 +5205,7 @@ def main() -> int:
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     for k in ("fused_dense_block", "up2_hr", "conv_last_phase"):
         kernels[k]["launches"] = launches[k]
-    for k in BODY_OPS:
+    for k in ("fused_dense_block", "up2_hr"):
         kernels[k]["launches_by_body"] = BODIES["path"][k]
 
     run_trunk, run_tail = make_tiled_infer_staged(
@@ -5013,6 +5246,8 @@ def main() -> int:
     for k in TRUNK_OPS:
         kernels[k]["launches"] = lever_launches[
             "chain_rrdb" if k == "fused_rrdb" else "fold_ends"][k]
+    kernels["fused_rrdb"]["launches_by_body"] = BODIES["chain_rrdb"][
+        "fused_rrdb"]
     del img, feats, ref_feats, fused, model, params
     torch.cuda.empty_cache()
 
@@ -5032,6 +5267,8 @@ def main() -> int:
     train_launches = train_path(card)
     for k in ("dense_block_backward", "star_weighted_l1_cuda"):
         kernels[k]["launches"] = train_launches[k]
+    kernels["dense_block_backward"]["launches_by_body"] = BODIES["train"][
+        "dense_block_backward"]
     torch.cuda.empty_cache()
 
     # ---- 12-15: api.upscale over the flash hybrid; the quality anchor ----
@@ -5127,7 +5364,7 @@ def main() -> int:
         kernels[k]["bodies_by_path"] = {
             t: [v[k]["tc_launches"], v[k]["direct_launches"]]
             for t, v in BODIES.items() if v[k]["launches"]}
-    emit({"phase": "b1_b2_bodies", "paths_counted": len(BODIES),
+    emit({"phase": "tc_bodies", "paths_counted": len(BODIES),
           **{k: {body: sum(v[k][f"{body}_launches"] for v in BODIES.values())
                  for body in ("tc", "direct")} for k in BODY_OPS}})
     emit({"phase": "total", "total_s": time.perf_counter() - t_start})

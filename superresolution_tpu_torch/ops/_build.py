@@ -108,6 +108,8 @@ def library() -> ctypes.CDLL:
     lib.dense_conv.argtypes = [_P, _P, *[_I] * 6, _P, _P, _P, *[_I] * 4,
                                _P, _P, _I, _I, _I, _P]
     lib.dense_conv.restype = _I
+    lib.dense_rrdb.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 6, _P]
+    lib.dense_rrdb.restype = _I
     lib.tail_up_conv.argtypes = [_P, *[_I] * 4, _P, _P, _P, _I, _I, _I, _P]
     lib.tail_up_conv.restype = _I
     lib.stream_conv_last.argtypes = [_P, _I, _I, _I, _I, _P, _P, _I, _P,
@@ -147,6 +149,15 @@ def library() -> ctypes.CDLL:
     lib.train_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P, _P, _P, _P]
     lib.train_wgrad.restype = _I
+    lib.train_grad_conv.argtypes = [_P, *[_I] * 5, _P, _P, _I, _I, _I, _P,
+                                    _I, _P, _I, _F, _I, _I, _I, _P]
+    lib.train_grad_conv.restype = _I
+    lib.train_wgrad_tc_chunks.argtypes = [_I] * 5
+    lib.train_wgrad_tc_chunks.restype = _I
+    lib.train_wgrad_tc.argtypes = lib.train_wgrad.argtypes
+    lib.train_wgrad_tc.restype = _I
+    lib.train_flip_weights.argtypes = [_P, _I, _I, _P, _P]
+    lib.train_flip_weights.restype = _I
     lib.attn_window.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                                 _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.attn_window.restype = _I
@@ -370,6 +381,28 @@ def rrdb(x: torch.Tensor, weights, ws: torch.Tensor, tmp: torch.Tensor,
     _check(lib, rc, "sr_rrdb")
 
 
+# The fault chip_smoke.py plants in kernel 6's tensor-core launch
+# (`plant`, a bit mask; 0 in use; see dense_kernels.cu): no grid barrier
+# between stages.
+PLANT_NO_BARRIER = 4
+
+
+def rrdb_tc(x: torch.Tensor, weights, ws: torch.Tensor, tmp: torch.Tensor,
+            out: torch.Tensor, plant: int = 0) -> None:
+    """One cooperative launch of kernel 6 on the tensor cores
+    (dense_kernels.cu rrdb_tc_kernel, the DenseConv tile body in
+    persistent blocks): out = x + 0.2 * block3(block2(block1(x))), every
+    tensor bf16 NHWC; weights: the three blocks' 15 (kernel, bias) pairs;
+    ws [B,H,W,4g] and tmp [B,H,W,C] scratch."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.dense_rrdb(_ptr(x), _ptrs([k for k, _ in weights]),
+                        _ptrs([bb for _, bb in weights]), _ptr(ws), _ptr(tmp),
+                        _ptr(out), b, h, w, c, ws.shape[-1] // 4, plant,
+                        _stream(x))
+    _check(lib, rc, "dense_rrdb")
+
+
 def layernorm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
               out: torch.Tensor, c_real: int | None = None) -> None:
     """One launch of layernorm_kernel (hat_kernels.cu) over the rows of
@@ -538,6 +571,51 @@ def dense_scale(src: torch.Tensor, scale: float, out: torch.Tensor) -> None:
     _check(lib, rc, "train_dense_scale")
 
 
+def grad_conv(d: torch.Tensor, n_in: int, wk: torch.Tensor,
+              out: torch.Tensor, out_off: int, *,
+              gate: torch.Tensor | None = None, gate_off: int = 0,
+              add: torch.Tensor | None = None, add_scale: float = 1.0,
+              seg: tuple[int, int] | None = None, seg_plant: int = 0) -> None:
+    """One launch of a transposed conv of kernel 13 on the conv engine's
+    tensor cores (train_tc_kernels.cu, the DenseGradConv policy):
+    out[..., out_off:out_off + n] = epilogue(conv3x3_SAME(d[..., :n_in],
+    wk)) for the flipped K-major weights wk [9 * n_in, n] (or their HWIO
+    [3, 3, n_in, n] view). The epilogue: v = gate[..., gate_off + o] > 0 ?
+    v : 0.2 v when a gate is given, then v += add_scale * add, in f32, one
+    rounding. d, out, gate, add bf16 NHWC of one [B,H,W]; d may be out
+    (its channels n_in .. stay disjoint from out_off ..). seg and
+    seg_plant as conv3x3's. Raises unless every tensor is bf16."""
+    require_cuda(d, wk, out, gate, add, name="grad_conv")
+    lib = library()
+    b, h, wd = d.shape[:3]
+    n = wk.shape[-1]
+    stride, valid = seg or (0, 0)
+    gate_ptr = None if gate is None else (
+        gate.data_ptr() + gate_off * gate.element_size())
+    rc = lib.train_grad_conv(
+        _ptr(d), b, h, wd, d.shape[-1], n_in, _ptr(wk), _ptr(out),
+        out.shape[-1], out_off, n, gate_ptr,
+        0 if gate is None else gate.shape[-1], _ptr(add),
+        0 if add is None else add.shape[-1], add_scale, stride, valid,
+        seg_plant, _stream(d))
+    _check(lib, rc, "train_grad_conv")
+
+
+def flip_weights(weights, out: torch.Tensor) -> None:
+    """One launch of flip_weights_kernel (train_tc_kernels.cu): out, bf16
+    with room for all five, receives the transposed convs' K-major
+    weights of sources 4, 3, 2, 1 and 0 one after another
+    (ops/dense_trunk_train.flipped_weights of each, flattened). Raises
+    unless the kernels and out are bf16."""
+    require_cuda(out, *(k for k, _ in weights), name="flip_weights")
+    lib = library()
+    c = weights[4][0].shape[-1]
+    g = weights[0][0].shape[-1]
+    rc = lib.train_flip_weights(_ptrs([k for k, _ in weights]), c, g,
+                                _ptr(out), _stream(out))
+    _check(lib, rc, "train_flip_weights")
+
+
 def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
           d: torch.Tensor, d_off: int, cout: int, dw: torch.Tensor,
           db: torch.Tensor | None,
@@ -549,19 +627,41 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
     dw has the weight's type, bf16, as have all activations (NHWC, of one
     [B,H,W] geometry). seg = (stride, valid): spacer rows of the input
     and of d read as zero (see conv3x3)."""
+    _wgrad_launch("train_wgrad", in0, cin0, in1, cin1, d, d_off, cout, dw,
+                  db, seg)
+
+
+def wgrad_tc(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None,
+             cin1: int, d: torch.Tensor, d_off: int, cout: int,
+             dw: torch.Tensor, db: torch.Tensor | None,
+             seg: tuple[int, int] | None = None) -> None:
+    """wgrad's two launches with wgrad_tc_kernel (train_tc_kernels.cu, bf16
+    mma.sync, f32 sums) in place of wgrad_kernel: per-chunk f32 partials
+    summed in a fixed order by wgrad_reduce_kernel. Every activation and
+    dw bf16, db f32; raises on others."""
+    require_cuda(in0, in1, d, dw, name="wgrad_tc")
+    require_cuda(db, dtype=torch.float32, name="wgrad_tc")
+    _wgrad_launch("train_wgrad_tc", in0, cin0, in1, cin1, d, d_off, cout,
+                  dw, db, seg)
+
+
+def _wgrad_launch(name: str, in0, cin0, in1, cin1, d, d_off, cout, dw, db,
+                  seg) -> None:
+    """The launches of `name` (train_wgrad or train_wgrad_tc), with the
+    chunk count its `name`_chunks picks."""
     lib = library()
     b, h, w = in0.shape[:3]
     cin = cin0 + cin1
-    nchunk = lib.train_wgrad_chunks(b, h, w, cin, cout)
+    nchunk = getattr(lib, name + "_chunks")(b, h, w, cin, cout)
     part = torch.empty(nchunk * (9 * cin * cout + cout), dtype=torch.float32,
                        device=in0.device)
-    rc = lib.train_wgrad(
+    rc = getattr(lib, name)(
         _ptr(in0), in0.shape[-1], cin0,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
         d.data_ptr() + d_off * d.element_size(), d.shape[-1], cout,
         b, h, w, *(seg or (0, 0)), nchunk, _ptr(part), _ptr(dw), _ptr(db),
         _stream(in0))
-    _check(lib, rc, "train_wgrad")
+    _check(lib, rc, name)
 
 
 # Faults chip_smoke.py plants in kernels 16-19 (`plant`, a bit mask; 0 in

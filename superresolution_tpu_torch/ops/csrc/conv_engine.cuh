@@ -8,7 +8,12 @@
 //       (kernel 16 always).
 //   tc::conv_tc_kernel<P, BN>  a bf16 implicit GEMM on the tensor cores
 //       (mma.sync m16n8k16, bf16 in, f32 accumulation), for bf16 tensors
-//       whose input pixels are 16-byte runs of C_in % 8 == 0 channels.
+//       whose input pixels are 16-byte runs of C_in % 8 == 0 channels:
+//       one block a tile, each running tile_body. The body's steps are
+//       device functions of a tile index and the shared-memory base
+//       (stage_input, tile_gemm, tile_epilogue), so a persistent kernel
+//       can walk tiles and stages with them (kernel 6, dense_kernels.cu
+//       rrdb_tc_kernel).
 //
 // Policy interface (all __device__ const members):
 //   both bodies:  B; cin(); cout(); rows(), cols_out() (the output
@@ -353,67 +358,86 @@ constexpr int ZERO_BYTES = 128;   // a zero row for masked A rows, then the tile
 // blocks share an SM (at most 168 registers a thread), and their warps
 // hide the B loads' latency; wider blocks fit two, and load each
 // k-step's B fragments one k-step ahead as they do A's.
-template <int BN>
+template <int BN, int ROWS = TH>
 struct Shape {
   static constexpr int WARPS_N = BN == 32 ? 1 : 2;
   static constexpr int WARPS_M = NTHREADS / 32 / WARPS_N;
-  static constexpr int MF = TH / WARPS_M;
+  static constexpr int MF = ROWS / WARPS_M;
   static constexpr int NF = BN / (8 * WARPS_N);
   static constexpr int MIN_BLOCKS = BN <= 96 ? 3 : 2;
   static constexpr bool B_AHEAD = MIN_BLOCKS == 2;
   static_assert(NF >= 1 && NF <= 8 && NF * 8 * WARPS_N == BN, "BN");
 };
 
-template <int BN>
+// ROWS: the tile's output rows (TH but in a persistent kernel's stage
+// that takes shorter tiles to fit more blocks an SM).
+template <int BN, int ROWS = TH>
 constexpr size_t smem_bytes(int cin) {
   const size_t cp = (size_t)((cin + 15) & ~15);
-  const size_t in_b = (size_t)IH * IW * (cp + 8) * 2;
+  const size_t in_b = (size_t)(ROWS + 2) * IW * (cp + 8) * 2;
   const size_t w_b = (size_t)STAGES * KC * (BN + 8) * 2;
-  const size_t out_b = (size_t)TH * TW * (BN + 8) * 2;
+  const size_t out_b = (size_t)ROWS * TW * (BN + 8) * 2;
   return ZERO_BYTES + (in_b + w_b > out_b ? in_b + w_b : out_b);
 }
 
-// Grid: blockIdx.x = ((b * tiles_y + tile row) * tiles_x + tile column)
-// * column blocks + the BN-column block.
-template <class P, int BN>
-__global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
-    conv_tc_kernel(const P a) {
-  using S = Shape<BN>;
-  constexpr int BSTR = BN + 8;      // weight and output tile row stride
-  constexpr int VPR = BN / 8;       // 16-byte vectors per weight row
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int cin = a.cin();
-  const int cp = (cin + 15) & ~15;  // channels staged, zero past cin
-  const int pstr = cp + 8;          // input tile pixel stride
-  bf16* zero = reinterpret_cast<bf16*>(smem);
-  bf16* in_s = reinterpret_cast<bf16*>(smem + ZERO_BYTES);
-  bf16* w_s = in_s + IH * IW * pstr;
-  bf16* out_s = in_s;               // after the last slab
+// A tile of the output: image b, rows ty0.., columns tx0.., output
+// channels n0.. (a BN-column block).
+struct Tile {
+  int b, ty0, tx0, n0;
+};
 
+// Tiles of a launch: B x tile rows x tile columns x BN-column blocks.
+template <int BN, int ROWS = TH, class P>
+__device__ __forceinline__ int tile_count(const P& a) {
+  return a.B * ((a.rows() + ROWS - 1) / ROWS) *
+         ((a.cols_out() + TW - 1) / TW) * ((a.cout() + BN - 1) / BN);
+}
+
+// Tile index t = ((b * tiles_y + tile row) * tiles_x + tile column) *
+// column blocks + the BN-column block (conv_tc_kernel's blockIdx.x).
+template <int BN, int ROWS = TH, class P>
+__device__ __forceinline__ Tile tile_at(const P& a, int t) {
   const int tiles_x = (a.cols_out() + TW - 1) / TW;
-  const int tiles_y = (a.rows() + TH - 1) / TH;
+  const int tiles_y = (a.rows() + ROWS - 1) / ROWS;
   const int nblk = (a.cout() + BN - 1) / BN;
-  int t = blockIdx.x / nblk;
-  const int n0 = (blockIdx.x - t * nblk) * BN;
-  const int tx0 = (t % tiles_x) * TW;
-  t /= tiles_x;
-  const int ty0 = (t % tiles_y) * TH;
-  const int b = t / tiles_y;
+  Tile tl;
+  int u = t / nblk;
+  tl.n0 = (t - u * nblk) * BN;
+  tl.tx0 = (u % tiles_x) * TW;
+  u /= tiles_x;
+  tl.ty0 = (u % tiles_y) * ROWS;
+  tl.b = u / tiles_y;
+  return tl;
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
-  static_assert(S::MF * S::WARPS_M == TH, "one M fragment a tile row");
+// The shared-memory map: a zero row for masked A rows, then the halo
+// tile, then the weight ring; the bf16 output tile overlays the halo
+// tile once the GEMM is done.
+__device__ __forceinline__ bf16* halo_tile(unsigned char* smem) {
+  return reinterpret_cast<bf16*>(smem + ZERO_BYTES);
+}
+
+__device__ __forceinline__ void zero_row(unsigned char* smem) {
+  if (threadIdx.x < ZERO_BYTES / 16)
+    reinterpret_cast<uint4*>(smem)[threadIdx.x] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Issues the copies of the tile's input with its 1-pixel halo, all C_in
+// channels, channels-last (cp.async, not committed: the caller's next
+// commit takes them); runs tc_run gives null are written as zero.
+template <int ROWS = TH, class P>
+__device__ __forceinline__ void stage_input(const P& a, const Tile& tl,
+                                            unsigned char* smem) {
+  const int cin = a.cin();
+  const int cp = (cin + 15) & ~15;
+  const int pstr = cp + 8, cv = cp / 8;
+  bf16* in_s = halo_tile(smem);
   const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-
-  const int nchunk = (cin + KC - 1) / KC;  // KC-channel chunks per tap
-  const int nslab = a.skips(tx0) ? 0 : 9 * nchunk;
-  if (tid < ZERO_BYTES / 16) reinterpret_cast<uint4*>(smem)[tid] = zero4;
-  const int cv = cp / 8;
-  for (int e = tid; nslab > 0 && e < IH * IW * cv; e += NTHREADS) {
+  for (int e = threadIdx.x; e < (ROWS + 2) * IW * cv; e += NTHREADS) {
     const int pix = e / cv, v = e - pix * cv;
     const int py = pix / IW, px = pix - py * IW;
     const bf16* src =
-        v * 8 < cin ? a.tc_run(b, ty0 + py - 1, tx0 + px - 1, v * 8)
+        v * 8 < cin ? a.tc_run(tl.b, tl.ty0 + py - 1, tl.tx0 + px - 1, v * 8)
                     : nullptr;
     bf16* dst = in_s + pix * pstr + v * 8;
     if (src != nullptr)
@@ -421,6 +445,31 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
     else
       *reinterpret_cast<uint4*>(dst) = zero4;
   }
+}
+
+// The GEMM of one tile into acc: streams the weight slabs through the
+// ring (the first commit also takes any staged input not yet committed)
+// and ends with every copy landed and the block synchronized, so the
+// halo tile and the ring may be overwritten.
+template <class P, int BN, int ROWS = TH>
+__device__ __forceinline__ void tile_gemm(
+    const P& a, const Tile& tl, bool live, unsigned char* smem,
+    float (&acc)[Shape<BN, ROWS>::MF][Shape<BN, ROWS>::NF][4]) {
+  using S = Shape<BN, ROWS>;
+  constexpr int BSTR = BN + 8;      // weight and output tile row stride
+  constexpr int VPR = BN / 8;       // 16-byte vectors per weight row
+  const int cin = a.cin();
+  const int cp = (cin + 15) & ~15;  // channels staged, zero past cin
+  const int pstr = cp + 8;          // input tile pixel stride
+  bf16* in_s = halo_tile(smem);
+  bf16* w_s = in_s + (ROWS + 2) * IW * pstr;
+  const int n0 = tl.n0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  static_assert(S::MF * S::WARPS_M == ROWS, "one M fragment a tile row");
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  const int nchunk = (cin + KC - 1) / KC;  // KC-channel chunks per tap
+  const int nslab = live ? 9 * nchunk : 0;
 
   auto load_slab = [&](int s) {
     const int tap = s / nchunk, c0 = (s - tap * nchunk) * KC;
@@ -436,13 +485,12 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
     }
   };
   if (nslab > 0) load_slab(0);
-  cp_async_commit();  // group 0: the input tile and slab 0
+  cp_async_commit();  // group 0: slab 0 (and the input tile, if staged)
   for (int s = 1; s < STAGES - 1; ++s) {
     if (s < nslab) load_slab(s);
     cp_async_commit();
   }
 
-  float acc[S::MF][S::NF][4];
 #pragma unroll
   for (int f = 0; f < S::MF; ++f)
 #pragma unroll
@@ -454,8 +502,8 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
   // tile row, channel offset (lane >> 4) * 8; B row = k lane & 15, column
   // the warp's first plus (lane >> 4) * 8
   const int a_col = lane & 15;
-  const bool a_drop = a.drops() && a.dropped(tx0 + a_col, 0);
-  const uint32_t zero_u = smem_u32(zero);
+  const bool a_drop = a.drops() && a.dropped(tl.tx0 + a_col, 0);
+  const uint32_t zero_u = smem_u32(smem);
   const uint32_t a_base = smem_u32(
       in_s + (wm * S::MF * IW + a_col) * pstr + (lane >> 4) * 8);
   const uint32_t b_base = smem_u32(
@@ -516,7 +564,21 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
   }
   cp_async_wait<0>();
   __syncthreads();
+}
 
+// The f32 sums plus bias_at through the policy's finish into the bf16
+// tile out_s (one rounding), then tc_put; returns once this thread's bulk
+// copies have read out_s (the caller synchronizes the block before out_s
+// is written again).
+template <class P, int BN, int ROWS = TH>
+__device__ __forceinline__ void tile_epilogue(
+    const P& a, const Tile& tl, bf16* out_s,
+    const float (&acc)[Shape<BN, ROWS>::MF][Shape<BN, ROWS>::NF][4]) {
+  using S = Shape<BN, ROWS>;
+  constexpr int BSTR = BN + 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / S::WARPS_N, wn = warp % S::WARPS_N;
+  const int b = tl.b, ty0 = tl.ty0, tx0 = tl.tx0, n0 = tl.n0;
   // accumulator (f, j, q): tile row wm * MF + f, column (lane >> 2) + 8 *
   // (q >> 1); GEMM column wn * NF * 8 + j * 8 + 2 * (lane & 3) + (q & 1)
 #pragma unroll
@@ -540,8 +602,33 @@ __global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
   }
   fence_async_smem();
   __syncthreads();
-  a.template tc_put<BN>(out_s, BSTR, b, ty0, tx0, n0, tid);
+  if constexpr (ROWS == TH)
+    a.template tc_put<BN>(out_s, BSTR, b, ty0, tx0, n0, tid);
+  else  // the policy stores ROWS-row tiles (DenseConv)
+    a.template tc_put<BN, ROWS>(out_s, BSTR, b, ty0, tx0, n0, tid);
   bulk_wait_read();
+}
+
+// One whole tile: stage, GEMM, epilogue with the output tile over the
+// halo tile. Every thread of the block calls it for the same tile.
+template <class P, int BN, int ROWS = TH>
+__device__ __forceinline__ void tile_body(const P& a, int t,
+                                          unsigned char* smem) {
+  const Tile tl = tile_at<BN, ROWS>(a, t);
+  const bool live = !a.skips(tl.tx0);
+  zero_row(smem);
+  if (live) stage_input<ROWS>(a, tl, smem);
+  float acc[Shape<BN, ROWS>::MF][Shape<BN, ROWS>::NF][4];
+  tile_gemm<P, BN, ROWS>(a, tl, live, smem, acc);
+  tile_epilogue<P, BN, ROWS>(a, tl, halo_tile(smem), acc);
+}
+
+// One block a tile (grid: tile_count blocks).
+template <class P, int BN>
+__global__ void __launch_bounds__(NTHREADS, Shape<BN>::MIN_BLOCKS)
+    conv_tc_kernel(const P a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  tile_body<P, BN>(a, blockIdx.x, smem);
 }
 
 template <class P, int BN>

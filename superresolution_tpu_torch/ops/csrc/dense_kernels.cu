@@ -1,4 +1,5 @@
-// Hand-written CUDA kernel of the RRDB trunk's dense block (sm_90a): B1.
+// Hand-written CUDA kernels of the RRDB trunk's dense blocks (sm_90a): B1
+// and kernel 6.
 //
 //   B1 fused_dense_block  (replaces superresolution_tpu/ops/
 //      pallas_dense_trunk.py:fused_dense_block, _kernel): five launches of
@@ -17,6 +18,29 @@
 //      through all five convs (seg_plant 1, a planted fault: not zeroed at
 //      the store).
 //
+//   6 fused_rrdb  (replaces superresolution_tpu/ops/pallas_dense_trunk.py:
+//      fused_rrdb, _rrdb_kernel): one whole RRDB, b1 = B1(x), b2 = B1(b1),
+//      out = x + 0.2 * B1(b2), as ONE cooperative launch of rrdb_tc_kernel:
+//      persistent blocks walk the fifteen convs as stages, each stage's
+//      tiles through the engine's tile body (DenseConv, B1's policy: the
+//      same GEMM, epilogue and rounding as B1's launches, so B1's bits),
+//      with a grid-wide barrier between stages. Convs 1-4 take 8 x 16
+//      pixel tiles of 32 columns (the 4 x 1 warp grid), conv 5 4 x 16
+//      tiles of 64 columns, any width by column blocks: the dynamic
+//      shared memory is the largest stage's, and conv 5's 8-row tile (a
+//      halo tile of C + 4g channels, ~100 KB at C 64, g 32) would hold
+//      every stage to two blocks an SM where B1's convs 1-4 run three.
+//      Before each barrier every thread waits until its bulk stores have
+//      been written (not only read from shared memory) and fences the
+//      async proxy, so the next stage's halo reads see them.
+//      `out` holds b1 until block 3 overwrites it; the [B,H,W,4g]
+//      workspace serves all three blocks. A block takes one tile at a
+//      time through the engine's tile body, as B1's blocks do: staging
+//      the next tile's halo during this tile's epilogue (the output tile
+//      over the weight ring) measured within the spread (+-3%,
+//      scripts/chain_grad_variants.py k6_overlap), so the simpler
+//      one-tile-at-a-time form is kept.
+//
 // The GEMM of conv_j: M = the block's 8 x 16 output pixels, N = g (or C
 // at conv_5), K = 9 taps x (C + j*g) channels in the weights' HWIO order
 // (row tap * cin + ci, so the two sources follow one another along K).
@@ -27,14 +51,17 @@
 //
 // Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): 239,616 MACs a
 // pixel for 384 bytes of x, residual and output, so operations bound it
-// (1.12 ms at [24,376,256,64]). The body issues mma.sync m16n8k16 from
-// ldmatrix fragments; at N = 32 each k-step's 8 products wait on 5
-// fragment loads (4 of A, 1 of B), which the variants of
-// scripts/dense_tail_variants.py measure.
+// (1.12 ms at [24,376,256,64]; kernel 6 three times that, 3.36 ms). The
+// body issues mma.sync m16n8k16 from ldmatrix fragments; at N = 32 each
+// k-step's 8 products wait on 5 fragment loads (4 of A, 1 of B), which
+// the variants of scripts/dense_tail_variants.py measure (kernel 6's,
+// scripts/chain_grad_variants.py).
 //
 // Shapes the route rule (ops/dense_trunk.uses_tensor_cores) sends
 // elsewhere (C or g not a multiple of 8, C + 4g > 256, f32) run
-// sr_kernels.cu's direct conv3x3_kernel.
+// sr_kernels.cu's direct conv3x3_kernel (B1) and conv_chain_kernel (6).
+
+#include <cooperative_groups.h>
 
 #include "conv_engine.cuh"
 
@@ -104,13 +131,13 @@ struct DenseConv {
   // One bulk copy per pixel of the tile: its min(BN, n - n0) channels at
   // channel out_off + n0 (every run a multiple of 16 bytes: the route
   // takes n % 8 == 0, out_off % 8 == 0, ostride % 8 == 0).
-  template <int BN>
+  // ROWS: the tile's rows (kernel 6's conv 5 stage takes 4).
+  template <int BN, int ROWS = conv_engine::tc::TH>
   __device__ void tc_put(const bf16* tile, int tstr, int b, int ty0, int tx0,
                          int n0, int tid) const {
-    using conv_engine::tc::TH;
     using conv_engine::tc::TW;
     const int nb = min(BN, n - n0);
-    for (int e = tid; e < TH * TW; e += conv_engine::tc::NTHREADS) {
+    for (int e = tid; e < ROWS * TW; e += conv_engine::tc::NTHREADS) {
       const int ty = e / TW, tx = e - ty * TW;
       const int y = ty0 + ty, xx = tx0 + tx;
       if (y < H && xx < W)
@@ -120,6 +147,88 @@ struct DenseConv {
     }
   }
 };
+
+// ---- kernel 6: the whole RRDB in one cooperative launch ------------
+
+constexpr int RRDB_STAGES = 15;
+constexpr int RRDB_BN_G = 32;   // convs 1-4: 32-column tiles
+constexpr int RRDB_BN_C = 64;   // conv 5: 64-column tiles of
+constexpr int RRDB_TH_C = 4;    // 4 rows, so its ~71 KB (C 64, g 32) let
+                                // three blocks share an SM, as B1's
+                                // convs 1-4 run (8 rows: ~100 KB, two)
+constexpr int RRDB_MIN_BLOCKS = RRDB_TH_C < 8 ? 3 : 2;
+
+struct RrdbArgs {
+  DenseConv<bf16> st[RRDB_STAGES];
+  int plant;
+};
+static_assert(sizeof(RrdbArgs) <= 4096, "kernel parameters are 4 KB");
+
+// The fault a check plants in kernel 6 (plant is 0 in use), beside
+// sr_kernels.cu launch_chain's 1 (the last residual dropped) and 2 (the
+// first two stages swapped): no grid barrier between stages.
+enum { RRDB_PLANT_NO_BARRIER = 4 };
+
+// Waits until this thread's bulk stores have been written to global
+// memory, then orders them before the generic proxy's later accesses.
+__device__ __forceinline__ void bulk_wait_written() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// One stage: the block's tiles t = blockIdx.x, + gridDim.x, ... of conv
+// a, BN-column tiles.
+template <int BN, int ROWS>
+__device__ __forceinline__ void rrdb_stage(const DenseConv<bf16>& a,
+                                           unsigned char* smem) {
+  namespace tc = conv_engine::tc;
+  const int tiles = tc::tile_count<BN, ROWS>(a);
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    tc::tile_body<DenseConv<bf16>, BN, ROWS>(a, t, smem);
+    __syncthreads();  // every bulk copy has read the tile: restage
+  }
+}
+
+__global__ void __launch_bounds__(conv_engine::tc::NTHREADS, RRDB_MIN_BLOCKS)
+    rrdb_tc_kernel(const RrdbArgs c) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int s = 0; s < RRDB_STAGES; ++s) {
+    if (s % 5 < 4)
+      rrdb_stage<RRDB_BN_G, conv_engine::tc::TH>(c.st[s], smem);
+    else
+      rrdb_stage<RRDB_BN_C, RRDB_TH_C>(c.st[s], smem);
+    if (s + 1 == RRDB_STAGES) break;
+    bulk_wait_written();
+    if (!(c.plant & RRDB_PLANT_NO_BARRIER)) grid.sync();
+  }
+}
+
+// The five stages of one dense block on x, as B1's five launches.
+void rrdb_block(RrdbArgs& c, int first, const bf16* x, bf16* ws, bf16* out,
+                const bf16* res, const void* const* w,
+                const void* const* bias, int B, int H, int W, int C, int g) {
+  for (int j = 0; j < 5; ++j) {
+    const bool last = j == 4;
+    c.st[first + j] = DenseConv<bf16>{
+        x, ws, B, H, W, C, 4 * g, j * g, static_cast<const bf16*>(w[j]),
+        last ? C : g, static_cast<const float*>(bias[j]),
+        last ? out : ws, last ? C : 4 * g, last ? 0 : j * g,
+        last ? C : g, last ? 0 : 1, last ? x : nullptr,
+        last ? res : nullptr, 0, 0, 0};
+  }
+}
+
+size_t rrdb_smem(int C, int g) {
+  namespace tc = conv_engine::tc;
+  size_t m = tc::smem_bytes<RRDB_BN_C, RRDB_TH_C>(C + 4 * g);
+  for (int j = 0; j < 4; ++j) {
+    const size_t b = tc::smem_bytes<RRDB_BN_G>(C + j * g);
+    if (b > m) m = b;
+  }
+  return m;
+}
 
 }  // namespace
 
@@ -148,6 +257,49 @@ int dense_conv(const void* x, const void* ws, int B, int H, int W, int C,
       static_cast<const bf16*>(xres), static_cast<const bf16*>(res),
       seg_stride, seg_valid, seg_plant};
   return conv_engine::tc::launch(a, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 6: one RRDB, one cooperative launch of rrdb_tc_kernel: b1 =
+// block(x) into out, b2 = block(b1) into tmp, out = x + 0.2 * block(b2).
+// x, tmp, out [B,H,W,C] and ws [B,H,W,4g] bf16; w, bias: 15 pointers each
+// (three blocks of five HWIO bf16 kernels, f32 biases). plant: 0 in use.
+// Returns the cudaError_t of the launch (0 on success).
+int dense_rrdb(const void* x, const void* const* w, const void* const* bias,
+               void* ws, void* tmp, void* out, int B, int H, int W, int C,
+               int g, int plant, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C % 8 || g % 8 || C < 8 || g < 8 ||
+      C + 4 * g > conv_engine::tc::MAX_CIN)
+    return (int)cudaErrorInvalidValue;
+  RrdbArgs c = {};
+  const bf16* xi = static_cast<const bf16*>(x);
+  bf16* wk = static_cast<bf16*>(ws);
+  bf16* t = static_cast<bf16*>(tmp);
+  bf16* o = static_cast<bf16*>(out);
+  rrdb_block(c, 0, xi, wk, o, nullptr, w, bias, B, H, W, C, g);
+  rrdb_block(c, 5, o, wk, t, nullptr, w + 5, bias + 5, B, H, W, C, g);
+  rrdb_block(c, 10, t, wk, o, xi, w + 10, bias + 10, B, H, W, C, g);
+  if (plant & 1) c.st[RRDB_STAGES - 1].res = nullptr;  // as launch_chain's
+  if (plant & 2) {
+    const DenseConv<bf16> s0 = c.st[0];
+    c.st[0] = c.st[1];
+    c.st[1] = s0;
+  }
+  c.plant = plant;
+  const size_t bytes = rrdb_smem(C, g);
+  int sms = 0, fit = 0;
+  cudaError_t e = conv_engine::sm_count(&sms);
+  if (e == cudaSuccess)
+    e = conv_engine::allow_smem<rrdb_tc_kernel>(
+        bytes, conv_engine::tc::NTHREADS, &fit);
+  if (e != cudaSuccess) return (int)e;
+  if (fit < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&c};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(rrdb_tc_kernel),
+                                  dim3(sms * fit),
+                                  dim3(conv_engine::tc::NTHREADS), args,
+                                  bytes, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

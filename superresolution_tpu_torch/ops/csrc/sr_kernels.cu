@@ -10,9 +10,14 @@
 //     tail_kernels.cu's.
 //   - the two convs of the hybrid path's CAB (hat_kernels.cu, kernel 7),
 //     through its exact-GELU epilogue;
-//   - the transposed convs of the dense block's backward (train_kernels.
-//     cu, kernel 13), through its lrelu' gate and scaled-add epilogues;
-//   - kernels 4-6, the trunk's levers, as stages of conv_chain_kernel:
+//   - the transposed convs of the dense block's backward (kernel 13) at
+//     the shapes its route rule sends off the tensor cores, through its
+//     lrelu' gate and scaled-add epilogues (the models' widths run
+//     train_tc_kernels.cu's);
+//   - kernels 4-5, the trunk's levers, as stages of conv_chain_kernel,
+//     and kernel 6 there at the shapes the route rule sends off the
+//     tensor cores (the models' widths run dense_kernels.cu's
+//     rrdb_tc_kernel, B1's tile body in persistent blocks):
 //   4 fused_dense_block_prologue  (replaces ops/pallas_dense_trunk.py:
 //      fused_dense_block_prologue): conv_first then dense block 0, six
 //      stages of conv_chain_kernel in one cooperative launch.
@@ -38,10 +43,10 @@
 // What this simple design leaves on the table: the sums run on the CUDA
 // cores in f32 (FFMA, 67 TFLOP/s peak), not on the tensor cores, so it
 // can reach at most ~7% of the bf16 bound; the conv engine's tensor-core
-// body (conv_engine.cuh, B1's and B2's route) is the way for 4-6 and 7's
-// convs too. Kernels 4-6 also round-trip the 4g workspace
-// channels through device memory, which an in-shared-memory cascade
-// would avoid.
+// body (conv_engine.cuh; B1's, B2's and, at the models' widths, 6's and
+// 13's route) is the way for 4-5 and 7's convs too. The chains also
+// round-trip the 4g workspace channels through device memory, which an
+// in-shared-memory cascade would avoid.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

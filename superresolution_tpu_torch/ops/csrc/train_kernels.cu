@@ -3,21 +3,28 @@
 //   Kernel 13, the dense block's backward (replaces superresolution_tpu/
 //   ops/pallas_dense_trunk_vjp.py:fused_dense_block_train, _bwd_kernel).
 //   ops/dense_trunk_train.py runs it as a fixed sequence of launches:
-//     - B1's first four convs recompute y_1..y_4 (sr_kernels.cu);
+//     - B1's first four convs recompute y_1..y_4 (B1's route);
 //     - dense_scale_kernel writes dacc5 = bf16(s_acc * dout) into the
 //       cotangent workspace D = [dacc5 | dpre4 | dpre3 | dpre2 | dpre1];
 //     - four transposed convs, one per source y_4..y_1, each a SAME 3x3
 //       conv over a prefix of D with flipped, channel-transposed weights
-//       (sr_kernels.cu's conv3x3_kernel, lrelu' gate epilogue), write
-//       dpre_i = bf16(lrelu'(y_i) * sum of every later conv's cotangent);
+//       and an lrelu' gate epilogue, write dpre_i = bf16(lrelu'(y_i) * sum
+//       of every later conv's cotangent);
 //     - one more over all of D gives dx = convT + s_id * dout;
-//     - wgrad_kernel: per pixel chunk, f32 partials of dW_j[tap][ci][co]
-//       = sum_p in_j[p + tap] * dpre_j[p] (and of db_j = sum_p dpre_j[p]);
-//       wgrad_reduce_kernel sums the chunks in a fixed order and casts dW
-//       to the weight's type. No float atomics: two runs give the same bits.
+//     - per conv, the weight grad: per pixel chunk, f32 partials of
+//       dW_j[tap][ci][co] = sum_p in_j[p + tap] * dpre_j[p] (and of db_j =
+//       sum_p dpre_j[p]); wgrad_reduce_kernel sums the chunks in a fixed
+//       order and casts dW to the weight's type. No float atomics: two
+//       runs give the same bits.
+//   The route rule (ops/dense_trunk.uses_tensor_cores) sends the models'
+//   shapes to the tensor cores: the transposed convs, the weight grads
+//   and the flipped weights are train_tc_kernels.cu's. This file keeps
+//   dense_scale_kernel, wgrad_reduce_kernel, and the f32 FFMA forms that
+//   other shapes take: the transposed convs through sr_kernels.cu's
+//   conv3x3_kernel and wgrad_kernel below.
 //     With `seg` (batch-packed rows, see sr_kernels.cu's B1) every conv
 //     launch above reads spacer rows as zero and writes them as 0, and
-//     wgrad_kernel reads them as zero in both its staged inputs, so dx
+//     the weight grads read them as zero in both staged inputs, so dx
 //     and every cotangent are exactly 0 there (pallas_dense_trunk_vjp.py
 //     _mask_flat) and no spacer row enters dW or db.
 //   Kernel 14, the star-weighted L1 (replaces ops/pallas_loss.py:
@@ -34,11 +41,10 @@
 // the weights: bound by operations (0.081 ms).
 // Kernel 14 does 4-5 operations per 8-12 bytes: bound by bytes.
 //
-// What this simple design leaves on the table: every conv and the wgrad
-// accumulate in f32 on the CUDA cores (FFMA, 67 TFLOP/s), not on the
-// tensor cores, so kernel 13 can reach at most ~7% of its bound; the
-// wgrad re-stages the input tile from device memory for each of its
-// channel tiles, and y_1..y_4 and D round-trip through device memory.
+// The direct forms accumulate in f32 on the CUDA cores (FFMA, 67
+// TFLOP/s), so they reach at most ~7% of kernel 13's bound; the wgrad
+// re-stages the input tile from device memory for each of its channel
+// tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -321,6 +327,19 @@ int train_star_l1_grad(const void* p, const void* t, size_t n, float thr,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p), static_cast<const float*>(t), n, thr, w,
       static_cast<const float*>(g), static_cast<float*>(dp));
+  return (int)cudaGetLastError();
+}
+
+// dW [nw] bf16 = the chunks' partials summed in order (and db [cout] f32
+// from the partials after them when with_bias): one launch of
+// wgrad_reduce_kernel over `part` as train_wgrad lays it out.
+int train_wgrad_reduce(const void* part, size_t nw, int cout, int nchunk,
+                       int with_bias, void* dw, void* db, void* stream) {
+  const float* pw = static_cast<const float*>(part);
+  wgrad_reduce_kernel<<<(unsigned)((nw + RED_THREADS - 1) / RED_THREADS),
+                        RED_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      pw, nw, with_bias ? pw + (size_t)nchunk * nw : nullptr, cout, nchunk,
+      static_cast<__nv_bfloat16*>(dw), static_cast<float*>(db));
   return (int)cudaGetLastError();
 }
 

@@ -36,16 +36,22 @@ MACs per pixel, 1.11 TFLOP per call -> 1.12 ms at 989 TFLOP/s, against
 0.27 ms for its ~0.9 GB of x, residual and output; bound by operations.
 
 Kernels 4-6, the levers of the trunk (infer/fused_trunk.make_fused_trunk
-fold_ends / chain_rrdb), each ONE cooperative launch of conv_chain_kernel
-(csrc/sr_kernels.cu): its conv stages in order, each over the whole
-tensor, separated by grid-wide barriers, every intermediate in device
-memory:
+fold_ends / chain_rrdb), each ONE cooperative launch: its conv stages in
+order, each over the whole tensor, separated by grid-wide barriers,
+every intermediate in device memory:
   4 fused_dense_block_prologue (replaces ops/pallas_dense_trunk.py:
     fused_dense_block_prologue): head = conv_first(x_raw), out = B1(head);
   5 fused_dense_block_epilogue (replaces fused_dense_block_epilogue):
     trunk_conv(residual + 0.2 * B1(x)) + head;
   6 fused_rrdb (replaces fused_rrdb / _rrdb_kernel): one whole RRDB,
     x + 0.2 * B1(B1(B1(x))).
+Kernels 4 and 5 run conv_chain_kernel (csrc/sr_kernels.cu, f32 FFMA).
+Kernel 6 takes B1's route rule: on the tensor-core route it is
+rrdb_tc_kernel (csrc/dense_kernels.cu), persistent blocks that walk B1's
+fifteen launches as stages through the conv engine's tile body under
+B1's DenseConv policy, so it computes exactly what three B1 calls do;
+other shapes run conv_chain_kernel. Each launch counts on `launches` and
+on its body's count (`tc_launches`, `direct_launches`).
 SAME zero padding at every conv, f32 accumulation, lrelu 0.2 and the
 x0.2 residuals in the reference's order. Bounds at the main-path shape
 (operations, 989 TFLOP/s): kernel 6 does 3 x 239,616 MACs per pixel,
@@ -372,20 +378,36 @@ def fused_rrdb(x: torch.Tensor, w0: DenseWeights, w1: DenseWeights,
                w2: DenseWeights) -> torch.Tensor:
     """Kernel 6 on x [B,H,W,C]: x + 0.2 * B1(B1(B1(x))) with the three
     blocks' weights. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel (the body uses_tensor_cores picks) or raise."""
     if x.device.type == "cpu":
         return fused_rrdb_reference(x, w0, w1, w2)
     g = {_check_block(f"fused_rrdb block {i}", x, ws)
          for i, ws in enumerate((w0, w1, w2))}
     if len(g) != 1:
         raise ValueError(f"fused_rrdb: blocks of growths {sorted(g)}")
+    g = g.pop()
     b, h, w, c = x.shape
     _require("fused_rrdb", [x], [*w0, *w1, *w2])
-    ws = torch.empty((b, h, w, 4 * g.pop()), dtype=x.dtype, device=x.device)
+    ws = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
     tmp, out = torch.empty_like(x), torch.empty_like(x)
-    _build.rrdb(x, [*w0, *w1, *w2], ws, tmp, out)
-    fused_rrdb.launches += 1
+    rrdb_launch(x, [*w0, *w1, *w2], ws, tmp, out)
     return out
 
 
 fused_rrdb.launches = 0
+fused_rrdb.tc_launches = 0   # by body
+fused_rrdb.direct_launches = 0
+
+
+def rrdb_launch(x: torch.Tensor, weights: DenseWeights, ws: torch.Tensor,
+                tmp: torch.Tensor, out: torch.Tensor) -> None:
+    """Kernel 6's one launch into `out` on the body uses_tensor_cores
+    picks, counted in fused_rrdb.launches and its body's count; callers
+    have validated the CUDA tensors."""
+    tc = uses_tensor_cores(x, x.shape[-1], ws.shape[-1] // 4)
+    (_build.rrdb_tc if tc else _build.rrdb)(x, weights, ws, tmp, out)
+    fused_rrdb.launches += 1
+    if tc:
+        fused_rrdb.tc_launches += 1
+    else:
+        fused_rrdb.direct_launches += 1

@@ -21,24 +21,28 @@ select and the one bf16 rounding, where _bwd_kernel rounds. lrelu'
 selects on y_i > 0, which is pre_i > 0 since y_i = lrelu(pre_i) with a
 positive slope, so the recompute needs only B1's y_1..y_4.
 
-On the card (csrc/train_kernels.cu, and csrc/sr_kernels.cu's conv for the
-transposed convs) one call is 16 launches of its own plus B1's first four
-convs for the recompute (counted as B1's). The per-source transposed
-convs read a prefix of one cotangent workspace D = [dpre5 | dpre4 | ... |
-dpre1]: source i's conv takes every later conv's cotangent at once, with
-weights flipped in dy and dx and channels transposed (`flipped_weights`).
-Each reads its input through a zero halo, so every cotangent is exact at
-the image border by construction; the reference's projection layout,
-PAD=8 columns, masks and roll-convs do not carry over. The weight grads
-are per-chunk f32 partials summed by a second launch in a fixed order.
+On the card one call is a fixed sequence of launches plus B1's first
+four convs for the recompute (counted as B1's). The per-source
+transposed convs read a prefix of one cotangent workspace D = [dpre5 |
+dpre4 | ... | dpre1]: source i's conv takes every later conv's cotangent
+at once, with weights flipped in dy and dx and channels transposed
+(`flipped_weights`). Each reads its input through a zero halo, so every
+cotangent is exact at the image border by construction; the reference's
+projection layout, PAD=8 columns, masks and roll-convs do not carry
+over. The weight grads are per-chunk f32 partials summed by a second
+launch in a fixed order. uses_tensor_cores (B1's route rule) picks the
+body: at the models' widths (bf16, C and g multiples of 8, C + 4g <=
+256) the flipped weights are one launch, the five transposed convs run
+the conv engine's tensor-core body under DenseGradConv and the weight
+grads wgrad_tc_kernel (csrc/train_tc_kernels.cu, bf16 mma.sync, f32
+sums), 17 launches of its own; other shapes run sr_kernels.cu's direct
+conv and train_kernels.cu's wgrad_kernel (f32 FFMA), 16 launches.
 
 Bound on the H100 at hybrid_astro's [4,128,128,64] (c 64, g 32): the
 transposed convs and the weight grads each do the forward's 239,616 MACs
 per pixel and the recompute of y_1..y_4 (convs 1-4) 129,024, so 608,256
 in all, 8.0e10 FLOP a call, 0.081 ms at 989 TFLOP/s; bound by
-operations. The transposed convs and the weight grads run on the CUDA
-cores in f32; the recompute takes B1's route (the tensor cores at the
-models' widths, ops/dense_trunk.uses_tensor_cores).
+operations.
 
 With `seg` (a batch-packed x, ops/dense_trunk.py) every launch masks
 the spacer rows as B1's do: each conv and transposed conv reads them as
@@ -48,7 +52,8 @@ reference's _mask_flat) and dres is dout with its spacer rows zeroed,
 the gradient of an output whose spacer rows are 0.
 
 `dense_block_backward.launches` counts calls of the backward (one per
-call, 69 per hybrid_astro step), and its `seg_launches` those with seg.
+call, 69 per hybrid_astro step), its `seg_launches` those with seg, and
+`tc_launches` / `direct_launches` those by body.
 The plain version is autograd through
 ops/dense_trunk.fused_dense_block_reference; CPU tensors run it.
 """
@@ -57,7 +62,7 @@ from __future__ import annotations
 
 import torch
 
-from superresolution_tpu_torch.ops import _build
+from superresolution_tpu_torch.ops import _build, dense_trunk
 from superresolution_tpu_torch.ops.dense_trunk import (
     DenseWeights,
     Seg,
@@ -92,6 +97,29 @@ def flipped_weights(weights: DenseWeights, src: int) -> torch.Tensor:
                      2).contiguous()
 
 
+# The transposed convs' sources in D's order of writing: y_4 .. y_1, x.
+FLIP_SOURCES = (4, 3, 2, 1, 0)
+
+
+def flip_sizes(c: int, g: int) -> list[int]:
+    """Elements of each source's flipped weights [3, 3, n_in, n_src], in
+    FLIP_SOURCES order."""
+    return [9 * (c + (4 - i) * g) * (g if i else c) for i in FLIP_SOURCES]
+
+
+def flipped_launch(weights: DenseWeights) -> dict:
+    """Every source's flipped weights from one launch (_build.flip_weights)
+    into one buffer: {source: [3, 3, n_in, n_src] view}."""
+    c = weights[4][0].shape[-1]
+    g = weights[0][0].shape[-1]
+    sizes = flip_sizes(c, g)
+    k = weights[0][0]
+    buf = torch.empty(sum(sizes), dtype=k.dtype, device=k.device)
+    _build.flip_weights(weights, buf)
+    return {i: t.view(3, 3, c + (4 - i) * g, g if i else c)
+            for i, t in zip(FLIP_SOURCES, buf.split(sizes))}
+
+
 def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
                          residual: torch.Tensor | None, dout: torch.Tensor,
                          seg: Seg | None = None):
@@ -116,27 +144,43 @@ def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
                              f"{tuple(k.shape)}, expected {want}")
     s_acc, s_id = (0.2 * 0.2, 0.2) if residual is not None else (0.2, 1.0)
     geom, kw = (b, h, w), seg_kw(seg)
+    tc = dense_trunk.uses_tensor_cores(x, c, g)  # B1's route rule
     y = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
     dense_features(x, weights, y, seg)
     d = torch.empty((b, h, w, 4 * g + c), dtype=x.dtype, device=x.device)
     _build.dense_scale(dout, s_acc, d)
-    for i in (4, 3, 2, 1):
-        n_in = c + (4 - i) * g
-        _build.conv3x3(d, n_in, flipped_weights(weights, i), None, d, n_in,
-                       g, geom=geom, gate=y, gate_off=(i - 1) * g, **kw)
     dx = torch.empty_like(x)
-    _build.conv3x3(d, 4 * g + c, flipped_weights(weights, 0), None, dx, 0, c,
-                   geom=geom, add=dout, add_scale=s_id, **kw)
+    if tc:
+        wt = flipped_launch(weights)
+        for i in (4, 3, 2, 1):
+            n_in = c + (4 - i) * g
+            _build.grad_conv(d, n_in, wt[i], d, n_in, gate=y,
+                             gate_off=(i - 1) * g, **kw)
+        _build.grad_conv(d, 4 * g + c, wt[0], dx, 0, add=dout,
+                         add_scale=s_id, **kw)
+    else:
+        for i in (4, 3, 2, 1):
+            n_in = c + (4 - i) * g
+            _build.conv3x3(d, n_in, flipped_weights(weights, i), None, d,
+                           n_in, g, geom=geom, gate=y, gate_off=(i - 1) * g,
+                           **kw)
+        _build.conv3x3(d, 4 * g + c, flipped_weights(weights, 0), None, dx,
+                       0, c, geom=geom, add=dout, add_scale=s_id, **kw)
     grads = []
     for j, (k, bb) in enumerate(weights, 1):
         dk = torch.empty_like(k)
         db = torch.empty_like(bb)
         d_off = 0 if j == 5 else c + (4 - j) * g
-        _build.wgrad(x, c, y if j > 1 else None, (j - 1) * g, d, d_off,
-                     k.shape[-1], dk, db, **kw)
+        (_build.wgrad_tc if tc else _build.wgrad)(
+            x, c, y if j > 1 else None, (j - 1) * g, d, d_off, k.shape[-1],
+            dk, db, **kw)
         grads.append((dk, db))
     dense_block_backward.launches += 1
     dense_block_backward.seg_launches += seg is not None
+    if tc:
+        dense_block_backward.tc_launches += 1
+    else:
+        dense_block_backward.direct_launches += 1
     dres = None
     if residual is not None:
         dres = dout if seg is None else dout * image_rows(
@@ -146,6 +190,8 @@ def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
 
 dense_block_backward.launches = 0
 dense_block_backward.seg_launches = 0  # those of them with seg
+dense_block_backward.tc_launches = 0   # by body
+dense_block_backward.direct_launches = 0
 
 
 class DenseBlockTrain(torch.autograd.Function):

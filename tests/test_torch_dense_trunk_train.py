@@ -7,8 +7,10 @@ and dres, with and without a folded residual, at row blocks None and 4.
 The CUDA launch sequence of dense_block_backward cannot run here; its
 orchestration (the cotangent workspace's channel layout, the flipped
 weights, the lrelu' gate, the scale factors and the weight-grad offsets)
-is held against autograd with each launch helper replaced by a plain
-torch emulation of what its kernel computes."""
+is held against autograd on both routes with each launch helper replaced
+by a plain torch emulation of what its kernel computes (the direct
+route's) or by its GEMM form (utils/chain_grad_forms.py, the tensor-core
+route's)."""
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,10 @@ from superresolution_tpu_torch.ops import _build
 from superresolution_tpu_torch.ops import dense_trunk as dt
 from superresolution_tpu_torch.ops import dense_trunk_train as dtt
 from superresolution_tpu_torch.ops.dense_trunk import dense_weights
+from superresolution_tpu_torch.utils.chain_grad_forms import (
+    flip_weights_form,
+    grad_conv_form,
+)
 from superresolution_tpu_torch.utils.dense_tail_forms import dense_conv_form
 
 
@@ -141,27 +147,35 @@ def _emu_scale(src, scale, out):
 @pytest.mark.parametrize("with_res", [False, True])
 def test_backward_launch_sequence_matches_autograd(monkeypatch, with_res,
                                                    route):
-    """The recompute of y_1..y_4 on either of B1's routes (the direct
-    conv's emulation, or the tensor-core body's GEMM form picked by
-    forcing ops/dense_trunk.uses_tensor_cores)."""
+    """The whole call on either route, picked by forcing
+    ops/dense_trunk.uses_tensor_cores: the direct convs' emulations, or
+    the tensor-core launches' GEMM forms (B1's recompute, the flipped
+    weights in one launch and the transposed convs,
+    utils/chain_grad_forms.py; the weight grads' emulation either way)."""
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "conv3x3", _emu_conv3x3)
     monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
+    monkeypatch.setattr(_build, "grad_conv", grad_conv_form)
+    monkeypatch.setattr(_build, "flip_weights", flip_weights_form)
     monkeypatch.setattr(dt, "uses_tensor_cores",
                         lambda x, c, g: route == "tc")
     monkeypatch.setattr(_build, "wgrad", _emu_wgrad)
+    monkeypatch.setattr(_build, "wgrad_tc", _emu_wgrad)
     monkeypatch.setattr(_build, "dense_scale", _emu_scale)
     x, res, cot, dp = _inputs(11 + with_res, 10, 13, b=2)
     _, dx_ref, dws_ref, dres_ref = _port_grads(x, res, cot, dp, with_res)
     ws = dense_weights(*convert._unfuse_dense(dp, C, G), dtype=torch.float32)
     before = dtt.dense_block_backward.launches
     tc = dt.fused_dense_block.tc_launches
+    k13_tc = dtt.dense_block_backward.tc_launches
     dx, dws, dres = dtt.dense_block_backward(
         torch.from_numpy(x), ws, torch.from_numpy(res) if with_res else None,
         torch.from_numpy(cot))
     assert dtt.dense_block_backward.launches == before + 1
     assert dt.fused_dense_block.tc_launches == tc + (4 if route == "tc"
                                                      else 0)
+    assert dtt.dense_block_backward.tc_launches == k13_tc + (
+        route == "tc")
     torch.testing.assert_close(dx, dx_ref, atol=1e-4, rtol=1e-4)
     for (dk, db), (rk, rbias) in zip(dws, dws_ref):
         torch.testing.assert_close(dk, rk, atol=1e-4, rtol=1e-4)

@@ -51,6 +51,10 @@ from superresolution_tpu_torch.train.fused_apply import (
     pack_batch_rows,
     unpack_batch_rows,
 )
+from superresolution_tpu_torch.utils.chain_grad_forms import (
+    flip_weights_form,
+    grad_conv_form,
+)
 from superresolution_tpu_torch.utils.dense_tail_forms import dense_conv_form
 
 
@@ -277,10 +281,14 @@ def _launch_grads(x, res, cot, dp, with_res, seg, plant=0):
 
 @pytest.fixture(params=["direct", "tc"])
 def route(request, monkeypatch):
-    """B1's launches on the direct conv's emulation or on the tensor-core
-    body's GEMM form (utils/dense_tail_forms.dense_conv_form), picked by
-    forcing ops/dense_trunk.uses_tensor_cores."""
+    """B1's and kernel 13's launches on the direct convs' emulations or on
+    the tensor-core launches' GEMM forms (utils/dense_tail_forms.
+    dense_conv_form, utils/chain_grad_forms.grad_conv_form and
+    flip_weights_form), picked by forcing ops/dense_trunk.
+    uses_tensor_cores."""
     monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
+    monkeypatch.setattr(_build, "grad_conv", grad_conv_form)
+    monkeypatch.setattr(_build, "flip_weights", flip_weights_form)
     monkeypatch.setattr(dt, "uses_tensor_cores",
                         lambda x, c, g: request.param == "tc")
     return request.param
@@ -291,6 +299,7 @@ def test_seg_launch_sequence_matches_autograd(monkeypatch, route, with_res):
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "conv3x3", _emu_conv3x3)
     monkeypatch.setattr(_build, "wgrad", _emu_wgrad)
+    monkeypatch.setattr(_build, "wgrad_tc", _emu_wgrad)
     monkeypatch.setattr(_build, "dense_scale", _emu_scale)
     x, res, cot, dp = _inputs(23 + with_res)
     out_ref, dx_ref, dws_ref, dres_ref = _port_seg_grads(x, res, cot, dp,
@@ -327,6 +336,7 @@ def test_seg_faults_move_the_result(monkeypatch, route, fault):
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "conv3x3", _emu_conv3x3)
     monkeypatch.setattr(_build, "wgrad", _emu_wgrad)
+    monkeypatch.setattr(_build, "wgrad_tc", _emu_wgrad)
     monkeypatch.setattr(_build, "dense_scale", _emu_scale)
     x, res, cot, _ = _inputs(29)
     rng = np.random.default_rng(29)
