@@ -14,8 +14,9 @@ is not 0:
   2 build    nvcc build of the kernels, seconds; the registers and
              spills of the conv engine (policies of B1, B2, 13's
              transposed convs, 15, 16, 18), kernels 17, B3, 9 and 19 (none
-             may spill), kernel 6's rrdb_tc_kernel (may not spill) and 13's
-             wgrad_tc_kernel and flip_weights_kernel
+             may spill), kernel 6's rrdb_tc_kernel (may not spill), 13's
+             wgrad_tc_kernel and flip_weights_kernel, and kernels 8, 10
+             and 11's tensor-core instances
   3 kernel   each kernel against its plain PyTorch version on the card,
              at the CHIPEQ geometry, a ragged one and the main path's:
              max |kernel - plain| / max |plain| <= 0.02; timed there,
@@ -44,7 +45,9 @@ a second seed:
              PERF.md, not re-run); HAB also on out - x - cab, CAB also on
              its GELU hidden map; at the first geometry each check must
              also fail on each of six faults planted in the kernels'
-             inputs
+             inputs, and kernel 8 miss by 3x the bar with each of its two
+             faults planted in its tensor-core body (a q/k/v GEMM slab
+             skipped, LN2 skipped)
   7 hybrid-path     one frame through fused_hybrid_model, launches counted
              (exact); shape and finiteness; stage 1, stage 2 and the
              frame after it (both fed the kernel path's own stage-2
@@ -71,6 +74,10 @@ random weights from the Trainer's seed:
              helpers, two in kernel 14's inputs); both timed at the main
              shapes, 13 beside its direct launches (the parent kernel's)
              and split by launch on both routes ("k13_split")
+  9b f32-routes     (C4) B1 and kernel 13 with f32 activations on the conv
+             engine's direct body at [4,128,128,64] against their plain
+             f32 versions within 1e-4: B1's output, 13's dx, dW, db;
+             every launch off the tensor cores; timed beside bf16
  10 train-path      the port's Trainer fits TRAIN_STEPS steps, evaluates
              once and writes a checkpoint, launches counted (exact per
              step: B1 621, kernel 13 69, kernel 14 2, the deploy kernels
@@ -80,6 +87,10 @@ random weights from the Trainer's seed:
              gradients (conv_first, the first, middle and last RRDB,
              conv_body, stage 2's conv_first) within 0.03, each beside
              both paths' distance from f32
+ 10b fp32-step      (C4) a Trainer with precision "fp32" and fused_trunk
+             takes one fit step (B1 621 and kernel 13 69 launches, all on
+             the direct f32 route); its loss and every gradient against
+             the plain f32 step within 1e-3 of max |plain|
  11 train-times     ms/step, samples/s and input MP/s over TIME_STEPS steps
              on one batch on the card, stage 1 and stage 2 forward +
              backward, the plain step, device time by kernel
@@ -95,15 +106,32 @@ seed, bf16:
              bf16 within 0.02 of max |plain|, the logit spread printed;
              four planted faults (mask dropped, bias dropped, scale
              C^-1/2, ids of window b // nW) each caught; gradients through
-             the autograd op equal plain autograd's within 1e-6; kernel,
-             plain and scaled_dot_product_attention ms with the bound
+             the autograd op equal plain autograd's within 1e-6; kernel
+             (bf16: the tensor cores, every launch counted there), plain
+             and scaled_dot_product_attention ms with the bound, its
+             first form's (K10_OLD_MS) printed
+ 12b map-form       kernel 10's map form (flash_map_attention, the HAB's
+             self-attention read from the qkv map [8,576,576,288]) at
+             shift 0 and 4 against roll, partition, plain attention,
+             merge, roll back: bf16 within 0.02, f32 within 1e-4; three
+             faults planted in it (the mask dropped, the shifted address
+             clamped, the last key tile skipped) each missing by 3x the
+             bar; timed beside SDPA (the first form's chain printed)
+ 12c widths         kernel 10 in bf16 at the other widths (head dim 16 at
+             1-5 and 7 heads, 20 at 1-5) on windows at every (n, m) and
+             on the map at ws 8 and 16 within 0.02, every launch on the
+             tensor cores; HATLite at (64, 4) and (60, 3) under flash_attn
+             within 0.03 of plain attention (kernel 10 x3)
  13 upscale-path    a 1024^2 frame through api.upscale(on_device=True,
              tile 256, halo 16, batch 8): 4096^2, finite, in [0, 1];
              kernel-10 launches exactly 56 (2 batches x (24 HAB + 4
-             OCAB)) and every other kernel 0; within 0.03 of the same
-             call on plain attention with f32 logits (the bf16-logit
-             distance printed); the host tiler within 1e-3 of the
-             on-device one; hann printed; frame s, MP/s, peak memory
+             OCAB)), all on the tensor cores, 48 of them the map form,
+             and every other kernel 0; within 0.03 of the same call on
+             plain attention with f32 logits (timed once); the host
+             tiler within 1e-3 of the on-device one; hann printed; frame
+             s, MP/s, peak memory; the frame's device
+             split by kernel and by group, beside the split with kernel
+             10's first form (K10_OLD_FRAME, printed)
  14 no-gather       bench_hybrid's frame through fused_hybrid_model with
              SRTPU_GATHER_OCA=0 (kernel 10 x 4, kernel 9 x 0, B1 and
              kernels 7-8 as in phase 7), stage 2 and after within 0.03
@@ -309,9 +337,15 @@ TRAIN_DIR = "outputs/chip_smoke_train"   # .gitignore lists outputs/
 TOL_STEP_LOSS = 0.01      # kernel step vs plain bf16 step
 TOL_STEP_GNORM = 0.03
 TOL_LEAF = 0.03           # per-leaf gradients, of max |plain|
-TIME_STEPS = 3            # steps timed after one warm-up
+TIME_STEPS = 2            # steps timed after one warm-up
 ATTN_SRC = "superresolution_tpu_torch/ops/csrc/attn_kernels.cu"
 OCA_SRC = "superresolution_tpu_torch/ops/csrc/oca_kernels.cu"
+FLASH_SRC = "superresolution_tpu_torch/ops/csrc/flash_tc.cuh"  # 9's, 10's
+ATTN_TC_SRC = "superresolution_tpu_torch/ops/csrc/attn_tc_kernels.cu"
+ATTN_WIDTH_SRCS = tuple(f"superresolution_tpu_torch/ops/csrc/"
+                        f"attn_tc_widths{hd}.cu" for hd in (16, 20))
+TOL_F32 = 1e-4            # B1 and kernel 13 in f32 (C4), as 15 and 18
+TOL_FP32_STEP = 1e-3      # an fp32 fused step against the plain f32 one
 # the special-function units' exponentials a second: 132 SMs x 16 a clock
 # x 1.98 GHz (H100 SXM), a floor under kernel 9 beside its bound
 EXP_RATE = 132 * 16 * 1.98e9
@@ -319,10 +353,38 @@ EXP_RATE = 132 * 16 * 1.98e9
 # a window and head, f32 FMA on the CUDA cores) at each timed geometry, as
 # PERF.md's kernel table keeps it (row 9). Printed as a reference, not
 # re-run.
+# kernels 8 and 11's first form (hat_kernels.cu hab_kernel, every product
+# in f32 FMA on the CUDA cores), timed beside the tensor-core body in the
+# same run before it was taken out (PERF.md rows 8 and 11); c_real's in a
+# run whose kernel-8 step passed and which then failed in phase 6 on an
+# error of the script's (PERF.md row 8)
+HAB_OLD = "hat_kernels.cu hab_kernel's first form, CUDA cores"
+HAB_OLD_MS = {"main": 0.6465, "hab_c96_n256": 1.2444, "hab_c120_n256": 2.2855,
+              "hab_c128_nh8_n64": 0.929, "strip_c96_ws8": 0.6682}
 OCA_OLD = "attn_kernels.cu attn_kernel<bf16, hd, n, m, true>, CUDA cores"
+# kernel 10's first form (attn_kernels.cu attn_kernel<bf16, hd, n, m>, one
+# block a window and head, f32 FMA on the CUDA cores, the raw bias through
+# L2) and, for the map form, its chain of roll, window_partition, that
+# kernel, window_merge and roll back: timed beside the tensor-core body in
+# the same run before its bf16 instances were taken out (PERF.md row 10);
+# the upscale frame with the HAB on windows around it
+K10_OLD = "attn_kernels.cu attn_kernel<bf16, hd, n, m>'s first form, CUDA cores"
 OCA_OLD_MS = {"main": 0.374, "oca_c96_ws8_ows10": 0.287,
               "oca_c96_ws16_ows24": 1.446, "oca_c120_ws16_ows24": 1.674,
               "oca_c128_nh8_ws8_ows12": 0.483}
+K10_OLD_MS = {"unshifted": 7.0974, "shifted": 7.1824, "cross": 12.5773,
+              "map": 19.056, "hd16_n64_m100": 0.2891,
+              "hd16_n256_m256": 0.741, "hd16_n256_m576": 1.463,
+              "hd20_n64_m64": 0.2492, "hd20_n64_m100": 0.3415,
+              "hd20_n64_m121": 0.3969, "hd20_n64_m144": 0.4333,
+              "hd20_n256_m256": 0.8107, "hd20_n256_m576": 1.6246}
+K10_OLD_FRAME = {"frame_s": 2.6697, "device_ms": 2616.8,
+                 "by_group_ms": {"strided elementwise": 818.5,
+                                 "copies, rolls, concatenations": 483.4,
+                                 "kernel 10": 442.5, "LayerNorm": 341.5,
+                                 "convs": 237.1, "linears (GEMM)": 137.1,
+                                 "contiguous elementwise": 113.1,
+                                 "other": 43.7}}
 TOL_ATTN = 1e-4           # CHIPEQ's bar for flash_window_attention (f32)
 TOL_ATTN_CROSS = 5e-4     # CHIPEQ's bar for flash_oca_stacked (f32, m 144)
 TOL_ATTN_BF16 = 0.02      # bf16 probabilities and output
@@ -888,13 +950,16 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
     CHIPEQ-sized geometry, a ragged one and the main path's shapes, where
     each is timed; the planted faults at the first."""
     from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+    from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import flash_oca as fo
     from superresolution_tpu_torch.ops import hab
     from superresolution_tpu_torch.ops.unfold import (
         extract_overlapping_windows)
 
     bf = torch.bfloat16
-    cab_w, hab_w = cab_check_weights(gen), hab_check_weights(gen)
+    # kernel 8's dense weights packed once, as a model packs them
+    cab_w, hab_w = cab_check_weights(gen), hab.mma_weights(
+        hab_check_weights(gen))
     out = {}
     side = 2 * HYBRID_IN
     # (CAB [B,H,W]; HAB/OCA image batch and H x W, a multiple of 8)
@@ -927,7 +992,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
             no_ln_b[1] = torch.zeros_like(cab_w[1])
             no_b1[3] = torch.zeros_like(cab_w[3])
             rpb_t = dict(hab_w, rpb=hab_w["rpb"].transpose(1, 2).contiguous())
-            planted = {
+            faults = {
                 "cab_ln_bias_zeroed": (lambda: hab.fused_cab_convs(
                     x, no_ln_b), ref7, TOL_KERNEL),
                 "cab_conv1_bias_zeroed": (lambda: hab.fused_cab_convs(
@@ -943,9 +1008,15 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
                     q, torch.roll(k_map, 1, 2), v_map, bias, 6, 8, 12),
                     ref9, TOL_HAB),
             }
-            for fault, (kern, ref, tol) in planted.items():
+            for fault, (kern, ref, tol) in faults.items():
                 expect_caught(fault, lambda: compare(
                     f"planted/{fault}", kern(), ref, tol))
+            # kernel 8's own faults, planted in its tensor-core body
+            for bit, fault in ((_build.PLANT_SKIP_SLAB, "qkv_slab_skipped"),
+                               (_build.PLANT_NO_LN2, "ln2_skipped")):
+                expect_margin(f"fused_hab_block/{fault}", planted(
+                    "hab_block", bit, lambda: hab.fused_hab_block(
+                        xw, cw, 6, hab_w, ids)), ref8, TOL_HAB)
         if geom != "main":
             continue
 
@@ -968,7 +1039,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              2 * tok * HAB_MACS,
              tok * 96 * 2 * 3 + ids.numel() * 4
              + 2 * (96 * 288 + 96 * 96 + 2 * 96 * 192),
-             list(xw.shape), [HAT_SRC]),
+             list(xw.shape), [HAT_SRC, FLASH_SRC]),
             ("flash_oca_gathered",
              "superresolution_tpu/ops/pallas_flash_oca.py:165", e9,
              # the bias re-laid once, as a model passes it
@@ -981,7 +1052,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              lambda: F.scaled_dot_product_attention(
                  sdpa_q, kw, vw, attn_mask=bias.to(bf)),
              2 * tok * OCA_MACS, tok * 96 * 2 * 2 + map_bytes
-             + bias.numel() * 4, list(q.shape), [OCA_SRC, ENGINE_SRC]),
+             + bias.numel() * 4, list(q.shape), [OCA_SRC, FLASH_SRC, ENGINE_SRC]),
         ]
         for name, tpu, err, kern, plain, lib, flops, nbytes, shape, srcs \
                 in rows:
@@ -996,6 +1067,8 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(lib, 20)}
             extra = {}
+            if name == "fused_hab_block":
+                out[name]["ptxas"] = ATTN_COPY_PTXAS.get("fused_hab_block")
             if name == "flash_oca_gathered":
                 out[name]["ptxas"] = ATTN_COPY_PTXAS.get("oca_kernel")
                 # on this line alone: the exponentials, and the call that
@@ -1006,6 +1079,8 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
             emit({"phase": "kernel_time", **out[name], **extra})
             if name == "flash_oca_gathered":
                 old_kernel(name, OCA_OLD, shape, OCA_OLD_MS["main"], "9")
+            if name == "fused_hab_block":
+                old_kernel(name, HAB_OLD, shape, HAB_OLD_MS["main"], "8")
     return out
 
 
@@ -1271,6 +1346,63 @@ def star_inputs(gen: torch.Generator, shape) -> tuple:
     return p.cuda(), t.cuda()
 
 
+def check_f32_routes(gen: torch.Generator) -> dict:
+    """Phase 9b (C4): B1 and kernel 13 with f32 activations (a model
+    trained under precision "fp32") on the conv engine's direct body, at
+    hybrid_astro's [4,128,128,64] (C 64, g 32) with a residual, against
+    their plain f32 versions within TOL_F32 of max |plain|: B1's output,
+    kernel 13's dx and every conv's dW and db (the plain backward is
+    autograd of B1's plain version); every launch off the tensor cores;
+    times beside the bf16 tensor-core calls at the same shape."""
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+
+    shape = (TRAIN_BATCH, TRAIN_LR, TRAIN_LR, 64)
+    ws = [(k.float(), b) for k, b in dense_check_weights(gen)]
+    x, res, dout = (rand(gen, *shape, scale=sc) for sc in (0.2, 0.05, 1.0))
+    b1, k13 = dt.fused_dense_block, dtt.dense_block_backward
+    before = (b1.launches, b1.tc_launches, k13.launches, k13.tc_launches)
+    got = b1(x, ws, res)
+    compare("f32_route/fused_dense_block", got,
+            dt.fused_dense_block_reference(x, ws, res), TOL_F32)
+    dx, grads, _ = k13(x, ws, res, dout)
+    leaves = [x.clone().requires_grad_()] + [
+        t.clone().requires_grad_() for pair in ws for t in pair]
+    ref = torch.autograd.grad(dt.fused_dense_block_reference(
+        leaves[0], list(zip(leaves[1::2], leaves[2::2])), res), leaves, dout)
+    worst = compare("f32_route/dense_block_backward/dx", dx, ref[0], TOL_F32)
+    for j, (dk, db) in enumerate(grads, 1):
+        for name, t, r in ((f"dW{j}", dk, ref[2 * j - 1]),
+                           (f"db{j}", db, ref[2 * j])):
+            e = compare(f"f32_route/dense_block_backward/{name}", t, r,
+                        TOL_F32)
+            worst = max(worst, e, key=lambda v: v["max_rel_err"])
+    after = (b1.launches, b1.tc_launches, k13.launches, k13.tc_launches)
+    # B1 5 launches, the backward's recompute 4; kernel 13 one call
+    if (after[0] - before[0], after[1] - before[1], after[2] - before[2],
+            after[3] - before[3]) != (9, 0, 1, 0):
+        raise AssertionError(f"f32_route: launches {before} -> {after}, "
+                             "expected 9 of B1 and 1 of 13, none on the "
+                             "tensor cores")
+    bws = dense_check_weights(gen)
+    xb, rb, db_ = (t.to(torch.bfloat16) for t in (x, res, dout))
+    times = {
+        "b1_f32_ms": time_ms(lambda: b1(x, ws, res), 5),
+        "b1_f32_plain_ms": time_ms(
+            lambda: dt.fused_dense_block_reference(x, ws, res), 5),
+        "b1_bf16_tc_ms": time_ms(lambda: b1(xb, bws, rb), 5),
+        "k13_f32_ms": time_ms(lambda: k13(x, ws, res, dout), 3),
+        "k13_bf16_tc_ms": time_ms(lambda: k13(xb, bws, rb, db_), 3)}
+    b_ms, b_by = bound(2 * (B1_MACS + RECOMPUTE_MACS + B1_MACS)
+                       * TRAIN_BATCH * TRAIN_LR ** 2 / 67e12 * PEAK_FLOPS,
+                       0)
+    res_line = {"shape": list(shape), "max_rel_err": worst["max_rel_err"],
+                "tol": TOL_F32, **times,
+                "k13_f32_bound_ms_at_67_tflops": b_ms}
+    emit({"phase": "f32_routes", **res_line})
+    return res_line
+
+
 def check_train_kernels(gen: torch.Generator) -> dict:
     """Phase 9: kernels 13 and 14 against their plain versions, with the
     planted faults; timed at hybrid_astro's shapes."""
@@ -1468,6 +1600,7 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
                     "conv3x3_depth_to_space": 0,
                     **{k: 0 for k in UNROUTED}}
         check_launches("hybrid", launches, expected)
+        expect_attn_bodies("hybrid")
         side = 4 * HYBRID_IN
         if tuple(y.shape) != (1, side, side, 1):
             raise AssertionError(f"hybrid output shape {tuple(y.shape)}")
@@ -1746,6 +1879,70 @@ def check_train_step(tr, lr, hr, tag: str, prefixes=None,
                                  f"{worst} of max |plain| > {TOL_LEAF}")
 
 
+def fp32_fused_step(lr: torch.Tensor, hr: torch.Tensor) -> dict:
+    """Phase 10b (C4): a Trainer on hybrid_astro with precision "fp32" and
+    fused_trunk True takes one step of its fit (the fused train apply: B1
+    and kernel 13 in f32 on the conv engine's direct body; launches
+    counted, none on the tensor cores); then that step's loss and every
+    gradient against the plain f32 step on the same masters and batch,
+    within TOL_FP32_STEP of max |plain| (the loss, and the worst leaf of
+    each leaf_prefixes group and of all leaves)."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from superresolution_tpu_torch.train.trainer import Trainer
+
+    cfg = train_config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, precision="fp32", fused_trunk=True))
+    with Trainer(cfg, TRAIN_DIR + "_fp32") as tr:
+        if tr.fused_apply is None or tr.policy.compute_dtype != torch.float32:
+            raise AssertionError("fp32_step: not the fused fp32 trainer")
+        nb = tr.model.stage1.num_blocks
+        ops = train_ops()
+        zero_counts()
+        t0 = time.perf_counter()
+        tr.state, logs = tr._train_step(tr.state, {"lr": lr, "hr": hr},
+                                        None)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = {k: op.launches for k, op in ops.items()}
+        # not a tensor-core path: system=False keeps it out of the
+        # tc_bodies rule (kernels 16-19 are held at 0 by `expected`)
+        check_launches("fp32_step", launches, {
+            k: {"fused_dense_block": 3 * nb * 9, "dense_block_backward":
+                3 * nb, "star_weighted_l1_cuda": 2}.get(k, 0) for k in ops},
+            system=False)
+        dt_, dtt_ = ops["fused_dense_block"], ops["dense_block_backward"]
+        if dt_.tc_launches or dtt_.tc_launches:
+            raise AssertionError("fp32_step: a launch took the tensor cores")
+        loss = float(logs["total"]) if "total" in logs else None
+
+        def plain(p, x):
+            return functional_call(tr.model, p, (x,))
+
+        lk, gk = step_grads(tr, tr.fused_apply, tr.policy, lr, hr, True)
+        l32, g32 = step_grads(tr, plain, tr.policy, lr, hr, False)
+        compare("fp32_step/loss", lk, l32, TOL_FP32_STEP)
+        groups = {pre: max((rel_err(gk[k], g32[k]), k) for k in gk
+                           if k.startswith(pre))
+                  for pre in (*leaf_prefixes(nb), "")}
+        for pre, (err, k) in groups.items():
+            emit({"check": f"fp32_step/grad/{pre or 'every_leaf'}*",
+                  "worst_leaf": k, "max_rel_err": err,
+                  "tol": TOL_FP32_STEP})
+            if err > TOL_FP32_STEP:
+                raise AssertionError(f"fp32_step: gradient of {k} is {err} "
+                                     f"of max |plain| > {TOL_FP32_STEP}")
+    res = {"step_s": step_s, "logged_loss": loss,
+           "loss_rel_err": rel_err(lk, l32),
+           "worst_leaf_rel_err": groups[""][0], "launches": {
+               k: v for k, v in launches.items() if v}}
+    emit({"phase": "fp32_step", **res})
+    return res
+
+
 def leaf_prefixes(nb: int) -> tuple:
     return ("stage1.conv_first.", "stage1.body.0.",
             f"stage1.body.{nb // 2}.", f"stage1.body.{nb - 1}.",
@@ -1811,6 +2008,7 @@ def train_path(card: str) -> dict:
         lr, hr = batch["lr"], batch["hr"]
         check_train_step(tr, lr, hr, f"{nb}_rrdbs")
         emit({"phase": "train_times", **train_times(tr, lr, hr, card)})
+    fp32_fused_step(lr, hr)
     return launches
 
 
@@ -1930,12 +2128,38 @@ def counted_ops() -> dict:
 def zero_counts() -> dict:
     """Every counted kernel's launches set to 0, the conv engine's
     per-body counts (B1, B2, kernels 15 and 18) too."""
+    from superresolution_tpu_torch.ops import window_attention as wa
+
     ops = counted_ops()
     for op in ops.values():
         op.launches = 0
         if hasattr(op, "tc_launches"):
             op.tc_launches = op.direct_launches = 0
+    wa.flash_map_attention.launches = 0
     return ops
+
+
+def expect_attn_bodies(tag: str, map_calls: int | None = None) -> dict:
+    """Prints kernels 8, 10 and 11's launches since their counts were
+    zeroed (8 and 11 have one body, on the tensor cores); raises unless
+    every launch of kernel 10 took the tensor cores and, when map_calls is
+    given, its map form ran that many times (one a HAB)."""
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    ops = counted_ops()
+    k10 = ops["flash_window_attention"]
+    res = {"flash_window_attention": {"launches": k10.launches,
+                                      "tc_launches": k10.tc_launches},
+           "flash_map_attention": wa.flash_map_attention.launches,
+           "fused_hab_block": ops["fused_hab_block"].launches,
+           "strip_hab_block": ops["strip_hab_block"].launches}
+    emit({"check": f"{tag}/attn_tc_bodies", **res})
+    if k10.tc_launches != k10.launches or (
+            map_calls is not None
+            and res["flash_map_attention"] != map_calls):
+        raise AssertionError(f"{tag}: kernel 10 not all on the tensor cores"
+                             f" or map form calls != {map_calls}: {res}")
+    return res
 
 
 def expect_tc_body(tag: str, op) -> dict:
@@ -2049,12 +2273,22 @@ def stencil_ptxas(report: str) -> dict:
 ATTN_COPY_PTXAS: dict = {}
 
 
+# flash_tc.cuh's FlashAttention-2 instances by the way they address their
+# keys: kernel 9's (the padded maps), kernel 10's (windows, the map)
+FLASH_MODES = ("oca_kernel", "attn_window_tc", "attn_map_tc")
+
+
 def attn_copy_ptxas(report: str) -> dict:
+    """Kernels 9 and 10's flash_kernel instances (by mode), kernels 8 and
+    11's hab_kernel and kernel 19's copy_kernel in nvcc's report:
+    registers and spills (printed); none of 9's or 19's may spill."""
     out: dict = {}
     lines = report.splitlines()
     for i, line in enumerate(lines):
-        k = re.search(r"Compiling entry function '\S*?(oca_kernelILi(\d+)ELi"
-                      r"(\d+)ELi(\d+)ELi(\d+)ELb([01])E|copy_kernel)", line)
+        k = re.search(r"Compiling entry function '\S*?(flash_kernelILi(\d+)"
+                      r"ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d)ELb([01])E|"
+                      r"hab_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])"
+                      r"E|copy_kernel)", line)
         if not k:
             continue
         info = " ".join(lines[i + 1:i + 4])
@@ -2063,9 +2297,15 @@ def attn_copy_ptxas(report: str) -> dict:
         use = {"registers": int(regs.group(1)) if regs else None,
                "spill_bytes": int(spill.group(1)) if spill else None}
         if k.group(2):
-            out.setdefault("oca_kernel", {})[
+            out.setdefault(FLASH_MODES[int(k.group(6))], {})[
                 f"c{k.group(2)}_nh{k.group(3)}_ws{k.group(4)}_ows{k.group(5)}"
-                + ("_planted" if k.group(6) == "1" else "")] = use
+                + ("_planted" if k.group(7) == "1" else "")] = use
+        elif k.group(8):
+            kern = "strip_hab_block" if k.group(12) == "1" else \
+                "fused_hab_block"
+            out.setdefault(kern, {})[
+                f"c{k.group(8)}_nh{k.group(9)}_n{k.group(10)}_mlp"
+                f"{k.group(11)}"] = use
         else:
             out["copy_kernel"] = use
     spilled = [n for n, u in [*out.get("oca_kernel", {}).items(),
@@ -2117,29 +2357,34 @@ def logit_spread(q, k, bias) -> dict:
 
 
 def check_attn(q, k, v, bias, ids, tag: str, tol: float) -> dict:
+    """Kernel 10 on windows against its plain version; a bf16 launch must
+    take the tensor cores, an f32 one the CUDA-core form."""
     from superresolution_tpu_torch.ops import window_attention as wa
 
-    before = wa.flash_window_attention.launches
-    got = wa.flash_window_attention(q, k, v, bias, 6, ids)
-    if wa.flash_window_attention.launches != before + 1:
-        raise AssertionError(f"{tag}: the launch was not counted")
+    op = wa.flash_window_attention
+    before, tc = op.launches, op.tc_launches
+    got = op(q, k, v, bias, 6, ids)
+    want_tc = tc + (q.dtype == torch.bfloat16)
+    if op.launches != before + 1 or op.tc_launches != want_tc:
+        raise AssertionError(f"{tag}: the launch was not counted on its "
+                             "body")
     ref = wa.reference_window_attention(q, k, v, bias, 6, ids)
     return compare(f"flash_window_attention/{tag}", got, ref, tol)
 
 
 def _planted_attn(fault: str):
-    """A faulty replacement for kernel 10's launch helper."""
+    """A faulty replacement for kernel 10's tensor-core launch helper."""
     from superresolution_tpu_torch.ops import _build
 
-    real = _build.window_attention
+    real = _build.window_attention_tc
 
-    def planted(q, k, v, bias, ids, nh, scale, vec, out):
+    def planted(q, k, v, frags, ids, nh, scale, out):
         if fault == "scale_1_over_sqrt_C":
             scale = q.shape[-1] ** -0.5
         else:  # ids_b_div_nw: window b reads region_ids[b // nW_img]
             rows = torch.arange(q.shape[0], device=q.device) // ids.shape[0]
             ids = ids[rows].contiguous()
-        real(q, k, v, bias, ids, nh, scale, vec, out)
+        real(q, k, v, frags, ids, nh, scale, out)
     return planted
 
 
@@ -2183,14 +2428,14 @@ def check_attn_kernel(cg: torch.Generator) -> dict:
                 expect_caught(fault, lambda: compare(
                     f"planted/{fault}", run(), ref, TOL_ATTN_BF16))
             for fault in ("scale_1_over_sqrt_C", "ids_b_div_nw"):
-                real = _build.window_attention
-                _build.window_attention = _planted_attn(fault)
+                real = _build.window_attention_tc
+                _build.window_attention_tc = _planted_attn(fault)
                 try:
                     expect_caught(fault, lambda: compare(
                         f"planted/{fault}", wa.flash_window_attention(
                             qb, kb, vb, bias, 6, ids), ref, TOL_ATTN_BF16))
                 finally:
-                    _build.window_attention = real
+                    _build.window_attention_tc = real
             del ref
         m = kb.shape[1]
         n_img = nb // UP_BATCH
@@ -2214,6 +2459,8 @@ def check_attn_kernel(cg: torch.Generator) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "m": m}
         emit({"phase": "kernel_time", "name": "flash_window_attention",
               "case": case, **times[case]})
+        old_kernel("flash_window_attention", K10_OLD, list(qb.shape),
+                   K10_OLD_MS[case], "10", case=case)
         del qb, kb, vb, sq, sk, sv, mask
         torch.cuda.empty_cache()
 
@@ -2231,17 +2478,206 @@ def check_attn_kernel(cg: torch.Generator) -> dict:
             compare(f"flash_window_attention/grad/{case}/{name}", a, b,
                     TOL_ATTN_GRAD)
 
+    times["map"] = check_map_attention(cg)
+    times["widths"] = check_attn_widths(cg)
     main = times["unshifted"]
     return {"flash_window_attention": {
         "name": "flash_window_attention", "route": "cuda",
-        "source": ATTN_SRC, "sources": [ATTN_SRC],
+        "source": ATTN_TC_SRC,
+        "sources": [ATTN_TC_SRC, *ATTN_WIDTH_SRCS, FLASH_SRC, ENGINE_SRC,
+                    ATTN_SRC],
         "replaces": "superresolution_tpu/ops/pallas_attn.py:201",
         "shape": [nb, 64, 96], "max_abs_err": worst["bf16"]["max_abs_err"],
         "max_rel_err": worst["bf16"]["max_rel_err"], "tol": TOL_ATTN_BF16,
         "f32_max_rel_err": worst["f32"]["max_rel_err"],
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"], "cases": times}}
+        "library_ms": main["library_ms"],
+        "ptxas": {k: ATTN_COPY_PTXAS.get(k) for k in FLASH_MODES[1:]},
+        "cases": times}}
+
+
+MAP_FAULTS = ("PLANT_ATTN_NO_MASK", "PLANT_ATTN_CLAMP",
+              "PLANT_ATTN_SKIP_LAST")
+
+
+def check_map_attention(cg: torch.Generator) -> dict:
+    """Phase 12b: kernel 10's map form (flash_map_attention: q, k, v read
+    from the qkv map [8, 576, 576, 288], the upscale path's stage 2, with
+    the shift as addressing) at shift 0 and 4 against its plain version
+    (roll, partition, attention with f32 logits, merge, roll back): bf16
+    within 0.02, f32 (partition around the CUDA-core form) within 1e-4;
+    its three planted faults (the mask dropped, the shifted address
+    clamped, the last key tile skipped) caught at 3x the bar; the shift-4
+    call timed beside the plain version and SDPA on the partitioned
+    windows (the first form's chain printed from K10_OLD_MS). Returns the
+    times."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    side = 2 * (UP_TILE + 2 * UP_HALO)
+    qkv = (torch.randn(UP_BATCH, side, side, 288, generator=cg,
+                       device="cuda") * 1.5).to(bf)
+    bias = torch.randn(6, 64, 64, generator=cg, device="cuda")
+    op = wa.flash_map_attention
+    for shift in (0, 4):
+        before = (op.launches, wa.flash_window_attention.tc_launches)
+        got = op(qkv, bias, 6, 8, shift)
+        if (op.launches, wa.flash_window_attention.tc_launches) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError("flash_map_attention: the launch was not "
+                                 "counted on the tensor cores")
+        ref = wa.map_attention_reference(qkv, bias, 6, 8, shift)
+        e16 = compare(f"flash_map_attention/shift{shift}/bf16", got, ref,
+                      TOL_ATTN_BF16)
+        del got
+        small = qkv[:1, :288, :288].float().contiguous()
+        compare(f"flash_map_attention/shift{shift}/f32",
+                op(small, bias, 6, 8, shift),
+                wa.map_attention_reference(small, bias, 6, 8, shift),
+                TOL_ATTN)
+    frags = wa.bias_fragments(bias, 0.25)
+    for fault in MAP_FAULTS:
+        out = torch.empty(ref.shape, dtype=bf, device="cuda")
+        _build.map_attention(qkv, frags, 6, 8, 4, out,
+                             plant=getattr(_build, fault))
+        expect_margin(f"flash_map_attention/{fault}", out, ref,
+                      TOL_ATTN_BF16)
+    del out
+    nb = UP_BATCH * (side // 8) ** 2
+    ids = torch.as_tensor(wa.shift_region_ids(side, side, 8, 4),
+                          device="cuda")
+    rolled = torch.roll(qkv, (-4, -4), dims=(1, 2))
+    sq, sk, sv = (t.reshape(UP_BATCH, nb // UP_BATCH, 64, 6, 16)
+                  .transpose(2, 3) for t in
+                  wa.window_partition(rolled, 8).split(96, -1))
+    mask = (bias[None] + wa.region_mask(ids)[:, None]).to(bf)
+    b_ms, b_by = bound(4 * nb * 6 * 64 * 64 * 16,
+                       qkv.numel() * 2 + nb * 64 * 96 * 2 + bias.numel() * 4)
+    times = {"ms": time_ms(lambda: op(qkv, bias, 6, 8, 4), 10),
+             "plain_ms": time_ms(lambda: wa.map_attention_reference(
+                 qkv, bias, 6, 8, 4), 3),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 sq, sk, sv, attn_mask=mask), 5),
+             "bound_ms": b_ms, "bound_by": b_by, "nb": nb,
+             "max_rel_err": e16["max_rel_err"]}
+    emit({"phase": "kernel_time", "name": "flash_map_attention",
+          "case": "upscale_shift4", **times})
+    old_kernel("flash_map_attention", K10_OLD + ", between roll, "
+               "window_partition, window_merge and roll back",
+               list(qkv.shape), K10_OLD_MS["map"], "10", case="map")
+    del qkv, rolled, sq, sk, sv, mask, ref
+    torch.cuda.empty_cache()
+    return times
+
+
+# kernel 10's widths beside the model's (C, heads) (96, 6), (128, 8) and
+# (120, 6): head dim 16 at 1-5 and 7 heads, head dim 20 at 1-5
+# (attn_tc_widths16.cu, attn_tc_widths20.cu)
+ATTN_WIDTHS = ((16, 1), (32, 2), (48, 3), (64, 4), (80, 5), (112, 7),
+               (20, 1), (40, 2), (60, 3), (80, 4), (100, 5))
+
+
+def check_attn_widths(cg: torch.Generator) -> dict:
+    """Phase 12c: kernel 10 in bf16 at every width of ATTN_WIDTHS, on
+    windows at every (n, m) of ATTN_NM (self-attention shifted, with the
+    region ids of a map of 16 windows; cross on the split of a packed kv)
+    and on the map at ws 8 and 16 (shift ws/2; the map also at (128, 8)),
+    each against its plain version within 0.02 and each launch counted on
+    the tensor cores (one line a width: its worst error); then HATLite
+    (depth 2, ws 8) at (C, heads) (64, 4) and (60, 3) under flash_attn
+    against the same model on plain attention with f32 logits within
+    0.03, kernel 10 exactly 3 launches (2 map form, 1 OCAB), all on the
+    tensor cores; (64, 4) at n 64 timed beside its bound. Returns the
+    time."""
+    from superresolution_tpu_torch.models.hat_lite import HATLite
+    from superresolution_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    op, mop = wa.flash_window_attention, wa.flash_map_attention
+    gen = torch.Generator().manual_seed(SEED + 12)  # the HATLites' weights
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=cg, device="cuda")
+                * 1.5).to(bf)
+
+    def counted(fn, maps: int):
+        before = (op.launches, op.tc_launches, mop.launches)
+        out = fn()
+        if (op.launches, op.tc_launches, mop.launches) != (
+                before[0] + 1, before[1] + 1, before[2] + maps):
+            raise AssertionError("kernel 10: a width's launch was not "
+                                 "counted on the tensor cores")
+        return out
+
+    for c, nh in (*ATTN_WIDTHS, (128, 8)):
+        worst, n_checks = 0.0, 0
+        for n, m in wa.ATTN_NM if (c, nh) != (128, 8) else ():
+            ws = int(n ** 0.5)
+            ids = None
+            if m == n:
+                q, k, v = randn(16, n, 3 * c).split(c, -1)
+                ids = torch.as_tensor(wa.shift_region_ids(
+                    4 * ws, 4 * ws, ws, ws // 2), device="cuda")
+            else:
+                q = randn(16, n, c)
+                k, v = randn(16, m, 2 * c).split(c, -1)
+            bias = torch.randn(nh, n, m, generator=cg, device="cuda")
+            got = counted(lambda: op(q, k, v, bias, nh, ids), 0)
+            ref = wa.reference_window_attention(q, k, v, bias, nh, ids)
+            worst = max(worst, rel_err(got, ref))
+            n_checks += 1
+        for ws in (8, 16):
+            qkv = randn(2, 4 * ws, 4 * ws, 3 * c)
+            bias = torch.randn(nh, ws * ws, ws * ws, generator=cg,
+                               device="cuda")
+            got = counted(lambda: mop(qkv, bias, nh, ws, ws // 2), 1)
+            ref = wa.map_attention_reference(qkv, bias, nh, ws, ws // 2)
+            worst = max(worst, rel_err(got, ref))
+            n_checks += 1
+        emit({"check": f"flash_window_attention/width_c{c}_nh{nh}",
+              "checks": n_checks, "max_rel_err": worst,
+              "tol": TOL_ATTN_BF16})
+        if worst > TOL_ATTN_BF16:
+            raise AssertionError(f"kernel 10 at C {c}, {nh} heads: "
+                                 f"relative error {worst}")
+
+    for c, nh in ((64, 4), (60, 3)):
+        hat = HATLite(scale=2, in_channels=1, out_channels=1, embed_dim=c,
+                      depths=(2,), num_heads=(nh,), window_size=8,
+                      attn_f32=False, flash_attn=True,
+                      generator=gen).to(bf).eval()
+        with torch.no_grad():
+            for name, p in hat.named_parameters():
+                if name.endswith(".bias"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        plain = copy.deepcopy(hat)
+        set_attention(plain, False, True)
+        x = torch.rand((1, 64, 64, 1), generator=gen).to("cuda", bf)
+        with torch.inference_mode():
+            before = (op.launches, op.tc_launches, mop.launches)
+            got = hat(x)
+            counts = (op.launches - before[0], op.tc_launches - before[1],
+                      mop.launches - before[2])
+            if counts != (3, 3, 2):
+                raise AssertionError(f"HATLite at C {c}: kernel 10 "
+                                     f"launches {counts}, expected (3, 3, 2)")
+            compare(f"hat_lite_flash/c{c}_nh{nh}", got, plain(x), TOL_PATH)
+        del hat, plain
+
+    nb = UP_BATCH * ((2 * (UP_TILE + 2 * UP_HALO)) // 8) ** 2 // 4
+    q, k, v = randn(nb, 64, 192).split(64, -1)
+    bias = torch.randn(4, 64, 64, generator=cg, device="cuda")
+    b_ms, b_by = bound(4 * nb * 4 * 64 * 64 * 16,
+                       4 * 64 * 64 * 2 * nb + bias.numel() * 4)
+    times = {"ms": time_ms(lambda: op(q, k, v, bias, 4), 10),
+             "plain_ms": time_ms(lambda: wa.reference_window_attention(
+                 q, k, v, bias, 4), 5),
+             "bound_ms": b_ms, "bound_by": b_by, "nb": nb}
+    emit({"phase": "kernel_time", "name": "flash_window_attention",
+          "case": "c64_nh4_n64", **times})
+    return times
 
 
 def set_attention(model, flash: bool, attn_f32: bool) -> None:
@@ -2280,6 +2716,43 @@ def fit_output(model, gen: torch.Generator, conv=None,
           "conv_last_scale": a})
 
 
+# the device split's groups, by the first substring of the kernel's name
+# that matches (the rest are "other"); PyTorch's elementwise_kernel<128, 4,
+# ...> is its TensorIterator loop for operands that are not contiguous
+# (the NCHW views of the NHWC maps), vectorized_elementwise_kernel the one
+# for contiguous operands
+SPLIT_GROUPS = (("kernel 10", ("flash_kernel", "attn_kernel")),
+                ("copies, rolls, concatenations", ("copy", "roll",
+                                                   "CatArray")),
+                ("LayerNorm", ("layer_norm",)),
+                ("convs", ("fprop", "dgrad", "implicit", "winograd",
+                           "conv")),
+                ("linears (GEMM)", ("nvjet", "gemm", "cutlass", "s16816")),
+                ("strided elementwise", ("elementwise_kernel<128, 4",)),
+                ("contiguous elementwise", ("vectorized_elementwise",)))
+
+
+def device_split(prof) -> dict:
+    """Device ms by kernel name (the 12 largest) and by SPLIT_GROUPS, with
+    each group's share, from a torch.profiler run."""
+    on_card = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in on_card) / 1e3
+    groups: dict = {}
+    for e in on_card:
+        name = next((g for g, keys in SPLIT_GROUPS
+                     if any(k in e.key for k in keys)), "other")
+        groups[name] = groups.get(name, 0.0) + e.self_device_time_total / 1e3
+    return {"device_ms": total or None,
+            "by_group": {g: {"ms": ms, "share": ms / total if total else None}
+                         for g, ms in sorted(groups.items(),
+                                             key=lambda kv: -kv[1])},
+            "top_device_kernels": [
+                {"kernel": e.key[:240], "ms": e.self_device_time_total / 1e3,
+                 "count": e.count} for e in on_card[:12]]}
+
+
 def upscale_path(gen: torch.Generator, card: str) -> dict:
     """Phase 13: a FRAME^2 frame through api.upscale (on-device tiler,
     256 tiles + halo 16, batches of 8) over the bench_hybrid model with
@@ -2308,6 +2781,7 @@ def upscale_path(gen: torch.Generator, card: str) -> dict:
     n_attn = sum(model.stage2.depths) + len(model.stage2.depths)
     check_launches("upscale", launches, {
         **{k: 0 for k in ops}, "flash_window_attention": batches * n_attn})
+    expect_attn_bodies("upscale", batches * sum(model.stage2.depths))
     if tuple(y.shape) != (side, side, 1):
         raise AssertionError(f"upscale output shape {tuple(y.shape)}")
     if not bool(torch.isfinite(y).all()) or float(y.min()) < 0 \
@@ -2318,15 +2792,18 @@ def upscale_path(gen: torch.Generator, card: str) -> dict:
           "batches": batches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
+    # the plain frame, timed once (its first run, as the kernel path's
+    # first_run_s is), with its peak memory
     plain = copy.deepcopy(model)
     set_attention(plain, False, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     y_plain = api.upscale(frame, 4, on_device=True, **dict(kw, model=plain))
-    set_attention(plain, False, False)
-    y_bf16 = api.upscale(frame, 4, on_device=True, **dict(kw, model=plain))
-    compare("upscale/frame_vs_plain_f32_logits", y, y_plain, TOL_PATH,
-            rel_err_vs_plain_bf16_logits=rel_err(y, y_bf16),
-            plain_f32_vs_bf16_logits=rel_err(y_plain, y_bf16))
-    del y_bf16
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    compare("upscale/frame_vs_plain_f32_logits", y, y_plain, TOL_PATH)
     y_host = torch.from_numpy(api.upscale(frame, 4, on_device=False,
                                           blend="crop", **kw))
     d_host = float((y_host - y.cpu()).abs().max())
@@ -2349,14 +2826,13 @@ def upscale_path(gen: torch.Generator, card: str) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / runs
 
-    set_attention(plain, False, True)
+    del plain
     torch.cuda.reset_peak_memory_stats()
     frame_s = host_s(lambda: api.upscale(frame, 4, on_device=True, **kw))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    plain_s = host_s(lambda: api.upscale(frame, 4, on_device=True,
-                                         **dict(kw, model=plain)))
-    plain_peak = torch.cuda.max_memory_allocated() / 2**30
-    # device time of one frame by kernel, from the profiler
+    # device time of one frame by kernel, from the profiler; beside it the
+    # frame with kernel 10's first form and the HAB on windows (printed
+    # from K10_OLD_FRAME, not re-run)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2364,22 +2840,20 @@ def upscale_path(gen: torch.Generator, card: str) -> dict:
         api.upscale(frame, 4, on_device=True, **kw)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    on_card = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    split = {"profiled_frame_s": prof_s, **device_split(prof)}
+    emit({"phase": "upscale_device_split", "form": "map_form", **split})
+    emit({"phase": "upscale_device_split", "form": "first_form",
+          **K10_OLD_FRAME, "from": "PERF.md section 5, not re-run"})
+    device_ms = split["device_ms"]
     emit({"phase": "upscale_times", "card": card, "frame_s": frame_s,
           "mp_per_s": FRAME ** 2 / 1e6 / frame_s, "plain_frame_s": plain_s,
           "plain_mp_per_s": FRAME ** 2 / 1e6 / plain_s,
           "peak_mem_gib": peak, "plain_peak_mem_gib": plain_peak,
           "profiled_frame_s": prof_s,
           # None when the profiler saw no device time
-          "device_ms_per_frame": device_ms or None,
+          "device_ms_per_frame": device_ms,
           "device_busy_share": device_ms / (prof_s * 1e3) if device_ms
-          else None,
-          "top_device_kernels": [
-              {"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
-               "count": e.count} for e in on_card[:12]]})
+          else None})
     return launches
 
 
@@ -2419,6 +2893,7 @@ def no_gather_path(gen: torch.Generator) -> None:
                 **{k: 0 for k in ops}, "fused_dense_block": 69 * 5,
                 "fused_cab_convs": 3 * n_hab, "fused_hab_block": n_hab,
                 "flash_window_attention": len(model.stage2.depths)})
+            expect_attn_bodies("no_gather", 0)
             sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
                        if n.startswith(k + ".")} for k in ("stage1", "stage2")}
             s2 = make_fused_hat(sub["stage2"], model.stage2)
@@ -2873,14 +3348,14 @@ def check_attn_geometries(cg: torch.Generator) -> dict:
                 expect_caught(f"{tag}:{fault}", lambda: compare(
                     f"planted/{tag}/{fault}", run(), ref, TOL_ATTN_BF16))
             for fault in ("scale_1_over_sqrt_C", "ids_b_div_nw"):
-                real = _build.window_attention
-                _build.window_attention = _planted_attn(fault)
+                real = _build.window_attention_tc
+                _build.window_attention_tc = _planted_attn(fault)
                 try:
                     expect_caught(f"{tag}:{fault}", lambda: compare(
                         f"planted/{tag}/{fault}", wa.flash_window_attention(
                             qb, kb, vb, bias, 6, ids), ref, TOL_ATTN_BF16))
                 finally:
-                    _build.window_attention = real
+                    _build.window_attention_tc = real
         nb = q.shape[0]
         mask = bias.to(bf) if ids is None else (
             bias[None] + wa.region_mask(ids)[:, None]).to(bf)
@@ -2899,6 +3374,8 @@ def check_attn_geometries(cg: torch.Generator) -> dict:
             "max_rel_err": e16["max_rel_err"]}
         emit({"phase": "kernel_time", "name": "flash_window_attention",
               "case": tag, **times[tag]})
+        old_kernel("flash_window_attention", K10_OLD, list(qb.shape),
+                   K10_OLD_MS[tag], "10", case=tag)
         del q, k, v, qb, kb, vb, sq, sk, sv, mask
         torch.cuda.empty_cache()
     return times
@@ -2916,6 +3393,7 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
     time; then kernel 9 on several images with its planted faults
     (check_oca_multi). Returns the times by geometry."""
     from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+    from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import flash_oca as fo
     from superresolution_tpu_torch.ops import hab
     from superresolution_tpu_torch.ops.unfold import (
@@ -2926,7 +3404,7 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
     for c, n, mlp in ((96, 256, 192), (120, 256, 240)):
         tag = f"hab_c{c}_n{n}"
         ws = int(n ** 0.5)
-        w8 = hab_check_weights(gen, c, 6, n, mlp)
+        w8 = hab.mma_weights(hab_check_weights(gen, c, 6, n, mlp))
         ids = torch.as_tensor(shift_region_ids(64, 64, ws, ws // 2),
                               device="cuda")
         xw = rand(gen, 16, n, c, dtype=bf)
@@ -2962,6 +3440,8 @@ def check_hab_oca_geometries(gen: torch.Generator) -> dict:
             "shape": list(xt.shape), "max_rel_err": e8["max_rel_err"]}
         emit({"phase": "kernel_time", "name": "fused_hab_block", "case": tag,
               **times[tag]})
+        old_kernel("fused_hab_block", HAB_OLD, list(xt.shape),
+                   HAB_OLD_MS[tag], "8")
 
     for c, ws, ows in ((96, 8, 10), (96, 16, 24), (120, 16, 24)):
         tag = f"oca_c{c}_ws{ws}_ows{ows}"
@@ -3109,6 +3589,8 @@ def h200_path(gen: torch.Generator, card: str) -> dict:
             launches[tag] = {k: op.launches for k, op in ops.items()}
             check_launches(f"h200/{tag}", launches[tag],
                            {**{k: 0 for k in ops}, **want})
+            expect_attn_bodies(f"h200/{tag}",
+                               n_hab if tag == "flash_hatlite" else 0)
             if tuple(y.shape) != (1, 4 * H200_IN, 4 * H200_IN, 1) or not \
                     bool(torch.isfinite(y).all()):
                 raise AssertionError(f"h200/{tag}: output {tuple(y.shape)}"
@@ -3275,7 +3757,7 @@ def check_strip_kernel(gen: torch.Generator) -> dict:
     entry = None
     for tag, c, ws, mlp in STRIP_CASES:
         n = ws * ws
-        w = hab_check_weights(gen, c, 6, n, mlp)
+        w = hab.mma_weights(hab_check_weights(gen, c, 6, n, mlp))
         x = rand(gen, 1, side, side, c, dtype=bf)
         cab_y = rand(gen, 1, side, side, c, dtype=bf)
         se = (0.2 + 0.7 * torch.rand((1, 1, c), generator=gen)).cuda()
@@ -3326,7 +3808,7 @@ def check_strip_kernel(gen: torch.Generator) -> dict:
                                + 2 * (c * 3 * c + c * c + 2 * c * mlp))
             entry = {
                 "name": "strip_hab_block", "route": "cuda", "source": HAT_SRC,
-                "sources": [HAT_SRC],
+                "sources": [HAT_SRC, FLASH_SRC],
                 "replaces": "superresolution_tpu/ops/pallas_hab_strip.py:204",
                 "shape": list(x.shape), "case": f"{tag}/shift{shift}",
                 "max_abs_err": err["max_abs_err"],
@@ -3339,6 +3821,8 @@ def check_strip_kernel(gen: torch.Generator) -> dict:
                 "windowed_ms": time_ms(windowed, 20),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             emit({"phase": "kernel_time", **entry})
+            old_kernel("strip_hab_block", HAB_OLD, list(x.shape),
+                       HAB_OLD_MS["strip_c96_ws8"], "11")
         del x, cab_y, cab
         torch.cuda.empty_cache()
     return entry
@@ -3462,6 +3946,7 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
     w["rpb"] = pad_lanes(w["rpb"], [0], 8)
     w["wp"] = pad_lanes(w["wp"], [0, 1])
     w["w1"], w["w2"] = pad_lanes(w["w1"], [0]), pad_lanes(w["w2"], [1])
+    w = hab.mma_weights(w)
     nw = (side // 8) ** 2
     xw = pad_lanes(rand(gen, nw, 64, cr, dtype=bf), [2])
     cwin = pad_lanes(rand(gen, nw, 64, cr, scale=0.3, dtype=bf), [2])
@@ -3483,6 +3968,8 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * tok * (cp * 4 * cp + 2 * cp * 192 + 2 * 64 * cp),
             tok * cp * 2 * 3 + 2 * (cp * 4 * cp + 2 * cp * 192))))}
+    old_kernel("fused_hab_block", HAB_OLD, list(xw.shape),
+               HAB_OLD_MS["hab_c128_nh8_n64"], "8")
 
     q = pad_lanes(rand(gen, nw, 64, cr, scale=1.5, dtype=bf), [2])
     k_map, v_map = (pad_lanes(F.pad(rand(gen, 1, side, side, cr, scale=1.5,
@@ -3626,6 +4113,7 @@ def lever_frame(model, params, x, z, lever: str, want: dict,
         launches = {k: op.launches for k, op in ops.items()}
         check_launches(f"{tag}/{lever}", launches,
                        {**{k: 0 for k in ops}, **want})
+        expect_attn_bodies(f"{tag}/{lever}")
         for k, c in channels.items():
             if set(seen[k]) != {c}:
                 raise AssertionError(f"{tag}/{lever}: {k} launched at C "
@@ -3880,7 +4368,7 @@ def frame_profile(fn) -> dict:
             "device_busy_share": device_ms / (prof_s * 1e3) if device_ms
             else None,
             "top_device_kernels": [
-                {"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+                {"kernel": e.key[:240], "ms": e.self_device_time_total / 1e3,
                  "count": e.count} for e in on_card[:12]]}
 
 
@@ -4614,6 +5102,7 @@ def manifest_path(gen: torch.Generator, card: str) -> dict:
 # public entry point at the full shape of the layer it stands for.
 
 EXTRA_SRC = "superresolution_tpu_torch/ops/csrc/extra_kernels.cu"
+PACK_SRC = "superresolution_tpu_torch/ops/csrc/pack_kernels.cu"
 TOL_F32 = 1e-4            # kernels 16 and 18 in f32 against plain f32
 TOL_BLUR = 0.01           # kernel 17 in bf16: f32 sums rounded once
 TOL_BLUR_F32 = 1e-5
@@ -5000,8 +5489,8 @@ def check_pack_conv_kernel(gen: torch.Generator) -> dict:
     del xp, gout, leaves, y, grads, ref_leaves, yr, ref_grads
     torch.cuda.empty_cache()
     main = geometries["c64_n192"]
-    return {"name": "pack_conv3x3", "route": "cuda", "source": EXTRA_SRC,
-            "sources": [EXTRA_SRC, ENGINE_SRC],
+    return {"name": "pack_conv3x3", "route": "cuda", "source": PACK_SRC,
+            "sources": [PACK_SRC, ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_pairconv.py:194",
             **{k: main[k] for k in ("shape", "max_abs_err", "max_rel_err",
                                     "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5145,6 +5634,10 @@ def main() -> int:
     ATTN_COPY_PTXAS.update(attn_copy_ptxas(ptxas))
     CHAIN_GRAD_PTXAS.update(chain_grad_ptxas(ptxas))
     emit({"phase": "build", "seconds": build_s,
+          "nvcc_seconds": next((line[len("nvcc seconds: "):]
+                                for line in ptxas.splitlines()
+                                if line.startswith("nvcc seconds: ")),
+                               "not reported (cached build)"),
           "chain_grad_ptxas": CHAIN_GRAD_PTXAS
           or "not reported (cached build)",
           "conv_engine_ptxas": PTXAS or "not reported (cached build)",
@@ -5263,6 +5756,10 @@ def main() -> int:
     # ---- 9-11: hybrid_astro training ----
     gen = torch.Generator().manual_seed(SEED + 2)
     kernels.update(check_train_kernels(gen))
+    torch.cuda.empty_cache()
+    f32_routes = check_f32_routes(gen)
+    for k in ("fused_dense_block", "dense_block_backward"):
+        kernels[k]["f32_route"] = f32_routes
     torch.cuda.empty_cache()
     train_launches = train_path(card)
     for k in ("dense_block_backward", "star_weighted_l1_cuda"):

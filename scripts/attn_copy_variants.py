@@ -1,9 +1,12 @@
-"""Time variants of kernel 9 (oca_kernel, ops/csrc/oca_kernels.cu) and
-kernel 19 (copy_kernel, ops/csrc/stream_kernels.cu) on one GPU.
+"""Time variants of kernel 9 (flash_kernel's KEYS_OCA instances,
+ops/csrc/flash_tc.cuh via oca_kernels.cu), kernel 8 (hab_kernel,
+ops/csrc/hat_kernels.cu) and kernel 19 (copy_kernel,
+ops/csrc/stream_kernels.cu) on one GPU.
 
-Each variant is the kernel's source (with conv_engine.cuh, which it
-includes) under a few text edits, built by nvcc into its own library
-beside the port's own build and called through the same C entry point.
+Each variant is the kernel's source (with the headers it includes) under
+a few text edits, built by nvcc into its own library beside the port's
+own build and called through the same C entry point; kernel 9's body
+edits go to flash_tc.cuh, which kernel 10's bf16 launches share.
 Every variant is checked against the plain version (its max |err| / max
 |plain| is printed; large for the floors, which skip work).
 
@@ -37,10 +40,23 @@ F.scaled_dot_product_attention on the pre-gathered windows:
                 floor)
   plants_c120   at C 120 the instance that takes the planted faults (its
                 plant code in the body, plant 0) in place of the path's
+Kernel 8's variants are timed at the hybrid's [1024, 64, 96] (8 x 8
+windows, 6 heads, MLP 192) and the lane-padded [1024, 64, 128] (8 heads,
+c_real 96), both with the Swin mask; they bound what staging its weights
+in shared memory (a cp.async ring of K-slabs) could save at n 64:
+  w_l1         every weight fragment read from the first k-step's
+               (one more multiply a load), so every load after the
+               first hits L1: the time of the GEMMs with the weights'
+               L2 traffic and most of their latency gone (a floor for any
+               staging of them; the output is wrong)
+  no_w         no weight loads at all (the fragments made from the lane
+               index; a floor)
+  w_unroll4    the GEMMs' k-step loop unrolled by 4 in place of 2 (more
+               weight loads in flight a warp)
 and `k10_shape` times the kernel at kernel 10's upscale shape, q
-[41472, 64, 96] against 144 keys a window, beside kernel 10
-(attn_kernel, attn_kernels.cu) on the same windows pre-gathered: whether
-kernel 10 should adopt this body.
+[41472, 64, 96] against 144 keys a window, beside kernel 10's window
+form (the same body on KEYS_WIN, attn_tc_kernels.cu) on the same windows
+pre-gathered.
 
 Kernel 19's variants are timed at dma_probe's two shapes in bf16 beside
 dst.copy_(src), each span's calls queued behind a spin of the card
@@ -85,6 +101,7 @@ import torch.nn.functional as F
 
 from superresolution_tpu_torch.ops import _build
 from superresolution_tpu_torch.ops import flash_oca as fo
+from superresolution_tpu_torch.ops import hab
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.utils import dma_probe as dp
 from superresolution_tpu_torch.utils.conv_engine_variants import (
@@ -94,6 +111,10 @@ from superresolution_tpu_torch.utils.conv_engine_variants import (
 )
 
 OCA = "oca_kernels.cu"
+HAB = "hat_kernels.cu"
+W_LOAD = ("const uint2 bw = __ldg(W + ((size_t)ks * NFT + j0 + j) * 32 + "
+          "lane);")
+FLASH = "flash_tc.cuh"           # kernel 9's body, built through OCA
 COPY = "stream_kernels.cu"
 NEVER = "a.plant == 0x7fff"      # no check plants this
 BIAS = "__ldg(bfrag + n * 32)"
@@ -301,44 +322,49 @@ THREADS_512 = ("constexpr int COPY_THREADS = 1024;",
 
 # name: (source, [(old, new), ...])
 VARIANTS = {
-    "kt16": (OCA, [("constexpr int KT = 32;", "constexpr int KT = 16;")]),
-    "kt48": (OCA, [("constexpr int KT = 32;", "constexpr int KT = 48;")]),
-    "nstage2": (OCA, [("constexpr int NSTAGE = 3;",
+    "kt16": (FLASH, [("constexpr int KT = 32;", "constexpr int KT = 16;")]),
+    "kt48": (FLASH, [("constexpr int KT = 32;", "constexpr int KT = 48;")]),
+    "nstage2": (FLASH, [("constexpr int NSTAGE = 3;",
                        "constexpr int NSTAGE = 2;")]),
-    "nstage4": (OCA, [("constexpr int NSTAGE = 3;",
+    "nstage4": (FLASH, [("constexpr int NSTAGE = 3;",
                        "constexpr int NSTAGE = 4;")]),
-    "cta2": (OCA, [("constexpr int NQ_MAX = 64;",
+    "cta2": (FLASH, [("constexpr int NQ_MAX = 64;",
                     "constexpr int NQ_MAX = 128;")]),
-    "ppw2": (OCA, [("constexpr int PPW_CAP = 3;",
+    "ppw2": (FLASH, [("constexpr int PPW_CAP = 3;",
                     "constexpr int PPW_CAP = 2;")]),
-    "ppw1": (OCA, [("constexpr int PPW_CAP = 3;",
+    "ppw1": (FLASH, [("constexpr int PPW_CAP = 3;",
                     "constexpr int PPW_CAP = 1;")]),
-    "hd20_ppw2": (OCA, [("constexpr int PPW_CAP_HD20 = 1;",
+    "hd20_ppw2": (FLASH, [("constexpr int PPW_CAP_HD20 = 1;",
                          "constexpr int PPW_CAP_HD20 = 2;")]),
-    "hd20_ppw3": (OCA, [("constexpr int PPW_CAP_HD20 = 1;",
+    "hd20_ppw3": (FLASH, [("constexpr int PPW_CAP_HD20 = 1;",
                          "constexpr int PPW_CAP_HD20 = 3;")]),
-    "hd20_ppw3_kt16": (OCA, [("constexpr int PPW_CAP_HD20 = 1;",
+    "hd20_ppw3_kt16": (FLASH, [("constexpr int PPW_CAP_HD20 = 1;",
                               "constexpr int PPW_CAP_HD20 = 3;"),
                              ("constexpr int KT = 32;",
                               "constexpr int KT = 16;")]),
-    "one_block": (OCA, [("constexpr int BLOCKS_CAP = 2;",
+    "one_block": (FLASH, [("constexpr int BLOCKS_CAP = 2;",
                          "constexpr int BLOCKS_CAP = 1;")]),
-    "pair_fence": (OCA, [(PAIR0, "      asm volatile(\"\" ::: \"memory\");\n"
+    "pair_fence": (FLASH, [(PAIR0, "      asm volatile(\"\" ::: \"memory\");\n"
                                   + PAIR0)]),
-    "expf": (OCA, [
-        ("ce::exp2_approx(mx[pp][r] - mref)",
-         f"expf((mx[pp][r] - mref) * {LN2})"),
+    "expf": (FLASH, [
+        ("ce::exp2_approx(mx[r] - mref)",
+         f"expf((mx[r] - mref) * {LN2})"),
         (EXP_P, f"s[n][e] = expf((s[n][e] + mneg[e >> 1]) * {LN2});")]),
-    "bias_raw": (OCA, [(BIAS, (
+    "bias_raw": (FLASH, [(BIAS, (
         "[&] { const float* br = reinterpret_cast<const float*>(a.bias) + "
         "((size_t)h * N + row) * M + t * KT + n * 8 + 2 * tig; "
         "const float2 b0 = __ldg(reinterpret_cast<const float2*>(br)); "
         "const float2 b1 = __ldg(reinterpret_cast<const float2*>(br + 8 * "
         "M)); return make_float4(b0.x, b0.y, b1.x, b1.y); }()"))]),
-    "no_bias": (OCA, [(BIAS, "make_float4(0.f, 0.f, 0.f, 0.f)")]),
-    "no_softmax": (OCA, [(EXP_P, "s[n][e] = s[n][e] + mneg[e >> 1];")]),
-    "stream_only": (OCA, [(PAIRS, PAIRS.replace(
+    "no_bias": (FLASH, [(BIAS, "make_float4(0.f, 0.f, 0.f, 0.f)")]),
+    "no_softmax": (FLASH, [(EXP_P, "s[n][e] = s[n][e] + mneg[e >> 1];")]),
+    "stream_only": (FLASH, [(PAIRS, PAIRS.replace(
         "pp < PPW;", f"pp < PPW && {NEVER};"))]),
+    "w_l1": (HAB, [(W_LOAD, W_LOAD.replace("(size_t)ks * NFT",
+                                           "(size_t)(ks * first) * NFT"))]),
+    "no_w": (HAB, [(W_LOAD, "const uint2 bw = make_uint2(lane, j);")]),
+    "w_unroll4": (HAB, [("#pragma unroll 2\n    for (int ks = first;",
+                         "#pragma unroll 4\n    for (int ks = first;")]),
     "plants_c120": (OCA, [("return launch_oca<120, 6, 16, 24>(a, nb, s);",
                            "return launch_oca<120, 6, 16, 24, true>(a, nb, "
                            "s);")]),
@@ -365,13 +391,19 @@ VARIANTS = {
     "persist2x_64k": (COPY, persist("4096")),
     "one_run": (COPY, persist("(words + gridDim.x - 1) / gridDim.x")),
 }
-ENTRY = {OCA: "hat_oca", COPY: "stream_copy"}
-KERNEL = {OCA: "oca_kernel", COPY: "copy_kernel|copy_tma_kernel"}
+ENTRY = {OCA: "hat_oca", HAB: "hat_hab_block", COPY: "stream_copy"}
+KERNEL = {OCA: "flash_kernel", HAB: "hab_kernel",
+          COPY: "copy_kernel|copy_tma_kernel"}
+COMPILED = {FLASH: OCA}          # a header's edits build through this
 # (tag, C, heads, ws, ows, map side) at the frames' stage-2 shapes
 OCA_CASES = (("hybrid_c96_ws8_ows12", 96, 6, 8, 12, 256),
              ("h200_c96_ws16_ows24", 96, 6, 16, 24, 256),
              ("h200_c120_ws16_ows24", 120, 6, 16, 24, 256))
 K10_IMAGES, K10_SIDE = 8, 576      # 8 x 72 x 72 = 41472 windows of 64
+# (tag, C, heads, MLP, c_real) of kernel 8 at n 64 on 1024 windows (a
+# 256^2 map, shift 4)
+HAB_CASES = (("hybrid_c96_n64", 96, 6, 192, None),
+             ("lane_pad_c128_n64", 128, 8, 192, 96))
 # the grid of each copy variant that is not one block a 16 KB chunk, from
 # the bytes and the SMs
 COPY_GRIDS = {"every_8k": lambda n, sms: -(-n // 8192),
@@ -404,9 +436,12 @@ def build(name: str, workdir: Path) -> tuple[ctypes.CDLL | None, str]:
     """The variant's library and its ptxas usage (None and the compiler's
     errors where it does not build)."""
     source, edits = VARIANTS[name]
+    unit = COMPILED.get(source, source)
     d = workdir / name
     d.mkdir()
-    shutil.copy(_build.SRC_DIR / "conv_engine.cuh", d)
+    for header in _build.SRC_DIR.glob("*.cuh"):
+        shutil.copy(header, d)
+    shutil.copy(_build.SRC_DIR / unit, d)
     s = (_build.SRC_DIR / source).read_text()
     for old, new in edits:
         if old not in s:
@@ -415,7 +450,7 @@ def build(name: str, workdir: Path) -> tuple[ctypes.CDLL | None, str]:
     (d / source).write_text(s)
     obj, so = str(d / "k.o"), str(d / "lib.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c",
-                           str(d / source), "-o", obj],
+                           str(d / unit), "-o", obj],
                           capture_output=True, text=True)
     if proc.returncode:
         return None, "nvcc failed: " + " ".join(
@@ -423,11 +458,11 @@ def build(name: str, workdir: Path) -> tuple[ctypes.CDLL | None, str]:
     subprocess.run([_build._nvcc(), "-shared", "-o", so, obj], check=True)
     lib = ctypes.CDLL(so)
     main = _build.library()
-    fn = ENTRY[source]
+    fn = ENTRY[unit]
     getattr(lib, fn).argtypes = getattr(main, fn).argtypes
     getattr(lib, fn).restype = getattr(main, fn).restype
     lib.sr_error_string = main.sr_error_string  # in sr_kernels.cu
-    return lib, usage(proc.stderr, KERNEL[source])
+    return lib, usage(proc.stderr, KERNEL[unit])
 
 
 def oca_inputs(gen: torch.Generator, c, nh, ws, ows, side, images=1):
@@ -478,6 +513,50 @@ def time_oca(libs: dict, gen: torch.Generator) -> None:
         torch.cuda.empty_cache()
 
 
+def hab_inputs(gen: torch.Generator, c, nh, mlp):
+    """x, cab [1024, 64, C] bf16, kernel 8's weights packed as a model
+    packs them, and the Swin region ids of a 256^2 map at shift 4."""
+    from superresolution_tpu_torch.models.hat_lite import shift_region_ids
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale + shift).to(
+            "cuda", dtype)
+
+    w = {"ln1_s": rnd(c, scale=0.1, shift=1.0), "ln1_b": rnd(c, scale=0.1),
+         "wqkv": rnd(c, 3 * c, scale=0.15, dtype=bf),
+         "bqkv": rnd(3 * c, scale=0.1), "rpb": rnd(nh, 64, 64),
+         "wp": rnd(c, c, scale=c ** -0.5, dtype=bf), "bp": rnd(c, scale=0.1),
+         "ln2_s": rnd(c, scale=0.1, shift=1.0), "ln2_b": rnd(c, scale=0.1),
+         "w1": rnd(c, mlp, scale=c ** -0.5, dtype=bf),
+         "b1": rnd(mlp, scale=0.1),
+         "w2": rnd(mlp, c, scale=mlp ** -0.5, dtype=bf),
+         "b2": rnd(c, scale=0.1)}
+    ids = torch.as_tensor(shift_region_ids(256, 256, 8, 4), device="cuda")
+    return (rnd(1024, 64, c, dtype=bf), rnd(1024, 64, c, scale=0.3, dtype=bf),
+            hab.mma_weights(w), ids)
+
+
+def time_hab(libs: dict, gen: torch.Generator) -> None:
+    for tag, c, nh, mlp, c_real in HAB_CASES:
+        x, cab, w, ids = hab_inputs(gen, c, nh, mlp)
+        ref = hab.hab_body_reference(x, cab, w, nh, ids, c_real).float()
+        line = [tag]
+        for name, lib in libs.items():
+            out = torch.full_like(x, float("nan"))
+
+            def launch():
+                _build.hab_block(x, cab, w, nh, ids, out, c_real)
+
+            with_library(lib, launch)
+            ms = with_library(lib, lambda: time_ms(launch, 20))
+            line.append(f"{name} {ms:.4f} ms ({rel_err(out, ref):.1e})")
+        print(" | ".join(line), flush=True)
+        del x, cab, w
+        torch.cuda.empty_cache()
+
+
 def time_k10_shape(gen: torch.Generator) -> None:
     """Kernel 9 as built at kernel 10's upscale shape against kernel 10 on
     the same keys pre-gathered (m 144: the OCAB's cross attention)."""
@@ -492,8 +571,8 @@ def time_k10_shape(gen: torch.Generator) -> None:
     frag = fo.bias_fragments(bias, (c // nh) ** -0.5)
     ms9 = time_ms(lambda: _build.oca(q, k_map, v_map, frag, nh, ws, ows,
                                      grid, out9), 5)
-    ms10 = time_ms(lambda: _build.window_attention(
-        q, kw, vw, bias, None, nh, (c // nh) ** -0.5, True, out10), 5)
+    ms10 = time_ms(lambda: _build.window_attention_tc(
+        q, kw, vw, frag, None, nh, (c // nh) ** -0.5, out10), 5)
     print(f"k10_shape q {list(q.shape)} m {ows * ows}: kernel 9 {ms9:.3f} ms"
           f" | kernel 10 {ms10:.3f} ms | max |9 - 10| / max |10| "
           f"{rel_err(out9, out10.float()):.1e}", flush=True)
@@ -543,6 +622,7 @@ def main(names: list[str]) -> int:
     built_names = [n for n in names if n in VARIANTS]
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs = {OCA: {"main": _build.library()},
+                HAB: {"main": _build.library()},
                 COPY: {"main": _build.library()}}
         if built_names:
             with ThreadPoolExecutor(len(built_names)) as pool:  # in parallel
@@ -550,11 +630,14 @@ def main(names: list[str]) -> int:
                                       built_names))
             for name, (lib, use) in zip(built_names, built):
                 if lib is not None:
-                    libs[VARIANTS[name][0]][name] = lib
+                    source = VARIANTS[name][0]
+                    libs[COMPILED.get(source, source)][name] = lib
                 print(name, use, flush=True)
         with torch.inference_mode():
             if len(libs[OCA]) > 1:
                 time_oca(libs[OCA], gen)
+            if len(libs[HAB]) > 1 or "hab" in names:
+                time_hab(libs[HAB], gen)
             if "k10_shape" in names:
                 time_k10_shape(gen)
             if len(libs[COPY]) > 1 or "copy" in names:

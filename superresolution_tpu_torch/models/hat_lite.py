@@ -13,9 +13,12 @@ The public forward takes and returns NHWC; blocks run NHWC (LayerNorm and
 Linear on the channel axis), convs NCHW. The attention is the plain form
 (ops/window_attention.py), with f32 logits unless attn_f32=False; with
 flash_attn (window attention) and flash_oca (the group-end OCAB, which
-follows flash_attn when None) it is kernel 10
-(ops/window_attention.flash_window_attention), whose logits are always
-f32. The deploy path (infer/fused_hat.py) does not run these modules: it
+follows flash_attn when None) it is kernel 10, whose logits are always
+f32: a HAB's self-attention through its map form
+(ops/window_attention.flash_map_attention: the qkv linear on the LN map,
+the attention read from that map with the shift as addressing, the proj
+linear on the output map, so no roll, partition or merge), the OCAB's
+through flash_window_attention on its windows. The deploy path (infer/fused_hat.py) does not run these modules: it
 runs kernels 7-10 on the same weights.
 """
 
@@ -36,27 +39,14 @@ from superresolution_tpu_torch.models.common import (
 )
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.ops.window_attention import (
+    flash_map_attention,
     flash_window_attention,
     reference_window_attention,
+    shift_region_ids,
+    window_merge,
+    window_partition,
 )
 from superresolution_tpu_torch.runtime import resolve_device
-
-
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    """[B,H,W,C] -> [B*nH*nW, ws*ws, C]."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, ws * ws, c)
-
-
-def window_merge(x: torch.Tensor, ws: int, hw: tuple[int, int]
-                 ) -> torch.Tensor:
-    """[B*nH*nW, ws*ws, C] -> [B,H,W,C]."""
-    h, w = hw
-    c = x.shape[-1]
-    b = x.shape[0] // ((h // ws) * (w // ws))
-    x = x.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, w, c)
 
 
 @lru_cache(maxsize=None)
@@ -80,20 +70,6 @@ def relative_position_index_oca(ws: int, wse: int) -> np.ndarray:
     rel = grid(wse)[:, None, :] - grid(ws)[:, :, None]
     rel = rel.transpose(1, 2, 0) + (ws - 1)
     return (rel[..., 0] * (ws + wse - 1) + rel[..., 1]).astype(np.int32)
-
-
-@lru_cache(maxsize=None)
-def shift_region_ids(h: int, w: int, ws: int, shift: int) -> np.ndarray:
-    """Swin shift region labels per window: [nWindows, ws*ws] int32. Two
-    positions may attend iff their labels match."""
-    img = np.zeros((h, w), dtype=np.int32)
-    cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img[hs, wsl] = cnt
-            cnt += 1
-    win = img.reshape(h // ws, ws, w // ws, ws).transpose(0, 2, 1, 3)
-    return np.ascontiguousarray(win.reshape(-1, ws * ws))
 
 
 def _trunc_normal_(t: torch.Tensor, std: float,
@@ -139,16 +115,22 @@ class WindowAttention(nn.Module):
             generator))
         self.proj = _linear(dim, dim, generator)
 
+    def bias(self) -> torch.Tensor:
+        """The relative-position bias [heads, n, n] of a window."""
+        n = self.window_size ** 2
+        idx = torch.as_tensor(relative_position_index(self.window_size),
+                              device=self.relative_position_bias_table.device
+                              ).long()
+        return self.relative_position_bias_table[idx.reshape(-1)].reshape(
+            n, n, self.num_heads).permute(2, 0, 1)
+
     def forward(self, x: torch.Tensor,
                 region_ids: torch.Tensor | None) -> torch.Tensor:
         """x [nB, n, C] windows; region_ids [nW, n] Swin shift labels or
         None for unshifted blocks."""
-        n, c = x.shape[1], x.shape[2]
+        c = x.shape[2]
         q, k, v = self.qkv(x).split(c, dim=-1)
-        idx = torch.as_tensor(relative_position_index(self.window_size),
-                              device=x.device).long()
-        bias = self.relative_position_bias_table[idx.reshape(-1)].reshape(
-            n, n, self.num_heads).permute(2, 0, 1)
+        bias = self.bias()
         if self.flash:
             out = flash_window_attention(q, k, v, bias, self.num_heads,
                                          region_ids)
@@ -217,19 +199,32 @@ class HABlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device="cpu")
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _, h, w, _ = x.shape
+    def attend_windows(self, y: torch.Tensor) -> torch.Tensor:
+        """The (shifted) window attention of the LN map y: roll, window
+        partition, self.attn on the windows, merge, roll back."""
+        _, h, w, _ = y.shape
         ws, s = self.window_size, self.shift
-        y = self.norm1(x)
-        cab = _nchw(self.conv_block, y)
         ids = None
         if s:
             y = torch.roll(y, (-s, -s), dims=(1, 2))
             ids = torch.as_tensor(shift_region_ids(h, w, ws, s),
-                                  device=x.device)
+                                  device=y.device)
         y = window_merge(self.attn(window_partition(y, ws), ids), ws, (h, w))
-        if s:
-            y = torch.roll(y, (s, s), dims=(1, 2))
+        return torch.roll(y, (s, s), dims=(1, 2)) if s else y
+
+    def attend_map(self, y: torch.Tensor) -> torch.Tensor:
+        """The same on kernel 10's map form: the qkv and proj linears are
+        per pixel, so they commute with the partition, and the attention
+        reads q, k, v from the qkv map with the shift as addressing (no
+        roll, partition or merge written)."""
+        a = self.attn
+        return a.proj(flash_map_attention(a.qkv(y), a.bias(), a.num_heads,
+                                          self.window_size, self.shift))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm1(x)
+        cab = _nchw(self.conv_block, y)
+        y = self.attend_map(y) if self.attn.flash else self.attend_windows(y)
         x = x + y + torch.tensor(self.conv_scale, dtype=x.dtype) * cab
         return x + self.mlp(self.norm2(x))
 

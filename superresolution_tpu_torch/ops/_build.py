@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -59,7 +60,9 @@ def _sources() -> list[Path]:
 
 def build() -> tuple[Path, float, str]:
     """Compile the sources if no library with their hash exists.
-    Returns (library path, build seconds (0 when cached), ptxas report)."""
+    Returns (library path, build seconds (0 when cached), ptxas report,
+    which ends with a line "nvcc seconds: <source> <s>, ..." of each
+    source's compile time)."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
@@ -78,13 +81,23 @@ def build() -> tuple[Path, float, str]:
             procs.append(subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate() for p in procs]  # wait for every one
+
+        def finish(p):  # its output, and the seconds until it ended
+            out = p.communicate()
+            return out, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            ends = list(pool.map(finish, procs))
+        outs = [out for out, _ in ends]
         report = []
         for proc, (out, err) in zip(procs, outs):
             report.append(err)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{out}\n{err}")
+        report.append("nvcc seconds: " + ", ".join(
+            f"{Path(o).stem}.cu {t:.1f}" for o, (_, t) in zip(objs, ends))
+            + "\n")
         tmp = str(Path(tmpdir) / lib.name)
         proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
@@ -106,7 +119,7 @@ def library() -> ctypes.CDLL:
                                _F, _P, _I, _P, _I, _I, _I, _I, _P]
     lib.sr_conv3x3.restype = _I
     lib.dense_conv.argtypes = [_P, _P, *[_I] * 6, _P, _P, _P, *[_I] * 4,
-                               _P, _P, _I, _I, _I, _P]
+                               _P, _P, _I, _I, _I, _I, _P]
     lib.dense_conv.restype = _I
     lib.dense_rrdb.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 6, _P]
     lib.dense_rrdb.restype = _I
@@ -127,7 +140,7 @@ def library() -> ctypes.CDLL:
     lib.hat_layernorm.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
     lib.hat_layernorm.restype = _I
     lib.hat_hab_block.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                                  _I, _F, _I, _P]
+                                  _I, _F, _I, _I, _P]
     lib.hat_hab_block.restype = _I
     lib.hat_strip_hab.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P, _F, _I, _P]
     lib.hat_strip_hab.restype = _I
@@ -142,25 +155,30 @@ def library() -> ctypes.CDLL:
     lib.train_star_l1_value.restype = _I
     lib.train_star_l1_grad.argtypes = [_P, _P, _S, _F, _F, _P, _P, _P]
     lib.train_star_l1_grad.restype = _I
-    lib.train_dense_scale.argtypes = [_P, _S, _I, _F, _P, _I, _P]
+    lib.train_dense_scale.argtypes = [_P, _S, _I, _F, _P, _I, _I, _P]
     lib.train_dense_scale.restype = _I
     lib.train_wgrad_chunks.argtypes = [_I] * 5
     lib.train_wgrad_chunks.restype = _I
     lib.train_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _P, _P, _P, _P]
+                                _I, _I, _I, _I, _P, _P, _P, _I, _P]
     lib.train_wgrad.restype = _I
     lib.train_grad_conv.argtypes = [_P, *[_I] * 5, _P, _P, _I, _I, _I, _P,
-                                    _I, _P, _I, _F, _I, _I, _I, _P]
+                                    _I, _P, _I, _F, _I, _I, _I, _I, _P]
     lib.train_grad_conv.restype = _I
     lib.train_wgrad_tc_chunks.argtypes = [_I] * 5
     lib.train_wgrad_tc_chunks.restype = _I
-    lib.train_wgrad_tc.argtypes = lib.train_wgrad.argtypes
+    lib.train_wgrad_tc.argtypes = [*lib.train_wgrad.argtypes[:-2], _P]
     lib.train_wgrad_tc.restype = _I
     lib.train_flip_weights.argtypes = [_P, _I, _I, _P, _P]
     lib.train_flip_weights.restype = _I
     lib.attn_window.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
-                                _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+                                _I, _P, _I, _I, _I, _I, _I, _F, _I, _P]
     lib.attn_window.restype = _I
+    lib.attn_window_tc.argtypes = [_P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
+                                   _P, _I, _P, _I, _I, _I, _I, _I, _F, _P]
+    lib.attn_window_tc.restype = _I
+    lib.attn_map_tc.argtypes = [_P, _P, _P, *[_I] * 7, _F, _I, _P]
+    lib.attn_map_tc.restype = _I
     lib.subpixel_conv3x3_d2s.argtypes = [_P, _L, _L, _L, _L, _I, _I, _I,
                                          _I, _P, _I, _P, _I, _I, _P, _I, _I,
                                          _I, _P]
@@ -180,6 +198,14 @@ def library() -> ctypes.CDLL:
     lib.sr_error_string.argtypes = [_I]
     lib.sr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def activation_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """t's dtype when a launch helper with an f32 form takes it (bf16 or
+    f32), else a TypeError."""
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: expected bf16 or f32, got {t.dtype}")
+    return t.dtype
 
 
 def require_cuda(*tensors: torch.Tensor | None, dtype=torch.bfloat16,
@@ -263,16 +289,17 @@ def dense_conv(x: torch.Tensor, ws: torch.Tensor, cin1: int,
                res: torch.Tensor | None = None,
                seg: tuple[int, int] | None = None,
                seg_plant: int = 0) -> None:
-    """One launch of B1's conv on the conv engine's tensor cores
-    (dense_kernels.cu, the DenseConv policy): out[..., out_off:out_off +
-    cout] = epilogue(conv3x3_SAME([x, ws[..., :cin1]], w) + bias).
+    """One launch of B1's conv on the conv engine (dense_kernels.cu, the
+    DenseConv policy): out[..., out_off:out_off + cout] =
+    epilogue(conv3x3_SAME([x, ws[..., :cin1]], w) + bias).
 
     x [B,H,W,C], ws [B,H,W,4g] (its first cin1 channels are the second
-    source), out [B,H,W,*], xres / res [B,H,W,C], all bf16 NHWC; w the
-    HWIO [3, 3, C + cin1, cout] bf16; bias [cout] f32 or None. The
-    epilogue: bias, lrelu(0.2) when asked, then v = xres + 0.2 v, then
-    v = res + 0.2 v, in f32, one rounding. C, cin1, cout, out_off and
-    out's channels are multiples of 8. seg and seg_plant as conv3x3's."""
+    source), out [B,H,W,*], xres / res [B,H,W,C], all NHWC, and w the
+    HWIO [3, 3, C + cin1, cout], all bf16 (the tensor-core body; C, cin1,
+    cout, out_off and out's channels multiples of 8) or all f32 (the
+    direct body); bias [cout] f32 or None. The epilogue: bias, lrelu(0.2)
+    when asked, then v = xres + 0.2 v, then v = res + 0.2 v, in f32, one
+    rounding. seg and seg_plant as conv3x3's."""
     lib = library()
     b, h, wd, c = x.shape
     stride, valid = seg or (0, 0)
@@ -280,7 +307,7 @@ def dense_conv(x: torch.Tensor, ws: torch.Tensor, cin1: int,
         _ptr(x), _ptr(ws), b, h, wd, c, ws.shape[-1], cin1, _ptr(w),
         _ptr(bias), _ptr(out), out.shape[-1], out_off, w.shape[-1],
         int(lrelu), _ptr(xres), _ptr(res), stride, valid, seg_plant,
-        _stream(x))
+        int(x.dtype == torch.float32), _stream(x))
     _check(lib, rc, "dense_conv")
 
 
@@ -415,26 +442,38 @@ def layernorm(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor,
     _check(lib, rc, "hat_layernorm")
 
 
-# hab_block's weights, in the order hat_hab_block and hat_strip_hab read
-# them
+# hab_block's weights (ops/hab.hab_weights), in the order hat_hab_block
+# and hat_strip_hab read them; they read the dense ones packed in fragment
+# order (ops/hab.mma_weights), under the names of HAB_KERNEL_WEIGHTS
 HAB_WEIGHTS = ("ln1_s", "ln1_b", "wqkv", "bqkv", "rpb", "wp", "bp", "ln2_s",
                "ln2_b", "w1", "b1", "w2", "b2")
+HAB_DENSE = ("wqkv", "wp", "w1", "w2")
+HAB_KERNEL_WEIGHTS = tuple(k + "_mma" if k in HAB_DENSE else k
+                           for k in HAB_WEIGHTS)
+
+# Faults chip_smoke.py plants in kernels 8 and 11 (`plant`, a bit mask; 0
+# in use; see hat_kernels.cu): the first k-step (16 input channels) of
+# the q, k and v GEMMs skipped; fc1 fed x1 in place of LN2(x1).
+PLANT_SKIP_SLAB, PLANT_NO_LN2 = 8, 16
 
 
 def hab_block(x: torch.Tensor, cab: torch.Tensor, weights: dict,
               num_heads: int, region_ids: torch.Tensor | None,
-              out: torch.Tensor, c_real: int | None = None) -> None:
-    """One launch of kernel 8, hab_kernel (hat_kernels.cu): x, cab, out
-    [nb, n, C] bf16; weights by HAB_WEIGHTS (ops/hab.hab_weights);
+              out: torch.Tensor, c_real: int | None = None,
+              plant: int = 0) -> None:
+    """One launch of kernel 8, hab_kernel (hat_kernels.cu, on the tensor
+    cores): x, cab, out [nb, n, C] bf16; weights by HAB_KERNEL_WEIGHTS
+    (ops/hab.hab_weights, the dense kernels packed by mma_weights);
     region_ids [nW_img, n] int32 or None; both LNs divided by c_real
     (default C)."""
     lib = library()
     nb, n, c = x.shape
     rc = lib.hat_hab_block(
         _ptr(x), _ptr(cab), _ptr(out), nb, c, num_heads, n,
-        weights["w1"].shape[-1], _ptrs([weights[k] for k in HAB_WEIGHTS]),
-        _ptr(region_ids), 0 if region_ids is None else region_ids.shape[0],
-        float(c // num_heads) ** -0.5, c_real or c, _stream(x))
+        weights["w1"].shape[-1],
+        _ptrs([weights[k] for k in HAB_KERNEL_WEIGHTS]), _ptr(region_ids),
+        0 if region_ids is None else region_ids.shape[0],
+        float(c // num_heads) ** -0.5, c_real or c, plant, _stream(x))
     _check(lib, rc, "hat_hab_block")
 
 
@@ -449,15 +488,15 @@ PLANT_HID_BORDER, PLANT_SWAP_PAIR = 1, 2
 def strip_hab(x: torch.Tensor, cab_y: torch.Tensor, se: torch.Tensor,
               weights: dict, num_heads: int, ws: int, shift: int,
               out: torch.Tensor, plant: int = 0) -> None:
-    """One launch of kernel 11, hab_kernel on the maps (hat_kernels.cu):
-    x, cab_y, out [B, H, W, C] bf16; se [B, 1, C] f32; weights by
-    HAB_WEIGHTS."""
+    """One launch of kernel 11, hab_kernel on the maps (hat_kernels.cu, on
+    the tensor cores): x, cab_y, out [B, H, W, C] bf16; se [B, 1, C] f32;
+    weights by HAB_KERNEL_WEIGHTS."""
     lib = library()
     b, h, w, c = x.shape
     rc = lib.hat_strip_hab(
         _ptr(x), _ptr(cab_y), _ptr(se), _ptr(out), b, h, w, c, num_heads,
         ws, shift, weights["w1"].shape[-1],
-        _ptrs([weights[k] for k in HAB_WEIGHTS]),
+        _ptrs([weights[k] for k in HAB_KERNEL_WEIGHTS]),
         float(c // num_heads) ** -0.5, plant, _stream(x))
     _check(lib, rc, "hat_strip_hab")
 
@@ -474,7 +513,7 @@ def cab_pair(x: torch.Tensor, weights, out: torch.Tensor,
 
 
 # Faults chip_smoke.py plants in kernel 9 (`plant`, a bit mask; 0 in use;
-# see oca_kernels.cu): the padded keys masked out of the softmax, the
+# see flash_tc.cuh): the padded keys masked out of the softmax, the
 # output not rescaled when a key tile raises the row max, the map rows
 # addressed at the wrong stride.
 PLANT_PAD_MASKED, PLANT_NO_RESCALE, PLANT_ROW_STRIDE = 1, 2, 4
@@ -484,10 +523,11 @@ def oca(q: torch.Tensor, k_map: torch.Tensor, v_map: torch.Tensor,
         bias: torch.Tensor, num_heads: int, ws: int, ows: int,
         grid: tuple[int, int, int], out: torch.Tensor,
         plant: int = 0) -> None:
-    """One launch of kernel 9, oca_kernel (oca_kernels.cu): q, out [nb, n,
-    C]; k_map, v_map [B, hp, wp, C] bf16; bias the f32 [nh, n, ows*ows]
-    / hd^-1/2 in fragment order (ops/flash_oca.bias_fragments); grid =
-    (B, window rows, window columns)."""
+    """One launch of kernel 9 (oca_kernels.cu, flash_tc.cuh's body over the
+    padded maps): q, out [nb, n, C]; k_map, v_map [B, hp, wp, C] bf16;
+    bias the f32 [nh, n, ows*ows] / hd^-1/2 in fragment order
+    (ops/flash_oca.bias_fragments); grid = (B, window rows, window
+    columns)."""
     lib = library()
     b, nh_w, nw_w = grid
     _, hp, wp, c = k_map.shape
@@ -501,20 +541,63 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor, region_ids: torch.Tensor | None,
                      num_heads: int, scale: float, vec: bool,
                      out: torch.Tensor) -> None:
-    """One launch of attn_kernel (attn_kernels.cu): q [nb, n, C],
-    k/v [nb, m, C], each with a unit channel stride and any window and
-    row strides (bf16 or f32, one type); bias [nh, n, m] f32 and
-    region_ids [nW_img, n] int32 contiguous; out [nb, n, C] contiguous.
-    vec: every row of q, k and v starts 4-element aligned."""
+    """One launch of attn_kernel (attn_kernels.cu, kernel 10's CUDA-core
+    form, f32): q [nb, n, C], k/v [nb, m, C] f32, each with a unit channel
+    stride and any window and row strides; bias [nh, n, m] f32 and
+    region_ids [nW_img, n] int32 contiguous; out [nb, n, C] contiguous
+    f32. vec: every row of q, k and v starts 4-element aligned."""
     lib = library()
     nb, n, c = q.shape
     rc = lib.attn_window(
         _ptr(q), q.stride(0), q.stride(1), _ptr(k), k.stride(0), k.stride(1),
         _ptr(v), v.stride(0), v.stride(1), _ptr(bias), _ptr(region_ids),
         0 if region_ids is None else region_ids.shape[0], _ptr(out), nb, n,
-        k.shape[1], c, num_heads, scale, int(q.dtype == torch.float32),
-        int(vec), _stream(q))
+        k.shape[1], c, num_heads, scale, int(vec), _stream(q))
     _check(lib, rc, "attn_window")
+
+
+def window_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        fragments: torch.Tensor,
+                        region_ids: torch.Tensor | None, num_heads: int,
+                        scale: float, out: torch.Tensor) -> None:
+    """One launch of kernel 10 on the tensor cores over windows
+    (attn_tc_kernels.cu attn_window_tc, flash_tc.cuh's body): q [nb, n, C],
+    k/v [nb, m, C] bf16, each with a unit channel stride and window and
+    row strides that keep every row 16-byte (head dim 16) or 8-byte (20)
+    aligned; fragments the f32 bias / scale in fragment order
+    (ops/flash_oca.bias_fragments); region_ids [nW_img, n] int32
+    contiguous or None; out [nb, n, C] contiguous bf16."""
+    lib = library()
+    nb, n, c = q.shape
+    rc = lib.attn_window_tc(
+        _ptr(q), q.stride(0), q.stride(1), _ptr(k), k.stride(0), k.stride(1),
+        _ptr(v), v.stride(0), v.stride(1), _ptr(fragments), _ptr(region_ids),
+        0 if region_ids is None else region_ids.shape[0], _ptr(out), nb, n,
+        k.shape[1], c, num_heads, scale, _stream(q))
+    _check(lib, rc, "attn_window_tc")
+
+
+# Faults chip_smoke.py plants in kernel 10 (`plant`, a bit mask; 0 in use;
+# map form at C 96, 6 heads, ws 8 only; see flash_tc.cuh): the Swin mask
+# dropped, the shifted address clamped to the map instead of wrapped, the
+# last key tile skipped.
+PLANT_ATTN_NO_MASK, PLANT_ATTN_CLAMP, PLANT_ATTN_SKIP_LAST = 1, 2, 4
+
+
+def map_attention(qkv: torch.Tensor, fragments: torch.Tensor,
+                  num_heads: int, ws: int, shift: int, out: torch.Tensor,
+                  plant: int = 0) -> None:
+    """One launch of kernel 10 on the tensor cores over the map
+    (attn_tc_kernels.cu attn_map_tc): qkv [B, H, W, 3C] and out [B, H, W, C]
+    contiguous bf16; the ws x ws windows of the map rolled by -shift;
+    fragments as window_attention_tc's."""
+    lib = library()
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    rc = lib.attn_map_tc(_ptr(qkv), _ptr(out), _ptr(fragments), b, h, w, c,
+                         num_heads, ws, shift, float(c // num_heads) ** -0.5,
+                         plant, _stream(qkv))
+    _check(lib, rc, "attn_map_tc")
 
 
 PLANT_SWAP_IJ, PLANT_CLAMP_BORDER, PLANT_NO_BIAS = 1, 2, 3
@@ -562,12 +645,14 @@ def star_l1_grad(p: torch.Tensor, t: torch.Tensor, threshold: float,
 
 
 def dense_scale(src: torch.Tensor, scale: float, out: torch.Tensor) -> None:
-    """One launch of dense_scale_kernel: out[..., :c] = bf16(scale * src)
-    for src [B,H,W,c] and out [B,H,W,>=c], both bf16."""
+    """One launch of dense_scale_kernel: out[..., :c] = scale * src,
+    rounded once, for src [B,H,W,c] and out [B,H,W,>=c], both bf16 or
+    both f32."""
     lib = library()
     c = src.shape[-1]
     rc = lib.train_dense_scale(_ptr(src), src.numel() // c, c, scale,
-                               _ptr(out), out.shape[-1], _stream(src))
+                               _ptr(out), out.shape[-1],
+                               int(src.dtype == torch.float32), _stream(src))
     _check(lib, rc, "train_dense_scale")
 
 
@@ -576,16 +661,18 @@ def grad_conv(d: torch.Tensor, n_in: int, wk: torch.Tensor,
               gate: torch.Tensor | None = None, gate_off: int = 0,
               add: torch.Tensor | None = None, add_scale: float = 1.0,
               seg: tuple[int, int] | None = None, seg_plant: int = 0) -> None:
-    """One launch of a transposed conv of kernel 13 on the conv engine's
-    tensor cores (train_tc_kernels.cu, the DenseGradConv policy):
+    """One launch of a transposed conv of kernel 13 on the conv engine
+    (train_tc_kernels.cu, the DenseGradConv policy):
     out[..., out_off:out_off + n] = epilogue(conv3x3_SAME(d[..., :n_in],
     wk)) for the flipped K-major weights wk [9 * n_in, n] (or their HWIO
     [3, 3, n_in, n] view). The epilogue: v = gate[..., gate_off + o] > 0 ?
     v : 0.2 v when a gate is given, then v += add_scale * add, in f32, one
-    rounding. d, out, gate, add bf16 NHWC of one [B,H,W]; d may be out
-    (its channels n_in .. stay disjoint from out_off ..). seg and
-    seg_plant as conv3x3's. Raises unless every tensor is bf16."""
-    require_cuda(d, wk, out, gate, add, name="grad_conv")
+    rounding. d, out, gate, add NHWC of one [B,H,W]; d may be out (its
+    channels n_in .. stay disjoint from out_off ..). seg and seg_plant as
+    conv3x3's. Every tensor bf16 (the tensor-core body) or every one f32
+    (the direct body); raises on others."""
+    f32 = activation_dtype(d, "grad_conv") == torch.float32
+    require_cuda(d, wk, out, gate, add, dtype=d.dtype, name="grad_conv")
     lib = library()
     b, h, wd = d.shape[:3]
     n = wk.shape[-1]
@@ -597,7 +684,7 @@ def grad_conv(d: torch.Tensor, n_in: int, wk: torch.Tensor,
         out.shape[-1], out_off, n, gate_ptr,
         0 if gate is None else gate.shape[-1], _ptr(add),
         0 if add is None else add.shape[-1], add_scale, stride, valid,
-        seg_plant, _stream(d))
+        seg_plant, int(f32), _stream(d))
     _check(lib, rc, "train_grad_conv")
 
 
@@ -624,11 +711,11 @@ def wgrad(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None, cin1: int,
     dw [3,3,cin0+cin1,cout] of a 3x3 SAME conv whose input
     is [in0[..., :cin0], in1[..., :cin1]] and whose output cotangent is
     d[..., d_off:d_off+cout], and its bias grad db [cout] f32 if given.
-    dw has the weight's type, bf16, as have all activations (NHWC, of one
-    [B,H,W] geometry). seg = (stride, valid): spacer rows of the input
-    and of d read as zero (see conv3x3)."""
+    dw has the weight's type, bf16 or f32, as have all activations (NHWC,
+    of one [B,H,W] geometry). seg = (stride, valid): spacer rows of the
+    input and of d read as zero (see conv3x3)."""
     _wgrad_launch("train_wgrad", in0, cin0, in1, cin1, d, d_off, cout, dw,
-                  db, seg)
+                  db, seg, f32=in0.dtype == torch.float32)
 
 
 def wgrad_tc(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None,
@@ -646,9 +733,10 @@ def wgrad_tc(in0: torch.Tensor, cin0: int, in1: torch.Tensor | None,
 
 
 def _wgrad_launch(name: str, in0, cin0, in1, cin1, d, d_off, cout, dw, db,
-                  seg) -> None:
+                  seg, f32: bool | None = None) -> None:
     """The launches of `name` (train_wgrad or train_wgrad_tc), with the
-    chunk count its `name`_chunks picks."""
+    chunk count its `name`_chunks picks; f32: train_wgrad's type flag
+    (None for train_wgrad_tc, which takes none)."""
     lib = library()
     b, h, w = in0.shape[:3]
     cin = cin0 + cin1
@@ -660,12 +748,12 @@ def _wgrad_launch(name: str, in0, cin0, in1, cin1, d, d_off, cout, dw, db,
         _ptr(in1), 0 if in1 is None else in1.shape[-1], cin1,
         d.data_ptr() + d_off * d.element_size(), d.shape[-1], cout,
         b, h, w, *(seg or (0, 0)), nchunk, _ptr(part), _ptr(dw), _ptr(db),
-        _stream(in0))
+        *(() if f32 is None else (int(f32),)), _stream(in0))
     _check(lib, rc, name)
 
 
 # Faults chip_smoke.py plants in kernels 16-19 (`plant`, a bit mask; 0 in
-# use; see extra_kernels.cu): 16's intermediates zeroed outside the image
+# use; see extra_kernels.cu and pack_kernels.cu): 16's intermediates zeroed outside the image
 # (SAME semantics) or its 0.2 residual scale dropped; 17 normalized by
 # the binomial row's sum or missing its top-left tap; 18's pad packs not
 # zeroed or the left tap across a pack edge dropped (both in either
@@ -708,7 +796,7 @@ def pack_conv(xp: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
               out: torch.Tensor, p: int, width: int, lrelu: bool, tc: bool,
               plant: int = 0) -> None:
     """One launch of kernel 18, the conv engine's PackConv policy
-    (extra_kernels.cu): xp [B,H,W2,p*c], wk the K-major [9c, n] in xp's
+    (pack_kernels.cu): xp [B,H,W2,p*c], wk the K-major [9c, n] in xp's
     type (bf16 or f32; ops/pairconv.kmajor_weights), bias [n] f32, out
     [B,H,W2,p*n]; the real pixels are columns [p, p + width) of the
     unpacked [B,H,W2*p,*] view. tc: the tensor-core body, else the

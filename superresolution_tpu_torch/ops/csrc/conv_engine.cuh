@@ -4,8 +4,9 @@
 // their output.
 //
 //   direct::conv_kernel<P, CO_T, DROP>  f32 FFMA on the CUDA cores, for
-//       f32 tensors and the shapes the tensor-core body does not take
-//       (kernel 16 always).
+//       f32 tensors (kernels 15, 16, 18, and B1 and kernel 13's
+//       transposed convs under precision "fp32") and the shapes the
+//       tensor-core body does not take (kernel 16 always).
 //   tc::conv_tc_kernel<P, BN>  a bf16 implicit GEMM on the tensor cores
 //       (mma.sync m16n8k16, bf16 in, f32 accumulation), for bf16 tensors
 //       whose input pixels are 16-byte runs of C_in % 8 == 0 channels:

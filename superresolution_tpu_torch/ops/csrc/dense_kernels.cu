@@ -57,9 +57,14 @@
 // the variants of scripts/dense_tail_variants.py measure (kernel 6's,
 // scripts/chain_grad_variants.py).
 //
-// Shapes the route rule (ops/dense_trunk.uses_tensor_cores) sends
-// elsewhere (C or g not a multiple of 8, C + 4g > 256, f32) run
-// sr_kernels.cu's direct conv3x3_kernel (B1) and conv_chain_kernel (6).
+// f32 activations (a model trained under precision "fp32") run B1's five
+// convs through the engine's direct body under the same policy
+// (conv_engine.cuh direct::conv_kernel<DenseConv<float>>, f32 FFMA: the
+// members y0 .. put below), the same function in f32 with no rounding.
+// Other shapes the route rule (ops/dense_trunk.uses_tensor_cores) sends
+// off the tensor cores (bf16 with C or g not a multiple of 8, C + 4g >
+// 256) run sr_kernels.cu's direct conv3x3_kernel (B1) and
+// conv_chain_kernel (6).
 
 #include <cooperative_groups.h>
 
@@ -127,6 +132,30 @@ struct DenseConv {
       v0 = r.x + 0.2f * v0, v1 = r.y + 0.2f * v1;
     }
     return make_float2(v0, v1);
+  }
+  // The direct body (f32): the same staging, epilogue and spacer rows,
+  // one channel at a time.
+  __host__ __device__ int y0() const { return 0; }
+  __host__ __device__ int x0() const { return 0; }
+  __device__ __forceinline__ float load(int b, int y, int xx, int c) const {
+    if (y < 0 || y >= H || xx < 0 || xx >= W || !image_row(y)) return 0.f;
+    const size_t p = pix(b, y, xx);
+    return conv_engine::to_f(c < C ? x[p * C + c] : ws[p * g4 + (c - C)]);
+  }
+  __device__ __forceinline__ float weight(int tap, int c, int o) const {
+    return conv_engine::to_f(wk[((size_t)tap * cin() + c) * ldw + o]);
+  }
+  __device__ __forceinline__ void put(int b, int y, int xx, int o,
+                                      float acc) const {
+    float v = 0.f;
+    if (image_row(y) || seg_plant) {
+      v = acc + bias_at(o);
+      if (act) v = lrelu(v);
+      const size_t at = pix(b, y, xx) * C + o;
+      if (xres != nullptr) v = conv_engine::to_f(xres[at]) + 0.2f * v;
+      if (res != nullptr) v = conv_engine::to_f(res[at]) + 0.2f * v;
+    }
+    conv_engine::store(out + pix(b, y, xx) * ostride + out_off + o, v);
   }
   // One bulk copy per pixel of the tile: its min(BN, n - n0) channels at
   // channel out_off + n0 (every run a multiple of 16 bytes: the route
@@ -234,21 +263,35 @@ size_t rrdb_smem(int C, int g) {
 
 extern "C" {
 
-// One launch of B1's conv through the tensor-core body: out[..., out_off:
-// out_off + cout] = epilogue(conv3x3_SAME([x, ws[..., :cin1]], wk) +
-// bias). x [B,H,W,C], ws [B,H,W,g4], out [B,H,W,ostride], xres / res
-// [B,H,W,C] or null, all bf16; wk the HWIO [3,3,C+cin1,cout] bf16; bias
-// [cout] f32 or null; act 1: lrelu. Returns the cudaError_t of the launch
-// (0 on success).
+// One launch of B1's conv: out[..., out_off:out_off + cout] =
+// epilogue(conv3x3_SAME([x, ws[..., :cin1]], wk) + bias). x [B,H,W,C],
+// ws [B,H,W,g4], out [B,H,W,ostride], xres / res [B,H,W,C] or null, all
+// bf16 (the tensor-core body) or, with f32 != 0, all f32 (the direct
+// body); wk the HWIO [3,3,C+cin1,cout] in their type; bias [cout] f32 or
+// null; act 1: lrelu. Returns the cudaError_t of the launch (0 on
+// success).
 int dense_conv(const void* x, const void* ws, int B, int H, int W, int C,
                int g4, int cin1, const void* wk, const float* bias,
                void* out, int ostride, int out_off, int cout, int act,
                const void* xres, const void* res, int seg_stride,
-               int seg_valid, int seg_plant, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C % 8 || g4 % 8 || cin1 % 8 || cin1 < 0 ||
-      cin1 > g4 || cout % 8 || cout < 8 || out_off % 8 || ostride % 8 ||
-      out_off + cout > ostride || (cin1 > 0 && ws == nullptr) ||
+               int seg_valid, int seg_plant, int f32, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || cin1 < 0 || cin1 > g4 ||
+      cout < 1 || out_off < 0 || out_off + cout > ostride ||
+      (cin1 > 0 && ws == nullptr) ||
       (seg_stride != 0 && (seg_valid < 1 || seg_valid > seg_stride)))
+    return (int)cudaErrorInvalidValue;
+  if (f32) {
+    const DenseConv<float> a{
+        static_cast<const float*>(x), static_cast<const float*>(ws), B, H, W,
+        C, g4, cin1, static_cast<const float*>(wk), cout, bias,
+        static_cast<float*>(out), ostride, out_off, cout, act,
+        static_cast<const float*>(xres), static_cast<const float*>(res),
+        seg_stride, seg_valid, seg_plant};
+    return conv_engine::direct::launch<DenseConv<float>, false>(
+        a, static_cast<cudaStream_t>(stream));
+  }
+  if (C % 8 || g4 % 8 || cin1 % 8 || cout % 8 || cout < 8 || out_off % 8 ||
+      ostride % 8)
     return (int)cudaErrorInvalidValue;
   const DenseConv<bf16> a{
       static_cast<const bf16*>(x), static_cast<const bf16*>(ws), B, H, W, C,

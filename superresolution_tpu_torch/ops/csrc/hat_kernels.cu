@@ -12,14 +12,16 @@
 //      Pallas kernel masks by hand (_cab_kernel's mask(ln, 0)).
 //   8 fused_hab_block  (replaces ops/pallas_hab.py: fused_hab_block /
 //      fused_hab_block_inference, _fused_fwd_impl / _kernel / _body):
-//      hab_kernel<..., false>, one thread block per window. LN1 -> qkv ->
-//      per head softmax(q k^T hd^-1/2 + rpb[h] (+ -1e9 where region ids
-//      differ)) v -> proj -> x1 = x + proj + cab -> LN2 -> fc1 -> exact
-//      GELU -> fc2 -> x1 + o, with every intermediate in shared memory and
-//      the weights read through L1/L2. Templated on (C, heads, tokens n,
-//      MLP hidden), instantiated for (96, 6, 64, 192), (96, 6, 256, 192),
-//      (120, 6, 256, 240) and the lane-padded (128, 8, 64, 192): 8x8 and
-//      16x16 windows, head dim 16 and 20. Both LNs divide by c_real.
+//      hab_kernel<..., false>, one thread block per window. LN1 ->
+//      qkv -> per head softmax(q k^T hd^-1/2 + rpb[h] (+ -1e9 where region
+//      ids differ)) v -> proj -> x1 = x + proj + cab -> LN2 -> fc1 -> exact
+//      GELU -> fc2 -> x1 + o, with every intermediate in shared memory.
+//      The four GEMMs (qkv, proj, fc1, fc2) and the attention run on the
+//      tensor cores (gemm_tc, attend_tc; see "The tensor-core body"
+//      below). Templated on (C, heads, tokens n, MLP hidden), instantiated
+//      for (96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240) and the
+//      lane-padded (128, 8, 64, 192): 8x8 and 16x16 windows, head dim 16
+//      and 20. Both LNs divide by c_real.
 //  11 strip_hab_block  (replaces ops/pallas_hab_strip.py: strip_hab_block,
 //      _kernel): the same body, hab_kernel<..., true>, reading its window
 //      straight from the spatial maps x, cab_y [B,H,W,C] and writing the
@@ -49,17 +51,18 @@
 //      columns the pair reads: Hopper's form of the reference's 2-column
 //      phase packing, which exists to fill the MXU. Nothing but x and the
 //      output crosses device memory.
-//   (Kernel 9, the OCAB's gathered attention, is in attn_kernels.cu: it
-//      shares kernel 10's attention body.)
+//   (Kernel 9, the OCAB's gathered attention, is in oca_kernels.cu: it
+//      shares kernel 10's FlashAttention-2 body, flash_tc.cuh, whose
+//      online softmax kernels 8 and 11 take too.)
 //
 // Kernel 8's shared memory: at n 256 a whole window's five [n, C+8] bf16
 // tiles would take 266 KB (C 96) or 328 KB (C 120), beyond the 227 KB a
 // block may have. So the block first computes LN1 and k, v of all n
 // tokens, 64 rows at a time, into [n, C+8] K and V tiles that stay for
-// the block's life (131 KB at n 256, C 120); then for each tile of 64
+// the block's life (132 KB at n 256, C 120); then for each tile of 64
 // query rows it recomputes LN1, computes q, attends over all n keys with
-// an online softmax (the keys in steps of KC per lane: no lane holds more
-// than KC logits), and runs proj, LN2 and the MLP on the tile. The
+// an online softmax in 32-key tiles, and runs proj, LN2 and the MLP on
+// the tile. The
 // recomputed LN1 costs 2% of the block's operations. Rows of C = 120
 // (head dim 20) are not a multiple of 32 lanes: the LN and product loops
 // mask the columns past C, and a head's columns are read as bf16 pairs
@@ -68,11 +71,28 @@
 // attend uniformly over zero values and write exactly zero, and every pad
 // lane of the output stays zero (zero weights, biases and LN parameters).
 //
+// The tensor-core body (kernels 8 and 11). The same layout of work and
+// one pass over memory: each GEMM's A operand is the block's shared tile
+// (LN1 out, the attention out, LN2 out, the GELU hidden; ldmatrix), its
+// B operand the dense kernel packed once by the model in mma.sync's
+// fragment order (ops/hab.mma_weights), one 8-byte load a lane and
+// fragment through L1, which all the blocks share; mma.sync m16n8k16 with
+// f32 sums, 8 warps as 2 x 32 rows by 4 column groups. The weights are
+// not staged in shared memory: at (120, 6, 256, 240) the block's tiles
+// take 219 KB of the 227 KB a block may have. The values are stored
+// transposed ([C + 8][n + 8]), so P V's B fragments are 4-byte loads; the
+// attention is flash_tc.cuh's online softmax over 32-key tiles with the
+// rpb and the Swin mask added to the logits in f32 (attend_tc). Row
+// strides of C + 8 (C + 16 at C 120) keep a fragment's 8 rows on
+// distinct banks; at C 120 the K of the GEMMs pads to 128 with zero
+// columns of the A tiles and zero rows of the packed weights. LN and GELU
+// stay on the CUDA cores.
+//
 // Rounding follows the reference: f32 accumulation and f32 softmax; bf16
 // stores of LN outputs, q, k, v, the probabilities, the attention output,
 // proj, x1, the MLP hidden and o. The probabilities are rounded before
 // the online softmax's final normalisation. The -1e9 mask underflows to
-// exactly 0 in expf.
+// exactly 0 (2^x of -1e9 log2 e).
 //
 // Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s; ridge ~295 FLOP/B):
 // the HAB does C (3C + C + 2 MLP) + 2 n C MACs per token for 6 C bytes
@@ -80,36 +100,40 @@
 // FLOP/B, and more at n 256; kernel 11 the same; the CAB (kernels 7 and
 // 12) 55,296 MACs per pixel for 384 bytes at C 96, 288 FLOP/B. All sit at
 // or near the ridge, so a fast form needs both the tensor cores and one
-// pass over memory. These first forms run every product on the CUDA
+// pass over memory. Kernels 7 and 12 run every product on the CUDA
 // cores in f32 FMA (67 TFLOP/s peak), so they can reach at most ~7% of
-// the operation bound; they do keep the one pass: kernels 8 and 11 read
-// each activation once and write each output once, kernel 12 reads x and
-// writes the output only, and kernel 7 writes LN(x) and its hidden map
-// besides.
+// the operation bound; every form keeps the one pass: kernels 8 and 11
+// read each activation once and write each output once, kernel 12 reads
+// x and writes the output only, and kernel 7 writes LN(x) and its hidden
+// map besides.
 //
 // Planted faults (`plant`, a bit mask; 0 in use) let a check show it sees
 // what it holds: kernel 11 PLANT_CLAMP (x and cab_y read at coordinates
 // clamped to the map instead of wrapped), PLANT_NO_SE (cab_y unscaled),
-// PLANT_NO_MASK (no region mask); kernel 12 PLANT_HID_BORDER (the hidden
-// map not zeroed outside the image), PLANT_SWAP_PAIR (the two pixels of a
-// pair swapped).
+// PLANT_NO_MASK (no region mask); kernels 8 and 11 PLANT_SKIP_SLAB (the
+// first k-step, 16 input channels, of the q, k and v GEMMs skipped),
+// PLANT_NO_LN2 (fc1 fed x1 in place of LN2(x1)); kernel 12
+// PLANT_HID_BORDER (the hidden map not zeroed outside the image),
+// PLANT_SWAP_PAIR (the two pixels of a pair swapped).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+namespace ce = conv_engine;
 
 constexpr float kEps = 1e-5f;
-constexpr float kNeg = -1e9f;
 constexpr int NT = 256;         // threads per block
-constexpr int RT = 64;          // rows per tile of kernel 8 (4 lanes a row)
-constexpr int KC = 8;           // keys a lane takes per online-softmax step
+constexpr int RT = 64;          // rows per tile of kernel 8
 
 enum {
   PLANT_CLAMP = 1, PLANT_NO_SE = 2, PLANT_NO_MASK = 4,   // kernel 11
+  PLANT_SKIP_SLAB = 8, PLANT_NO_LN2 = 16,                // kernels 8, 11
   PLANT_HID_BORDER = 1, PLANT_SWAP_PAIR = 2,             // kernel 12
 };
 
@@ -185,135 +209,6 @@ __device__ void ln_rows(const bf16* in, bf16* out, int lda, int rows,
   }
 }
 
-// [RT, K] (smem, row stride lda) @ [K, N] (global, row stride LDW) with
-// f32 accumulation. Warp w owns rows 8w..8w+7 and lane l the columns
-// l + 32j (masked past N), so a warp reads 32 consecutive weights per row
-// of W and one broadcast A value per row. epi(row, col, acc) sees every
-// output once.
-template <int K, int N, int LDW, typename Epi>
-__device__ __forceinline__ void gemm_rows(const bf16* A, int lda,
-                                          const bf16* __restrict__ W,
-                                          Epi epi) {
-  constexpr int RM = RT / (NT / 32);
-  constexpr int NJ = (N + 31) / 32;
-  static_assert(K % 2 == 0, "gemm_rows: K must be even");
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * RM;
-  float acc[RM][NJ];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 2) {
-    float2 av[RM];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-      av[r] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          A + (r0 + r) * lda + k));
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = lane + 32 * j;
-      const float w0 = col < N ? f(W[k * LDW + col]) : 0.f;
-      const float w1 = col < N ? f(W[(k + 1) * LDW + col]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        acc[r][j] = fmaf(av[r].x, w0, acc[r][j]);
-        acc[r][j] = fmaf(av[r].y, w1, acc[r][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (lane + 32 * j < N) epi(r0 + r, lane + 32 * j, acc[r][j]);
-}
-
-// One head (columns c0..c0+HD) of softmax attention for the tile's RT
-// query rows (qs) over NK keys (ks, vs), all bf16 smem tiles of row
-// stride lda. Row i = tid / 4 is held by four lanes; lane g takes the
-// keys g, g + 4, ... in steps of KC with an online softmax (f32 logits,
-// running max and sum, probabilities rounded to bf16 before the product
-// with v); the four lanes merge and lane g stores head dims
-// g*HD/4 .. (g+1)*HD/4 - 1 of the row into outs.
-template <int HD, int NK, typename Bias>
-__device__ __forceinline__ void attend_rows(const bf16* qs, const bf16* ks,
-                                            const bf16* vs, int lda, int c0,
-                                            float scale, Bias bias,
-                                            bf16* outs) {
-  static_assert(HD % 4 == 0, "head dim");
-  const int i = threadIdx.x >> 2, g = threadIdx.x & 3;
-  float q[HD];
-#pragma unroll
-  for (int d = 0; d < HD; d += 2) {
-    const float2 t = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(qs + i * lda + c0 + d));
-    q[d] = t.x;
-    q[d + 1] = t.y;
-  }
-  float mx = __int_as_float(0xff800000);  // -inf
-  float l = 0.f;
-  float o[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) o[d] = 0.f;
-  for (int j0 = g; j0 < NK; j0 += 4 * KC) {
-    float s[KC];
-    float cm = __int_as_float(0xff800000);
-#pragma unroll
-    for (int u = 0; u < KC; ++u) {
-      const int j = j0 + 4 * u;
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 2) {
-        const float2 t = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ks + j * lda + c0 + d));
-        acc = fmaf(q[d], t.x, acc);
-        acc = fmaf(q[d + 1], t.y, acc);
-      }
-      s[u] = acc * scale + bias(i, j);
-      cm = fmaxf(cm, s[u]);
-    }
-    const float mn = fmaxf(mx, cm);
-    const float corr = expf(mx - mn);  // 0 on the first step
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) o[d] *= corr;
-#pragma unroll
-    for (int u = 0; u < KC; ++u) {
-      const int j = j0 + 4 * u;
-      const float p = expf(s[u] - mn);
-      l += p;
-      const float pr = rbf(p);
-#pragma unroll
-      for (int d = 0; d < HD; d += 2) {
-        const float2 t = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + j * lda + c0 + d));
-        o[d] = fmaf(pr, t.x, o[d]);
-        o[d + 1] = fmaf(pr, t.y, o[d + 1]);
-      }
-    }
-    mx = mn;
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-    const float mn = fmaxf(mx, mo);
-    const float fa = expf(mx - mn), fb = expf(mo - mn);
-    l = l * fa + lo * fb;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      const float od = __shfl_xor_sync(0xffffffffu, o[d], off);
-      o[d] = o[d] * fa + od * fb;
-    }
-    mx = mn;
-  }
-#pragma unroll
-  for (int d = 0; d < HD; ++d)
-    if (d / (HD / 4) == g) outs[i * lda + c0 + d] = __float2bfloat16(o[d] / l);
-}
-
 // Copy rows pix[0..rows) (each C contiguous bf16 at src + pix * C) into a
 // padded smem tile.
 template <int C>
@@ -327,6 +222,174 @@ __device__ __forceinline__ void load_tile(bf16* dst, int lda, const bf16* src,
   }
 }
 
+// ---- the tensor-core pieces of kernels 8 and 11 ----------------------
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// [RT, K] (smem, row stride lda; columns K .. 16 KS zero) @ W on the tensor
+// cores (mma.sync m16n8k16, bf16 in, f32 sums). W is packed in fragment
+// order (ops/hab.mma_weights): [KS k-steps][NFT 8-column fragments][32
+// lanes] uint2, lane 4 g + t holding the B fragment {W[16 ks + 2 t + e][8 j
+// + g], W[16 ks + 8 + 2 t + e][8 j + g]}, so each fragment is one 8-byte
+// load through L1 (the weights are the same for every block). The output
+// is fragments j0 .. j0 + NF - 1. 8 warps: 2 of 32 rows (A by ldmatrix
+// from the tile) x 4 warp columns, warp column wn taking fragments j0 + wn
+// + 4 i, at most 4 a pass. The k-steps start at `first` (0; 1 is a
+// planted fault). epi(row, col, acc), col counted from 8 j0, sees every
+// output once.
+template <int KS, int NF, int NFT, typename Epi>
+__device__ __forceinline__ void gemm_tc(const bf16* A, int lda,
+                                        const uint2* __restrict__ W, int j0,
+                                        int first, Epi epi) {
+  constexpr int WN = 4, PER = (NF + WN - 1) / WN, NJ = PER < 4 ? PER : 4;
+  static_assert(RT == 64 && NT == 256, "2 x 4 warps of 32 rows");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / WN, wn = warp % WN;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t a_base = ce::smem_u32(A + (wm * 32 + (lane & 15)) * lda +
+                                       (lane >> 4) * 8);
+  const uint32_t a_frag = 16 * lda * 2;  // bytes between the 2 M fragments
+#pragma unroll
+  for (int i0 = 0; i0 < PER; i0 += NJ) {
+    float acc[2][NJ][4];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[f][jj][e] = 0.f;
+#pragma unroll 2
+    for (int ks = first; ks < KS; ++ks) {
+      uint32_t af[2][4];
+      ce::ldmatrix_x4(af[0], a_base + ks * 32);
+      ce::ldmatrix_x4(af[1], a_base + a_frag + ks * 32);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int j = wn + WN * (i0 + jj);
+        if (j < NF) {
+          const uint2 bw = __ldg(W + ((size_t)ks * NFT + j0 + j) * 32 + lane);
+          ce::mma_bf16(acc[0][jj], af[0], bw.x, bw.y);
+          ce::mma_bf16(acc[1][jj], af[1], bw.x, bw.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int j = wn + WN * (i0 + jj);
+      if (j >= NF) continue;
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          epi(wm * 32 + f * 16 + g + 8 * (e >> 1), 8 * j + 2 * t + (e & 1),
+              acc[f][jj][e]);
+    }
+  }
+}
+
+// Softmax attention of the tile's RT query rows (qs [RT][lda], rows t0 ..
+// of the window) over NK keys (ks [NK][lda], the values transposed in vt
+// [C + 8][ldv]), every head, on the tensor cores: warp w takes query tile
+// w % 4 of heads w / 4, w / 4 + 2, ...; per head and query tile S = Q K^T
+// by mma.sync (an m16n8k8 step over head dim 20's last 4 columns, the
+// lanes past them loading zero), the logit in log2 units (S hd^-1/2 +
+// rpb) log2 e, -1e9 log2 e where the region ids differ, then the online
+// softmax and O += P V of flash_tc.cuh (P rounded to bf16), over tiles of
+// 32 keys; every fragment a 4-byte load (head dim 20's heads start at
+// 40-byte offsets, which ldmatrix does not take). O / row sum is stored
+// in bf16 into outs [RT][lda]. no_mask: a planted fault.
+template <int C, int NH, int NK>
+__device__ __forceinline__ void attend_tc(const bf16* qs, const bf16* ks,
+                                          const bf16* vt, int lda, int ldv,
+                                          int t0, float scale_log2,
+                                          const float* __restrict__ rpb,
+                                          const int* ids, bool masked,
+                                          bf16* outs) {
+  constexpr int HD = C / NH, DT = (HD + 7) / 8, KT = 32, NTK = KT / 8;
+  static_assert(NH % 2 == 0 && RT == 64 && NT == 256, "8 warps, 4 tiles");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16 + g;  // this lane's rows r0, r0 + 8
+  for (int h = warp >> 2; h < NH; h += 2) {
+    const bf16* qh = qs + h * HD + 2 * t;
+    uint32_t qa[4], qb[2] = {0u, 0u};
+    qa[0] = ld32(qh + r0 * lda);
+    qa[1] = ld32(qh + (r0 + 8) * lda);
+    qa[2] = ld32(qh + r0 * lda + 8);
+    qa[3] = ld32(qh + (r0 + 8) * lda + 8);
+    if (HD > 16 && t < (HD - 16) / 2) {
+      qb[0] = ld32(qh + r0 * lda + 16);
+      qb[1] = ld32(qh + (r0 + 8) * lda + 16);
+    }
+    const int id_r[2] = {masked ? ids[t0 + r0] : 0,
+                         masked ? ids[t0 + r0 + 8] : 0};
+    const float* brow = rpb + ((size_t)h * NK + t0 + r0) * NK + 2 * t;
+    float o[DT][4], mx[2], sum[2];
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+    mx[0] = mx[1] = flash_tc::neg_inf();
+    sum[0] = sum[1] = 0.f;
+    for (int kt = 0; kt < NK; kt += KT) {
+      float s[NTK][4];
+#pragma unroll
+      for (int n = 0; n < NTK; ++n) {
+        const bf16* kr = ks + (kt + 8 * n + g) * lda + h * HD + 2 * t;
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        ce::mma_bf16(s[n], qa, ld32(kr), ld32(kr + 8));
+        if (HD > 16)
+          ce::mma_bf16_k8(s[n], qb[0], qb[1],
+                          t < (HD - 16) / 2 ? ld32(kr + 16) : 0u);
+      }
+#pragma unroll
+      for (int n = 0; n < NTK; ++n) {
+        const int j = kt + 8 * n;  // + 2 t + (e & 1)
+        const float2 b0 = __ldg(reinterpret_cast<const float2*>(brow + j));
+        const float2 b1 =
+            __ldg(reinterpret_cast<const float2*>(brow + 8 * NK + j));
+        const float bb[4] = {b0.x, b0.y, b1.x, b1.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = (s[n][e] * scale_log2 + bb[e] * flash_tc::LOG2E);
+          if (masked && id_r[e >> 1] != ids[j + 2 * t + (e & 1)])
+            v += flash_tc::NEG_LOG2;
+          s[n][e] = v;
+        }
+      }
+      float tmax[2];
+      flash_tc::tile_max<NTK>(s, tmax);
+      flash_tc::online_softmax<NTK, DT>(s, tmax, mx, sum, o);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        uint32_t pa[4];
+        flash_tc::p_fragment<NTK>(s, kk, pa);
+#pragma unroll
+        for (int d = 0; d < DT; ++d) {
+          const bf16* vr = vt + (h * HD + 8 * d + g) * ldv + kt + 16 * kk +
+                           2 * t;
+          ce::mma_bf16(o[d], pa, ld32(vr), ld32(vr + 8));
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / flash_tc::quad_sum(sum[r]);
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        const int col = 8 * d + 2 * t;
+        if (col < HD)
+          *reinterpret_cast<__nv_bfloat162*>(outs + (r0 + 8 * r) * lda +
+                                             h * HD + col) =
+              __floats2bfloat162_rn(o[d][2 * r] * inv,
+                                    o[d][2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
 // ---- kernels 8 and 11: the HAB block body, one block per window --------
 struct HabArgs {
   const bf16* x;            // kernel 8: [nb, n, C] windows; 11: [B,H,W,C]
@@ -334,17 +397,17 @@ struct HabArgs {
   bf16* out;                // the same layout
   const float* ln1_s;       // [C]
   const float* ln1_b;
-  const bf16* wqkv;         // [C, 3C], columns q | k | v
+  const uint2* wqkv;        // [C, 3C], columns q | k | v, packed (below)
   const float* bqkv;        // [3C]
   const float* rpb;         // [heads, n, n]
-  const bf16* wp;           // [C, C]
+  const uint2* wp;          // [C, C], packed
   const float* bp;
   const float* ln2_s;
   const float* ln2_b;
-  const bf16* w1;           // [C, MLP]
+  const uint2* w1;          // [C, MLP], packed
   const float* b1;
-  const bf16* w2;           // [MLP, C]
-  const float* b2;
+  const uint2* w2;          // [MLP, C], packed: the dense kernels in
+  const float* b2;          // mma.sync's fragment order (ops/hab.mma_weights)
   const int* ids;           // kernel 8: [nw_img, n] region ids, or null
   int nw_img;
   float scale;              // head_dim ** -0.5
@@ -354,10 +417,21 @@ struct HabArgs {
   int H, W, shift, plant;
 };
 
+// Row strides (bf16) of the [*, C] tiles: C + 8, or C + 16 where C + 8
+// rows would put a fragment's 8 rows on one bank (C 120); of the
+// transposed values: N + 8.
+template <int C>
+__host__ __device__ constexpr int hab_lda() {
+  return (C + 8) % 64 == 0 ? C + 16 : C + 8;
+}
+
+// ks [N][LDA], the values transposed vt [C + 8][N + 8], xs, ys, qs
+// [RT][LDA], hs [RT][MLP + 8], 3 N ints.
 template <int C, int N, int MLP>
 constexpr size_t hab_smem() {
-  return (size_t)(2 * N * (C + 8) + 3 * RT * (C + 8) + RT * (MLP + 8)) *
-             sizeof(bf16) +
+  constexpr size_t lda = hab_lda<C>();
+  return (N * lda + (size_t)(C + 8) * (N + 8) + 3 * RT * lda +
+          RT * (MLP + 8)) * sizeof(bf16) +
          3 * N * sizeof(int);
 }
 
@@ -366,16 +440,18 @@ __device__ __forceinline__ int region(int v, int len, int ws, int shift) {
 }
 
 template <int C, int NH, int N, int MLP, bool STRIP>
-__global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
-  constexpr int LDA = C + 8;      // smem row stride (bf16) of [*, C] tiles
+__global__ void __launch_bounds__(NT, 1) hab_kernel(const HabArgs a) {
+  constexpr int LDA = hab_lda<C>();  // smem row stride of [*, C] tiles
   constexpr int LDH = MLP + 8;    // smem row stride of the MLP hidden tile
-  constexpr int HD = C / NH;
+  constexpr int LDV = N + 8;      // row stride of the transposed values
   constexpr int WS = N == 64 ? 8 : 16;
+  constexpr int KS_C = (C + 15) / 16, KS_M = MLP / 16;  // GEMM k-steps
   static_assert(N % RT == 0 && C % NH == 0 && WS * WS == N, "geometry");
+  static_assert(C % 8 == 0 && MLP % 16 == 0 && 16 * KS_C <= LDA, "widths");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [N, LDA] keys of the window
-  bf16* vs = ks + N * LDA;                   // [N, LDA] values
-  bf16* xs = vs + N * LDA;   // [RT, LDA] x of the tile, then x1
+  bf16* vs = ks + N * LDA;         // [C + 8, LDV] values, transposed
+  bf16* xs = vs + (C + 8) * LDV;   // [RT, LDA] x of the tile, then x1
   bf16* ys = xs + RT * LDA;  // LN1(x), then attention out, then LN2(x1)
   bf16* qs = ys + RT * LDA;  // q
   bf16* hs = qs + RT * LDA;  // [RT, LDH] MLP hidden
@@ -410,6 +486,13 @@ __global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
       if (masked) ids[t] = a.ids[(size_t)(blockIdx.x % a.nw_img) * N + t];
     }
   }
+  // ys's columns past C (the k-steps' zero pad) and vt's pad rows (read
+  // only into output columns that are dropped)
+  for (int e = threadIdx.x; e < RT * (LDA - C); e += NT)
+    ys[(e / (LDA - C)) * LDA + C + e % (LDA - C)] = __float2bfloat16(0.f);
+  for (int e = threadIdx.x; e < 8 * LDV; e += NT)
+    vs[C * LDV + e] = __float2bfloat16(0.f);
+  const int skip = (a.plant & PLANT_SKIP_SLAB) ? 1 : 0;  // planted
   __syncthreads();
   // k and v of every token of the window
   for (int t0 = 0; t0 < N; t0 += RT) {
@@ -417,14 +500,14 @@ __global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
     __syncthreads();
     ln_rows<C>(xs, ys, LDA, RT, a.c_real, a.ln1_s, a.ln1_b);
     __syncthreads();
-#pragma unroll
-    for (int p = 1; p < 3; ++p) {
-      bf16* dst = p == 1 ? ks : vs;
-      gemm_rows<C, C, 3 * C>(ys, LDA, a.wqkv + p * C,
-                             [&](int r, int c, float acc) {
-        dst[(t0 + r) * LDA + c] = __float2bfloat16(acc + a.bqkv[p * C + c]);
-      });
-    }
+    gemm_tc<KS_C, C / 8, 3 * C / 8>(ys, LDA, a.wqkv, C / 8, skip,
+                                    [&](int r, int c, float acc) {
+      ks[(t0 + r) * LDA + c] = __float2bfloat16(acc + a.bqkv[C + c]);
+    });
+    gemm_tc<KS_C, C / 8, 3 * C / 8>(ys, LDA, a.wqkv, 2 * C / 8, skip,
+                                    [&](int r, int c, float acc) {
+      vs[c * LDV + t0 + r] = __float2bfloat16(acc + a.bqkv[2 * C + c]);
+    });
     __syncthreads();
   }
   // each tile of RT query rows through attention, proj and the MLP
@@ -433,36 +516,38 @@ __global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
     __syncthreads();
     ln_rows<C>(xs, ys, LDA, RT, a.c_real, a.ln1_s, a.ln1_b);
     __syncthreads();
-    gemm_rows<C, C, 3 * C>(ys, LDA, a.wqkv, [&](int r, int c, float acc) {
+    auto q_epi = [&](int r, int c, float acc) {
       qs[r * LDA + c] = __float2bfloat16(acc + a.bqkv[c]);
-    });
-    __syncthreads();
-    for (int h = 0; h < NH; ++h)
-      attend_rows<HD, N>(
-          qs, ks, vs, LDA, h * HD, a.scale,
-          [&](int i, int j) {
-            const float v = a.rpb[((size_t)h * N + t0 + i) * N + j];
-            return masked && ids[t0 + i] != ids[j] ? v + kNeg : v;
-          },
-          ys);
-    __syncthreads();
-    gemm_rows<C, C, C>(ys, LDA, a.wp, [&](int r, int c, float acc) {
+    };
+    auto proj_epi = [&](int r, int c, float acc) {
       const float t = rbf(f(xs[r * LDA + c]) + rbf(acc + a.bp[c]));
       float cv = f(a.cab[(size_t)rd[t0 + r] * C + c]);
       if (STRIP && !(a.plant & PLANT_NO_SE)) cv = rbf(cv * se[c]);
       xs[r * LDA + c] = __float2bfloat16(t + cv);
-    });
-    __syncthreads();
-    ln_rows<C>(xs, ys, LDA, RT, a.c_real, a.ln2_s, a.ln2_b);
-    __syncthreads();
-    gemm_rows<C, MLP, MLP>(ys, LDA, a.w1, [&](int r, int c, float acc) {
+    };
+    auto fc1_epi = [&](int r, int c, float acc) {
       hs[r * LDH + c] = __float2bfloat16(gelu_erf(acc + a.b1[c]));
-    });
-    __syncthreads();
-    gemm_rows<MLP, C, C>(hs, LDH, a.w2, [&](int r, int c, float acc) {
+    };
+    auto fc2_epi = [&](int r, int c, float acc) {
       a.out[(size_t)pix[t0 + r] * C + c] =
           __float2bfloat16(f(xs[r * LDA + c]) + rbf(acc + a.b2[c]));
-    });
+    };
+    gemm_tc<KS_C, C / 8, 3 * C / 8>(ys, LDA, a.wqkv, 0, skip, q_epi);
+    __syncthreads();
+    attend_tc<C, NH, N>(qs, ks, vs, LDA, LDV, t0, a.scale * flash_tc::LOG2E,
+                        a.rpb, ids, masked, ys);
+    __syncthreads();
+    gemm_tc<KS_C, C / 8, C / 8>(ys, LDA, a.wp, 0, 0, proj_epi);
+    __syncthreads();
+    if (a.plant & PLANT_NO_LN2)  // planted: fc1 reads x1, not LN2(x1)
+      for (int e = threadIdx.x; e < RT * C; e += NT)
+        ys[(e / C) * LDA + e % C] = xs[(e / C) * LDA + e % C];
+    else
+      ln_rows<C>(xs, ys, LDA, RT, a.c_real, a.ln2_s, a.ln2_b);
+    __syncthreads();
+    gemm_tc<KS_C, MLP / 8, MLP / 8>(ys, LDA, a.w1, 0, 0, fc1_epi);
+    __syncthreads();
+    gemm_tc<KS_M, C / 8, C / 8>(hs, LDH, a.w2, 0, 0, fc2_epi);
     __syncthreads();  // before the next tile overwrites xs and hs
   }
 }
@@ -470,9 +555,7 @@ __global__ void __launch_bounds__(NT) hab_kernel(const HabArgs a) {
 template <int C, int NH, int N, int MLP, bool STRIP>
 int launch_hab(const HabArgs& a, int nb, cudaStream_t stream) {
   constexpr size_t bytes = hab_smem<C, N, MLP>();
-  cudaError_t e = cudaFuncSetAttribute(
-      hab_kernel<C, NH, N, MLP, STRIP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t e = ce::allow_smem<hab_kernel<C, NH, N, MLP, STRIP>>(bytes);
   if (e != cudaSuccess) return (int)e;
   hab_kernel<C, NH, N, MLP, STRIP><<<nb, NT, bytes, stream>>>(a);
   return (int)cudaGetLastError();
@@ -503,16 +586,16 @@ HabArgs hab_args(const void* x, const void* cab, void* out,
   a.out = static_cast<bf16*>(out);
   a.ln1_s = static_cast<const float*>(w[0]);
   a.ln1_b = static_cast<const float*>(w[1]);
-  a.wqkv = static_cast<const bf16*>(w[2]);
+  a.wqkv = static_cast<const uint2*>(w[2]);
   a.bqkv = static_cast<const float*>(w[3]);
   a.rpb = static_cast<const float*>(w[4]);
-  a.wp = static_cast<const bf16*>(w[5]);
+  a.wp = static_cast<const uint2*>(w[5]);
   a.bp = static_cast<const float*>(w[6]);
   a.ln2_s = static_cast<const float*>(w[7]);
   a.ln2_b = static_cast<const float*>(w[8]);
-  a.w1 = static_cast<const bf16*>(w[9]);
+  a.w1 = static_cast<const uint2*>(w[9]);
   a.b1 = static_cast<const float*>(w[10]);
-  a.w2 = static_cast<const bf16*>(w[11]);
+  a.w2 = static_cast<const uint2*>(w[11]);
   a.b2 = static_cast<const float*>(w[12]);
   a.scale = scale;
   a.c_real = c_real;
@@ -703,23 +786,26 @@ int hat_layernorm(const void* x, int rows, int C, int c_real, const void* s,
   return (int)cudaGetLastError();
 }
 
-// Kernel 8. w: the 13 weights in the order of ops/_build.HAB_WEIGHTS.
+// Kernel 8. w: the 13 weights in the order of ops/_build.HAB_WEIGHTS, the
+// dense ones packed in fragment order (ops/hab.mma_weights). plant: 0 but
+// in the checks (PLANT_SKIP_SLAB, PLANT_NO_LN2).
 int hat_hab_block(const void* x, const void* cab, void* out, int nb, int C,
                   int nh, int n, int mlp, const void* const* w,
                   const void* ids, int nw_img, float scale, int c_real,
-                  void* stream) {
+                  int plant, void* stream) {
   if (nb < 1 || (ids && (nw_img <= 0 || nb % nw_img)) || c_real < 1 ||
       c_real > C)
     return (int)cudaErrorInvalidValue;
   HabArgs a = hab_args(x, cab, out, w, scale, c_real);
   a.ids = static_cast<const int*>(ids);
   a.nw_img = nw_img;
+  a.plant = plant;
   return dispatch_hab<false>(a, nb, C, nh, n, mlp,
                              static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 11 on the maps x, cab_y, out [B, H, W, C] and se [B, C] f32;
-// window ws (n = ws * ws), shift 0 or ws / 2.
+// window ws (n = ws * ws), shift 0 or ws / 2; w as hat_hab_block's.
 int hat_strip_hab(const void* x, const void* cab, const void* se, void* out,
                   int B, int H, int W, int C, int nh, int ws, int shift,
                   int mlp, const void* const* w, float scale, int plant,

@@ -21,7 +21,10 @@
 //   and the flipped weights are train_tc_kernels.cu's. This file keeps
 //   dense_scale_kernel, wgrad_reduce_kernel, and the f32 FFMA forms that
 //   other shapes take: the transposed convs through sr_kernels.cu's
-//   conv3x3_kernel and wgrad_kernel below.
+//   conv3x3_kernel and wgrad_kernel below. f32 activations (a model
+//   trained under precision "fp32") run the transposed convs on the conv
+//   engine's direct body (train_tc_kernels.cu DenseGradConv<float>), and
+//   wgrad_kernel, wgrad_reduce_kernel and dense_scale_kernel in f32.
 //     With `seg` (batch-packed rows, see sr_kernels.cu's B1) every conv
 //     launch above reads spacer rows as zero and writes them as 0, and
 //     the weight grads read them as zero in both staged inputs, so dx
@@ -59,13 +62,24 @@ constexpr int WG_CO = 32;       // output channels per block (8 quads)
 constexpr int WG_THREADS = 256; // 2 row halves x 16 ci x 8 co quads
 constexpr int WG_ACC = 9 * 4;   // accumulators per thread
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// T: bf16, or f32 for a model trained under precision "fp32".
+template <typename T>
 struct WgradArgs {
   // in_j = [in0 channels 0..cin0) | in1 channels 0..cin1)], NHWC.
-  const __nv_bfloat16* in0;
+  const T* in0;
   int in0_stride, cin0;
-  const __nv_bfloat16* in1;
+  const T* in1;
   int in1_stride, cin1;
-  const __nv_bfloat16* d;  // dpre_j: channel o at d[pix * d_stride + o]
+  const T* d;              // dpre_j: channel o at d[pix * d_stride + o]
   int d_stride, cout;
   int B, H, W;
   int seg_stride, seg_valid;  // batch-packed rows, as sr_kernels.cu's
@@ -76,7 +90,8 @@ struct WgradArgs {
   int nchunk;
 };
 
-__device__ __forceinline__ bool image_row(const WgradArgs& a, int y) {
+template <typename T>
+__device__ __forceinline__ bool image_row(const WgradArgs<T>& a, int y) {
   return a.seg_stride == 0 || y % a.seg_stride < a.seg_valid;
 }
 
@@ -85,7 +100,9 @@ __device__ __forceinline__ bool image_row(const WgradArgs& a, int y) {
 // halo (WG_CI channels) and dpre_j (WG_CO channels) in shared memory as
 // f32. A thread owns one input channel, four output channels and all 9
 // taps, over half the tile's rows; the halves are summed at the end.
-__global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS)
+    wgrad_kernel(const WgradArgs<T> a) {
   __shared__ float in_s[WG_CI][WG_TH + 2][WG_TW + 2];
   __shared__ __align__(16) float d_s[WG_TH][WG_TW][WG_CO];
   __shared__ float red_s[WG_THREADS / 2][WG_ACC + 4];
@@ -125,8 +142,8 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
       if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && c < cin &&
           image_row(a, gy)) {
         const size_t p = ((size_t)b * a.H + gy) * a.W + gx;
-        v = __bfloat162float(c < a.cin0 ? a.in0[p * a.in0_stride + c]
-                                        : a.in1[p * a.in1_stride + c - a.cin0]);
+        v = to_f(c < a.cin0 ? a.in0[p * a.in0_stride + c]
+                            : a.in1[p * a.in1_stride + c - a.cin0]);
       }
       in_s[ci][py][px] = v;
     }
@@ -140,8 +157,7 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
       const int o = co0 + co;
       float v = 0.f;
       if (gy < a.H && gx < a.W && o < a.cout && image_row(a, gy))
-        v = __bfloat162float(
-            a.d[(((size_t)b * a.H + gy) * a.W + gx) * a.d_stride + o]);
+        v = to_f(a.d[(((size_t)b * a.H + gy) * a.W + gx) * a.d_stride + o]);
       d_s[py][px][co] = v;
     }
     __syncthreads();
@@ -201,17 +217,17 @@ __global__ void __launch_bounds__(WG_THREADS) wgrad_kernel(const WgradArgs a) {
 constexpr int RED_THREADS = 256;
 
 // dW[i] = sum over chunks k = 0..nchunk-1, in that order, of
-// part_w[k][i], cast to bf16; db likewise, kept in f32.
+// part_w[k][i], cast to dW's type T; db likewise, kept in f32.
+template <typename T>
 __global__ void __launch_bounds__(RED_THREADS)
     wgrad_reduce_kernel(const float* __restrict__ part_w, size_t nw,
                         const float* __restrict__ part_b, int cout, int nchunk,
-                        __nv_bfloat16* __restrict__ dw,
-                        float* __restrict__ db) {
+                        T* __restrict__ dw, float* __restrict__ db) {
   const size_t i = (size_t)blockIdx.x * RED_THREADS + threadIdx.x;
   if (i < nw) {
     float s = 0.f;
     for (int k = 0; k < nchunk; ++k) s += part_w[(size_t)k * nw + i];
-    dw[i] = __float2bfloat16(s);
+    store(dw + i, s);
   }
   if (part_b != nullptr && i < (size_t)cout) {
     float s = 0.f;
@@ -222,17 +238,16 @@ __global__ void __launch_bounds__(RED_THREADS)
 
 constexpr int EW_THREADS = 256;
 
-// out[p * out_stride + o] = bf16(scale * in[p * c + o]) for o < c.
+// out[p * out_stride + o] = T(scale * in[p * c + o]) for o < c.
+template <typename T>
 __global__ void __launch_bounds__(EW_THREADS)
-    dense_scale_kernel(const __nv_bfloat16* __restrict__ in, size_t npix,
-                       int c, float scale, __nv_bfloat16* __restrict__ out,
-                       int out_stride) {
+    dense_scale_kernel(const T* __restrict__ in, size_t npix, int c,
+                       float scale, T* __restrict__ out, int out_stride) {
   const size_t n = npix * c;
   for (size_t i = (size_t)blockIdx.x * EW_THREADS + threadIdx.x; i < n;
        i += (size_t)gridDim.x * EW_THREADS) {
     const size_t p = i / c;
-    out[p * out_stride + i % c] =
-        __float2bfloat16(scale * __bfloat162float(in[i]));
+    store(out + p * out_stride + i % c, scale * to_f(in[i]));
   }
 }
 
@@ -298,6 +313,44 @@ unsigned grid_for(size_t n, int threads, unsigned cap) {
   return (unsigned)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
 
+// wgrad_kernel's partials, then wgrad_reduce_kernel (train_wgrad).
+template <typename T>
+int wgrad_launch(const void* in0, int in0_stride, int cin0, const void* in1,
+                 int in1_stride, int cin1, const void* d, int d_stride,
+                 int cout, int B, int H, int W, int seg_stride, int seg_valid,
+                 int nchunk, void* part, void* dw, void* db,
+                 cudaStream_t s) {
+  const int cin = cin0 + cin1;
+  const size_t nw = (size_t)9 * cin * cout;
+  WgradArgs<T> a;
+  a.in0 = static_cast<const T*>(in0);
+  a.in0_stride = in0_stride;
+  a.cin0 = cin0;
+  a.in1 = static_cast<const T*>(in1);
+  a.in1_stride = in1_stride;
+  a.cin1 = cin1;
+  a.d = static_cast<const T*>(d);
+  a.d_stride = d_stride;
+  a.cout = cout;
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.seg_stride = seg_stride;
+  a.seg_valid = seg_valid;
+  a.part_w = static_cast<float*>(part);
+  a.part_b = db ? a.part_w + (size_t)nchunk * nw : nullptr;
+  a.nchunk = nchunk;
+  const dim3 grid(nchunk, (cin + WG_CI - 1) / WG_CI, (cout + WG_CO - 1) / WG_CO);
+  wgrad_kernel<T><<<grid, WG_THREADS, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  wgrad_reduce_kernel<T><<<(unsigned)((nw + RED_THREADS - 1) / RED_THREADS),
+                           RED_THREADS, 0, s>>>(a.part_w, nw, a.part_b, cout,
+                                                nchunk, static_cast<T*>(dw),
+                                                static_cast<float*>(db));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,12 +396,19 @@ int train_wgrad_reduce(const void* part, size_t nw, int cout, int nchunk,
   return (int)cudaGetLastError();
 }
 
+// f32 != 0: in and out f32, else bf16.
 int train_dense_scale(const void* in, size_t npix, int c, float scale,
-                      void* out, int out_stride, void* stream) {
-  dense_scale_kernel<<<grid_for(npix * c, EW_THREADS, 4224), EW_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(in), npix, c, scale,
-      static_cast<__nv_bfloat16*>(out), out_stride);
+                      void* out, int out_stride, int f32, void* stream) {
+  const unsigned blocks = grid_for(npix * c, EW_THREADS, 4224);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32)
+    dense_scale_kernel<<<blocks, EW_THREADS, 0, s>>>(
+        static_cast<const float*>(in), npix, c, scale,
+        static_cast<float*>(out), out_stride);
+  else
+    dense_scale_kernel<<<blocks, EW_THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(in), npix, c, scale,
+        static_cast<__nv_bfloat16*>(out), out_stride);
   return (int)cudaGetLastError();
 }
 
@@ -362,47 +422,24 @@ int train_wgrad_chunks(int B, int H, int W, int cin, int cout) {
   return n < 1 ? 1 : n;
 }
 
-// dW [3,3,cin0+cin1,cout] bf16 and, when db is not
-// null, db [cout] f32, over the chunks' partials in `part` (f32, at least
-// nchunk * (9 * cin * cout + cout) floats).
+// dW [3,3,cin0+cin1,cout] and, when db is not null, db [cout] f32, over
+// the chunks' partials in `part` (f32, at least nchunk * (9 * cin * cout
+// + cout) floats); the activations and dW bf16 or, with f32 != 0, f32.
 int train_wgrad(const void* in0, int in0_stride, int cin0, const void* in1,
                 int in1_stride, int cin1, const void* d, int d_stride,
                 int cout, int B, int H, int W, int seg_stride,
                 int seg_valid, int nchunk, void* part, void* dw, void* db,
-                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cin = cin0 + cin1;
-  const size_t nw = (size_t)9 * cin * cout;
-  WgradArgs a;
-  a.in0 = static_cast<const __nv_bfloat16*>(in0);
-  a.in0_stride = in0_stride;
-  a.cin0 = cin0;
-  a.in1 = static_cast<const __nv_bfloat16*>(in1);
-  a.in1_stride = in1_stride;
-  a.cin1 = cin1;
-  a.d = static_cast<const __nv_bfloat16*>(d);
-  a.d_stride = d_stride;
-  a.cout = cout;
-  a.B = B;
-  a.H = H;
-  a.W = W;
-  a.seg_stride = seg_stride;
-  a.seg_valid = seg_valid;
+                int f32, void* stream) {
   if (seg_stride != 0 && (seg_valid < 1 || seg_valid > seg_stride))
     return (int)cudaErrorInvalidValue;
-  a.part_w = static_cast<float*>(part);
-  a.part_b = db ? a.part_w + (size_t)nchunk * nw : nullptr;
-  a.nchunk = nchunk;
-  const dim3 grid(nchunk, (cin + WG_CI - 1) / WG_CI, (cout + WG_CO - 1) / WG_CO);
-  wgrad_kernel<<<grid, WG_THREADS, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  wgrad_reduce_kernel<<<(unsigned)((nw + RED_THREADS - 1) / RED_THREADS),
-                        RED_THREADS, 0, s>>>(a.part_w, nw, a.part_b, cout,
-                                             nchunk,
-                                             static_cast<__nv_bfloat16*>(dw),
-                                             static_cast<float*>(db));
-  return (int)cudaGetLastError();
+  return f32 ? wgrad_launch<float>(in0, in0_stride, cin0, in1, in1_stride,
+                                   cin1, d, d_stride, cout, B, H, W,
+                                   seg_stride, seg_valid, nchunk, part, dw,
+                                   db, static_cast<cudaStream_t>(stream))
+             : wgrad_launch<__nv_bfloat16>(
+                   in0, in0_stride, cin0, in1, in1_stride, cin1, d, d_stride,
+                   cout, B, H, W, seg_stride, seg_valid, nchunk, part, dw, db,
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -52,17 +52,21 @@ namespace {
 
 using conv_engine::bf16;
 
-// The transposed conv of kernel 13 (see the file's header).
+// The transposed conv of kernel 13 (see the file's header). T is bf16 on
+// the tensor-core body; f32 (a model trained under precision "fp32")
+// runs the engine's direct body (direct::conv_kernel<DenseGradConv<
+// float>>, f32 FFMA: the members y0 .. put), the same function in f32.
+template <typename T>
 struct DenseGradConv {
-  const bf16* d;       // [B,H,W,dstr]: logical channels [0, n_in) of D
+  const T* d;          // [B,H,W,dstr]: logical channels [0, n_in) of D
   int B, H, W, dstr, n_in;
-  const bf16* wk;      // [9 * n_in][ldw], ldw = n
+  const T* wk;         // [9 * n_in][ldw], ldw = n
   int ldw;
-  bf16* out;           // [B,H,W,ostride], channels out_off ..
+  T* out;              // [B,H,W,ostride], channels out_off ..
   int ostride, out_off, n;
-  const bf16* gate;    // or null: v = gate > 0 ? v : 0.2 v
+  const T* gate;       // or null: v = gate > 0 ? v : 0.2 v
   int gstride;
-  const bf16* add;     // or null: v = v + add_scale * add
+  const T* add;        // or null: v = v + add_scale * add
   int astride;
   float add_scale;
   int seg_stride, seg_valid, seg_plant;
@@ -105,6 +109,29 @@ struct DenseGradConv {
       v0 += add_scale * r.x, v1 += add_scale * r.y;
     }
     return make_float2(v0, v1);
+  }
+  // The direct body (f32): the same input, gate, add and spacer rows, one
+  // channel at a time.
+  __host__ __device__ int y0() const { return 0; }
+  __host__ __device__ int x0() const { return 0; }
+  __device__ __forceinline__ float load(int b, int y, int xx, int c) const {
+    if (y < 0 || y >= H || xx < 0 || xx >= W || !image_row(y)) return 0.f;
+    return conv_engine::to_f(d[pix(b, y, xx) * dstr + c]);
+  }
+  __device__ __forceinline__ float weight(int tap, int c, int o) const {
+    return conv_engine::to_f(wk[((size_t)tap * n_in + c) * ldw + o]);
+  }
+  __device__ __forceinline__ void put(int b, int y, int xx, int o,
+                                      float v) const {
+    const size_t p = pix(b, y, xx);
+    if (!image_row(y) && !seg_plant) {
+      v = 0.f;
+    } else {
+      if (gate != nullptr && !(conv_engine::to_f(gate[p * gstride + o]) > 0.f))
+        v *= 0.2f;
+      if (add != nullptr) v += add_scale * conv_engine::to_f(add[p * astride + o]);
+    }
+    conv_engine::store(out + p * ostride + out_off + o, v);
   }
   // One bulk copy per pixel of the tile: its min(BN, n - n0) channels at
   // channel out_off + n0 (n, out_off, ostride multiples of 8).
@@ -361,20 +388,33 @@ int train_wgrad_reduce(const void* part, size_t nw, int cout, int nchunk,
 // out_off:out_off + n] = epilogue(conv3x3_SAME(d[..., :n_in], wk)) with
 // the lrelu' gate of `gate` (channel stride gstride, or null) and then +
 // add_scale * add (stride astride, or null). d [B,H,W,dstr], out
-// [B,H,W,ostride], all bf16; wk the K-major [9 * n_in][n] bf16. Returns
-// the cudaError_t of the launch (0 on success).
+// [B,H,W,ostride], gate, add and wk the K-major [9 * n_in][n], all bf16
+// (the tensor-core body) or, with f32 != 0, all f32 (the direct body).
+// Returns the cudaError_t of the launch (0 on success).
 int train_grad_conv(const void* d, int B, int H, int W, int dstr, int n_in,
                     const void* wk, void* out, int ostride, int out_off,
                     int n, const void* gate, int gstride, const void* add,
                     int astride, float add_scale, int seg_stride,
-                    int seg_valid, int seg_plant, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || dstr % 8 || n_in % 8 || n_in > dstr ||
-      n % 8 || out_off % 8 || ostride % 8 || out_off + n > ostride ||
-      (gate != nullptr && gstride % 2) || (add != nullptr && astride % 2) ||
+                    int seg_valid, int seg_plant, int f32, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || n_in < 1 || n_in > dstr || n < 1 ||
+      out_off < 0 || out_off + n > ostride ||
       (seg_stride != 0 && (seg_valid < 1 || seg_valid > seg_stride)))
     return (int)cudaErrorInvalidValue;
-  const DenseGradConv a{static_cast<const bf16*>(d), B, H, W, dstr, n_in,
-                        static_cast<const bf16*>(wk), n,
+  if (f32) {
+    const DenseGradConv<float> a{
+        static_cast<const float*>(d), B, H, W, dstr, n_in,
+        static_cast<const float*>(wk), n, static_cast<float*>(out), ostride,
+        out_off, n, static_cast<const float*>(gate), gstride,
+        static_cast<const float*>(add), astride, add_scale, seg_stride,
+        seg_valid, seg_plant};
+    return conv_engine::direct::launch<DenseGradConv<float>, false>(
+        a, static_cast<cudaStream_t>(stream));
+  }
+  if (dstr % 8 || n_in % 8 || n % 8 || out_off % 8 || ostride % 8 ||
+      (gate != nullptr && gstride % 2) || (add != nullptr && astride % 2))
+    return (int)cudaErrorInvalidValue;
+  const DenseGradConv<bf16> a{static_cast<const bf16*>(d), B, H, W, dstr,
+                        n_in, static_cast<const bf16*>(wk), n,
                         static_cast<bf16*>(out), ostride, out_off, n,
                         static_cast<const bf16*>(gate), gstride,
                         static_cast<const bf16*>(add), astride, add_scale,

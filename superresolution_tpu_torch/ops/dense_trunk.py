@@ -25,11 +25,12 @@ pallas_dense_trunk.py:19-27 records for a single border mask cannot
 arise). uses_tensor_cores is the route rule: bf16 with C and g multiples
 of 8 and C + 4g <= 256 (every model's 64 / 32) runs the conv engine's
 tensor-core body under the DenseConv policy (csrc/dense_kernels.cu, a
-bf16 implicit GEMM on mma.sync); any other shape the direct conv of
-csrc/sr_kernels.cu (f32 FFMA on the CUDA cores). Both compute the same
-function (f32 sums, bias and epilogue, one rounding), and each launch
-counts on `launches` and on its body's count (`tc_launches`,
-`direct_launches`).
+bf16 implicit GEMM on mma.sync); f32 activations (precision "fp32") the
+engine's direct body under the same policy (f32 FFMA, no rounding); any
+other bf16 shape the direct conv of csrc/sr_kernels.cu (f32 FFMA on the
+CUDA cores). All compute the same function (f32 sums, bias and
+epilogue, one rounding), and each launch counts on `launches` and on its
+body's count (`tc_launches`, `direct_launches`: the two direct forms).
 
 Bound on the H100 at the main-path shape x [24,376,256,64] bf16: 239,616
 MACs per pixel, 1.11 TFLOP per call -> 1.12 ms at 989 TFLOP/s, against
@@ -104,6 +105,14 @@ def uses_tensor_cores(x: torch.Tensor, c: int, g: int) -> bool:
             and c + 4 * g <= TC_MAX_CIN)
 
 
+def on_engine(x: torch.Tensor, c: int, g: int) -> bool:
+    """True where B1's launch goes to the conv engine (dense_kernels.cu
+    dense_conv): its tensor-core body (uses_tensor_cores) or, for f32
+    activations, its direct body; False for sr_kernels.cu's conv3x3
+    (bf16 shapes off the route rule)."""
+    return x.dtype == torch.float32 or uses_tensor_cores(x, c, g)
+
+
 def image_rows(h: int, seg: Seg | None,
                device: torch.device | str | None = None) -> torch.Tensor:
     """[h] bool: True on the image rows of an H = h map packed with `seg`
@@ -158,8 +167,8 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
                       workspace: torch.Tensor | None = None,
                       seg: Seg | None = None) -> torch.Tensor:
     """B1. CPU tensors run the plain version; CUDA tensors launch the
-    kernel (bf16 activations and kernels, f32 biases; the body
-    uses_tensor_cores picks) or raise. The
+    kernel (bf16 or f32 activations and kernels of one type, f32 biases;
+    the body uses_tensor_cores and the type pick) or raise. The
     kernel writes y_1..y_4 into `workspace` [B,H,W,4g] when one is given
     (so a check can read them), else into a fresh one. seg: (stride,
     valid) of a batch-packed x, or None."""
@@ -172,6 +181,7 @@ def fused_dense_block(x: torch.Tensor, weights: DenseWeights,
     b, h, w, c = x.shape
     g = weights[0][0].shape[-1]
     _build.require_cuda(x, residual, workspace, *(k for k, _ in weights),
+                        dtype=_build.activation_dtype(x, "fused_dense_block"),
                         name="fused_dense_block")
     _build.require_cuda(*(bb for _, bb in weights), dtype=torch.float32,
                         name="fused_dense_block")
@@ -212,8 +222,9 @@ def dense_block_launches(x: torch.Tensor, weights: DenseWeights,
     dense_features(x, weights, workspace, seg)
     k, bb = weights[4]
     n_ws = workspace.shape[-1]
-    tc = uses_tensor_cores(x, c, weights[0][0].shape[-1])
-    if tc:
+    g = weights[0][0].shape[-1]
+    tc = uses_tensor_cores(x, c, g)
+    if on_engine(x, c, g):
         _build.dense_conv(x, workspace, n_ws, k, bb, out, 0, xres=x,
                           res=residual, **seg_kw(seg))
     else:
@@ -246,8 +257,9 @@ def dense_features(x: torch.Tensor, weights: DenseWeights,
     b, h, w, c = x.shape
     g = weights[0][0].shape[-1]
     tc = uses_tensor_cores(x, c, g)
+    engine = on_engine(x, c, g)
     for j, (k, bb) in enumerate(weights[:4]):
-        if tc:
+        if engine:
             _build.dense_conv(x, workspace, j * g, k, bb, workspace, j * g,
                               lrelu=True, **seg_kw(seg))
         else:

@@ -35,8 +35,11 @@ body: at the models' widths (bf16, C and g multiples of 8, C + 4g <=
 256) the flipped weights are one launch, the five transposed convs run
 the conv engine's tensor-core body under DenseGradConv and the weight
 grads wgrad_tc_kernel (csrc/train_tc_kernels.cu, bf16 mma.sync, f32
-sums), 17 launches of its own; other shapes run sr_kernels.cu's direct
-conv and train_kernels.cu's wgrad_kernel (f32 FFMA), 16 launches.
+sums), 17 launches of its own; f32 activations (precision "fp32") run
+the transposed convs on the engine's direct body under DenseGradConv
+and train_kernels.cu's wgrad_kernel, both in f32 (f32 FFMA), 16
+launches; other bf16 shapes run sr_kernels.cu's direct conv and
+wgrad_kernel, 16 launches.
 
 Bound on the H100 at hybrid_astro's [4,128,128,64] (c 64, g 32): the
 transposed convs and the weight grads each do the forward's 239,616 MACs
@@ -123,14 +126,17 @@ def flipped_launch(weights: DenseWeights) -> dict:
 def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
                          residual: torch.Tensor | None, dout: torch.Tensor,
                          seg: Seg | None = None):
-    """Kernel 13 on CUDA tensors (bf16 activations and kernels, f32
-    biases) -> (dx, [(dW_j, db_j)] * 5, dres or None). Raises on others.
-    seg: (stride, valid) of a batch-packed x, or None."""
+    """Kernel 13 on CUDA tensors (bf16 or f32 activations and kernels of
+    one type, f32 biases) -> (dx, [(dW_j, db_j)] * 5, dres or None).
+    Raises on others. seg: (stride, valid) of a batch-packed x, or
+    None."""
     check_seg(seg)
     b, h, w, c = x.shape
     g = weights[0][0].shape[-1]
-    _build.require_cuda(x, residual, dout, *(k for k, _ in weights),
-                        name="dense_block_backward")
+    _build.require_cuda(
+        x, residual, dout, *(k for k, _ in weights),
+        dtype=_build.activation_dtype(x, "dense_block_backward"),
+        name="dense_block_backward")
     _build.require_cuda(*(bb for _, bb in weights), dtype=torch.float32,
                         name="dense_block_backward")
     if dout.shape != x.shape or (residual is not None
@@ -150,8 +156,9 @@ def dense_block_backward(x: torch.Tensor, weights: DenseWeights,
     d = torch.empty((b, h, w, 4 * g + c), dtype=x.dtype, device=x.device)
     _build.dense_scale(dout, s_acc, d)
     dx = torch.empty_like(x)
-    if tc:
-        wt = flipped_launch(weights)
+    if tc or x.dtype == torch.float32:  # the engine: tensor cores or f32
+        wt = (flipped_launch(weights) if tc else
+              {i: flipped_weights(weights, i) for i in FLIP_SOURCES})
         for i in (4, 3, 2, 1):
             n_in = c + (4 - i) * g
             _build.grad_conv(d, n_in, wt[i], d, n_in, gate=y,

@@ -12,11 +12,12 @@ key and value maps [B, H+(ows-ws), W+(ows-ws), C] whose corner is at
 The maps are zero-padded after the kv dense, so the padded keys are
 zero vectors whose logits are the bias alone; they take part in the
 softmax and are not masked. On the card this is one launch of
-oca_kernel (csrc/oca_kernels.cu): FlashAttention-2 on the tensor cores
-(mma.sync), one block for 64 queries of a window and all heads, the
-window's key and value patch streamed from the maps through a ring of
-key tiles in shared memory, so the gathered [nb, ows*ows, C] tensor of
-the plain version is never written.
+flash_tc.cuh's body (csrc/oca_kernels.cu; kernel 10 shares it):
+FlashAttention-2 on the tensor cores (mma.sync), one block for 64
+queries of a window and all heads, the window's key and value patch
+streamed from the maps through a ring of key tiles in shared memory, so
+the gathered [nb, ows*ows, C] tensor of the plain version is never
+written.
 
 Bound on the H100: 2 * ows^2 * C MACs per query token (27,648 at C 96
 and ows 12), for 4C bytes of q and out plus one read of the two maps:
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from superresolution_tpu_torch.ops import _build
 from superresolution_tpu_torch.ops.unfold import extract_overlapping_windows
 from superresolution_tpu_torch.ops.window_attention import (
+    bias_fragments,
     reference_window_attention,
 )
 
@@ -78,21 +80,6 @@ def flash_oca_gathered_reference(q: torch.Tensor, k_map: torch.Tensor,
     kw = extract_overlapping_windows(k_map, ws, ows, nh_w, nw_w)
     vw = extract_overlapping_windows(v_map, ws, ows, nh_w, nw_w)
     return reference_window_attention(q, kw, vw, bias, num_heads)
-
-
-def bias_fragments(bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """bias [nh, n, m] / scale in the order the kernel's accumulator
-    fragments read it, flat f32: for head h, query tile qt (16 rows), key
-    tile kn (8 keys) and lane l = 4 g + t, four floats: rows 16 qt + g and
-    16 qt + g + 8, each at keys 8 kn + 2 t and + 1 (zero past m). The
-    kernel starts its q k^T sums from these and multiplies by scale. A
-    model makes them once with its biases (infer/fused_hat)."""
-    nh, n, m = bias.shape
-    mp = -(-m // 8) * 8
-    b = F.pad(bias.float() / scale, (0, mp - m))
-    # [h, qt, half, g, kn, t, e] -> [h, qt, kn, g, t, half, e]
-    return (b.reshape(nh, n // 16, 2, 8, mp // 8, 4, 2)
-            .permute(0, 1, 4, 3, 5, 2, 6).contiguous().reshape(-1))
 
 
 def flash_oca_gathered(q: torch.Tensor, k_map: torch.Tensor,

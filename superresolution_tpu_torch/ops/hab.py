@@ -27,7 +27,10 @@ partition layout):
     out = x1 + (GELU(LN2(x1) W1 + b1) W2 + b2)
 
 one launch of hab_kernel, one thread block per window, at each
-geometry of HAB_GEOMETRIES. Window b uses region_ids[b % nW_img]. Both
+geometry of HAB_GEOMETRIES, with its four GEMMs on the tensor cores
+(mma.sync on the dense kernels packed once in fragment order: pack_mma,
+mma_weights) and its attention on the shared online softmax of
+csrc/flash_tc.cuh. Window b uses region_ids[b % nW_img]. Both
 LNs divide their sums by c_real where it is given: the lane-padded
 deploy map (infer/lane_pad.py) keeps zeros in the lanes past the model's
 channels, so only the divisor differs (the reference's _ln(..., c_real),
@@ -47,8 +50,9 @@ Bounds on the H100 (see csrc/hat_kernels.cu): the CAB (kernels 7 and
 12) does 55,296 MACs per pixel for 384 bytes of x and out, the HAB
 86,016 MACs per token for 576 bytes of x, cab and out. Both sit at the
 bf16 ridge: the CAB is bound by bytes and the HAB by operations, each by
-a few percent. These first forms run on the CUDA cores in f32, so
-operations bound them.
+a few percent. Kernels 7 and 12 run on the CUDA cores in f32, so
+operations bound them; kernel 8 runs its products on the tensor cores
+(see the source for what it reaches).
 
 Weights: cab_weights and hab_weights read the port's HAT-keyed state
 dict (models/hat_lite.py), as the reference's cab_weights and
@@ -65,7 +69,7 @@ import torch.nn.functional as F
 from superresolution_tpu_torch.infer.common import hwio
 from superresolution_tpu_torch.models.hat_lite import relative_position_index
 from superresolution_tpu_torch.ops import _build
-from superresolution_tpu_torch.ops._build import HAB_WEIGHTS
+from superresolution_tpu_torch.ops._build import HAB_DENSE, HAB_WEIGHTS
 from superresolution_tpu_torch.ops.window_attention import (
     reference_window_attention,
 )
@@ -240,7 +244,8 @@ def hab_weights(params: Mapping[str, torch.Tensor], pre: str,
     """HAB `pre` of a HAT-keyed state dict -> the kernel's weights by
     HAB_WEIGHTS: dense kernels [in, out] in `dtype` (wqkv's columns q | k
     | v), the gathered rel-pos bias rpb [nh, n, n], LN parameters and
-    biases in f32."""
+    biases in f32; and the dense kernels packed once for the tensor-core
+    body (mma_weights), which kernels 8 and 11 read."""
     n = window_size * window_size
     table = params[f"{pre}.attn.relative_position_bias_table"]
     idx = torch.as_tensor(relative_position_index(window_size),
@@ -251,7 +256,7 @@ def hab_weights(params: Mapping[str, torch.Tensor], pre: str,
         return params[f"{pre}.{name}.weight"].detach().t().to(
             dtype).contiguous()
 
-    return {
+    return mma_weights({
         "ln1_s": _f32(params[f"{pre}.norm1.weight"]),
         "ln1_b": _f32(params[f"{pre}.norm1.bias"]),
         "wqkv": dense_t("attn.qkv"),
@@ -263,7 +268,39 @@ def hab_weights(params: Mapping[str, torch.Tensor], pre: str,
         "ln2_b": _f32(params[f"{pre}.norm2.bias"]),
         "w1": dense_t("mlp.fc1"), "b1": _f32(params[f"{pre}.mlp.fc1.bias"]),
         "w2": dense_t("mlp.fc2"), "b2": _f32(params[f"{pre}.mlp.fc2.bias"]),
-    }
+    })
+
+
+def pack_mma(w: torch.Tensor) -> torch.Tensor:
+    """A dense kernel w [K, N] (N a multiple of 8) in the tensor-core
+    body's fragment order: [ceil(K / 16), N / 8, 32, 4] in w's dtype, K
+    zero-padded to a multiple of 16; entry [ks, j, 4 g + t] holds the
+    mma.sync B fragment of k-step ks and 8-column fragment j for lane
+    4 g + t: w[16 ks + 2 t + e, 8 j + g] (e = 0, 1), then w[16 ks + 8 +
+    2 t + e, 8 j + g]."""
+    k, n = w.shape
+    kp = -(-k // 16) * 16
+    wp = F.pad(w, (0, 0, 0, kp - k))
+    # rows 16 ks + 8 half + 2 t + e, columns 8 j + g -> [ks, j, g, t, half, e]
+    return (wp.reshape(kp // 16, 2, 4, 2, n // 8, 8)
+            .permute(0, 4, 5, 2, 1, 3).contiguous()
+            .reshape(kp // 16, n // 8, 32, 4))
+
+
+def mma_weights(weights: Mapping[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+    """Kernel 8's weights (by HAB_WEIGHTS) with each dense kernel packed
+    for the tensor-core body (pack_mma, under its name + "_mma"; any
+    packing present is replaced); unchanged where a kernel's output width
+    is not a multiple of 8 (no instance of the kernel takes those).
+    hab_weights calls it once; a caller that builds or changes the dense
+    kernels itself calls it again."""
+    w = dict(weights)
+    if any(w[k].shape[-1] % 8 for k in HAB_DENSE):
+        return w
+    for k in HAB_DENSE:
+        w[k + "_mma"] = pack_mma(w[k])
+    return w
 
 
 def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -332,8 +369,9 @@ fused_hab_block.launches = 0
 
 def check_hab_weights(name: str, weights: Mapping[str, torch.Tensor], c: int,
                       num_heads: int, n: int, geometries: tuple) -> None:
-    """Raise unless (c, num_heads, n, MLP) is one of `geometries` and
-    every weight of HAB_WEIGHTS has its shape and lies on the card in the
+    """Raise unless (c, num_heads, n, MLP) is one of `geometries`, every
+    weight of HAB_WEIGHTS has its shape, each dense kernel's packing
+    (mma_weights) is there with its shape, and all lie on the card in the
     kernels' types (kernels 8 and 11)."""
     mlp = weights["w1"].shape[-1]
     if (c, num_heads, n, mlp) not in geometries:
@@ -347,7 +385,17 @@ def check_hab_weights(name: str, weights: Mapping[str, torch.Tensor], c: int,
         if tuple(weights[k].shape) != want[k]:
             raise ValueError(f"{name}: {k} {tuple(weights[k].shape)} != "
                              f"{want[k]}")
-    dense = ("wqkv", "wp", "w1", "w2")
-    _build.require_cuda(*(weights[k] for k in dense), name=name)
-    _build.require_cuda(*(weights[k] for k in HAB_WEIGHTS if k not in dense),
+    _build.require_cuda(*(weights[k] for k in HAB_DENSE), name=name)
+    _build.require_cuda(*(weights[k] for k in HAB_WEIGHTS
+                          if k not in HAB_DENSE),
                         dtype=torch.float32, name=name)
+    for k in HAB_DENSE:  # the kernels read the packings (mma_weights)
+        packed = weights.get(k + "_mma")
+        kk, nn = weights[k].shape
+        if packed is None:
+            raise ValueError(f"{name}: no {k}_mma: the weights are packed "
+                             f"for the kernel by hab_weights or mma_weights")
+        if tuple(packed.shape) != (-(-kk // 16), nn // 8, 32, 4):
+            raise ValueError(f"{name}: {k}_mma {tuple(packed.shape)} is not "
+                             f"{k}'s packing")
+        _build.require_cuda(packed, name=name)

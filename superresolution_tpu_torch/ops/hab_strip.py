@@ -24,8 +24,9 @@ rounds it; the windowed path rounds twice (y * s, then * conv_scale).
 
 Bound on the H100: kernel 8's work, 86,016 MACs per token at (96, 64,
 192), for x and cab_y read once and the output written once (576 bytes a
-token): 0.0114 ms at [1,256,256,96], ws 8. This first form runs on the
-CUDA cores in f32, so operations bound it.
+token): 0.0114 ms at [1,256,256,96], ws 8: bound by operations. It runs
+kernel 8's tensor-core body, on the dense kernels as hab_weights packs
+them for it (ops/hab.mma_weights).
 """
 
 from __future__ import annotations
@@ -98,7 +99,8 @@ def strip_hab_block(x: torch.Tensor, cab_y: torch.Tensor, se: torch.Tensor,
     """Kernel 11. x, cab_y [B,H,W,C], H and W multiples of window_size;
     se [B,1,C] f32; weights by HAB_WEIGHTS (rpb [nh, n, n] or the
     reference's stacked [nh*n, n]); shift 0 or window_size // 2; rb, the
-    reference's row block, checked and otherwise unused. Returns
+    reference's row block, checked and otherwise unused; on the card the
+    dense kernels' packings too (hab_weights packs them). Returns
     [B,H,W,C]. CPU tensors run the plain version; CUDA tensors launch
     the kernel ((C, heads, n, MLP) in STRIP_GEOMETRIES; bf16 maps and
     dense kernels, f32 se and the rest) or raise."""

@@ -8,7 +8,7 @@ on the left and zero packs on the right up to a 16-aligned W2; an op's
 output keeps its pad packs at 0, so calls chain without unpacking.
 
 On CUDA tensors pack_conv3x3 launches the PackConv policy of the shared
-conv engine (csrc/conv_engine.cuh, csrc/extra_kernels.cu), in its
+conv engine (csrc/conv_engine.cuh, csrc/pack_kernels.cu), in its
 tensor-core body (a bf16 implicit GEMM) or its direct f32 body as
 uses_tensor_cores says; each launch counts on `launches` and on the
 body's own count (`tc_launches`, `direct_launches`). It reads the packed

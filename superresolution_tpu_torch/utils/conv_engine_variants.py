@@ -1,7 +1,7 @@
 """Time variants of the conv engine's tensor-core body on one GPU.
 
 Each variant is the engine's sources (ops/csrc/conv_engine.cuh and the
-two policy files, subpixel_kernels.cu and extra_kernels.cu) with a few
+two policy files, subpixel_kernels.cu and pack_kernels.cu) with a few
 text edits, built by nvcc into its own library beside the port's own
 build and called through the same C entry points. Every variant is
 checked against the plain version and timed with CUDA events at the
@@ -61,7 +61,7 @@ VARIANTS = {
                     "static constexpr int MIN_BLOCKS = BN <= 96 ? 3 : 2;",
                     "static constexpr int MIN_BLOCKS = 2;")],
 }
-SOURCES = ("conv_engine.cuh", "subpixel_kernels.cu", "extra_kernels.cu")
+SOURCES = ("conv_engine.cuh", "subpixel_kernels.cu", "pack_kernels.cu")
 
 
 def usage(report: str) -> str:

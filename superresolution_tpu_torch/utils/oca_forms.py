@@ -1,6 +1,6 @@
-"""Plain-torch model of kernel 9's arithmetic (ops/csrc/oca_kernels.cu,
-oca_kernel), the CPU stand-in for the kernel, which runs only on the
-card.
+"""Plain-torch model of kernel 9's arithmetic (ops/csrc/flash_tc.cuh
+flash_kernel over the padded maps, built by oca_kernels.cu), the CPU
+stand-in for the kernel, which runs only on the card.
 
   oca_tiled       the kernel's order: each window's keys gathered from the
                   padded maps pixel by pixel (map row stride wp), each

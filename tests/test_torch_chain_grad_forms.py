@@ -414,7 +414,8 @@ def test_wgrad_form_chunk_order():
 def test_k13_route_rule(monkeypatch, dtype, c, g, want):
     """Kernel 13 takes B1's route rule: the tensor-core helpers (flipped
     weights in one launch, grad_conv, wgrad_tc) or the direct ones,
-    counted by body."""
+    counted by body; f32 activations take the conv engine's direct body
+    for the transposed convs (grad_conv in f32) and the f32 wgrad."""
     seen = set()
     monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
     monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
@@ -436,8 +437,10 @@ def test_k13_route_rule(monkeypatch, dtype, c, g, want):
     counts = (dtt.dense_block_backward.tc_launches,
               dtt.dense_block_backward.direct_launches)
     dtt.dense_block_backward(x, ws, None, x)
+    direct = ({"grad_conv", "wgrad"} if dtype == torch.float32
+              else {"conv3x3", "wgrad"})
     assert seen == ({"flip_weights", "grad_conv", "wgrad_tc"} if want
-                    else {"conv3x3", "wgrad"})
+                    else direct)
     assert (dtt.dense_block_backward.tc_launches - counts[0],
             dtt.dense_block_backward.direct_launches - counts[1]) == (
                 (1, 0) if want else (0, 1))

@@ -205,3 +205,69 @@ def test_cuda_backward_raises_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         dtt.dense_block_backward(torch.from_numpy(x).bfloat16(), ws, None,
                                  torch.from_numpy(cot).bfloat16())
+
+
+def _dtype_checked(*tensors, dtype=torch.bfloat16, name):
+    """_build.require_cuda's type rule without its device rule."""
+    for t in tensors:
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+
+
+def _spy(calls: list, name: str, fn):
+    """fn, recording (name, the type of its first tensor argument)."""
+    def run(*args, **kw):
+        t = next(a for a in args if isinstance(a, torch.Tensor))
+        calls.append((name, t.dtype))
+        return fn(*args, **kw)
+    return run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_follows_the_activation_type(monkeypatch, dtype):
+    """Unforced routes under require_cuda's type rule: f32 activations
+    (precision "fp32") take the conv engine's direct body for B1's
+    launches and kernel 13's transposed convs, and the f32 weight grads,
+    with no TypeError; bf16 at C and G multiples of 8 still takes the
+    tensor cores. Each helper is a torch emulation of its kernel."""
+    calls = []
+    monkeypatch.setattr(_build, "require_cuda", _dtype_checked)
+    for name, fn in (("conv3x3", _emu_conv3x3),
+                     ("dense_conv", dense_conv_form),
+                     ("grad_conv", grad_conv_form),
+                     ("flip_weights", flip_weights_form),
+                     ("wgrad", _emu_wgrad), ("wgrad_tc", _emu_wgrad),
+                     ("dense_scale", _emu_scale)):
+        monkeypatch.setattr(_build, name, _spy(calls, name, fn))
+    x, res, cot, dp = _inputs(31, 10, 13, b=2)
+    ws = dense_weights(*convert._unfuse_dense(dp, C, G), dtype=dtype)
+    xt, rt, dout = (torch.from_numpy(a).to(dtype) for a in (x, res, cot))
+    b1 = {k: getattr(dt.fused_dense_block, k)
+          for k in ("launches", "tc_launches", "direct_launches")}
+    k13 = {k: getattr(dtt.dense_block_backward, k)
+           for k in ("tc_launches", "direct_launches")}
+    out = torch.empty_like(xt)
+    dt.dense_block_launches(xt, ws, rt, torch.empty((2, 10, 13, 4 * G),
+                                                   dtype=dtype), out)
+    dx, dws, dres = dtt.dense_block_backward(xt, ws, rt, dout)
+    names = {n for n, _ in calls}
+    assert {t for _, t in calls} == {dtype}
+    tc = dtype == torch.bfloat16
+    assert names == ({"dense_conv", "grad_conv", "flip_weights", "wgrad_tc",
+                      "dense_scale"} if tc else
+                     {"dense_conv", "grad_conv", "wgrad", "dense_scale"})
+    # B1's five forward launches and the backward's four of the recompute
+    assert dt.fused_dense_block.launches == b1["launches"] + 9
+    body = "tc_launches" if tc else "direct_launches"
+    assert getattr(dt.fused_dense_block, body) == b1[body] + 9
+    assert getattr(dtt.dense_block_backward, body) == k13[body] + 1
+    if tc:
+        return
+    out_ref, dx_ref, dws_ref, dres_ref = _port_grads(x, res, cot, dp, True)
+    torch.testing.assert_close(out, out_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dx, dx_ref, atol=1e-4, rtol=1e-4)
+    for (dk, db), (rk, rbias) in zip(dws, dws_ref):
+        assert dk.dtype == torch.float32
+        torch.testing.assert_close(dk, rk, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(db, rbias, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dres, dres_ref)

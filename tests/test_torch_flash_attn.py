@@ -1,9 +1,11 @@
 """Kernel 10 (superresolution_tpu_torch/ops/window_attention.py:
-flash_window_attention) on the CPU, where it runs its plain form, against
-the JAX package's flash_window_attention in Pallas interpret mode: self,
-masked and cross attention (m 144 and the odd OCAB's 121) in f32 within
-1e-5 of max |ref|, and gradients in q, k, v and bias against jax.vjp
-within 1e-5. Also the wrapper's refusals off the CPU."""
+flash_window_attention and its map form flash_map_attention) on the CPU,
+where it runs its plain form, against the JAX package's
+flash_window_attention in Pallas interpret mode: self, masked and cross
+attention (m 144 and the odd OCAB's 121) in f32 within 1e-5 of max
+|ref|, and gradients in q, k, v and bias against jax.vjp within 1e-5;
+the map form against the JAX roll, partition, attention, merge and roll
+back. Also the wrapper's refusals off the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from superresolution_tpu.models.hat_lite import (
+    _shift_region_ids,
+    window_merge,
+    window_partition,
+)
 from superresolution_tpu.ops import pallas_attn
 from superresolution_tpu_torch.ops.window_attention import (
+    flash_map_attention,
     flash_window_attention,
+    map_attention_reference,
 )
 
 TOL = 1e-5
@@ -133,3 +142,86 @@ def test_wrapper_raises_off_the_cpu():
             e(4, 64, 96), e(4, 144, 96), e(4, 144, 96),
             e(6, 64, 144, dtype=torch.float32), 6,
             torch.zeros(2, 64, dtype=torch.int32, device=m))
+
+
+@pytest.mark.parametrize("c,nh", [(16, 1), (64, 4), (112, 7), (128, 8),
+                                  (20, 1), (60, 3), (100, 5), (120, 6)])
+def test_every_width_reaches_the_kernel(c, nh):
+    """Kernel 10 takes in bf16 every width it takes in f32 (head dim 16
+    up to C 128, 20 up to C 120), on windows and on the map: off the CPU
+    (meta tensors here) such a call gets past the geometry rule to the
+    device check; head dim 8 is refused by the rule, naming it."""
+    m = torch.device("meta")
+
+    def e(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, device=m, dtype=dtype)
+
+    for n, k in ((64, 64), (64, 144), (256, 576)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_window_attention(e(4, n, c), e(4, k, c), e(4, k, c),
+                                   e(nh, n, k, dtype=torch.float32), nh)
+    for ws in (8, 16):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_map_attention(e(1, 2 * ws, 2 * ws, 3 * c),
+                                e(nh, ws * ws, ws * ws, dtype=torch.float32),
+                                nh, ws, ws // 2)
+    with pytest.raises(ValueError, match="got head dim 8"):
+        flash_map_attention(e(1, 16, 16, 3 * 8 * nh),
+                            e(nh, 64, 64, dtype=torch.float32), nh, 8)
+
+
+def _jax_map_attention(qkv, bias, nh, ws, shift):
+    """The JAX package's form of the map attention: roll, partition,
+    flash_window_attention in interpret mode (with the Swin region ids
+    of a shifted map), merge, roll back."""
+    b, h, w, c3 = qkv.shape
+    x = jnp.asarray(qkv)
+    ids = None
+    if shift:
+        x = jnp.roll(x, (-shift, -shift), axis=(1, 2))
+        ids = jnp.asarray(_shift_region_ids(h, w, ws, shift))
+    win = window_partition(x, ws)
+    c = c3 // 3
+    y = pallas_attn.flash_window_attention(
+        win[..., :c], win[..., c:2 * c], win[..., 2 * c:], jnp.asarray(bias),
+        nh, True, ids)
+    y = window_merge(y, ws, (h, w))
+    return jnp.roll(y, (shift, shift), axis=(1, 2)) if shift else y
+
+
+@pytest.mark.parametrize("ws,hd,shifted", [(8, 16, False), (8, 16, True),
+                                           (8, 20, True), (16, 16, False),
+                                           (16, 20, True)])
+def test_map_form_matches_jax_roll_partition(ws, hd, shifted):
+    """Kernel 10's map form (flash_map_attention; its plain version on
+    the CPU: the roll, partition, attention, merge and roll back) on a
+    qkv map [2, 2 ws, 3 ws, 3C] against the JAX package's roll, window
+    partition, flash_window_attention in interpret mode, merge and roll
+    back, in f32 within 1e-5 of max |ref|."""
+    nh, shift = 2, ws // 2 if shifted else 0
+    c, n = nh * hd, ws * ws
+    rng = np.random.default_rng(ws + hd + shift)
+    qkv = rng.standard_normal((2, 2 * ws, 3 * ws, 3 * c)).astype(np.float32)
+    bias = rng.standard_normal((nh, n, n)).astype(np.float32)
+    ref = _jax_map_attention(qkv, bias, nh, ws, shift)
+    before = flash_map_attention.launches
+    got = flash_map_attention(torch.from_numpy(qkv), torch.from_numpy(bias),
+                              nh, ws, shift)
+    assert flash_map_attention.launches == before  # no launch on a CPU
+    assert _rel(got.numpy(), ref) < TOL
+
+
+def test_map_form_gradient_is_plain_autograd():
+    """The map form's backward is autograd of its plain version: the
+    gradients in qkv and bias equal those of map_attention_reference."""
+    rng = np.random.default_rng(7)
+    qkv = rng.standard_normal((1, 16, 16, 96)).astype(np.float32)
+    bias = rng.standard_normal((2, 64, 64)).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((1, 16, 16, 32))
+                         .astype(np.float32))
+    grads = []
+    for fn in (flash_map_attention, map_attention_reference):
+        leaves = _torch(qkv, bias, grad=True)
+        grads.append(torch.autograd.grad(fn(*leaves, 2, 8, 4), leaves, g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

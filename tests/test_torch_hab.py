@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from superresolution_tpu.ops import pallas_hab as jhab
 from superresolution_tpu_torch.ops import hab
@@ -115,3 +116,61 @@ def test_fused_hab_block_checks_shapes():
     with pytest.raises(ValueError, match="region ids"):
         hab.fused_hab_block(xt, torch.from_numpy(cab), 3, tw,
                             torch.from_numpy(ids[:3]))
+
+
+@pytest.mark.parametrize("k,n", [(96, 288), (120, 360), (128, 384),
+                                 (192, 96), (240, 120)])
+def test_mma_packing_holds_the_unpacked_weights(k, n):
+    """Kernel 8's tensor-core packing (hab.pack_mma) against the unpacked
+    [K, N] kernel: entry [ks, j, 4 g + t, e] is w[16 ks + 8 (e // 2) + 2 t
+    + e % 2, 8 j + g], the rows past K zero (K 120 pads to 128)."""
+    w = torch.from_numpy(np.random.default_rng(k + n).standard_normal(
+        (k, n)).astype(np.float32))
+    p = hab.pack_mma(w)
+    kp = -(-k // 16) * 16
+    assert p.shape == (kp // 16, n // 8, 32, 4) and p.is_contiguous()
+    ks, j, lane, e = np.meshgrid(np.arange(kp // 16), np.arange(n // 8),
+                                 np.arange(32), np.arange(4), indexing="ij")
+    rows = 16 * ks + 8 * (e // 2) + 2 * (lane % 4) + e % 2
+    cols = 8 * j + lane // 4
+    want = np.where(rows < k, F.pad(w, (0, 0, 0, kp - k)).numpy()[
+        np.minimum(rows, kp - 1), cols], 0.0)
+    np.testing.assert_array_equal(p.numpy(), want)
+
+
+def test_hab_weights_carry_their_packing(monkeypatch):
+    """hab_weights packs each dense kernel once (mma_weights); mma_weights
+    replaces a packing it finds; the kernels' weight check wants every
+    packing."""
+    rng = np.random.default_rng(0)
+    c, nh, ws = 16, 2, 4
+    pre = "b"
+    sd = {f"{pre}.norm1.weight": rng.standard_normal(c),
+          f"{pre}.norm1.bias": rng.standard_normal(c),
+          f"{pre}.attn.qkv.weight": rng.standard_normal((3 * c, c)),
+          f"{pre}.attn.qkv.bias": rng.standard_normal(3 * c),
+          f"{pre}.attn.relative_position_bias_table":
+              rng.standard_normal(((2 * ws - 1) ** 2, nh)),
+          f"{pre}.attn.proj.weight": rng.standard_normal((c, c)),
+          f"{pre}.attn.proj.bias": rng.standard_normal(c),
+          f"{pre}.norm2.weight": rng.standard_normal(c),
+          f"{pre}.norm2.bias": rng.standard_normal(c),
+          f"{pre}.mlp.fc1.weight": rng.standard_normal((2 * c, c)),
+          f"{pre}.mlp.fc1.bias": rng.standard_normal(2 * c),
+          f"{pre}.mlp.fc2.weight": rng.standard_normal((c, 2 * c)),
+          f"{pre}.mlp.fc2.bias": rng.standard_normal(c)}
+    w = hab.hab_weights({k: torch.tensor(v, dtype=torch.float32)
+                         for k, v in sd.items()}, pre, nh, ws,
+                        torch.float32)
+    for name in ("wqkv", "wp", "w1", "w2"):
+        torch.testing.assert_close(w[name + "_mma"], hab.pack_mma(w[name]),
+                                   rtol=0, atol=0)
+    stale = dict(w, wp_mma=torch.zeros(1))
+    torch.testing.assert_close(hab.mma_weights(stale)["wp_mma"],
+                               hab.pack_mma(w["wp"]), rtol=0, atol=0)
+    unpacked = {k: v for k, v in w.items() if k != "w1_mma"}
+    # past the device checks (no card here) to the packing's
+    monkeypatch.setattr(hab._build, "require_cuda", lambda *a, **k: None)
+    with pytest.raises(ValueError, match="no w1_mma"):
+        hab.check_hab_weights("fused_hab_block", unpacked, c, nh, ws * ws,
+                              ((c, nh, ws * ws, 2 * c),))

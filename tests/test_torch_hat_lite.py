@@ -139,6 +139,48 @@ def test_hat_lite_flash_matches_jax_apply(flash_attn, flash_oca):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("geom", [
+    dict(embed_dim=12, depths=(2, 2), num_heads=(3, 3), window_size=4),
+    dict(embed_dim=32, depths=(2,), num_heads=(2,), window_size=8)])
+def test_hat_lite_flash_habs_take_the_map_form(monkeypatch, geom):
+    """Under flash_attn every HAB's self-attention goes through kernel
+    10's map form (one flash_map_attention call a HAB, with the block's
+    shift; no window_partition but the OCABs' queries), and the model
+    still matches the JAX one's apply with flash attention (head dims 4
+    and 16, windows 4 and 8, shifted and unshifted blocks)."""
+    kw = dict(scale=2, in_channels=1, out_channels=1, upsample_feat=8,
+              flash_attn=True, **geom)
+    shape = (1, 2 * geom["window_size"], 3 * geom["window_size"], 1)
+    jm = JaxHATLite(**kw)
+    variables = jax_variables(jm, shape, 4)
+    sd = convert.hat_state_dict_from_jax(variables, depths=geom["depths"],
+                                         hat_compat=False)
+    tm = HATLite(**kw, device="cpu")
+    tm.load_state_dict(convert.to_torch(sd), strict=True)
+    calls, parts = [], []
+    real_map, real_part = hat_lite.flash_map_attention, \
+        hat_lite.window_partition
+
+    def spy_map(qkv, bias, nh, ws, shift):
+        calls.append(shift)
+        return real_map(qkv, bias, nh, ws, shift)
+
+    def spy_part(x, ws):
+        parts.append(ws)
+        return real_part(x, ws)
+
+    monkeypatch.setattr(hat_lite, "flash_map_attention", spy_map)
+    monkeypatch.setattr(hat_lite, "window_partition", spy_part)
+    x = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    ref = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    _close(got, ref)
+    ws = geom["window_size"]
+    assert calls == [0, ws // 2] * (sum(geom["depths"]) // 2)
+    assert len(parts) == len(geom["depths"])  # the OCABs' queries
+
+
 @functools.lru_cache(maxsize=None)
 def _hybrid_pair(seed=0):
     s1 = dict(scale=2, in_channels=1, out_channels=1, features=16,

@@ -94,6 +94,56 @@ def test_fused_trunk_forced_on_cpu_trains(tmp_path):
         assert np.isfinite(tr.fit()["best"]["psnr"])
 
 
+def test_fp32_fused_step_takes_the_f32_route(tmp_path, monkeypatch):
+    """precision fp32 with the fused trunk: every dense block's backward
+    runs kernel 13's launch sequence (forced here on CPU tensors, each
+    _build helper a torch emulation of its kernel, require_cuda's type
+    rule kept), on the f32 route (the conv engine's direct body and the
+    f32 weight grads), with no TypeError and no launch on the tensor
+    cores."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+    from superresolution_tpu_torch.ops import dense_trunk_train as dtt
+    from superresolution_tpu_torch.train import fused_apply
+    from superresolution_tpu_torch.utils.chain_grad_forms import (
+        grad_conv_form, wgrad_form)
+    from superresolution_tpu_torch.utils.dense_tail_forms import (
+        dense_conv_form)
+
+    def checked(*tensors, dtype=torch.bfloat16, name):
+        for t in tensors:
+            if t is not None and t.dtype != dtype:
+                raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+
+    def scale(src, s, out):
+        out[..., :src.shape[-1]] = s * src
+
+    def launched(x, weights, residual=None, seg=None):
+        return dtt.DenseBlockTrain.apply(x, residual, seg,
+                                         *(t for p in weights for t in p))
+
+    monkeypatch.setattr(_build, "require_cuda", checked)
+    monkeypatch.setattr(_build, "dense_conv", dense_conv_form)
+    monkeypatch.setattr(_build, "grad_conv", grad_conv_form)
+    monkeypatch.setattr(_build, "wgrad", wgrad_form)
+    monkeypatch.setattr(_build, "dense_scale", scale)
+    monkeypatch.setattr(fused_apply, "fused_dense_block_train", launched)
+    cfg = _cfg(epochs=1, fused_trunk=True, accum_steps=2)
+    k13 = {k: getattr(dtt.dense_block_backward, k)
+           for k in ("launches", "tc_launches", "direct_launches")}
+    tc = dt.fused_dense_block.tc_launches
+    with Trainer(cfg, str(tmp_path), device="cpu") as tr:
+        assert tr.fused_apply is not None
+        assert np.isfinite(tr.fit()["best"]["psnr"])
+    # 3 dense blocks a micro-batch, 2 micro-batches a step, 1 step
+    calls = dtt.dense_block_backward.launches - k13["launches"]
+    assert calls == 6
+    assert dtt.dense_block_backward.direct_launches == \
+        k13["direct_launches"] + calls
+    assert dtt.dense_block_backward.tc_launches == k13["tc_launches"]
+    assert dt.fused_dense_block.tc_launches == tc
+
+
 def test_unported_parts_raise(tmp_path):
     """Meshes and GAN terms still raise; manifests, bicubic degradation,
     previews and row-packed batches now run."""
