@@ -777,8 +777,9 @@ def check_up2hr_faults(gen: torch.Generator) -> None:
 
 
 def check_direct_routes(gen: torch.Generator) -> None:
-    """The shapes the route rules send off the tensor cores (B1, kernels 6
-    and 13 at C 24, g 12; B2 at c 12) on the direct bodies, within
+    """The shapes the route rules send off the tensor cores (B1, kernels
+    4-6 and 13 at C 24, g 12, kernels 4-6 on conv_chain_kernel; B2 at c
+    12) on the direct bodies, within
     TOL_KERNEL of the plain versions in f32 on the same values (kernel
     13 through check_dense_backward's bars), each launch counted on
     direct_launches and none on tc_launches."""
@@ -803,7 +804,20 @@ def check_direct_routes(gen: torch.Generator) -> None:
     check_dense_backward(ws3[1], x, r, rand(gen, 2, 37, 45, 24,
                                             dtype=torch.bfloat16),
                          "direct_c24_g12")
-    got = {k: [ops[k].tc_launches, ops[k].direct_launches] for k in BODY_OPS}
+    ends = (end_conv_weights(gen, 3, 24), end_conv_weights(gen, 24, 24))
+    x_raw = rand(gen, 2, 37, 45, 3, scale=0.5, dtype=torch.bfloat16)
+    head = rand(gen, 2, 37, 45, 24, scale=0.05, dtype=torch.bfloat16)
+    got4 = dt.fused_dense_block_prologue(x_raw, ends[0], ws)
+    ref4 = dt.fused_dense_block_prologue_reference(x_raw.float(), ends[0], ws)
+    for i, part in enumerate(("", "/head")):
+        compare(f"fused_dense_block_prologue/direct_c24_g12{part}", got4[i],
+                ref4[i], TOL_KERNEL)
+    compare("fused_dense_block_epilogue/direct_c24_g12",
+            dt.fused_dense_block_epilogue(x, ws, r, ends[1], head),
+            dt.fused_dense_block_epilogue_reference(
+                x.float(), ws, r.float(), ends[1], head.float()), TOL_KERNEL)
+    got = {k: [ops[k].tc_launches, ops[k].direct_launches]
+           for k in (*BODY_OPS, *END_FOLD_BODIES)}
     emit({"check": "direct_routes/bodies", **got})
     if any(t or not d for t, d in got.values()):
         raise AssertionError(f"direct routes: bodies {got}")
@@ -1749,10 +1763,7 @@ def expect_tc_bodies(tag: str) -> dict:
     kernel15_bodies) and records them in BODIES; raises unless every
     launch went through the tensor-core body."""
     ops = counted_ops()
-    res = {k: {"launches": ops[k].launches,
-               "tc_launches": ops[k].tc_launches,
-               "direct_launches": ops[k].direct_launches}
-           for k in BODY_OPS}
+    res = {k: by_body(ops[k]) for k in BODY_OPS}
     BODIES[tag] = res
     emit({"check": f"{tag}/tc_bodies", **res})
     bad = {k: v for k, v in res.items()
@@ -2165,8 +2176,7 @@ def expect_attn_bodies(tag: str, map_calls: int | None = None) -> dict:
 def expect_tc_body(tag: str, op) -> dict:
     """Raises unless every launch of `op` (B1, B2, kernel 15 or 18) since
     its counts were zeroed went through the tensor-core body."""
-    res = {"launches": op.launches, "tc_launches": op.tc_launches,
-           "direct_launches": op.direct_launches}
+    res = by_body(op)
     if op.tc_launches != op.launches or op.direct_launches:
         raise AssertionError(f"{tag}: {res}, not all on the tensor cores")
     return res
@@ -2994,6 +3004,35 @@ CHAIN_FAULTS = ("residual_dropped", "first_stages_swapped")
 # no grid barrier between its stages. Checked on fresh inputs and
 # NaN-filled scratch, so a read of a tile not yet written shows.
 RRDB_TC_FAULTS = {"stage_barrier_skipped": "PLANT_NO_BARRIER"}
+# Faults planted in kernels 4 and 5's tensor-core launch sequences
+# (ops/dense_trunk.prologue_launches / epilogue_launches, _build's bits):
+# the two CHAIN_FAULTS (kernel 4: B1's x + 0.2 v residual dropped; kernel
+# 5: trunk_conv's + head dropped; the first two launches swapped) and
+# conv_first's own, its halo read from the border pixel and not zero.
+# Checked by 3x the bar on fresh inputs and NaN-filled scratch.
+END_FOLD_FAULTS = {
+    "fused_dense_block_prologue": {
+        "residual_dropped": "PLANT_NO_RESIDUAL",
+        "first_stages_swapped": "PLANT_SWAP_STAGES",
+        "halo_clamped": "PLANT_HALO_CLAMPED"},
+    "fused_dense_block_epilogue": {
+        "residual_dropped": "PLANT_NO_RESIDUAL",
+        "first_stages_swapped": "PLANT_SWAP_STAGES"}}
+# One call of kernel 4 or 5 on the tensor-core route, by body: kernel 4
+# conv_first on the conv engine's direct body and B1's five launches on
+# its tensor cores, kernel 5 B1's five and trunk_conv on the tensor cores.
+END_FOLD_BODIES = {
+    "fused_dense_block_prologue": {"launches": 1, "tc_launches": 5,
+                                   "direct_launches": 1},
+    "fused_dense_block_epilogue": {"launches": 1, "tc_launches": 6,
+                                   "direct_launches": 0}}
+
+
+def by_body(op) -> dict:
+    """A counted op's launches (calls, for kernels 4 and 5) and its
+    launches by body."""
+    return {"launches": op.launches, "tc_launches": op.tc_launches,
+            "direct_launches": op.direct_launches}
 
 
 def end_conv_weights(gen: torch.Generator, cin: int, cout: int = 64):
@@ -3009,8 +3048,9 @@ def end_conv_weights(gen: torch.Generator, cin: int, cout: int = 64):
 
 def trunk_cases(gen: torch.Generator, b: int, h: int, w: int, ws3, ends):
     """Kernels 4-6's inputs at one geometry and their calls: name ->
-    (kernel call, plain call in f32 on the upcast inputs, launch helper
-    of ops/_build)."""
+    (kernel call, plain call in f32 on the upcast inputs, (module, name)
+    of the launch function that takes the kernel's `plant`)."""
+    from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import dense_trunk as dt
 
     def randn(*shape, scale):
@@ -3024,29 +3064,32 @@ def trunk_cases(gen: torch.Generator, b: int, h: int, w: int, ws3, ends):
         "fused_dense_block_prologue": (
             lambda: dt.fused_dense_block_prologue(x_raw, head_w, ws3[0]),
             lambda: dt.fused_dense_block_prologue_reference(
-                x_raw.float(), head_w, ws3[0]), "dense_prologue"),
+                x_raw.float(), head_w, ws3[0]), (dt, "prologue_launches")),
         "fused_dense_block_epilogue": (
             lambda: dt.fused_dense_block_epilogue(x, ws3[2], res, trunk_w,
                                                   head),
             lambda: dt.fused_dense_block_epilogue_reference(
                 x.float(), ws3[2], res.float(), trunk_w, head.float()),
-            "dense_epilogue"),
+            (dt, "epilogue_launches")),
         "fused_rrdb": (
             lambda: dt.fused_rrdb(x, *ws3),
-            lambda: dt.fused_rrdb_reference(x.float(), *ws3), "rrdb_tc"),
+            lambda: dt.fused_rrdb_reference(x.float(), *ws3),
+            (_build, "rrdb_tc")),
     }, (x_raw, x, res, head)
 
 
 def check_chain(name: str, kern, plain, tag: str) -> dict:
     """One of kernels 4-6 against its plain version in f32 within
-    TOL_KERNEL (kernel 4 on both outputs), its launch counted once."""
+    TOL_KERNEL (kernel 4 on both outputs), its call counted once and none
+    of its launches on B1's counts."""
     from superresolution_tpu_torch.ops import dense_trunk as dt
 
-    op = getattr(dt, name)
-    before = op.launches
+    op, b1 = getattr(dt, name), dt.fused_dense_block
+    before, b1_before = op.launches, by_body(b1)
     got, ref = kern(), plain()
-    if op.launches != before + 1:
-        raise AssertionError(f"{name}/{tag}: not one counted launch")
+    if op.launches != before + 1 or by_body(b1) != b1_before:
+        raise AssertionError(f"{name}/{tag}: not one counted launch, or "
+                             "counted on B1")
     if name == "fused_dense_block_prologue":
         compare(f"{name}/{tag}/head", got[1], ref[1], TOL_KERNEL)
         got, ref = got[0], ref[0]
@@ -3058,9 +3101,13 @@ def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
     upcast bf16 inputs) within 0.02, at a CHIPEQ-sized geometry, a ragged
     one and the main path's shape, with B1's MSRA x 2 check weights; at
     the first each check must fail on both CHAIN_FAULTS, planted on fresh
-    inputs (so stale scratch from a right run cannot hide them); timed at
-    the latter beside the bound, the plain version and the default path
-    for the same function (plain convs and B1 calls)."""
+    inputs (so stale scratch from a right run cannot hide them), and
+    kernels 4 and 5 on END_FOLD_FAULTS by 3x the bar on NaN-filled
+    scratch (check_end_fold_faults); timed at the latter beside the
+    bound, the plain version and the default path for the same function
+    (plain convs and B1 calls), kernels 4 and 5 also by body, with their
+    launch outside B1 alone and conv_chain_kernel live
+    (end_fold_times)."""
     import functools
 
     from superresolution_tpu_torch.ops import _build
@@ -3079,16 +3126,16 @@ def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
             for bit, fault in zip((_build.PLANT_NO_RESIDUAL,
                                    _build.PLANT_SWAP_STAGES), CHAIN_FAULTS):
                 fresh, _ = trunk_cases(gen, b, h, w, ws3, ends)
-                for name, (kern, plain, helper) in fresh.items():
-                    real = getattr(_build, helper)
-                    setattr(_build, helper,
-                            functools.partial(real, plant=bit))
+                for name, (kern, plain, (mod, fn)) in fresh.items():
+                    real = getattr(mod, fn)
+                    setattr(mod, fn, functools.partial(real, plant=bit))
                     try:
                         expect_caught(f"{name}:{fault}", lambda: check_chain(
                             name, kern, plain, f"fault:{fault}"))
                     finally:
-                        setattr(_build, helper, real)
+                        setattr(mod, fn, real)
             check_rrdb_tc_faults(gen, ws3, b, h, w)
+            check_end_fold_faults(gen, ws3, ends, b, h, w)
         if geom != "main":
             continue
         del cases
@@ -3161,10 +3208,114 @@ def check_trunk_kernels(gen: torch.Generator, n_tiles: int) -> dict:
                     parent_kernel="sr_kernels.cu conv_chain_kernel, 15 "
                                   "stages of f32 FFMA conv_tile")
                 del scratch
+            else:
+                out[name].update(end_fold_times(name, kern, x_raw, x, res,
+                                                head, ws3, ends))
+            out[name]["ms_over_default_path"] = (
+                out[name]["ms"] / out[name]["default_path_ms"])
             emit({"phase": "kernel_time", **out[name]})
     kernel, ms, row = OLD_KERNELS["fused_rrdb"]
     old_kernel("fused_rrdb", kernel, [b, h, w, 64], ms, row)
     return out
+
+
+def end_fold_times(name: str, kern, x_raw, x, res, head, ws3,
+                   ends) -> dict:
+    """Kernel 4's or 5's own phase-16 fields at the main shape: its
+    launches by body in one call (END_FOLD_BODIES, checked), its one
+    engine launch outside B1 timed alone beside that launch's bound
+    (kernel 4's conv_first on the direct body, kernel 5's trunk_conv with
+    its + head), and conv_chain_kernel (the parent's body, now the
+    off-route one) timed live through the retained launch helper."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    op = getattr(dt, name)
+    zero = by_body(op)
+    kern()
+    bodies = {k: v - zero[k] for k, v in by_body(op).items()}
+    if bodies != END_FOLD_BODIES[name]:
+        raise AssertionError(f"{name}: launches by body {bodies} != "
+                             f"{END_FOLD_BODIES[name]}")
+    b, h, w, c = x.shape
+    px = b * h * w
+    ws = torch.empty((b, h, w, 128), dtype=x.dtype, device="cuda")
+    feat, o = torch.empty_like(x), torch.empty_like(x)
+    if name == "fused_dense_block_prologue":
+        cin = x_raw.shape[-1]
+        stage, macs = "conv_first", 9 * cin * c
+        nbytes = px * (cin + c) * 2 + macs * 2
+
+        def stage_fn():
+            _build.first_conv(x_raw, *ends[0], feat)
+
+        def parent():
+            _build.dense_prologue(x_raw, ends[0], ws3[0], ws, o, feat)
+    else:
+        stage, macs = "trunk_conv", 9 * c * c
+        nbytes = 3 * px * c * 2 + macs * 2
+
+        def stage_fn():
+            _build.dense_conv(x, None, 0, *ends[1], o, 0, add=head)
+
+        def parent():
+            _build.dense_epilogue(x, ws3[2], res, ends[1], head, ws, feat, o)
+    s_ms = time_ms(stage_fn, 20)
+    s_bound, s_by = bound(2 * px * macs, nbytes)
+    fields = {
+        "source": DENSE_SRC, "sources": [DENSE_SRC, ENGINE_SRC, SRC],
+        "launches_by_body": bodies, f"{stage}_ms": s_ms,
+        f"{stage}_bound_ms": s_bound, f"{stage}_bound_by": s_by,
+        f"{stage}_share_of_bound": s_bound / s_ms,
+        "parent_kernel_ms": time_ms(parent, 2),
+        "parent_kernel": "sr_kernels.cu conv_chain_kernel, 6 stages of "
+                         "f32 FFMA conv_tile"}
+    if stage == "conv_first":
+        fields["ptxas"] = PTXAS.get("DenseConv", {}).get("direct")
+    return fields
+
+
+def check_end_fold_faults(gen: torch.Generator, ws3, ends, b: int, h: int,
+                          w: int) -> None:
+    """Kernels 4 and 5's tensor-core launch sequences on fresh inputs with
+    their scratch and outputs filled with NaN: within the bar clean, and
+    each of END_FOLD_FAULTS missing it by 3x (kernel 4 on the worse of its
+    two outputs)."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.ops import dense_trunk as dt
+
+    def nan(c):
+        return torch.full((b, h, w, c), float("nan"), dtype=torch.bfloat16,
+                          device="cuda")
+
+    def run(name: str, bit: int):
+        x_raw = rand(gen, b, h, w, 3, scale=0.5, dtype=torch.bfloat16)
+        x, res, head = (rand(gen, b, h, w, 64, scale=s, dtype=torch.bfloat16)
+                        for s in (0.2, 0.1, 0.05))
+        ws, out = nan(128), nan(64)
+        if name == "fused_dense_block_prologue":
+            hd = nan(64)
+            dt.prologue_launches(x_raw, ends[0], ws3[0], ws, out, hd,
+                                 plant=bit)
+            ref = dt.fused_dense_block_prologue_reference(
+                x_raw.float(), ends[0], ws3[0])
+            pairs = [(out, ref[0]), (hd, ref[1])]
+        else:
+            dt.epilogue_launches(x, ws3[2], res, ends[1], head, ws, nan(64),
+                                 out, plant=bit)
+            pairs = [(out, dt.fused_dense_block_epilogue_reference(
+                x.float(), ws3[2], res.float(), ends[1], head.float()))]
+
+        def err(pair):
+            ok = bool(torch.isfinite(pair[0].float()).all())
+            return rel_err(*pair) if ok else float("inf")
+        return max(pairs, key=err)
+
+    for name, faults in END_FOLD_FAULTS.items():
+        compare(f"{name}/nan_scratch", *run(name, 0), TOL_KERNEL)
+        for fault, attr in faults.items():
+            expect_margin(f"{name}:{fault}",
+                          *run(name, getattr(_build, attr)), TOL_KERNEL)
 
 
 def check_rrdb_tc_faults(gen: torch.Generator, ws3, b: int, h: int,
@@ -3195,8 +3346,9 @@ def lever_frames(model, params, img, geom: dict, default_feats,
                  plain_feats, default_times: dict, card: str) -> dict:
     """Phase 17: the 2K frame through make_tiled_infer_staged with
     fold_ends=True, then with chain_rrdb=True: exact launches per frame
-    (fold_ends: kernel 4 once, kernel 5 once, B1 67 calls; chain_rrdb:
-    kernel 6 23 times, B1 none; the tail's B2 6 and B3 3 in both), shape
+    (fold_ends: kernel 4 once, kernel 5 once, B1 67 calls, and kernels 4
+    and 5 by body as END_FOLD_BODIES; chain_rrdb: kernel 6 23 times, B1
+    none; the tail's B2 6 and B3 3 in both), shape
     and finiteness; trunk features and the unclipped frame within 0.03 of
     the plain model (the default fused trunk's distance printed); frame
     s, MP/s and trunk ms beside phase 5's. Returns the launches."""
@@ -3238,6 +3390,13 @@ def lever_frames(model, params, img, geom: dict, default_feats,
         check_launches(lever, launches[lever], {
             **{k: 0 for k in ops}, "up2_hr": 2 * chunks,
             "conv_last_phase": chunks, **want})
+        if lever == "fold_ends":
+            bodies = {k: by_body(ops[k]) for k in END_FOLD_BODIES}
+            BODIES[lever].update(bodies)
+            emit({"check": f"{lever}/end_fold_bodies", **bodies})
+            if bodies != END_FOLD_BODIES:
+                raise AssertionError(f"{lever}: kernels 4 and 5 by body "
+                                     f"{bodies} != {END_FOLD_BODIES}")
         if tuple(frame.shape) != (4 * H, 4 * W, 3) or not bool(
                 torch.isfinite(frame).all()):
             raise AssertionError(f"{lever}: frame {tuple(frame.shape)} "
@@ -5741,6 +5900,8 @@ def main() -> int:
             "chain_rrdb" if k == "fused_rrdb" else "fold_ends"][k]
     kernels["fused_rrdb"]["launches_by_body"] = BODIES["chain_rrdb"][
         "fused_rrdb"]
+    for k in END_FOLD_BODIES:
+        kernels[k]["launches_by_body"] = BODIES["fold_ends"][k]
     del img, feats, ref_feats, fused, model, params
     torch.cuda.empty_cache()
 

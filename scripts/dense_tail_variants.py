@@ -27,6 +27,18 @@ alone), B2 at z1 [8,376,256,256] (both launches, and each alone):
                 passes, so the products stay live): a floor
   no_epilogue   the whole epilogue skipped the same way: the main loop
                 alone, a floor
+  first_co64    kernel 4's conv_first (the direct body under DenseConv,
+                x_raw [24,376,256,3]) with 64 output channels a block,
+                as the body picks by cout, in place of 32
+  first_ck8     the direct body's every chunk of CK = 8 channels
+                multiplied out, past cin too, as before conv_first
+  first_parent  both: conv_first as the direct body first ran it
+  first_no_put  DenseConv's direct-body stores skipped (behind a test the
+                values never pass, so the sums stay live): conv_first's
+                floor without them
+Kernel 4's conv_first and kernel 5's trunk_conv (the tensor-core body,
++ head) are timed alone, and B1's conv 1 in f32 (the direct body) at
+hybrid_astro's [4,128,128,64].
 
 A/B (--ab PARENT): runs the measurements below in the parent tree (a
 checkout of the commit before, e.g. unpacked by `git archive` under
@@ -86,6 +98,13 @@ SPLIT = ("""        const float2 v =
             __floats2bfloat162_rn(acc[f][j][2 * h], acc[f][j][2 * h + 1]);
 """)
 FENCE = "  fence_async_smem();\n  __syncthreads();\n"
+FIRST_CO = ("dense_kernels.cu",
+            "conv_engine::direct::launch<DenseConv<bf16>, false, 32>(",
+            "conv_engine::direct::launch<DenseConv<bf16>, false>(")
+FIRST_CK = ("conv_engine.cuh", "for (int ci = 0; ci < ck; ++ci) {",
+            "for (int ci = 0; ci < CK; ++ci) {")
+DIRECT_PUT = ("    conv_engine::store(out + pix(b, y, xx) * ostride + "
+              "out_off + o, v);")
 VARIANTS = {
     "warps_2x2": [("conv_engine.cuh", SHAPE,
                    "static constexpr int WARPS_N = 2;")],
@@ -108,22 +127,31 @@ VARIANTS = {
         ("conv_engine.cuh", "  // accumulator (f, j, q): tile row",
          f"  if ({NEVER}) {{\n  // accumulator (f, j, q): tile row"),
         ("conv_engine.cuh", PUT, PUT + "\n  }")],
+    "first_co64": [FIRST_CO],
+    "first_ck8": [FIRST_CK],
+    "first_parent": [FIRST_CO, FIRST_CK],
+    "first_no_put": [("dense_kernels.cu", DIRECT_PUT,
+                      f"    if (v != 1.2345e30f) return;\n{DIRECT_PUT}")],
 }
 SOURCES = ("conv_engine.cuh", "dense_kernels.cu", "tail_kernels.cu")
-ENTRIES = ("dense_conv", "tail_up_conv")
+ENTRIES = ("dense_conv", "dense_first_conv", "tail_up_conv")
 
 
 def usage(report: str) -> str:
-    """The tensor-core kernels' registers and spills, one item each."""
+    """The tensor-core kernels' and DenseConv's direct instances'
+    registers and spills, one item each."""
     out, lines = [], report.splitlines()
     for i, line in enumerate(lines):
-        k = re.search(r"Compiling entry function '\S*?conv_tc_kernel\S*?"
-                      r"(DenseConv|PhaseUp)\S*?Li(\d+)E", line)
+        k = re.search(r"Compiling entry function '\S*?(conv_tc_kernel|"
+                      r"conv_kernel)\S*?(DenseConv|PhaseUp)(I13__nv_bfloat16"
+                      r"E|IfE)?\S*?Li(\d+)E", line)
         if k:
             info = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", info).group(1)
             spill = re.search(r"(\d+) bytes spill stores", info).group(1)
-            out.append(f"{k.group(1)}:{k.group(2)} {regs}r/{spill}s")
+            body = "" if k.group(1) == "conv_tc_kernel" else (
+                "direct_f32_" if k.group(3) == "IfE" else "direct_bf16_")
+            out.append(f"{body}{k.group(2)}:{k.group(4)} {regs}r/{spill}s")
     return " ".join(out)
 
 
@@ -221,6 +249,23 @@ def cases(gen: torch.Generator):
             x, y, j * g, ws[j][0], ws[j][1], y, j * g, lrelu=True), y)[1][
                 ..., j * g:(j + 1) * g], wp[..., j * g:(j + 1) * g], 10)
     del ref
+    x_raw = (torch.randn(b, h, w, 3, generator=gen) * 0.5).to(dev, bf)
+    k4 = [(torch.randn(3, 3, n, c, generator=gen) * 2
+           * (2 / (9 * n)) ** 0.5).to(dev, bf) for n in (3, c)]
+    b4 = [(torch.randn(c, generator=gen) * 0.1).to(dev) for _ in range(2)]
+    hd = torch.empty_like(x)
+    yield ("k4_first_conv", lambda: (_build.first_conv(
+        x_raw, k4[0], b4[0], hd), hd)[1], dt._conv(
+            x_raw.float(), (k4[0].float(), b4[0])), 20)
+    yield ("k5_trunk_conv", lambda: (_build.dense_conv(
+        x, None, 0, k4[1], b4[1], hd, 0, add=res), hd)[1], dt._conv(
+            x.float(), (k4[1].float(), b4[1])) + res.float(), 20)
+    del x_raw, hd, x, res, y, wp
+    x32 = torch.randn(4, 128, 128, c, generator=gen, device="cpu").to(dev)
+    y32 = torch.empty(4, 128, 128, 4 * g, device=dev)
+    yield ("b1_f32_conv1", lambda: (_build.dense_conv(
+        x32, y32, 0, wf[0][0], wf[0][1], y32, 0, lrelu=True), y32)[1][
+            ..., :g], F.leaky_relu(dt._conv(x32, wf[0]), 0.2), 10)
     bt = 8
     z1 = F.leaky_relu(torch.randn(bt, h, w, 4 * c, generator=gen) * 0.3,
                       0.2).to(dev, bf)

@@ -119,8 +119,10 @@ def library() -> ctypes.CDLL:
                                _F, _P, _I, _P, _I, _I, _I, _I, _P]
     lib.sr_conv3x3.restype = _I
     lib.dense_conv.argtypes = [_P, _P, *[_I] * 6, _P, _P, _P, *[_I] * 4,
-                               _P, _P, _I, _I, _I, _I, _P]
+                               _P, _P, _P, _I, _I, _I, _I, _P]
     lib.dense_conv.restype = _I
+    lib.dense_first_conv.argtypes = [_P, *[_I] * 4, _P, _P, _P, _I, _I, _P]
+    lib.dense_first_conv.restype = _I
     lib.dense_rrdb.argtypes = [_P, _P, _P, _P, _P, _P, *[_I] * 6, _P]
     lib.dense_rrdb.restype = _I
     lib.tail_up_conv.argtypes = [_P, *[_I] * 4, _P, _P, _P, _I, _I, _I, _P]
@@ -282,11 +284,12 @@ def conv3x3(in0: torch.Tensor, cin0: int, w: torch.Tensor,
     _check(lib, rc, "sr_conv3x3")
 
 
-def dense_conv(x: torch.Tensor, ws: torch.Tensor, cin1: int,
+def dense_conv(x: torch.Tensor, ws: torch.Tensor | None, cin1: int,
                w: torch.Tensor, bias: torch.Tensor | None, out: torch.Tensor,
                out_off: int, *, lrelu: bool = False,
                xres: torch.Tensor | None = None,
                res: torch.Tensor | None = None,
+               add: torch.Tensor | None = None,
                seg: tuple[int, int] | None = None,
                seg_plant: int = 0) -> None:
     """One launch of B1's conv on the conv engine (dense_kernels.cu, the
@@ -294,21 +297,45 @@ def dense_conv(x: torch.Tensor, ws: torch.Tensor, cin1: int,
     epilogue(conv3x3_SAME([x, ws[..., :cin1]], w) + bias).
 
     x [B,H,W,C], ws [B,H,W,4g] (its first cin1 channels are the second
-    source), out [B,H,W,*], xres / res [B,H,W,C], all NHWC, and w the
-    HWIO [3, 3, C + cin1, cout], all bf16 (the tensor-core body; C, cin1,
-    cout, out_off and out's channels multiples of 8) or all f32 (the
-    direct body); bias [cout] f32 or None. The epilogue: bias, lrelu(0.2)
-    when asked, then v = xres + 0.2 v, then v = res + 0.2 v, in f32, one
+    source; None with cin1 0), out [B,H,W,*], xres / res / add [B,H,W,C],
+    all NHWC, and w the HWIO [3, 3, C + cin1, cout], all bf16 (the
+    tensor-core body; C, cin1, cout, out_off and out's channels multiples
+    of 8) or all f32 (the direct body); bias [cout] f32 or None. The
+    epilogue: bias, lrelu(0.2) when asked, then v = xres + 0.2 v, then v =
+    res + 0.2 v, then v = v + add (kernel 5's trunk_conv), in f32, one
     rounding. seg and seg_plant as conv3x3's."""
     lib = library()
     b, h, wd, c = x.shape
     stride, valid = seg or (0, 0)
     rc = lib.dense_conv(
-        _ptr(x), _ptr(ws), b, h, wd, c, ws.shape[-1], cin1, _ptr(w),
-        _ptr(bias), _ptr(out), out.shape[-1], out_off, w.shape[-1],
-        int(lrelu), _ptr(xres), _ptr(res), stride, valid, seg_plant,
-        int(x.dtype == torch.float32), _stream(x))
+        _ptr(x), _ptr(ws), b, h, wd, c, 0 if ws is None else ws.shape[-1],
+        cin1, _ptr(w), _ptr(bias), _ptr(out), out.shape[-1], out_off,
+        w.shape[-1], int(lrelu), _ptr(xres), _ptr(res), _ptr(add), stride,
+        valid, seg_plant, int(x.dtype == torch.float32), _stream(x))
     _check(lib, rc, "dense_conv")
+
+
+# The fault chip_smoke.py plants in kernel 4's conv_first (`plant`, a bit
+# beside PLANT_NO_RESIDUAL, PLANT_SWAP_STAGES and PLANT_NO_BARRIER; 0 in
+# use; see dense_kernels.cu): its halo read from the border pixel, not
+# zero.
+PLANT_HALO_CLAMPED = 8
+
+
+def first_conv(x_raw: torch.Tensor, w: torch.Tensor,
+               bias: torch.Tensor | None, out: torch.Tensor,
+               plant: int = 0) -> None:
+    """One launch of kernel 4's conv_first on the conv engine's direct
+    body (dense_kernels.cu dense_first_conv, DenseConv<bf16>): out
+    [B,H,W,cout] = conv3x3_SAME(x_raw, w) + bias for x_raw [B,H,W,cin] of
+    any cin (its pixels need not be 16-byte runs), w the HWIO [3, 3, cin,
+    cout], all bf16; bias [cout] f32 or None."""
+    lib = library()
+    b, h, wd, cin = x_raw.shape
+    rc = lib.dense_first_conv(
+        _ptr(x_raw), b, h, wd, cin, _ptr(w), _ptr(bias), _ptr(out),
+        w.shape[-1], int(bool(plant & PLANT_HALO_CLAMPED)), _stream(x_raw))
+    _check(lib, rc, "dense_first_conv")
 
 
 # Faults chip_smoke.py plants in B2 (`plant`; 0 in use; see
@@ -356,17 +383,19 @@ def _ptrs(tensors) -> ctypes.Array:
 
 # Faults chip_smoke.py plants in kernels 4-6 (`plant`, a bit mask; 0 in
 # use): the last stage's residual dropped, the first two stages swapped
-# (see sr_kernels.cu launch_chain).
+# (see sr_kernels.cu launch_chain; on the tensor-core route of kernels 4
+# and 5, ops/dense_trunk.prologue_launches / epilogue_launches plant them
+# in their launch sequences).
 PLANT_NO_RESIDUAL, PLANT_SWAP_STAGES = 1, 2
 
 
 def dense_prologue(x_raw: torch.Tensor, head_w, weights, ws: torch.Tensor,
                    out: torch.Tensor, head: torch.Tensor,
                    plant: int = 0) -> None:
-    """One cooperative launch of kernel 4 (sr_kernels.cu): head =
-    conv_first(x_raw), out = dense block 0 of head. head_w: (kernel,
-    bias) of conv_first; weights: the block's five (kernel, bias); ws
-    [B,H,W,4g] scratch."""
+    """One cooperative launch of kernel 4 off the tensor-core route
+    (sr_kernels.cu conv_chain_kernel): head = conv_first(x_raw), out =
+    dense block 0 of head. head_w: (kernel, bias) of conv_first; weights:
+    the block's five (kernel, bias); ws [B,H,W,4g] scratch."""
     lib = library()
     b, h, w, cin = x_raw.shape
     pairs = [head_w, *weights]
@@ -381,9 +410,10 @@ def dense_epilogue(x: torch.Tensor, weights, residual: torch.Tensor,
                    trunk_w, head: torch.Tensor, ws: torch.Tensor,
                    feat: torch.Tensor, out: torch.Tensor,
                    plant: int = 0) -> None:
-    """One cooperative launch of kernel 5: out = trunk_conv(residual +
-    0.2 * block(x)) + head, the block's output in feat; ws [B,H,W,4g] and
-    feat [B,H,W,C] scratch."""
+    """One cooperative launch of kernel 5 off the tensor-core route
+    (sr_kernels.cu conv_chain_kernel): out = trunk_conv(residual + 0.2 *
+    block(x)) + head, the block's output in feat; ws [B,H,W,4g] and feat
+    [B,H,W,C] scratch."""
     lib = library()
     b, h, w, c = x.shape
     pairs = [*weights, trunk_w]

@@ -136,6 +136,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_kernel(const P a) {
     for (int k = 0; k < CPT; ++k) acc[q][k] = 0.f;
 
   for (int c0 = 0; c0 < cin; c0 += CK) {
+    const int ck = min(CK, cin - c0);  // the chunk's channels (a last one
+                                       // of a cin % CK != 0 is short)
     for (int e = tid; e < CK * IH * IW; e += NTHREADS) {
       const int ci = e % CK;
       const int pix = e / CK;
@@ -156,7 +158,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_kernel(const P a) {
     }
     __syncthreads();
 #pragma unroll 2
-    for (int ci = 0; ci < CK; ++ci) {
+    for (int ci = 0; ci < ck; ++ci) {
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
         float xv[PPT + 2];
@@ -198,15 +200,21 @@ __global__ void __launch_bounds__(NTHREADS, 2) conv_kernel(const P a) {
   }
 }
 
-template <class P, bool DROP>
+// CO_T: the output channels a block takes, 32 or 64; 0 picks by cout()
+// (64 above 32). A policy whose load and weight reads are cheap may take
+// 32 at any width: CO_T 64's 64 sums a thread spill at two blocks an SM.
+template <class P, bool DROP, int CO_T = 0>
 int launch(const P& a, cudaStream_t s) {
-  const int co_t = a.cout() <= 32 ? 32 : 64;
+  static_assert(CO_T == 0 || CO_T == 32 || CO_T == 64, "CO_T");
+  const int co_t = CO_T ? CO_T : a.cout() <= 32 ? 32 : 64;
   const long long nz = (long long)a.B * ((a.cout() + co_t - 1) / co_t);
   const int ny = (a.rows() + TH - 1) / TH;
   if (nz > 65535 || ny > 65535 || a.rows() < 1 || a.cols_out() < 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((a.cols_out() + TW - 1) / TW, ny, (unsigned)nz);
-  if (co_t == 32)
+  if constexpr (CO_T == 32)
+    conv_kernel<P, 32, DROP><<<grid, NTHREADS, 0, s>>>(a);
+  else if (co_t == 32)
     conv_kernel<P, 32, DROP><<<grid, NTHREADS, 0, s>>>(a);
   else
     conv_kernel<P, 64, DROP><<<grid, NTHREADS, 0, s>>>(a);

@@ -1,5 +1,5 @@
-// Hand-written CUDA kernels of the RRDB trunk's dense blocks (sm_90a): B1
-// and kernel 6.
+// Hand-written CUDA kernels of the RRDB trunk's dense blocks (sm_90a): B1,
+// kernels 4 and 5 (the trunk's end folds) and kernel 6.
 //
 //   B1 fused_dense_block  (replaces superresolution_tpu/ops/
 //      pallas_dense_trunk.py:fused_dense_block, _kernel): five launches of
@@ -15,8 +15,30 @@
 //      rows: images stacked along H, seg_stride rows apiece, the last
 //      seg_stride - seg_valid of them zero spacers) a spacer row is staged
 //      as zero and stored as 0, so each image sees exact SAME padding
-//      through all five convs (seg_plant 1, a planted fault: not zeroed at
-//      the store).
+//      through all five convs (PLANT_SPACER_KEPT, a planted fault: not
+//      zeroed at the store).
+//
+//   4 fused_dense_block_prologue  (replaces superresolution_tpu/ops/
+//      pallas_dense_trunk.py:fused_dense_block_prologue): head =
+//      conv_first(x_raw), out = B1(head), as six launches. conv_first reads
+//      x_raw of any Cin (3 for RGB, 4, 12 or 48 after a pixel unshuffle),
+//      whose pixels are not the 16-byte runs of 8 channels the tensor-core
+//      body stages, so it is dense_first_conv: DenseConv<bf16> with one
+//      source on the engine's direct body (f32 FFMA, load zero outside the
+//      frame, put rounds head to bf16 once), not a glue pass that pads
+//      x_raw to 8 channels. At Cin 3 it does 1,728 MACs a pixel for 6
+//      bytes in and 128 out: bound by its bytes. Then B1's five
+//      tensor-core launches on head.
+//   5 fused_dense_block_epilogue  (replaces pallas_dense_trunk.py:
+//      fused_dense_block_epilogue): trunk_conv(residual + 0.2 * B1(x)) +
+//      head, as six tensor-core launches: B1's five with the residual
+//      write feat, then trunk_conv is DenseConv reading feat alone (cin1
+//      0, 36,864 MACs a pixel) with the `add` term of its epilogue, v + head
+//      at scale 1 after the (absent) residuals, so B1's launches, which
+//      pass no add, keep their bits.
+//   The sequences are ops/dense_trunk.prologue_launches and
+//   epilogue_launches; at the shapes B1's route rule sends off the tensor
+//   cores kernels 4 and 5 stay sr_kernels.cu's conv_chain_kernel.
 //
 //   6 fused_rrdb  (replaces superresolution_tpu/ops/pallas_dense_trunk.py:
 //      fused_rrdb, _rrdb_kernel): one whole RRDB, b1 = B1(x), b2 = B1(b1),
@@ -75,6 +97,12 @@ namespace {
 using conv_engine::bf16;
 using conv_engine::lrelu;
 
+// Faults a check plants in DenseConv's launches (`plant`, a bit mask; 0
+// in use): a spacer row of a batch-packed map left as computed at the
+// store; the direct body's halo read from the nearest border pixel, not
+// zero (kernel 4's conv_first).
+enum { PLANT_SPACER_KEPT = 1, PLANT_HALO_CLAMPED = 2 };
+
 template <typename T>
 struct DenseConv {
   const T* x;          // [B,H,W,C]: logical channels [0, C)
@@ -88,7 +116,9 @@ struct DenseConv {
   int act;             // 1: lrelu(v, 0.2)
   const T* xres;       // or null: v = xres + 0.2 * v ([B,H,W,C])
   const T* res;        // or null: v = res + 0.2 * v ([B,H,W,C])
-  int seg_stride, seg_valid, seg_plant;
+  const T* add;        // or null: v = v + add ([B,H,W,C]; kernel 5)
+  int seg_stride, seg_valid;
+  int plant;           // planted faults, a bit mask (0 in use)
 
   __host__ __device__ int cin() const { return C + cin1; }
   __host__ __device__ int cout() const { return n; }
@@ -117,7 +147,8 @@ struct DenseConv {
   }
   __device__ __forceinline__ float2 finish(int b, int y, int xx, int o,
                                            float v0, float v1) const {
-    if (y >= H || xx >= W || o >= n || (!image_row(y) && !seg_plant))
+    if (y >= H || xx >= W || o >= n ||
+        (!image_row(y) && !(plant & PLANT_SPACER_KEPT)))
       return make_float2(0.f, 0.f);
     if (act) v0 = lrelu(v0), v1 = lrelu(v1);
     const size_t at = pix(b, y, xx) * C + o;
@@ -131,6 +162,11 @@ struct DenseConv {
           *reinterpret_cast<const __nv_bfloat162*>(res + at));
       v0 = r.x + 0.2f * v0, v1 = r.y + 0.2f * v1;
     }
+    if (add != nullptr) {
+      const float2 r = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(add + at));
+      v0 += r.x, v1 += r.y;
+    }
     return make_float2(v0, v1);
   }
   // The direct body (f32): the same staging, epilogue and spacer rows,
@@ -138,6 +174,8 @@ struct DenseConv {
   __host__ __device__ int y0() const { return 0; }
   __host__ __device__ int x0() const { return 0; }
   __device__ __forceinline__ float load(int b, int y, int xx, int c) const {
+    if (plant & PLANT_HALO_CLAMPED)
+      y = min(max(y, 0), H - 1), xx = min(max(xx, 0), W - 1);
     if (y < 0 || y >= H || xx < 0 || xx >= W || !image_row(y)) return 0.f;
     const size_t p = pix(b, y, xx);
     return conv_engine::to_f(c < C ? x[p * C + c] : ws[p * g4 + (c - C)]);
@@ -148,12 +186,13 @@ struct DenseConv {
   __device__ __forceinline__ void put(int b, int y, int xx, int o,
                                       float acc) const {
     float v = 0.f;
-    if (image_row(y) || seg_plant) {
+    if (image_row(y) || (plant & PLANT_SPACER_KEPT)) {
       v = acc + bias_at(o);
       if (act) v = lrelu(v);
       const size_t at = pix(b, y, xx) * C + o;
       if (xres != nullptr) v = conv_engine::to_f(xres[at]) + 0.2f * v;
       if (res != nullptr) v = conv_engine::to_f(res[at]) + 0.2f * v;
+      if (add != nullptr) v += conv_engine::to_f(add[at]);
     }
     conv_engine::store(out + pix(b, y, xx) * ostride + out_off + o, v);
   }
@@ -245,7 +284,7 @@ void rrdb_block(RrdbArgs& c, int first, const bf16* x, bf16* ws, bf16* out,
         last ? C : g, static_cast<const float*>(bias[j]),
         last ? out : ws, last ? C : 4 * g, last ? 0 : j * g,
         last ? C : g, last ? 0 : 1, last ? x : nullptr,
-        last ? res : nullptr, 0, 0, 0};
+        last ? res : nullptr, nullptr, 0, 0, 0};
   }
 }
 
@@ -273,8 +312,9 @@ extern "C" {
 int dense_conv(const void* x, const void* ws, int B, int H, int W, int C,
                int g4, int cin1, const void* wk, const float* bias,
                void* out, int ostride, int out_off, int cout, int act,
-               const void* xres, const void* res, int seg_stride,
-               int seg_valid, int seg_plant, int f32, void* stream) {
+               const void* xres, const void* res, const void* add,
+               int seg_stride, int seg_valid, int seg_plant, int f32,
+               void* stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || cin1 < 0 || cin1 > g4 ||
       cout < 1 || out_off < 0 || out_off + cout > ostride ||
       (cin1 > 0 && ws == nullptr) ||
@@ -286,7 +326,8 @@ int dense_conv(const void* x, const void* ws, int B, int H, int W, int C,
         C, g4, cin1, static_cast<const float*>(wk), cout, bias,
         static_cast<float*>(out), ostride, out_off, cout, act,
         static_cast<const float*>(xres), static_cast<const float*>(res),
-        seg_stride, seg_valid, seg_plant};
+        static_cast<const float*>(add), seg_stride, seg_valid,
+        seg_plant ? PLANT_SPACER_KEPT : 0};
     return conv_engine::direct::launch<DenseConv<float>, false>(
         a, static_cast<cudaStream_t>(stream));
   }
@@ -298,8 +339,29 @@ int dense_conv(const void* x, const void* ws, int B, int H, int W, int C,
       g4, cin1, static_cast<const bf16*>(wk), cout, bias,
       static_cast<bf16*>(out), ostride, out_off, cout, act,
       static_cast<const bf16*>(xres), static_cast<const bf16*>(res),
-      seg_stride, seg_valid, seg_plant};
+      static_cast<const bf16*>(add), seg_stride, seg_valid,
+      seg_plant ? PLANT_SPACER_KEPT : 0};
   return conv_engine::tc::launch(a, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 4's conv_first on the engine's direct body (DenseConv<bf16> with
+// one source of any cin, f32 FFMA): out [B,H,W,cout] = conv3x3_SAME(x_raw,
+// wk) + bias, one rounding to bf16. x_raw [B,H,W,cin] and wk, the HWIO
+// [3,3,cin,cout], bf16; bias [cout] f32. clamp_halo != 0 plants
+// PLANT_HALO_CLAMPED. Returns the cudaError_t of the launch (0 on
+// success).
+int dense_first_conv(const void* x_raw, int B, int H, int W, int cin,
+                     const void* wk, const float* bias, void* out, int cout,
+                     int clamp_halo, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || cin < 1 || cout < 1)
+    return (int)cudaErrorInvalidValue;
+  const DenseConv<bf16> a{
+      static_cast<const bf16*>(x_raw), nullptr, B, H, W, cin, 0, 0,
+      static_cast<const bf16*>(wk), cout, bias, static_cast<bf16*>(out),
+      cout, 0, cout, 0, nullptr, nullptr, nullptr, 0, 0,
+      clamp_halo ? PLANT_HALO_CLAMPED : 0};
+  return conv_engine::direct::launch<DenseConv<bf16>, false, 32>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel 6: one RRDB, one cooperative launch of rrdb_tc_kernel: b1 =

@@ -14,10 +14,14 @@
 //     the shapes its route rule sends off the tensor cores, through its
 //     lrelu' gate and scaled-add epilogues (the models' widths run
 //     train_tc_kernels.cu's);
-//   - kernels 4-5, the trunk's levers, as stages of conv_chain_kernel,
-//     and kernel 6 there at the shapes the route rule sends off the
-//     tensor cores (the models' widths run dense_kernels.cu's
-//     rrdb_tc_kernel, B1's tile body in persistent blocks):
+//   - kernels 4-6, the trunk's levers, as stages of conv_chain_kernel,
+//     at the shapes B1's route rule (ops/dense_trunk.uses_tensor_cores)
+//     sends off the tensor cores: bf16 with C or g not a multiple of 8,
+//     or C + 4g > 256 (f32 activations the wrappers refuse). The
+//     models' widths run dense_kernels.cu: kernel 4 as conv_first on the
+//     conv engine's direct body then B1's five tensor-core launches,
+//     kernel 5 as B1's five and trunk_conv on the tensor cores, kernel 6
+//     as rrdb_tc_kernel, B1's tile body in persistent blocks:
 //   4 fused_dense_block_prologue  (replaces ops/pallas_dense_trunk.py:
 //      fused_dense_block_prologue): conv_first then dense block 0, six
 //      stages of conv_chain_kernel in one cooperative launch.
@@ -43,8 +47,8 @@
 // What this simple design leaves on the table: the sums run on the CUDA
 // cores in f32 (FFMA, 67 TFLOP/s peak), not on the tensor cores, so it
 // can reach at most ~7% of the bf16 bound; the conv engine's tensor-core
-// body (conv_engine.cuh; B1's, B2's and, at the models' widths, 6's and
-// 13's route) is the way for 4-5 and 7's convs too. The chains also
+// body (conv_engine.cuh; B1's, B2's and, at the models' widths, 4's, 5's,
+// 6's and 13's route) is the way for 7's convs too. The chains also
 // round-trip the 4g workspace channels through device memory, which an
 // in-shared-memory cascade would avoid.
 

@@ -37,27 +37,34 @@ MACs per pixel, 1.11 TFLOP per call -> 1.12 ms at 989 TFLOP/s, against
 0.27 ms for its ~0.9 GB of x, residual and output; bound by operations.
 
 Kernels 4-6, the levers of the trunk (infer/fused_trunk.make_fused_trunk
-fold_ends / chain_rrdb), each ONE cooperative launch: its conv stages in
-order, each over the whole tensor, separated by grid-wide barriers,
-every intermediate in device memory:
+fold_ends / chain_rrdb):
   4 fused_dense_block_prologue (replaces ops/pallas_dense_trunk.py:
     fused_dense_block_prologue): head = conv_first(x_raw), out = B1(head);
   5 fused_dense_block_epilogue (replaces fused_dense_block_epilogue):
     trunk_conv(residual + 0.2 * B1(x)) + head;
   6 fused_rrdb (replaces fused_rrdb / _rrdb_kernel): one whole RRDB,
     x + 0.2 * B1(B1(B1(x))).
-Kernels 4 and 5 run conv_chain_kernel (csrc/sr_kernels.cu, f32 FFMA).
-Kernel 6 takes B1's route rule: on the tensor-core route it is
-rrdb_tc_kernel (csrc/dense_kernels.cu), persistent blocks that walk B1's
-fifteen launches as stages through the conv engine's tile body under
-B1's DenseConv policy, so it computes exactly what three B1 calls do;
-other shapes run conv_chain_kernel. Each launch counts on `launches` and
-on its body's count (`tc_launches`, `direct_launches`).
+All three take B1's route rule. On the tensor-core route kernel 4 is six
+launches of the conv engine (prologue_launches): conv_first on its direct
+body (csrc/dense_kernels.cu dense_first_conv: x_raw's Cin of 3, 4, 12 or
+48 channels are not the 16-byte runs the tensor-core body stages), then
+B1's five tensor-core launches on head; kernel 5 is six tensor-core
+launches (epilogue_launches): B1's five with the residual, then
+trunk_conv as DenseConv reading their output alone, its epilogue adding
+head. Kernel 6 is rrdb_tc_kernel (csrc/dense_kernels.cu), persistent
+blocks that walk B1's fifteen launches as stages through the conv
+engine's tile body under B1's DenseConv policy, so it computes exactly
+what three B1 calls do. Other shapes run each kernel as ONE cooperative
+launch of conv_chain_kernel (csrc/sr_kernels.cu, f32 FFMA): its conv
+stages in order, each over the whole tensor, separated by grid-wide
+barriers. `launches` counts calls; `tc_launches` and `direct_launches`
+count each call's launches by body (conv_chain_kernel's as direct), and
+kernels 4 and 5's inner B1 launches count there, not on B1's counts.
 SAME zero padding at every conv, f32 accumulation, lrelu 0.2 and the
 x0.2 residuals in the reference's order. Bounds at the main-path shape
 (operations, 989 TFLOP/s): kernel 6 does 3 x 239,616 MACs per pixel,
-3.36 ms at [24,376,256,64]; kernel 4 B1's plus 9 * Cin * 64, kernel 5
-B1's plus 36,864.
+3.36 ms at [24,376,256,64]; kernel 4 B1's plus 9 * Cin * 64 (1,728 at
+Cin 3), kernel 5 B1's plus 36,864.
 
 Weights: five (kernel [3,3,cin_j,cout_j] HWIO, bias [cout_j] f32) pairs
 (dense_weights), from a BasicSR-keyed state dict or from the JAX
@@ -225,8 +232,8 @@ def dense_block_launches(x: torch.Tensor, weights: DenseWeights,
     g = weights[0][0].shape[-1]
     tc = uses_tensor_cores(x, c, g)
     if on_engine(x, c, g):
-        _build.dense_conv(x, workspace, n_ws, k, bb, out, 0, xres=x,
-                          res=residual, **seg_kw(seg))
+        _dense_conv(engine_steps(x, weights, residual, workspace, out,
+                                 seg)[4])
     else:
         _build.conv3x3(x, c, k, bb, out, 0, c, geom=(b, h, w),
                        in1=workspace, cin1=n_ws, xres=x, res=residual,
@@ -248,6 +255,34 @@ def seg_kw(seg: Seg | None) -> dict:
     return {} if seg is None else {"seg": tuple(seg)}
 
 
+def engine_steps(x: torch.Tensor, weights: DenseWeights,
+                 residual: torch.Tensor | None, workspace: torch.Tensor,
+                 out: torch.Tensor | None,
+                 seg: Seg | None = None) -> list[dict]:
+    """B1's five launches on the conv engine (csrc/dense_kernels.cu
+    DenseConv), as _build.dense_conv's keyword arguments: conv_j (j < 4)
+    reads x and the workspace's first j*g channels and writes y_j =
+    lrelu(v) at workspace channel j*g; conv_5 reads x and all 4g and
+    writes x + 0.2 v, then residual + 0.2 that, into out."""
+    g = workspace.shape[-1] // 4
+    steps = [dict(x=x, ws=workspace, cin1=j * g, w=k, bias=bb,
+                  out=workspace, out_off=j * g, lrelu=True, **seg_kw(seg))
+             for j, (k, bb) in enumerate(weights[:4])]
+    k, bb = weights[4]
+    steps.append(dict(x=x, ws=workspace, cin1=4 * g, w=k, bias=bb, out=out,
+                      out_off=0, xres=x, res=residual, **seg_kw(seg)))
+    return steps
+
+
+def _dense_conv(step: dict) -> None:
+    """_build.dense_conv on one of engine_steps' launches, its leading
+    arguments positional as the helper's signature has them."""
+    kw = dict(step)
+    args = [kw.pop(k) for k in ("x", "ws", "cin1", "w", "bias", "out",
+                                "out_off")]
+    _build.dense_conv(*args, **kw)
+
+
 def dense_features(x: torch.Tensor, weights: DenseWeights,
                    workspace: torch.Tensor, seg: Seg | None = None) -> None:
     """B1's first four launches: y_1..y_4 into `workspace` [B,H,W,4g],
@@ -258,10 +293,10 @@ def dense_features(x: torch.Tensor, weights: DenseWeights,
     g = weights[0][0].shape[-1]
     tc = uses_tensor_cores(x, c, g)
     engine = on_engine(x, c, g)
+    steps = engine_steps(x, weights, None, workspace, None, seg)
     for j, (k, bb) in enumerate(weights[:4]):
         if engine:
-            _build.dense_conv(x, workspace, j * g, k, bb, workspace, j * g,
-                              lrelu=True, **seg_kw(seg))
+            _dense_conv(steps[j])
         else:
             _build.conv3x3(x, c, k, bb, workspace, j * g, g, geom=(b, h, w),
                            in1=workspace, cin1=j * g, lrelu=True,
@@ -318,7 +353,8 @@ def fused_dense_block_prologue(x_raw: torch.Tensor, head_w,
     pixel unshuffle): -> (out, head), both [B,H,W,C]. head_w: conv_first's
     (kernel [3,3,Cin,C], bias); weights: dense block 0's. CPU tensors run
     the plain version; CUDA tensors launch the kernel (bf16 activations
-    and kernels, f32 biases) or raise."""
+    and kernels, f32 biases; the route uses_tensor_cores picks) or
+    raise."""
     if x_raw.device.type == "cpu":
         return fused_dense_block_prologue_reference(x_raw, head_w, weights)
     b, h, w, cin = x_raw.shape
@@ -330,12 +366,65 @@ def fused_dense_block_prologue(x_raw: torch.Tensor, head_w,
     out = torch.empty_like(head)
     ws = torch.empty((b, h, w, 4 * g), dtype=x_raw.dtype,
                      device=x_raw.device)
-    _build.dense_prologue(x_raw, head_w, weights, ws, out, head)
-    fused_dense_block_prologue.launches += 1
+    prologue_launches(x_raw, head_w, weights, ws, out, head)
     return out, head
 
 
-fused_dense_block_prologue.launches = 0
+fused_dense_block_prologue.launches = 0         # calls
+fused_dense_block_prologue.tc_launches = 0      # engine launches by body
+fused_dense_block_prologue.direct_launches = 0  # (and conv_chain_kernel)
+
+
+def _run(op, steps: list[tuple[str, dict]]) -> None:
+    """Launches each (_build helper, keyword arguments) step in order,
+    counting dense_conv's on op.tc_launches and first_conv's on
+    op.direct_launches."""
+    for helper, kw in steps:
+        if helper == "dense_conv":
+            _dense_conv(kw)
+            op.tc_launches += 1
+        else:
+            getattr(_build, helper)(**kw)
+            op.direct_launches += 1
+
+
+def _plant(steps: list[tuple[str, dict]], plant: int, drop: str) -> None:
+    """The faults a check plants in a launch sequence (_build's bits):
+    PLANT_NO_RESIDUAL drops the last launch's `drop` term,
+    PLANT_SWAP_STAGES swaps the first two launches."""
+    if plant & _build.PLANT_NO_RESIDUAL:
+        steps[-1][1][drop] = None
+    if plant & _build.PLANT_SWAP_STAGES:
+        steps[0], steps[1] = steps[1], steps[0]
+
+
+def prologue_launches(x_raw: torch.Tensor, head_w, weights: DenseWeights,
+                      ws: torch.Tensor, out: torch.Tensor,
+                      head: torch.Tensor, plant: int = 0) -> None:
+    """Kernel 4's launches into `head` and `out`, counted once in
+    fused_dense_block_prologue.launches and, by body, in its tc_launches
+    / direct_launches (never in B1's counts); callers have validated the
+    CUDA tensors. On the route uses_tensor_cores(head) takes: conv_first
+    on the conv engine's direct body (_build.first_conv: x_raw's Cin
+    channels are not 16-byte runs), then B1's five tensor-core launches
+    on head. Elsewhere one launch of conv_chain_kernel
+    (_build.dense_prologue). plant: 0 in use (see _plant and
+    _build.PLANT_HALO_CLAMPED)."""
+    op = fused_dense_block_prologue
+    c, g = head.shape[-1], ws.shape[-1] // 4
+    if uses_tensor_cores(x_raw, c, g):
+        k, bb = head_w
+        steps = [("first_conv", dict(
+            x_raw=x_raw, w=k, bias=bb, out=head,
+            plant=plant & _build.PLANT_HALO_CLAMPED))]
+        steps += [("dense_conv", st)
+                  for st in engine_steps(head, weights, None, ws, out)]
+        _plant(steps, plant, "xres")
+        _run(op, steps)
+    else:
+        _build.dense_prologue(x_raw, head_w, weights, ws, out, head, plant)
+        op.direct_launches += 1
+    op.launches += 1
 
 
 def fused_dense_block_epilogue_reference(x: torch.Tensor,
@@ -354,7 +443,8 @@ def fused_dense_block_epilogue(x: torch.Tensor, weights: DenseWeights,
     """Kernel 5 on x, residual, head [B,H,W,C]: trunk_conv(residual + 0.2
     * block(x)) + head, the last RRDB's third block, its residual, the
     trunk conv and the global residual. CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel (the route uses_tensor_cores
+    picks) or raise."""
     if x.device.type == "cpu":
         return fused_dense_block_epilogue_reference(x, weights, residual,
                                                     trunk_w, head)
@@ -369,12 +459,42 @@ def fused_dense_block_epilogue(x: torch.Tensor, weights: DenseWeights,
              [*weights, trunk_w])
     ws = torch.empty((b, h, w, 4 * g), dtype=x.dtype, device=x.device)
     feat, out = torch.empty_like(x), torch.empty_like(x)
-    _build.dense_epilogue(x, weights, residual, trunk_w, head, ws, feat, out)
-    fused_dense_block_epilogue.launches += 1
+    epilogue_launches(x, weights, residual, trunk_w, head, ws, feat, out)
     return out
 
 
-fused_dense_block_epilogue.launches = 0
+fused_dense_block_epilogue.launches = 0         # calls
+fused_dense_block_epilogue.tc_launches = 0      # engine launches by body
+fused_dense_block_epilogue.direct_launches = 0  # (and conv_chain_kernel)
+
+
+def epilogue_launches(x: torch.Tensor, weights: DenseWeights,
+                      residual: torch.Tensor, trunk_w, head: torch.Tensor,
+                      ws: torch.Tensor, feat: torch.Tensor,
+                      out: torch.Tensor, plant: int = 0) -> None:
+    """Kernel 5's launches into `feat` (the block's output) and `out`,
+    counted once in fused_dense_block_epilogue.launches and, by body, in
+    its tc_launches / direct_launches (never in B1's counts); callers have
+    validated the CUDA tensors. On the route uses_tensor_cores(x) takes:
+    B1's five tensor-core launches with the residual into feat, then
+    trunk_conv as one more (DenseConv reading feat alone, its epilogue
+    adding head). Elsewhere one launch of conv_chain_kernel
+    (_build.dense_epilogue). plant: 0 in use (see _plant)."""
+    op = fused_dense_block_epilogue
+    if uses_tensor_cores(x, x.shape[-1], ws.shape[-1] // 4):
+        k, bb = trunk_w
+        steps = [("dense_conv", st)
+                 for st in engine_steps(x, weights, residual, ws, feat)]
+        steps.append(("dense_conv", dict(x=feat, ws=None, cin1=0, w=k,
+                                         bias=bb, out=out, out_off=0,
+                                         add=head)))
+        _plant(steps, plant, "add")
+        _run(op, steps)
+    else:
+        _build.dense_epilogue(x, weights, residual, trunk_w, head, ws, feat,
+                              out, plant)
+        op.direct_launches += 1
+    op.launches += 1
 
 
 def fused_rrdb_reference(x: torch.Tensor, w0: DenseWeights,

@@ -1,23 +1,26 @@
-"""Plain-torch models of B1's and B2's tensor-core launches, in the conv
-engine's GEMM form.
+"""Plain-torch models of B1's, B2's and kernels 4 and 5's conv-engine
+launches, in the conv engine's GEMM form.
 
 The CUDA bodies run only on the card, so these forms hold, on the CPU,
 what one launch computes and in which order (ops/csrc/dense_kernels.cu
 DenseConv, ops/csrc/tail_kernels.cu PhaseUp, both under conv_engine.cuh's
-tensor-core body): the staged input tile (im2col with a zero halo,
-column tap * cin + ci, tap = ky * 3 + kx) times the HWIO weight read as
-the K-major matrix [9 * cin, cout], summed in f32, plus the f32 bias,
-then the policy's epilogue in f32 and one rounding to the output's type.
-Each takes the arguments of its _build launch helper, so a test can put
-it in the helper's place and run the wrappers' launch sequences
-(ops/dense_trunk.dense_block_launches, ops/phase_tail.up2_hr_launches)
-on CPU tensors, planted faults included.
+tensor-core body, and DenseConv's conv_first under its direct body): the
+staged input tile (im2col with a zero halo, column tap * cin + ci, tap =
+ky * 3 + kx) times the HWIO weight read as the K-major matrix [9 * cin,
+cout], summed in f32, plus the f32 bias, then the policy's epilogue in
+f32 and one rounding to the output's type. Each takes the arguments of
+its _build launch helper, so a test can put it in the helper's place and
+run the wrappers' launch sequences (ops/dense_trunk.dense_block_launches,
+prologue_launches, epilogue_launches, ops/phase_tail.up2_hr_launches) on
+CPU tensors, planted faults included.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from superresolution_tpu_torch.ops._build import PLANT_HALO_CLAMPED
 
 # the planted faults of B2 (_build.PLANT_SWAP_PHASE, PLANT_CLAMP_EDGE,
 # PLANT_BIAS_OFF)
@@ -44,17 +47,18 @@ def image_row_mask(h: int, seg) -> torch.Tensor:
     return keep[:, None, None]
 
 
-def dense_conv_form(x: torch.Tensor, ws: torch.Tensor, cin1: int,
+def dense_conv_form(x: torch.Tensor, ws: torch.Tensor | None, cin1: int,
                     w: torch.Tensor, bias: torch.Tensor | None,
                     out: torch.Tensor, out_off: int, *, lrelu: bool = False,
                     xres: torch.Tensor | None = None,
-                    res: torch.Tensor | None = None, seg=None,
+                    res: torch.Tensor | None = None,
+                    add: torch.Tensor | None = None, seg=None,
                     seg_plant: int = 0) -> None:
     """One launch of _build.dense_conv (DenseConv): the K rows are x's C
     channels then ws's first cin1, each staged run read as zero on a
-    spacer row; f32 sums, bias, lrelu, x + 0.2 v, res + 0.2 v, spacer rows
-    0 (not with seg_plant), then one rounding into out[..., out_off:
-    out_off + cout]."""
+    spacer row; f32 sums, bias, lrelu, x + 0.2 v, res + 0.2 v, v + add,
+    spacer rows 0 (not with seg_plant), then one rounding into out[...,
+    out_off:out_off + cout]."""
     cout = w.shape[-1]
     u = torch.cat([x, ws[..., :cin1]], -1) if cin1 else x
     keep = image_row_mask(x.shape[1], seg)
@@ -68,9 +72,27 @@ def dense_conv_form(x: torch.Tensor, ws: torch.Tensor, cin1: int,
         v = xres.float() + 0.2 * v
     if res is not None:
         v = res.float() + 0.2 * v
+    if add is not None:
+        v = v + add.float()
     if not seg_plant:
         v = v * keep
     out[..., out_off:out_off + cout] = v.to(out.dtype)
+
+
+def first_conv_form(x_raw: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor | None, out: torch.Tensor,
+                    plant: int = 0) -> None:
+    """One launch of _build.first_conv (kernel 4's conv_first, DenseConv
+    on the direct body): im2col of x_raw's Cin channels, any Cin, times
+    the HWIO weight as [9 * Cin, cout], f32 sums plus the bias, one
+    rounding into out; with _build.PLANT_HALO_CLAMPED in plant the halo
+    reads the nearest border pixel, not zero."""
+    cout = w.shape[-1]
+    pad = "replicate" if plant & PLANT_HALO_CLAMPED else "zeros"
+    v = im2col(x_raw.float(), pad) @ w.float().reshape(-1, cout)
+    if bias is not None:
+        v = v + bias.float()
+    out.copy_(v.to(out.dtype))
 
 
 def d2s_view(z: torch.Tensor, swap: bool = False) -> torch.Tensor:
