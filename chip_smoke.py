@@ -43,11 +43,18 @@ a second seed:
              at the latter (kernel 9 with its exponentials' count and
              floor beside its bound, and its replaced kernel's time from
              PERF.md, not re-run); HAB also on out - x - cab, CAB also on
-             its GELU hidden map; at the first geometry each check must
+             its GELU hidden map, kernel 7 one call of one launch of its
+             tensor-core body (kernel 7 timed beside its first form's
+             three launches, live, and the cuDNN composition
+             SRTPU_XLA_CAB runs); at the first geometry each check must
              also fail on each of six faults planted in the kernels'
-             inputs, and kernel 8 miss by 3x the bar with each of its two
-             faults planted in its tensor-core body (a q/k/v GEMM slab
-             skipped, LN2 skipped)
+             inputs, kernel 7 miss by 3x the bar with each of its three
+             faults planted in its body (LN(0) outside the image, the
+             hidden map not zeroed there, a 1-pixel halo) and kernel 8
+             with each of its two (a q/k/v GEMM slab skipped, LN2
+             skipped)
+  6b cab-widths     kernel 7 at C 120 (hidden 40), C 128 with c_real 96
+             and a ragged [2,100,70,96] the same way, each timed
   7 hybrid-path     one frame through fused_hybrid_model, launches counted
              (exact); shape and finiteness; stage 1, stage 2 and the
              frame after it (both fed the kernel path's own stage-2
@@ -71,9 +78,11 @@ random weights from the Trainer's seed:
              through star_weighted_l1_cuda, value and gradient within 1e-4
              at [4,512,512,1] and a ragged n; each check must fail on
              each fault planted in it (four in kernel 13's launch
-             helpers, two in kernel 14's inputs); both timed at the main
-             shapes, 13 beside its direct launches (the parent kernel's)
-             and split by launch on both routes ("k13_split")
+             helpers, two in kernel 14's inputs); kernel 14's forward
+             one CUDA kernel a call (profiled), two calls giving the same
+             value bits; both timed at the main shapes, 13 beside its
+             direct launches (the parent kernel's) and split by launch on
+             both routes ("k13_split"), 14 beside its first form's time
   9b f32-routes     (C4) B1 and kernel 13 with f32 activations on the conv
              engine's direct body at [4,128,128,64] against their plain
              f32 versions within 1e-4: B1's output, 13's dx, dW, db;
@@ -316,6 +325,7 @@ SRC = "superresolution_tpu_torch/ops/csrc/sr_kernels.cu"
 DENSE_SRC = "superresolution_tpu_torch/ops/csrc/dense_kernels.cu"   # B1
 TAIL_SRC = "superresolution_tpu_torch/ops/csrc/tail_kernels.cu"     # B2
 HAT_SRC = "superresolution_tpu_torch/ops/csrc/hat_kernels.cu"
+CAB_SRC = "superresolution_tpu_torch/ops/csrc/cab_kernels.cu"      # 7
 TOL_HAB = 0.03            # CHIPEQ's bar for fused_hat_* and flash_oca
 HYBRID_IN = 128           # 128x128 -> stage 1 x2 -> stage 2 x2 -> 512x512
 # multiply-accumulates per pixel of each op (c=64, g=32)
@@ -441,6 +451,26 @@ def time_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device ms of fn over `iters` calls queued behind a spin of the
+    card (dma_probe.copy_ms's clock): the card's time alone, where
+    time_ms's span also holds any host time to issue a call that exceeds
+    the card's."""
+    from superresolution_tpu_torch.utils.dma_probe import SPIN_CYCLES
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -733,6 +763,11 @@ OLD_KERNELS = {
                              "sr_kernels.cu conv3x3_kernel x5, f32 FFMA",
                              3.562, "13"),
     "dense_block_backward_seg": ("the same with seg", 1.741, "13"),
+    "fused_cab_convs": ("hat_kernels.cu layernorm_kernel + sr_kernels.cu "
+                        "conv3x3_kernel x2, f32 FFMA", 0.425, "7"),
+    "star_weighted_l1_cuda": ("train_kernels.cu star_l1_partial_kernel + "
+                              "star_l1_reduce_kernel + star_l1_bwd_kernel, "
+                              "one float a load", 0.0303, "14"),
 }
 
 
@@ -779,7 +814,8 @@ def check_up2hr_faults(gen: torch.Generator) -> None:
 def check_direct_routes(gen: torch.Generator) -> None:
     """The shapes the route rules send off the tensor cores (B1, kernels
     4-6 and 13 at C 24, g 12, kernels 4-6 on conv_chain_kernel; B2 at c
-    12) on the direct bodies, within
+    12; kernel 7 at C 36, hidden 12, its three launches) on the direct
+    bodies, within
     TOL_KERNEL of the plain versions in f32 on the same values (kernel
     13 through check_dense_backward's bars), each launch counted on
     direct_launches and none on tc_launches."""
@@ -816,6 +852,14 @@ def check_direct_routes(gen: torch.Generator) -> None:
             dt.fused_dense_block_epilogue(x, ws, r, ends[1], head),
             dt.fused_dense_block_epilogue_reference(
                 x.float(), ws, r.float(), ends[1], head.float()), TOL_KERNEL)
+    # kernel 7 at C 36, hidden 12: its three launches
+    from superresolution_tpu_torch.ops import hab
+
+    cg = torch.Generator().manual_seed(SEED + 13)  # gen's draws unmoved
+    cw = hab.cab_mma_weights(cab_check_weights(cg, 36, 12))
+    xc = rand(cg, 2, 37, 45, 36, dtype=torch.bfloat16)
+    compare("fused_cab_convs/direct_c36", hab.fused_cab_convs(xc, cw),
+            hab.fused_cab_convs_reference(xc.float(), cw), TOL_KERNEL)
     got = {k: [ops[k].tc_launches, ops[k].direct_launches]
            for k in (*BODY_OPS, *END_FOLD_BODIES)}
     emit({"check": "direct_routes/bodies", **got})
@@ -885,6 +929,42 @@ def cab_check_weights(gen: torch.Generator, c: int = 96, mid: int = 32):
             rand(gen, c, scale=0.5)]
 
 
+def lane_padded_cab_weights(gen: torch.Generator, cr: int = 96,
+                            to: int = 128) -> list:
+    """cab_check_weights at C cr, zero-padded to `to` lanes as
+    infer/lane_pad.py pads them (the hidden width unpadded)."""
+    cw = cab_check_weights(gen, cr, cr // 3)
+    return [pad_lanes(cw[0], [0], to), pad_lanes(cw[1], [0], to),
+            pad_lanes(cw[2], [2], to), cw[3], pad_lanes(cw[4], [3], to),
+            pad_lanes(cw[5], [0], to)]
+
+
+def cudnn_cab_weights(ws: list) -> list:
+    """Kernel 7's weights for cudnn_cab: the conv kernels OIHW, as the
+    state dict holds them."""
+    return [ws[0], ws[1], ws[2].permute(3, 2, 0, 1).contiguous(), ws[3],
+            ws[4].permute(3, 2, 0, 1).contiguous(), ws[5]]
+
+
+def cudnn_cab(x: torch.Tensor, cw: list, c_real: int | None = None):
+    """Kernel 7's function as the PyTorch calls SRTPU_XLA_CAB makes in
+    its place (infer/fused_hat._cab_plain without the squeeze-excite):
+    layer_norm, a cuDNN conv, GELU, a cuDNN conv. Kernel 7's yardstick;
+    the port runs it only under that lever."""
+    from superresolution_tpu_torch.infer.common import conv_nhwc
+    from superresolution_tpu_torch.ops import hab
+
+    y = hab.layer_norm(x, cw[0], cw[1], c_real)
+    return conv_nhwc(F.gelu(conv_nhwc(y, cw[2], cw[3])), cw[4], cw[5])
+
+
+def cab_bound(px: int, c: int, mid: int) -> tuple[float, str]:
+    """Kernel 7's bound on px pixels at C c, hidden mid: 2 x 9 c mid MACs
+    a pixel, x and out read and written once, the kernels read once."""
+    return bound(2 * px * 2 * 9 * c * mid,
+                 px * c * 2 * 2 + 2 * 9 * c * mid * 2)
+
+
 def hab_check_weights(gen: torch.Generator, c: int = 96, nh: int = 6,
                       n: int = 64, mlp: int = 192) -> dict:
     """Kernel 8's weights for its check: q and k weights and a rel-pos
@@ -909,24 +989,105 @@ def hab_check_weights(gen: torch.Generator, c: int = 96, nh: int = 6,
             "b2": rand(gen, c, scale=0.1)}
 
 
-def check_cab(ws, x: torch.Tensor, tag: str) -> dict:
+def check_cab(ws, x: torch.Tensor, tag: str,
+              c_real: int | None = None) -> dict:
     """Kernel 7 against its plain version (in f32 on the bf16 inputs):
     the output and the GELU hidden map, which starts as NaN so a slice no
-    launch writes fails."""
+    launch writes fails; one call counted, one launch of the tensor-core
+    body."""
     from superresolution_tpu_torch.ops import hab
 
     b, h, w, _ = x.shape
     hid = torch.full((b, h, w, ws[2].shape[-1]), float("nan"),
                      dtype=x.dtype, device=x.device)
-    before = hab.fused_cab_convs.launches
-    got = hab.fused_cab_convs(x, ws, hidden=hid)
-    if hab.fused_cab_convs.launches != before + 3:
-        raise AssertionError("fused_cab_convs: launches did not go up by 3")
+    op = hab.fused_cab_convs
+    before = (op.launches, op.tc_launches, op.direct_launches)
+    got = hab.fused_cab_convs(x, ws, hidden=hid, c_real=c_real)
+    if (op.launches, op.tc_launches, op.direct_launches) != (
+            before[0] + 1, before[1] + 1, before[2]):
+        raise AssertionError(f"fused_cab_convs/{tag}: not one call of one "
+                             "tensor-core launch")
     hid_ref = torch.empty(hid.shape, device=x.device)
-    ref = hab.fused_cab_convs_reference(x.float(), ws, hidden=hid_ref)
+    ref = hab.fused_cab_convs_reference(x.float(), ws, hidden=hid_ref,
+                                        c_real=c_real)
     res = compare(f"fused_cab_convs/{tag}", got, ref, TOL_KERNEL)
     compare(f"fused_cab_convs/{tag}/hidden", hid, hid_ref, TOL_KERNEL)
     return res
+
+
+def cab_three_launches(x: torch.Tensor, ws, c_real: int | None = None):
+    """Kernel 7's three-launch body (layernorm_kernel and two
+    conv3x3_kernel), whatever the route rule says: its first form, still
+    the body of the widths off the rule, timed live beside the new one."""
+    from superresolution_tpu_torch.ops import _build
+
+    b, h, w, c = x.shape
+    mid = ws[2].shape[-1]
+    y, hid, out = (torch.empty_like(x), torch.empty(
+        (b, h, w, mid), dtype=x.dtype, device=x.device), torch.empty_like(x))
+    _build.layernorm(x, ws[0], ws[1], y, c_real)
+    _build.conv3x3(y, c, ws[2], ws[3], hid, 0, mid, geom=(b, h, w),
+                   gelu=True)
+    _build.conv3x3(hid, mid, ws[4], ws[5], out, 0, c, geom=(b, h, w))
+    return out
+
+
+# Kernel 7's three faults planted in its tensor-core body (_build.cab_tc's
+# `plant`): pixels outside the image staged as LN(0) = ln bias, the
+# hidden map not zeroed outside the image, a 1-pixel halo.
+CAB_FAULTS = ("PLANT_CAB_LN_BORDER", "PLANT_CAB_HID_BORDER",
+              "PLANT_CAB_HALO1")
+CAB_WIDTHS = (("c120", 120, 40, None, (1, 2 * HYBRID_IN, 2 * HYBRID_IN)),
+              ("c128_creal96", 128, 32, 96,
+               (1, 2 * HYBRID_IN, 2 * HYBRID_IN)),
+              ("ragged_c96", 96, 32, None, (2, 100, 70)))
+
+
+def cab_times(x: torch.Tensor, ws, c_real: int | None = None) -> dict:
+    """Kernel 7 timed beside its yardsticks on the same inputs: its first
+    form (three launches, live), the plain version, the cuDNN composition
+    SRTPU_XLA_CAB runs; its bound."""
+    from superresolution_tpu_torch.ops import hab
+
+    b, h, w, c = x.shape
+    cw = cudnn_cab_weights(ws)
+    b_ms, b_by = cab_bound(b * h * w, c, ws[2].shape[-1])
+    return {"ms": time_ms(lambda: hab.fused_cab_convs(x, ws,
+                                                      c_real=c_real), 20),
+            "queued_ms": queued_ms(lambda: hab.fused_cab_convs(
+                x, ws, c_real=c_real), 20),
+            "three_launch_ms": time_ms(
+                lambda: cab_three_launches(x, ws, c_real), 20),
+            "plain_ms": time_ms(lambda: hab.fused_cab_convs_reference(
+                x, ws, c_real=c_real), 10),
+            "cudnn_ms": time_ms(lambda: cudnn_cab(x, cw, c_real), 20),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_cab_widths() -> dict:
+    """Phase 6b: kernel 7 at the h200 class's C 120 (hidden 40), the lane
+    pad's C 128 with c_real 96 (hidden 32) and a ragged [2,100,70,96]
+    against its plain version within 0.02, its hidden map too, one
+    tensor-core launch a call; each timed beside its yardsticks (cab_times)
+    and its first form's three launches. Its own generator, so the other
+    phases draw what they drew before. Returns the rows by geometry."""
+    from superresolution_tpu_torch.ops import hab
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    out = {}
+    for tag, c, mid, cr, shape in CAB_WIDTHS:
+        ws = hab.cab_mma_weights(lane_padded_cab_weights(gen, cr, c) if cr
+                                 else cab_check_weights(gen, c, mid))
+        x = rand(gen, *shape, cr or c, dtype=torch.bfloat16)
+        if cr:
+            x = pad_lanes(x, [3], c)
+        err = check_cab(ws, x, tag, cr)
+        out[f"cab_{tag}"] = {"shape": list(x.shape),
+                             "max_rel_err": err["max_rel_err"],
+                             **cab_times(x, ws, cr)}
+        emit({"phase": "kernel_time", "name": "fused_cab_convs",
+              "geometry": tag, **out[f"cab_{tag}"]})
+    return out
 
 
 def check_hab(ws, x: torch.Tensor, cab: torch.Tensor, ids, tag: str) -> dict:
@@ -972,8 +1133,8 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
 
     bf = torch.bfloat16
     # kernel 8's dense weights packed once, as a model packs them
-    cab_w, hab_w = cab_check_weights(gen), hab.mma_weights(
-        hab_check_weights(gen))
+    cab_w = hab.cab_mma_weights(cab_check_weights(gen))
+    hab_w = hab.mma_weights(hab_check_weights(gen))
     out = {}
     side = 2 * HYBRID_IN
     # (CAB [B,H,W]; HAB/OCA image batch and H x W, a multiple of 8)
@@ -1025,6 +1186,11 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
             for fault, (kern, ref, tol) in faults.items():
                 expect_caught(fault, lambda: compare(
                     f"planted/{fault}", kern(), ref, tol))
+            # kernel 7's own faults, planted in its tensor-core body
+            for fault in CAB_FAULTS:
+                expect_margin(f"fused_cab_convs/{fault}", planted(
+                    "cab_tc", getattr(_build, fault),
+                    lambda: hab.fused_cab_convs(x, cab_w)), ref7, TOL_KERNEL)
             # kernel 8's own faults, planted in its tensor-core body
             for bit, fault in ((_build.PLANT_SKIP_SLAB, "qkv_slab_skipped"),
                                (_build.PLANT_NO_LN2, "ln2_skipped")):
@@ -1046,7 +1212,7 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
              e7, lambda: hab.fused_cab_convs(x, cab_w),
              lambda: hab.fused_cab_convs_reference(x, cab_w), None,
              2 * px * CAB_MACS, px * 96 * 2 * 2 + 2 * 9 * 96 * 32 * 2,
-             list(x.shape), [HAT_SRC, SRC]),
+             list(x.shape), [CAB_SRC, ENGINE_SRC]),
             ("fused_hab_block", "superresolution_tpu/ops/pallas_hab.py:265",
              e8, lambda: hab.fused_hab_block(xw, cw, 6, hab_w, ids),
              lambda: hab.hab_body_reference(xw, cw, hab_w, 6, ids), None,
@@ -1081,6 +1247,11 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else time_ms(lib, 20)}
             extra = {}
+            if name == "fused_cab_convs":
+                extra = {k: v for k, v in cab_times(x, cab_w).items()
+                         if k in ("queued_ms", "three_launch_ms",
+                                  "cudnn_ms")}
+                out[name]["ptxas"] = CAB_PTXAS or None
             if name == "fused_hab_block":
                 out[name]["ptxas"] = ATTN_COPY_PTXAS.get("fused_hab_block")
             if name == "flash_oca_gathered":
@@ -1095,6 +1266,9 @@ def check_hybrid_kernels(gen: torch.Generator) -> dict:
                 old_kernel(name, OCA_OLD, shape, OCA_OLD_MS["main"], "9")
             if name == "fused_hab_block":
                 old_kernel(name, HAB_OLD, shape, HAB_OLD_MS["main"], "8")
+            if name == "fused_cab_convs":
+                kernel, ms, row = OLD_KERNELS[name]
+                old_kernel(name, kernel, shape, ms, row)
     return out
 
 
@@ -1538,9 +1712,49 @@ def check_train_kernels(gen: torch.Generator) -> dict:
         "shape": list(p.shape), "max_abs_err": worst["max_abs_err"],
         "max_rel_err": worst["max_rel_err"], "tol": TOL_STAR,
         "ms": time_ms(kern14, 50), "plain_ms": time_ms(plain14, 50),
-        "bound_ms": b14, "bound_by": by14, "library_ms": None}
+        "bound_ms": b14, "bound_by": by14, "library_ms": None,
+        "value_ms": time_ms(lambda: _build.star_l1_value(
+            p, t, 0.02, 500.0, lo), 50),
+        "grad_ms": time_ms(lambda: _build.star_l1_grad(
+            p, t, 0.02, 500.0, g, dp), 50),
+        # the card alone (the calls queued behind a spin)
+        "queued_ms": queued_ms(kern14, 50),
+        "value_queued_ms": queued_ms(lambda: _build.star_l1_value(
+            p, t, 0.02, 500.0, lo), 50),
+        "grad_queued_ms": queued_ms(lambda: _build.star_l1_grad(
+            p, t, 0.02, 500.0, g, dp), 50),
+        **star_one_launch(p, t)}
     emit({"phase": "kernel_time", **out["star_weighted_l1_cuda"]})
+    kernel, ms, row = OLD_KERNELS["star_weighted_l1_cuda"]
+    old_kernel("star_weighted_l1_cuda", kernel, list(p.shape), ms, row)
     return out
+
+
+def star_one_launch(p: torch.Tensor, t: torch.Tensor) -> dict:
+    """Kernel 14's forward through its op: one CUDA kernel a call (the
+    device's kernels in a profile of one call), and two calls give the
+    same value bits; raises otherwise."""
+    from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
+
+    with torch.no_grad():
+        star_weighted_l1_cuda(p, t)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            first = star_weighted_l1_cuda(p, t)
+            torch.cuda.synchronize()
+        second = star_weighted_l1_cuda(p, t)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    same = bool((first.view(torch.int32) == second.view(torch.int32)).all())
+    res = {"forward_kernels": names, "same_bits": same}
+    emit({"check": "star_l1/one_launch", **res})
+    if len(names) != 1 or not same:
+        raise AssertionError(f"star_l1: the forward is not one launch with "
+                             f"the same bits each call: {res}")
+    return res
 
 
 def hybrid_model(gen: torch.Generator, output_size: int | None = 4 * HYBRID_IN,
@@ -1608,7 +1822,7 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
         launches = {k: op.launches for k, op in ops.items()}
         n_hab = sum(model.stage2.depths)
         expected = {"fused_dense_block": 69 * 5, "up2_hr": 0,
-                    "conv_last_phase": 0, "fused_cab_convs": 3 * n_hab,
+                    "conv_last_phase": 0, "fused_cab_convs": n_hab,
                     "fused_hab_block": n_hab,
                     "flash_oca_gathered": len(model.stage2.depths),
                     "conv3x3_depth_to_space": 0,
@@ -1753,7 +1967,7 @@ def check_launches(tag: str, launches: dict, expected: dict,
 # system path: {path: {op: {"launches", "tc_launches",
 # "direct_launches"}}}.
 BODY_OPS = ("fused_dense_block", "up2_hr", "fused_rrdb",
-            "dense_block_backward")
+            "dense_block_backward", "fused_cab_convs")
 BODIES: dict = {}
 
 
@@ -2323,6 +2537,35 @@ def attn_copy_ptxas(report: str) -> dict:
                if u.get("spill_bytes")]
     if spilled:
         raise AssertionError(f"kernel 9 or 19 spills: {spilled} ({out})")
+    return out
+
+
+# Kernel 7's cab_tc_kernel instances in nvcc's report (main fills it):
+# registers and spills by conv1's fragments (hidden / 8) and tile rows.
+CAB_PTXAS: dict = {}
+
+
+def cab_ptxas(report: str) -> dict:
+    """Kernel 7's tensor-core instances: registers and spills; those of
+    the deploy path's hidden widths (32, 40: 4 and 5 fragments) may not
+    spill."""
+    out: dict = {}
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        k = re.search(r"Compiling entry function '\S*?cab_tc_kernelILi(\d+)"
+                      r"ELi(\d+)E", line)
+        if not k:
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        out[f"nf{k.group(2)}_th{k.group(1)}"] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": int(spill.group(1)) if spill else None}
+    spilled = [n for n, u in out.items()
+               if n.startswith(("nf4_", "nf5_")) and u["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"kernel 7 spills: {spilled} ({out})")
     return out
 
 
@@ -2901,7 +3144,7 @@ def no_gather_path(gen: torch.Generator) -> None:
             check_launches("no_gather", {k: op.launches
                                          for k, op in ops.items()}, {
                 **{k: 0 for k in ops}, "fused_dense_block": 69 * 5,
-                "fused_cab_convs": 3 * n_hab, "fused_hab_block": n_hab,
+                "fused_cab_convs": n_hab, "fused_hab_block": n_hab,
                 "flash_window_attention": len(model.stage2.depths)})
             expect_attn_bodies("no_gather", 0)
             sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
@@ -2930,7 +3173,7 @@ def no_gather_path(gen: torch.Generator) -> None:
         ops = zero_counts()
         got = apply(x)
         check_launches("odd_ocab", {k: op.launches for k, op in ops.items()},
-                       {**{k: 0 for k in ops}, "fused_cab_convs": 6,
+                       {**{k: 0 for k in ops}, "fused_cab_convs": 2,
                         "fused_hab_block": 2, "flash_window_attention": 1})
         compare("odd_ocab/hat_ows11", got, hat(x), TOL_PATH,
                 ows=hat.layers[0].overlap_attn.ows)
@@ -3737,7 +3980,7 @@ def h200_path(gen: torch.Generator, card: str) -> dict:
         frame_plain = model(x)
         for tag, run, want in (
                 ("fused", fused, {"fused_dense_block": 69 * 5,
-                                  "fused_cab_convs": 3 * n_hab,
+                                  "fused_cab_convs": n_hab,
                                   "fused_hab_block": n_hab,
                                   "flash_oca_gathered": n_grp}),
                 ("flash_hatlite", flash,
@@ -3797,7 +4040,7 @@ def ows10_path(gen: torch.Generator) -> None:
         ops = zero_counts()
         got = apply(x)
         check_launches("ows10", {k: op.launches for k, op in ops.items()},
-                       {**{k: 0 for k in ops}, "fused_cab_convs": 6,
+                       {**{k: 0 for k in ops}, "fused_cab_convs": 2,
                         "fused_hab_block": 2, "flash_oca_gathered": 1})
         compare("ows10/hat", got, hat(x), TOL_PATH,
                 ows=hat.layers[0].overlap_attn.ows)
@@ -4025,6 +4268,7 @@ def check_cab_pair_kernel(gen: torch.Generator) -> dict:
         px = side * side
         b_ms, b_by = bound(2 * px * CAB_MACS,
                            px * c * 2 * 2 + 2 * 9 * c * (c // 3) * 2)
+        w7 = hab.cab_mma_weights(w)  # kernel 7's weights, packed once
         entry = {
             "name": "fused_cab_convs_pair", "route": "cuda",
             "source": HAT_SRC, "sources": [HAT_SRC],
@@ -4034,7 +4278,7 @@ def check_cab_pair_kernel(gen: torch.Generator) -> dict:
             "ms": time_ms(lambda: hab.fused_cab_convs_pair(x, w), 20),
             "plain_ms": time_ms(
                 lambda: hab.fused_cab_convs_pair_reference(x, w), 20),
-            "kernel7_ms": time_ms(lambda: hab.fused_cab_convs(x, w), 20),
+            "kernel7_ms": time_ms(lambda: hab.fused_cab_convs(x, w7), 20),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "path": "none: no caller, as in the reference"}
         emit({"phase": "kernel_time", **entry})
@@ -4074,10 +4318,7 @@ def check_padded_kernels(gen: torch.Generator) -> dict:
         if bool(t[..., cr:].any()):
             raise AssertionError(f"{name}: pad lanes not zero")
 
-    cw = cab_check_weights(gen)
-    cw = [pad_lanes(cw[0], [0]), pad_lanes(cw[1], [0]),
-          pad_lanes(cw[2], [2]), cw[3], pad_lanes(cw[4], [3]),
-          pad_lanes(cw[5], [0])]
+    cw = hab.cab_mma_weights(lane_padded_cab_weights(gen))
     x = pad_lanes(rand(gen, 1, side, side, cr, dtype=bf), [3])
     got = hab.fused_cab_convs(x, cw, c_real=cr)
     e7 = compare("fused_cab_convs/c128_creal96", got,
@@ -4325,7 +4566,7 @@ def hat_lever_paths(gen: torch.Generator, card: str) -> dict:
         n_hab, n_grp = sum(model.stage2.depths), len(model.stage2.depths)
         c = model.stage2.embed_dim
         cp = 128 if c == 96 else c  # lane pad applies at head dim 16 only
-        base = {"fused_dense_block": 69 * 5, "fused_cab_convs": 3 * n_hab,
+        base = {"fused_dense_block": 69 * 5, "fused_cab_convs": n_hab,
                 "fused_hab_block": n_hab, "flash_oca_gathered": n_grp}
         plain = {"fused_hab_block": c, "flash_oca_gathered": c}
         cases = [("default", base, plain),
@@ -5792,6 +6033,7 @@ def main() -> int:
     STENCIL_PTXAS.update(stencil_ptxas(ptxas))
     ATTN_COPY_PTXAS.update(attn_copy_ptxas(ptxas))
     CHAIN_GRAD_PTXAS.update(chain_grad_ptxas(ptxas))
+    CAB_PTXAS.update(cab_ptxas(ptxas))
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": next((line[len("nvcc seconds: "):]
                                 for line in ptxas.splitlines()
@@ -5802,7 +6044,8 @@ def main() -> int:
           "conv_engine_ptxas": PTXAS or "not reported (cached build)",
           "stencil_ptxas": STENCIL_PTXAS or "not reported (cached build)",
           "attn_copy_ptxas": ATTN_COPY_PTXAS
-          or "not reported (cached build)"})
+          or "not reported (cached build)",
+          "cab_ptxas": CAB_PTXAS or "not reported (cached build)"})
 
     gen = torch.Generator().manual_seed(SEED)
     model = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,
@@ -5908,6 +6151,8 @@ def main() -> int:
     # ---- 6-8: the hybrid RRDBNet -> HAT path ----
     gen = torch.Generator().manual_seed(SEED + 1)
     kernels.update(check_hybrid_kernels(gen))
+    kernels["fused_cab_convs"]["geometries"] = {
+        f"6b/{k}": v for k, v in check_cab_widths().items()}
     torch.cuda.empty_cache()
     hybrid_launches = hybrid_path(gen, card)
     for k in ("fused_cab_convs", "fused_hab_block", "flash_oca_gathered"):

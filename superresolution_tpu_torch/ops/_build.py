@@ -148,6 +148,10 @@ def library() -> ctypes.CDLL:
     lib.hat_strip_hab.restype = _I
     lib.hat_cab_pair.argtypes = [_P, *[_I] * 4, *[_P] * 7, _I, _P]
     lib.hat_cab_pair.restype = _I
+    lib.cab_tc.argtypes = [_P, *[_I] * 6, *[_P] * 8, _I, _P]
+    lib.cab_tc.restype = _I
+    lib.cab_tc_smem.argtypes = [_I, _I]
+    lib.cab_tc_smem.restype = _S
     lib.hat_oca.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P]
     lib.hat_oca.restype = _I
@@ -537,9 +541,34 @@ def cab_pair(x: torch.Tensor, weights, out: torch.Tensor,
     [B, H, W, C] bf16; weights as kernel 7's (ops/hab.cab_weights)."""
     lib = library()
     b, h, w, c = x.shape
-    rc = lib.hat_cab_pair(_ptr(x), b, h, w, c, *[_ptr(t) for t in weights],
+    rc = lib.hat_cab_pair(_ptr(x), b, h, w, c,
+                          *[_ptr(t) for t in weights[:6]],
                           _ptr(out), plant, _stream(x))
     _check(lib, rc, "hat_cab_pair")
+
+
+# Faults chip_smoke.py plants in kernel 7's one-launch body (`plant`, a
+# bit mask; 0 in use; see cab_kernels.cu): pixels outside the image
+# staged as LN(0) = ln bias, the hidden map not zeroed outside the image,
+# a 1-pixel halo (the staged tile's outer ring read as zero).
+PLANT_CAB_LN_BORDER, PLANT_CAB_HID_BORDER, PLANT_CAB_HALO1 = 1, 2, 4
+
+
+def cab_tc(x: torch.Tensor, weights, out: torch.Tensor,
+           hidden: torch.Tensor | None = None, c_real: int | None = None,
+           plant: int = 0) -> None:
+    """One launch of kernel 7's tensor-core body, cab_tc_kernel
+    (cab_kernels.cu): x, out [B, H, W, C] bf16; weights as ops/hab.
+    cab_mma_weights gives them ([ln_s, ln_b, k1, b1, k2, b2, k1_mma,
+    k2_mma]: the kernel reads the packed k1_mma, k2_mma); hidden [B, H, W,
+    mid] or None; LN divided by c_real (default C)."""
+    lib = library()
+    b, h, w, c = x.shape
+    ln_s, ln_b, k1, b1, _, b2, w1, w2 = weights
+    rc = lib.cab_tc(_ptr(x), b, h, w, c, k1.shape[-1], c_real or c,
+                    _ptr(ln_s), _ptr(ln_b), _ptr(w1), _ptr(b1), _ptr(w2),
+                    _ptr(b2), _ptr(out), _ptr(hidden), plant, _stream(x))
+    _check(lib, rc, "cab_tc")
 
 
 # Faults chip_smoke.py plants in kernel 9 (`plant`, a bit mask; 0 in use;
@@ -652,9 +681,10 @@ def conv3x3_d2s(x: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor | None,
 
 def star_l1_value(p: torch.Tensor, t: torch.Tensor, threshold: float,
                   weight: float, out: torch.Tensor) -> None:
-    """Launches of kernel 14's forward (train_kernels.cu): out [1] f32 =
-    mean(|p - t| * (t > threshold ? weight : 1)) over p, t (f32, same
-    numel)."""
+    """One launch of kernel 14's forward (train_kernels.cu
+    star_l1_fwd_kernel): out [1] f32 = mean(|p - t| * (t > threshold ?
+    weight : 1)) over p, t (f32, same numel). Launches on one device share
+    the kernel's ticket, so they run on one stream at a time."""
     lib = library()
     n = p.numel()
     part = torch.empty(lib.train_star_l1_parts(n), dtype=torch.float32,

@@ -1,0 +1,492 @@
+// Kernel 7 on Hopper's tensor cores (sm_90a): the HAT CAB's conv stack,
+// LN -> conv3x3 -> GELU -> conv3x3, in one launch.
+//
+//   7 fused_cab_convs  (replaces superresolution_tpu/ops/pallas_hab.py:
+//      fused_cab_convs / _cab_kernel). On NHWC bf16 x [B,H,W,C]:
+//        y   = LN(x)                 f32 statistics over C, divided by
+//                                    c_real; one bf16 rounding
+//        hid = GELU(conv3x3(y) + b1) C -> mid, f32 sums, exact erf; bf16
+//        out = conv3x3(hid) + b2     mid -> C, f32 sums; bf16
+//      with SAME zero padding on y and on hid, not on x: outside the
+//      image conv1 sees 0, not LN(0) = ln bias, and conv2 sees 0, not
+//      GELU(b1) (the reference's mask(ln, 0) and mask(acc, k)).
+//
+// One block a TH x 16 output tile, all C channels (grid: B x tile rows x
+// tile columns). The block
+//   1. stages x's tile with a 2-pixel halo in shared memory, channels-
+//      last, bf16, by 16-byte cp.async, zeros outside the image and in
+//      the channels C .. kp1 (C rounded up to 16, a k-step);
+//   2. runs LN in place, one half-warp a pixel and 8 channels a lane (f32
+//      sums reduced by shuffles, divided by c_real, one bf16 rounding);
+//      pixels outside the image stay exactly 0;
+//   3. conv1: an implicit GEMM on mma.sync m16n8k16 (bf16 in, f32 sums)
+//      over the (TH+2) x 18 hidden pixels of the tile and a 1-pixel halo
+//      (M), mid columns (N, NF1 8-column fragments) and 9 taps x kp1
+//      channels (K). A tap's shift is only the ldmatrix row address of
+//      each hidden pixel in the staged tile. Bias, exact-erf GELU and one
+//      bf16 rounding go into a hidden tile in shared memory, over the x
+//      tile once every warp's products are done; hidden pixels outside
+//      the image are stored as exactly 0. When the caller passes a hidden
+//      map, the tile's interior hidden pixels go there too (a check reads
+//      it; the main path passes none);
+//   4. conv2: the same GEMM over the hidden tile, TH x 16 output pixels
+//      (M), C columns in passes of NJ2 fragments a warp (N), 9 taps x kp2
+//      channels (K); bias and one bf16 rounding into an output tile after
+//      the hidden one, then 16-byte stores.
+// Row strides are the channel count rounded to 16 plus 8 elements, an
+// odd number of 16-byte units, so the 8 rows of an ldmatrix and the
+// bf16x2 stores of a fragment's rows fall on distinct banks. Laying the
+// hidden and output tiles over the x tile keeps a 16 x 16 block at C 96
+// to 83 KB (109 KB side by side), so two fit an SM and one's staging,
+// LN and stores overlap the other's products.
+//
+// Weights: both convs' HWIO kernels are packed once by the model in
+// mma.sync's B-fragment order, K zero-padded to 16 a tap (ops/hab.
+// cab_mma_weights, pack_mma): [9 * kp / 16 k-steps][N / 8][32 lanes]
+// uint2. Together they are 111-173 KB at the path's widths, too large to
+// sit in shared memory beside the tile. The block streams them through
+// a ring of SLOTS slots in shared memory, one slab a tap (conv2's a tap
+// and a pass of columns), cp.async loading the next slab while the
+// tensor cores use this one. scripts/cab_variants.py times the choices
+// made here against others at the path's shapes: 16-row tiles (TH) over
+// 8 and 12, the ring over each lane reading its fragments through L1,
+// two slots over four.
+//
+// Bound (H100, 989 TFLOP/s bf16, 3.35 TB/s): at C 96 each pixel needs
+// 2 x 9 x 96 x 32 = 55,296 MACs for 384 bytes of x and out: 288 FLOP/B,
+// at the ridge, so both bounds are within 3% (at [1,256,256,96] 0.00733
+// ms by operations, 0.00755 by bytes). The form here stages x with its
+// halo (1.88x the tile's pixels at 8 x 16, 1.56x at 16 x 16; neighbours
+// share the halo through L2) and writes out once; conv1 recomputes the
+// hidden halo, (TH+2) x 18 pixels for TH x 16 (1.41x at TH 8, 1.27x at
+// 16).
+//
+// Planted faults (`plant`, a bit mask; 0 in use): PLANT_LN_BORDER (pixels
+// outside the image staged as LN(0) = ln bias, not 0), PLANT_HID_BORDER
+// (hidden pixels outside the image kept as GELU(conv), not 0),
+// PLANT_HALO1 (the staged tile's outer ring, the halo's second pixel,
+// read as 0: a 1-pixel halo).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "conv_engine.cuh"
+
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace ce = conv_engine;
+
+constexpr int TW = 16;       // tile columns: one M fragment a tile row
+constexpr int MF1 = 3;       // conv1's M fragments a warp
+constexpr int NJ2 = 8;       // conv2's 8-column fragments a warp and pass
+constexpr int MAX_C = 128;   // LN: one half-warp a pixel, 8 channels a lane
+constexpr int MAX_MID = 64;  // conv1's fragments a warp: MID / 8 <= 8
+constexpr int TILE_ROWS = 16;  // TH: 8 warps, two blocks an SM at C 96
+constexpr int SLOTS = 2;       // the weight ring's slots
+static_assert(SLOTS >= 2, "a ring of at least two slots");
+constexpr float kEps = 1e-5f;
+
+enum { PLANT_LN_BORDER = 1, PLANT_HID_BORDER = 2, PLANT_HALO1 = 4 };
+
+struct CabArgs {
+  const bf16* x;       // [B, H, W, C]
+  const float* ln_s;   // [C]
+  const float* ln_b;
+  const uint2* w1;     // conv1 packed: [9 * kp1 / 16][mid / 8][32]
+  const float* b1;     // [mid]
+  const uint2* w2;     // conv2 packed: [9 * kp2 / 16][C / 8][32]
+  const float* b2;     // [C]
+  bf16* out;           // [B, H, W, C]
+  bf16* hidden;        // [B, H, W, mid] or null
+  int B, H, W, C, mid, c_real, plant;
+};
+
+// The block's shared-memory map: the staged x tile, which conv1 reads;
+// over it, once conv1's products are done, the hidden tile and after it
+// the output tile; then the weight ring. The same on host and card.
+template <int TH>
+struct Layout {
+  static constexpr int NW = TH / 2;                // warps: 2 tile rows each
+  static constexpr int NT = 32 * NW;
+  static constexpr int XH = TH + 4, XW = TW + 4;   // x, 2-pixel halo
+  static constexpr int HH = TH + 2, HW = TW + 2;   // hidden, 1-pixel halo
+  static constexpr int M1 = HH * HW;               // conv1's GEMM rows
+  static constexpr int M1F = (M1 + 15) / 16;
+  static_assert(M1F <= MF1 * NW, "conv1's M fragments");
+  int kp1, ps1, ks1, kp2, ps2, ks2, nf2, passes, h_bytes, tile_bytes,
+      slot_bytes;
+  __host__ __device__ Layout(int C, int mid) {
+    kp1 = (C + 15) & ~15;
+    ps1 = kp1 + 8;
+    ks1 = kp1 / 16;
+    kp2 = (mid + 15) & ~15;
+    ps2 = kp2 + 8;
+    ks2 = kp2 / 16;
+    nf2 = C / 8;
+    passes = (nf2 + NJ2 - 1) / NJ2;
+    h_bytes = M1 * ps2 * 2;
+    const int x_bytes = XH * XW * ps1 * 2, o_bytes = TH * TW * ps1 * 2;
+    tile_bytes = x_bytes > h_bytes + o_bytes ? x_bytes : h_bytes + o_bytes;
+    const int s1 = ks1 * (mid / 8) * 256, s2 = ks2 * NJ2 * 256;
+    slot_bytes = s1 > s2 ? s1 : s2;
+  }
+  __host__ __device__ size_t bytes() const {
+    return (size_t)tile_bytes + SLOTS * (size_t)slot_bytes;
+  }
+};
+
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// The registers are sized for three 8-row or two 16-row blocks an SM.
+template <int TH, int NF1>
+__global__ void __launch_bounds__(Layout<TH>::NT, TH == 8 ? 3 : 2)
+    cab_tc_kernel(const CabArgs a) {
+  using L = Layout<TH>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const L l(a.C, a.mid);
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  bf16* hs = xs;  // over the x tile once conv1's products are done
+  bf16* os = reinterpret_cast<bf16*>(smem + l.h_bytes);  // after it
+  unsigned char* ring = smem + l.tile_bytes;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_x = (a.W + TW - 1) / TW, tiles_y = (a.H + TH - 1) / TH;
+  int u = blockIdx.x;
+  const int x0 = (u % tiles_x) * TW;
+  u /= tiles_x;
+  const int y0 = (u % tiles_y) * TH;
+  const int b = u / tiles_y;
+  const int C = a.C, mid = a.mid, cv = C / 8;
+  const int nslab = 9 + 9 * l.passes;
+  const bool halo1 = a.plant & PLANT_HALO1;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+
+  auto inside = [&](int y, int x) {
+    return y >= 0 && y < a.H && x >= 0 && x < a.W;
+  };
+  // staged pixel (py, px) holds x (else 0): in the image, and not on the
+  // outer ring under PLANT_HALO1
+  auto staged = [&](int py, int px) {
+    if (halo1 && (py == 0 || px == 0 || py == L::XH - 1 || px == L::XW - 1))
+      return false;
+    return inside(y0 - 2 + py, x0 - 2 + px);
+  };
+
+  // weight slab s into ring slot s % SLOTS: conv1's tap s (s < 9), else
+  // conv2's tap (s - 9) % 9 of column pass (s - 9) / 9, as [k-step][NJ2
+  // fragments][32 lanes]
+  auto slot = [&](int s) { return ring + (s % SLOTS) * l.slot_bytes; };
+  auto load_slab = [&](int s) {
+    unsigned char* dst = slot(s);
+    if (s < 9) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          a.w1 + (size_t)s * l.ks1 * NF1 * 32);
+      for (int e = tid; e < l.ks1 * NF1 * 16; e += L::NT)
+        ce::cp_async16(ce::smem_u32(dst + e * 16), src + e * 16);
+    } else {
+      const int p = (s - 9) / 9, tap = (s - 9) - 9 * p;
+      const int j0 = p * NJ2, nj = min(NJ2, l.nf2 - j0);
+      for (int e = tid; e < l.ks2 * nj * 16; e += L::NT) {
+        const int c = e & 15, f = e >> 4;  // 16-byte chunk c of fragment f
+        const int ks = f / nj, jj = f - ks * nj;
+        ce::cp_async16(
+            ce::smem_u32(dst + ((ks * NJ2 + jj) * 16 + c) * 16),
+            a.w2 + ((size_t)(tap * l.ks2 + ks) * l.nf2 + j0 + jj) * 32 +
+                c * 2);
+      }
+    }
+  };
+  // at the top of slab s (one commit group a slab): slab s has landed,
+  // every warp is done with slab s - 1 (and with what came before it),
+  // whose slot takes slab s + SLOTS - 1; the slabs between are on their way
+  auto ring_step = [&](int s) {
+    ce::cp_async_wait<SLOTS - 2>();
+    __syncthreads();
+    if (s + SLOTS - 1 < nslab) load_slab(s + SLOTS - 1);
+    ce::cp_async_commit();
+  };
+
+  // ---- 1. stage x with a 2-pixel halo --------------------------------
+  const int kv1 = l.kp1 / 8;  // 16-byte runs a staged pixel holds
+  for (int e = tid; e < L::XH * L::XW * kv1; e += L::NT) {
+    const int pix = e / kv1, v = e - pix * kv1;
+    const int py = pix / L::XW, px = pix - py * L::XW;
+    bf16* dst = xs + pix * l.ps1 + v * 8;
+    if (v < cv && staged(py, px))
+      ce::cp_async16(ce::smem_u32(dst),
+                     a.x + (((size_t)b * a.H + y0 - 2 + py) * a.W + x0 - 2 +
+                            px) * C + v * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero4;
+  }
+  load_slab(0);
+  ce::cp_async_commit();  // group 0: the x tile and slab 0
+  for (int s = 1; s < SLOTS - 1; ++s) {
+    if (s < nslab) load_slab(s);
+    ce::cp_async_commit();
+  }
+  ce::cp_async_wait<SLOTS - 2>();
+  __syncthreads();
+
+  // ---- 2. LN in place ------------------------------------------------
+  {
+    const int half = lane >> 4, v = lane & 15;
+    const bool lane_on = v < cv;
+    float s8[8], b8[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s8[k] = lane_on ? __ldg(a.ln_s + v * 8 + k) : 0.f;
+      b8[k] = lane_on ? __ldg(a.ln_b + v * 8 + k) : 0.f;
+    }
+    const bool ln_border = a.plant & PLANT_LN_BORDER;
+    const float inv = 1.f / (float)a.c_real;
+    for (int base = warp * 2; base < L::XH * L::XW; base += L::NW * 2) {
+      const int pix = base + half;
+      const bool live = pix < L::XH * L::XW;
+      const int py = pix / L::XW, px = pix - py * L::XW;
+      const bool in = live && staged(py, px);
+      bf16* p = xs + pix * l.ps1 + v * 8;
+      uint4 raw = zero4;
+      if (lane_on && in) raw = *reinterpret_cast<const uint4*>(p);
+      const uint32_t w4[4] = {raw.x, raw.y, raw.z, raw.w};
+      float f8[8], sum = 0.f, sq = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        f8[2 * k] = __uint_as_float(w4[k] << 16);
+        f8[2 * k + 1] = __uint_as_float(w4[k] & 0xffff0000u);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        sum += f8[k];
+        sq += f8[k] * f8[k];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) {  // within the half-warp
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      }
+      const float mu = sum * inv;
+      const float rs = rsqrtf(sq * inv - mu * mu + kEps);
+      if (lane_on && live && (in || ln_border)) {
+        uint32_t o4[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const __nv_bfloat162 h2 = __floats2bfloat162_rn(
+              (f8[2 * k] - mu) * rs * s8[2 * k] + b8[2 * k],
+              (f8[2 * k + 1] - mu) * rs * s8[2 * k + 1] + b8[2 * k + 1]);
+          o4[k] = *reinterpret_cast<const uint32_t*>(&h2);
+        }
+        *reinterpret_cast<uint4*>(p) = make_uint4(o4[0], o4[1], o4[2], o4[3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. conv1 over the hidden tile ---------------------------------
+  {
+    float acc[MF1][NF1][4];
+    uint32_t a_base[MF1];
+    bool live[MF1];
+#pragma unroll
+    for (int f = 0; f < MF1; ++f) {
+      const int frag = warp * MF1 + f;
+      live[f] = frag < L::M1F;
+      const int m = min(frag * 16 + (lane & 15), L::M1 - 1);
+      const int hy = m / L::HW, hx = m - hy * L::HW;
+      a_base[f] = ce::smem_u32(xs + (hy * L::XW + hx) * l.ps1 +
+                               (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NF1; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
+    }
+    for (int tap = 0; tap < 9; ++tap) {
+      ring_step(tap);
+      const uint2* wb = reinterpret_cast<const uint2*>(slot(tap));
+      const uint32_t off =
+          ((tap / 3) * L::XW + tap % 3) * l.ps1 * 2;  // the tap's shift
+#pragma unroll
+      for (int ks = 0; ks < MAX_C / 16; ++ks) {
+        if (ks >= l.ks1) break;
+        uint32_t af[MF1][4];
+#pragma unroll
+        for (int f = 0; f < MF1; ++f)
+          if (live[f]) ce::ldmatrix_x4(af[f], a_base[f] + off + ks * 32);
+#pragma unroll
+        for (int j = 0; j < NF1; ++j) {
+          const uint2* wp = wb + (ks * NF1 + j) * 32 + lane;
+          const uint2 bw = *wp;
+#pragma unroll
+          for (int f = 0; f < MF1; ++f)
+            if (live[f]) ce::mma_bf16(acc[f][j], af[f], bw.x, bw.y);
+        }
+      }
+    }
+    // every warp is done with the x tile: the hidden tile goes over it,
+    // its channels mid .. kp2 (conv2's last k-step reads them) zero
+    __syncthreads();
+    const int hz = (l.kp2 - mid) / 8;
+    for (int e = tid; e < L::M1 * hz; e += L::NT) {
+      const int pix = e / hz, v = e - pix * hz;
+      *reinterpret_cast<uint4*>(hs + pix * l.ps2 + mid + v * 8) = zero4;
+    }
+    // bias, GELU, one rounding; 0 outside the image
+    const bool keep_border = a.plant & PLANT_HID_BORDER;
+#pragma unroll
+    for (int f = 0; f < MF1; ++f) {
+      if (!live[f]) continue;
+#pragma unroll
+      for (int j = 0; j < NF1; ++j) {
+        const int n = 8 * j + 2 * t;
+        const float bb0 = __ldg(a.b1 + n), bb1 = __ldg(a.b1 + n + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = (warp * MF1 + f) * 16 + g + 8 * h;
+          if (m >= L::M1) continue;
+          const int hy = m / L::HW, hx = m - hy * L::HW;
+          const int gy = y0 - 1 + hy, gx = x0 - 1 + hx;
+          const bool in = inside(gy, gx);
+          float v0 = gelu_erf(acc[f][j][2 * h] + bb0);
+          float v1 = gelu_erf(acc[f][j][2 * h + 1] + bb1);
+          if (!in && !keep_border) v0 = v1 = 0.f;
+          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(hs + m * l.ps2 + n) = pr;
+          if (a.hidden && in && hy >= 1 && hy <= TH && hx >= 1 && hx <= TW)
+            *reinterpret_cast<__nv_bfloat162*>(
+                a.hidden + (((size_t)b * a.H + gy) * a.W + gx) * mid + n) =
+                pr;
+        }
+      }
+    }
+  }
+
+  // ---- 4. conv2 over the output tile ---------------------------------
+  uint32_t a2[2];
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+    a2[f] = ce::smem_u32(hs + ((warp * 2 + f) * L::HW + (lane & 15)) * l.ps2 +
+                         (lane >> 4) * 8);
+  for (int p = 0; p < l.passes; ++p) {
+    const int j0 = p * NJ2, nj = min(NJ2, l.nf2 - j0);
+    float acc[2][NJ2][4];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int j = 0; j < NJ2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int s = 9 + 9 * p + tap;
+      ring_step(s);
+      // fragment (ks, jj) at wb[(ks * NJ2 + jj) * 32 + lane]
+      const uint2* wb = reinterpret_cast<const uint2*>(slot(s));
+      const uint32_t off = ((tap / 3) * L::HW + tap % 3) * l.ps2 * 2;
+#pragma unroll
+      for (int ks = 0; ks < MAX_MID / 16; ++ks) {
+        if (ks >= l.ks2) break;
+        uint32_t af[2][4];
+#pragma unroll
+        for (int f = 0; f < 2; ++f)
+          ce::ldmatrix_x4(af[f], a2[f] + off + ks * 32);
+#pragma unroll
+        for (int jj = 0; jj < NJ2; ++jj) {
+          if (jj >= nj) break;
+          const uint2* wp = wb + (ks * NJ2 + jj) * 32 + lane;
+          const uint2 bw = *wp;
+#pragma unroll
+          for (int f = 0; f < 2; ++f)
+            ce::mma_bf16(acc[f][jj], af[f], bw.x, bw.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ2; ++jj) {
+      if (jj >= nj) break;
+      const int n = 8 * (j0 + jj) + 2 * t;
+      const float bb0 = __ldg(a.b2 + n), bb1 = __ldg(a.b2 + n + 1);
+#pragma unroll
+      for (int f = 0; f < 2; ++f)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<__nv_bfloat162*>(
+              os + ((warp * 2 + f) * TW + g + 8 * h) * l.ps1 + n) =
+              __floats2bfloat162_rn(acc[f][jj][2 * h] + bb0,
+                                    acc[f][jj][2 * h + 1] + bb1);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < TH * TW * cv; e += L::NT) {
+    const int pix = e / cv, v = e - pix * cv;
+    const int y = y0 + pix / TW, x = x0 + pix % TW;
+    if (y < a.H && x < a.W)
+      *reinterpret_cast<uint4*>(
+          a.out + (((size_t)b * a.H + y) * a.W + x) * C + v * 8) =
+          *reinterpret_cast<const uint4*>(os + pix * l.ps1 + v * 8);
+  }
+}
+
+template <int TH, int NF1>
+int launch_cab(const CabArgs& a, cudaStream_t s) {
+  using L = Layout<TH>;
+  const size_t bytes = L(a.C, a.mid).bytes();
+  cudaError_t e = ce::allow_smem<cab_tc_kernel<TH, NF1>>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)a.B * ((a.H + TH - 1) / TH) *
+                           ((a.W + TW - 1) / TW);
+  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  cab_tc_kernel<TH, NF1><<<(unsigned)blocks, L::NT, bytes, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel 7 in one launch on x, out [B, H, W, C] bf16 (C % 8 == 0, C <=
+// 128; mid % 8 == 0, mid <= 64); w1, w2 packed by ops/hab.cab_mma_weights;
+// hidden [B, H, W, mid] or null; LN divided by c_real. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a shape it does
+// not take).
+int cab_tc(const void* x, int B, int H, int W, int C, int mid, int c_real,
+           const void* ln_s, const void* ln_b, const void* w1,
+           const void* b1, const void* w2, const void* b2, void* out,
+           void* hidden, int plant, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 8 || C % 8 || C > MAX_C || mid < 8 ||
+      mid % 8 || mid > MAX_MID || c_real < 1 || c_real > C)
+    return (int)cudaErrorInvalidValue;
+  CabArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.ln_s = static_cast<const float*>(ln_s);
+  a.ln_b = static_cast<const float*>(ln_b);
+  a.w1 = static_cast<const uint2*>(w1);
+  a.b1 = static_cast<const float*>(b1);
+  a.w2 = static_cast<const uint2*>(w2);
+  a.b2 = static_cast<const float*>(b2);
+  a.out = static_cast<bf16*>(out);
+  a.hidden = static_cast<bf16*>(hidden);
+  a.B = B, a.H = H, a.W = W, a.C = C, a.mid = mid, a.c_real = c_real;
+  a.plant = plant;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mid / 8) {
+    case 1: return launch_cab<TILE_ROWS, 1>(a, s);
+    case 2: return launch_cab<TILE_ROWS, 2>(a, s);
+    case 3: return launch_cab<TILE_ROWS, 3>(a, s);
+    case 4: return launch_cab<TILE_ROWS, 4>(a, s);
+    case 5: return launch_cab<TILE_ROWS, 5>(a, s);
+    case 6: return launch_cab<TILE_ROWS, 6>(a, s);
+    case 7: return launch_cab<TILE_ROWS, 7>(a, s);
+    default: return launch_cab<TILE_ROWS, 8>(a, s);
+  }
+}
+
+// The kernel's shared memory a block at (C, mid), for the checks.
+size_t cab_tc_smem(int C, int mid) {
+  return Layout<TILE_ROWS>(C, mid).bytes();
+}
+
+}  // extern "C"

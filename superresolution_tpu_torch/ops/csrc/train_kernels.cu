@@ -31,11 +31,12 @@
 //     and every cotangent are exactly 0 there (pallas_dense_trunk_vjp.py
 //     _mask_flat) and no spacer row enters dW or db.
 //   Kernel 14, the star-weighted L1 (replaces ops/pallas_loss.py:
-//   star_weighted_l1_pallas): star_l1_partial_kernel reduces |p - t| *
-//   (t > thr ? w : 1) into per-block f32 partials over a grid-stride loop,
-//   star_l1_reduce_kernel sums them in a fixed order and divides by n;
-//   star_l1_bwd_kernel writes sign(p - t) * w(t) * g / n, reading the
-//   upstream gradient g from device memory (no host sync).
+//   star_weighted_l1_pallas): star_l1_fwd_kernel, one launch, reduces
+//   |p - t| * (t > thr ? w : 1) over float4 chunks into per-block f32
+//   partials, and the last block to finish sums them in block order and
+//   divides by n; star_l1_bwd_kernel writes sign(p - t) * w(t) * g / n
+//   over float4 chunks, reading the upstream gradient g from device
+//   memory (no host sync).
 //
 // Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s). Kernel 13 at
 // [4,128,128,64], c 64, g 32: dgrad and wgrad each do the forward's
@@ -267,30 +268,71 @@ __device__ __forceinline__ float block_sum(float v, float* warp_s) {
   return s;  // valid in thread 0
 }
 
-__global__ void __launch_bounds__(SL_THREADS)
-    star_l1_partial_kernel(const float* __restrict__ p,
-                           const float* __restrict__ t, size_t n, float thr,
-                           float w, float* __restrict__ part) {
-  __shared__ float warp_s[SL_THREADS / 32];
-  float s = 0.f;
-  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * SL_THREADS) {
-    const float tv = t[i];
-    const float d = fabsf(p[i] - tv);
-    s += tv > thr ? d * w : d;
-  }
-  s = block_sum(s, warp_s);
-  if (threadIdx.x == 0) part[blockIdx.x] = s;
+// The star-weighted term of one element, without FMA contraction (so a
+// plain model in f32 can repeat the sums bit for bit).
+__device__ __forceinline__ float star_term(float p, float t, float thr,
+                                           float w) {
+  const float d = fabsf(p - t);
+  return t > thr ? __fmul_rn(d, w) : d;
 }
 
+// The forward's ticket: 0 between launches (each launch leaves it 0), so
+// forwards on one device run on one stream at a time.
+__device__ unsigned star_l1_ticket = 0u;
+
+// Kernel 14's forward in one launch: each thread sums the terms of its
+// float4 chunks (grid-stride; the n % 4 tail in block 0), each block
+// reduces its threads into part[block]; the last block to finish (an
+// atomic ticket behind a __threadfence) sums the partials in block order,
+// writes out[0] = sum / n and resets the ticket for the next launch. The
+// grid, and so every sum's order, depends on n alone: two runs give the
+// same bits.
 __global__ void __launch_bounds__(SL_THREADS)
-    star_l1_reduce_kernel(const float* __restrict__ part, int nparts,
-                          size_t n, float* __restrict__ out) {
+    star_l1_fwd_kernel(const float* __restrict__ p,
+                       const float* __restrict__ t, size_t n, float thr,
+                       float w, float* part, float* __restrict__ out) {
   __shared__ float warp_s[SL_THREADS / 32];
+  __shared__ bool last;
+  const size_t n4 = n / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4* t4 = reinterpret_cast<const float4*>(t);
   float s = 0.f;
-  for (int i = threadIdx.x; i < nparts; i += SL_THREADS) s += part[i];
+  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * SL_THREADS) {
+    const float4 pv = __ldg(p4 + i), tv = __ldg(t4 + i);
+    s += star_term(pv.x, tv.x, thr, w);
+    s += star_term(pv.y, tv.y, thr, w);
+    s += star_term(pv.z, tv.z, thr, w);
+    s += star_term(pv.w, tv.w, thr, w);
+  }
+  if (blockIdx.x == 0 && 4 * n4 + threadIdx.x < n)
+    s += star_term(p[4 * n4 + threadIdx.x], t[4 * n4 + threadIdx.x], thr, w);
   s = block_sum(s, warp_s);
-  if (threadIdx.x == 0) out[0] = s / (float)n;
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = s;
+    __threadfence();  // the partial is visible before the ticket moves
+    last = atomicAdd(&star_l1_ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float v = 0.f;
+  for (unsigned i = threadIdx.x; i < gridDim.x; i += SL_THREADS)
+    v += __ldcg(part + i);  // from L2: other blocks wrote them
+  v = block_sum(v, warp_s);
+  if (threadIdx.x == 0) {
+    out[0] = v / (float)n;
+    star_l1_ticket = 0u;
+  }
+}
+
+// Kernel 14's backward: dp = sign(p - t) * w(t) * g / n, float4 chunks
+// (the n % 4 tail in block 0).
+__device__ __forceinline__ float star_grad(float p, float t, float thr,
+                                           float w, float scale) {
+  const float diff = p - t;
+  const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+  return sgn * (t > thr ? w : 1.f) * scale;
 }
 
 __global__ void __launch_bounds__(SL_THREADS)
@@ -299,13 +341,20 @@ __global__ void __launch_bounds__(SL_THREADS)
                        float w, const float* __restrict__ g,
                        float* __restrict__ dp) {
   const float scale = g[0] / (float)n;
-  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n;
+  const size_t n4 = n / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4* t4 = reinterpret_cast<const float4*>(t);
+  float4* d4 = reinterpret_cast<float4*>(dp);
+  for (size_t i = (size_t)blockIdx.x * SL_THREADS + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * SL_THREADS) {
-    const float tv = t[i];
-    const float diff = p[i] - tv;
-    const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-    dp[i] = sgn * (tv > thr ? w : 1.f) * scale;
+    const float4 pv = __ldg(p4 + i), tv = __ldg(t4 + i);
+    d4[i] = make_float4(star_grad(pv.x, tv.x, thr, w, scale),
+                        star_grad(pv.y, tv.y, thr, w, scale),
+                        star_grad(pv.z, tv.z, thr, w, scale),
+                        star_grad(pv.w, tv.w, thr, w, scale));
   }
+  const size_t i = 4 * n4 + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) dp[i] = star_grad(p[i], t[i], thr, w, scale);
 }
 
 unsigned grid_for(size_t n, int threads, unsigned cap) {
@@ -355,29 +404,27 @@ int wgrad_launch(const void* in0, int in0_stride, int cin0, const void* in1,
 
 extern "C" {
 
-// Number of f32 partial slots star_l1_value needs for n elements.
-int train_star_l1_parts(size_t n) { return (int)grid_for(n, SL_THREADS, 1056); }
+// Blocks of kernel 14's forward for n elements: the f32 partial slots
+// star_l1_value needs.
+int train_star_l1_parts(size_t n) {
+  return (int)grid_for((n + 3) / 4, SL_THREADS, 1056);
+}
 
-// Returns the cudaError_t of the launches (0 on success).
+// Kernel 14's forward, one launch. Returns the cudaError_t of the launch
+// (0 on success).
 int train_star_l1_value(const void* p, const void* t, size_t n, float thr,
                         float w, void* part, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = grid_for(n, SL_THREADS, 1056);
-  star_l1_partial_kernel<<<blocks, SL_THREADS, 0, s>>>(
+  star_l1_fwd_kernel<<<grid_for((n + 3) / 4, SL_THREADS, 1056), SL_THREADS,
+                       0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p), static_cast<const float*>(t), n, thr, w,
-      static_cast<float*>(part));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  star_l1_reduce_kernel<<<1, SL_THREADS, 0, s>>>(
-      static_cast<const float*>(part), (int)blocks, n,
-      static_cast<float*>(out));
+      static_cast<float*>(part), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
 int train_star_l1_grad(const void* p, const void* t, size_t n, float thr,
                        float w, const void* g, void* dp, void* stream) {
-  star_l1_bwd_kernel<<<grid_for(n, SL_THREADS, 4224), SL_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  star_l1_bwd_kernel<<<grid_for((n + 3) / 4, SL_THREADS, 4224), SL_THREADS,
+                       0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p), static_cast<const float*>(t), n, thr, w,
       static_cast<const float*>(g), static_cast<float*>(dp));
   return (int)cudaGetLastError();

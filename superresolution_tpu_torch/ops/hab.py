@@ -11,10 +11,18 @@ conv stack before its squeeze-excite:
     out = conv3x3(hid) + b2          C/3 -> C
 
 with SAME zero padding on y and on hid (not on x: outside the image
-conv1 sees 0, not LN(0) = ln bias). On the card that is three launches:
-layernorm_kernel (csrc/hat_kernels.cu) and two of the shared conv3x3_kernel
-(csrc/sr_kernels.cu), the first with the GELU epilogue; each conv reads
-its input through a zero halo, so the padding is right by construction.
+conv1 sees 0, not LN(0) = ln bias). Two bodies, by the route rule
+(uses_tensor_cores): bf16 x with C and the hidden width multiples of 8
+(C <= 128, hidden <= 64) takes one launch of cab_tc_kernel
+(csrc/cab_kernels.cu), which keeps LN(x) and the hidden map of a tile
+and its halo in shared memory and runs both convs as implicit GEMMs on
+the tensor cores, reading the conv kernels packed once in fragment
+order (cab_mma_weights); every other width takes three launches:
+layernorm_kernel (csrc/hat_kernels.cu) and two of the shared
+conv3x3_kernel (csrc/sr_kernels.cu), the first with the GELU epilogue,
+each conv reading its input through a zero halo. `launches` counts
+calls; `tc_launches` and `direct_launches` the CUDA launches of each
+body.
 
 Kernel 8, fused_hab_block, replaces ops/pallas_hab.py: fused_hab_block /
 fused_hab_block_inference (_fused_fwd_impl, _kernel, _body). On windows
@@ -50,13 +58,15 @@ Bounds on the H100 (see csrc/hat_kernels.cu): the CAB (kernels 7 and
 12) does 55,296 MACs per pixel for 384 bytes of x and out, the HAB
 86,016 MACs per token for 576 bytes of x, cab and out. Both sit at the
 bf16 ridge: the CAB is bound by bytes and the HAB by operations, each by
-a few percent. Kernels 7 and 12 run on the CUDA cores in f32, so
-operations bound them; kernel 8 runs its products on the tensor cores
-(see the source for what it reaches).
+a few percent. Kernel 7's one-launch body and kernel 8 run their
+products on the tensor cores; kernel 12 and kernel 7's three-launch
+body run on the CUDA cores in f32, so operations bound them.
 
 Weights: cab_weights and hab_weights read the port's HAT-keyed state
 dict (models/hat_lite.py), as the reference's cab_weights and
-fused_hat._wa_weights read the flax tree.
+fused_hat._wa_weights read the flax tree, and pack the dense and conv
+kernels for the tensor-core bodies once (cab_mma_weights,
+mma_weights).
 """
 
 from __future__ import annotations
@@ -83,9 +93,13 @@ HAB_GEOMETRIES = ((96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240),
                   (128, 8, 64, 192))
 # the channel counts kernel 12 is instantiated for
 CAB_PAIR_CHANNELS = (96, 120)
+# the widest C and hidden width kernel 7's tensor-core body takes (its LN
+# runs a pixel on a half-warp of 8 channels a lane; conv1 keeps hidden / 8
+# fragments a warp)
+CAB_TC_MAX_C, CAB_TC_MAX_MID = 128, 64
 
-__all__ = ["CAB_PAIR_CHANNELS", "HAB_WEIGHTS", "cab_weights",
-           "fused_cab_convs", "fused_cab_convs_pair",
+__all__ = ["CAB_PAIR_CHANNELS", "HAB_WEIGHTS", "cab_mma_weights",
+           "cab_weights", "fused_cab_convs", "fused_cab_convs_pair",
            "fused_cab_convs_pair_reference", "fused_cab_convs_reference",
            "fused_hab_block", "hab_body_reference", "hab_weights",
            "layer_norm"]
@@ -117,14 +131,50 @@ def cab_weights(params: Mapping[str, torch.Tensor], pre: str,
                 dtype: torch.dtype = torch.bfloat16) -> list[torch.Tensor]:
     """HAB `pre` (layers.{g}.residual_group.blocks.{i}) of a HAT-keyed
     state dict -> [ln_s, ln_b, k1, b1, k2, b2]: HWIO kernels in `dtype`,
-    LN parameters and biases in f32."""
+    LN parameters and biases in f32; then, where the tensor-core body can
+    take the widths, k1 and k2 packed for it (cab_mma_weights)."""
     cab = f"{pre}.conv_block.cab"
-    return [_f32(params[f"{pre}.norm1.weight"]),
-            _f32(params[f"{pre}.norm1.bias"]),
-            hwio(params[f"{cab}.0.weight"].detach()).to(dtype),
-            _f32(params[f"{cab}.0.bias"]),
-            hwio(params[f"{cab}.2.weight"].detach()).to(dtype),
-            _f32(params[f"{cab}.2.bias"])]
+    return cab_mma_weights([
+        _f32(params[f"{pre}.norm1.weight"]),
+        _f32(params[f"{pre}.norm1.bias"]),
+        hwio(params[f"{cab}.0.weight"].detach()).to(dtype),
+        _f32(params[f"{cab}.0.bias"]),
+        hwio(params[f"{cab}.2.weight"].detach()).to(dtype),
+        _f32(params[f"{cab}.2.bias"])])
+
+
+def pack_conv_mma(k: torch.Tensor) -> torch.Tensor:
+    """A 3x3 HWIO kernel k [3, 3, ci, co] (co a multiple of 8) in the
+    tensor-core body's fragment order, each tap's ci zero-padded to a
+    multiple of 16 (so a k-step never spans two taps): pack_mma of the
+    K-major [9 * ci16, co], [9 * ci16 / 16, co / 8, 32, 4]."""
+    ci = k.shape[2]
+    cp = -(-ci // 16) * 16
+    kp = F.pad(k, (0, 0, 0, cp - ci))
+    return pack_mma(kp.reshape(9 * cp, k.shape[3]))
+
+
+def cab_mma_weights(weights: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Kernel 7's weights [ln_s, ln_b, k1, b1, k2, b2] with k1 and k2
+    packed for its tensor-core body (pack_conv_mma) appended, replacing
+    any packing present; the six alone where the widths are not multiples
+    of 8 (no launch of that body takes them). cab_weights calls it once;
+    a caller that builds or changes k1 or k2 itself calls it again."""
+    w = list(weights[:6])
+    c, mid = w[2].shape[2], w[2].shape[3]
+    if c % 8 or mid % 8:
+        return w
+    return w + [pack_conv_mma(w[2]), pack_conv_mma(w[4])]
+
+
+def uses_tensor_cores(x: torch.Tensor, mid: int) -> bool:
+    """Kernel 7's route rule: bf16 x with C and the hidden width `mid`
+    multiples of 8 (every staged run of 8 channels is 16 bytes), C <=
+    CAB_TC_MAX_C and mid <= CAB_TC_MAX_MID takes the one-launch
+    tensor-core body; every other shape the three launches."""
+    c = x.shape[-1]
+    return (x.dtype == torch.bfloat16 and c % 8 == 0 and mid % 8 == 0
+            and c <= CAB_TC_MAX_C and mid <= CAB_TC_MAX_MID)
 
 
 def _conv_f32(x: torch.Tensor, k: torch.Tensor,
@@ -141,7 +191,7 @@ def fused_cab_convs_reference(x: torch.Tensor, weights: list[torch.Tensor],
     """Plain PyTorch version of kernel 7: LN -> conv -> GELU -> conv in
     f32, rounded to x's dtype after LN, after GELU and at the output. A
     `hidden` [B,H,W,C/3] receives the GELU map, as the kernel's does."""
-    ln_s, ln_b, k1, b1, k2, b2 = weights
+    ln_s, ln_b, k1, b1, k2, b2 = weights[:6]
     dt = x.dtype
     y = layer_norm(x, ln_s, ln_b, c_real)
     hid = F.gelu(_conv_f32(y, k1, b1)).to(dt)
@@ -154,7 +204,7 @@ def _check_cab_weights(name: str, x: torch.Tensor,
                        weights: list[torch.Tensor]) -> int:
     """Raise unless `weights` fit x's C and lie on x's CUDA device in
     the kernels' types; returns the hidden width."""
-    ln_s, ln_b, k1, b1, k2, b2 = weights
+    ln_s, ln_b, k1, b1, k2, b2 = weights[:6]
     c = x.shape[-1]
     mid = k1.shape[-1]
     if (tuple(k1.shape) != (3, 3, c, mid) or tuple(k2.shape) != (3, 3, mid, c)
@@ -173,34 +223,62 @@ def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
                     c_real: int | None = None) -> torch.Tensor:
     """Kernel 7. CPU tensors run the plain version; CUDA tensors launch
     the kernels (bf16 x and kernels, f32 LN parameters and biases) or
-    raise. The GELU hidden map goes into `hidden` [B,H,W,C/3] when one
-    is given (so a check can read it), else into a fresh one. c_real:
-    the LN's divisor on a lane-padded x (default C)."""
+    raise: one launch of the tensor-core body where uses_tensor_cores
+    holds (weights packed by cab_weights or cab_mma_weights), else three
+    (cab_launches). The GELU hidden map goes into `hidden` [B,H,W,C/3]
+    when one is given (so a check can read it). c_real: the LN's divisor
+    on a lane-padded x (default C)."""
     if x.device.type == "cpu":
         return fused_cab_convs_reference(x, weights, hidden, c_real)
-    ln_s, ln_b, k1, b1, k2, b2 = weights
     b, h, w, c = x.shape
     mid = _check_cab_weights("fused_cab_convs", x, weights)
     if c_real is not None and not 0 < c_real <= c:
         raise ValueError(f"fused_cab_convs: c_real {c_real} not in 1..{c}")
     _build.require_cuda(hidden, name="fused_cab_convs")
-    if hidden is None:
-        hidden = torch.empty((b, h, w, mid), dtype=x.dtype, device=x.device)
-    elif hidden.shape != (b, h, w, mid):
+    if hidden is not None and hidden.shape != (b, h, w, mid):
         raise ValueError("fused_cab_convs: hidden shape "
                          f"{tuple(hidden.shape)} != {(b, h, w, mid)}")
-    y = torch.empty_like(x)
-    _build.layernorm(x, ln_s, ln_b, y, c_real)
-    fused_cab_convs.launches += 1
-    _build.conv3x3(y, c, k1, b1, hidden, 0, mid, geom=(b, h, w), gelu=True)
-    fused_cab_convs.launches += 1
     out = torch.empty_like(x)
-    _build.conv3x3(hidden, mid, k2, b2, out, 0, c, geom=(b, h, w))
-    fused_cab_convs.launches += 1
+    cab_launches(x, weights, out, hidden, c_real)
     return out
 
 
-fused_cab_convs.launches = 0
+def cab_launches(x: torch.Tensor, weights: list[torch.Tensor],
+                 out: torch.Tensor, hidden: torch.Tensor | None = None,
+                 c_real: int | None = None) -> None:
+    """Kernel 7's launches into `out` by the route rule, counted: one
+    call on fused_cab_convs.launches, its CUDA launches on the body's
+    count. Callers have validated x, weights and hidden (fused_cab_convs);
+    the packing is checked here."""
+    ln_s, ln_b, k1, b1, k2, b2 = weights[:6]
+    b, h, w, c = x.shape
+    mid = k1.shape[-1]
+    if uses_tensor_cores(x, mid):
+        if len(weights) != 8 or any(
+                tuple(packed.shape) != (9 * -(-k.shape[2] // 16),
+                                        k.shape[3] // 8, 32, 4)
+                for packed, k in zip(weights[6:], (k1, k2))):
+            raise ValueError("fused_cab_convs: k1, k2 not packed for the "
+                             "tensor-core body (cab_weights or "
+                             "cab_mma_weights)")
+        _build.require_cuda(*weights[6:], name="fused_cab_convs")
+        _build.cab_tc(x, weights, out, hidden, c_real)
+        fused_cab_convs.launches += 1
+        fused_cab_convs.tc_launches += 1
+        return
+    if hidden is None:
+        hidden = torch.empty((b, h, w, mid), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    _build.layernorm(x, ln_s, ln_b, y, c_real)
+    _build.conv3x3(y, c, k1, b1, hidden, 0, mid, geom=(b, h, w), gelu=True)
+    _build.conv3x3(hidden, mid, k2, b2, out, 0, c, geom=(b, h, w))
+    fused_cab_convs.launches += 1
+    fused_cab_convs.direct_launches += 3
+
+
+fused_cab_convs.launches = 0         # calls
+fused_cab_convs.tc_launches = 0      # CUDA launches by body
+fused_cab_convs.direct_launches = 0
 
 
 def fused_cab_convs_pair_reference(x: torch.Tensor,

@@ -7,15 +7,15 @@ n elements of pred and target:
     loss = sum(|p - t| * w(t)) / n,   w(t) = weight if t > threshold else 1
     dp   = sign(p - t) * w(t) * g / n      (sign(0) = 0; no grad to target)
 
-On the card (csrc/train_kernels.cu) the forward is a grid-stride block
-reduction into per-block f32 partials and one small launch that sums them
-in a fixed order, so two runs give the same bits; the backward is one
-elementwise launch that reads the upstream gradient g on the card. Both
-are bound by bytes: at the main path's [4,512,512,1] f32 the forward
-reads 8 MB and the backward moves 12 MB, ~6 us at 3.35 TB/s.
+On the card (csrc/train_kernels.cu) the forward is one launch: float4
+loads, per-block f32 partials, and the last block to finish sums them in
+block order, so two runs give the same bits; the backward is one
+elementwise float4 launch that reads the upstream gradient g on the
+card. Both are bound by bytes: at the main path's [4,512,512,1] f32 the
+forward reads 8 MB and the backward moves 12 MB, ~6 us at 3.35 TB/s.
 
-`launches` counts the op's passes on the card: one per forward (two CUDA
-launches) and one per backward (one launch). The plain version is
+`launches` counts the op's launches on the card: one per forward and
+one per backward. The plain version is
 losses/basic.star_weighted_l1; CPU tensors run it.
 """
 

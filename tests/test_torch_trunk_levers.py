@@ -93,10 +93,12 @@ def test_prologue_matches_jax(cin):
     jout, jh = jpd.fused_dense_block_prologue(
         jpd.pack(_pad_channels(x, 8)), jhead, jw, width=W, rb=8,
         interpret=True)
+    before = dt.fused_dense_block_prologue.launches
     out, head = dt.fused_dense_block_prologue(torch.from_numpy(x), thead, tw)
     assert _rel(head, jpd.unpack(jh, W)) < OP_TOL
     assert _rel(out, jpd.unpack(jout, W)) < OP_TOL
-    assert dt.fused_dense_block_prologue.launches == 0  # the CPU launches none
+    # the CPU launches none; other tests in this process may have counted
+    assert dt.fused_dense_block_prologue.launches == before
 
 
 def test_epilogue_matches_jax():
