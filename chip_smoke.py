@@ -168,10 +168,13 @@ sixth seed:
              the wrap, SE not applied, region mask off) must each miss by
              3x the bar; timed beside the windowed route of kernel 8 with
              its rolls, partitions and SE passes, and the plain version
- 23 pair-kernel     kernel 12 (fused_cab_convs_pair) within 0.02 at
-             [1,256,256,96], [1,256,256,120] and a ragged map; two planted
-             faults (the hidden map not zeroed outside the image, a
-             pair's pixels swapped) at 3x the bar; timed beside kernel 7
+ 23 pair-kernel     kernel 12 (fused_cab_convs_pair, one launch of kernel
+             7's tensor-core body, LN divided by C) within 0.02 at
+             [1,256,256,96], [1,256,256,120] and a ragged map, one cab_tc
+             launch a call on its own count, kernel 7's counts unmoved;
+             two planted faults (the hidden map not zeroed outside the
+             image, a pair's pixels swapped) at 3x the bar; timed at C 96
+             and 120 beside kernel 7 and the first form's times
  24 padded-kernels  kernels 7, 8, 9 at C 128 with c_real 96 and 8 heads
              within 0.02 / 0.03 of their plain versions, the pad lanes of
              each output exactly zero; timed
@@ -258,16 +261,20 @@ Then the reference's last Pallas kernels outside benchmarks/, which no
 path of the system runs: each phase drives the kernel's own entry point
 once at full shape with every count set to 0 just before (that kernel
 exactly, every other none), random values from a ninth seed. Every
-counted run of a system path above also counts kernels 16-19 and fails
-unless each is 0; the kernels line gives their sums over those runs
-(launches_system_paths) and how many runs were counted:
+counted run of a system path above also counts kernels 12 and 16-19 and
+fails unless each is 0; the kernels line gives their sums over those
+runs (launches_system_paths; kernel 12's launches too) and how many runs
+were counted:
  35 dense-valid     kernel 16 (fused_dense_block_valid, pad once, five
              VALID convs) at B1's timed tile [24,376,256,64] on B1's check
-             weights: bf16 within 0.02 and f32 within 1e-4 of the plain
-             form, over the whole image and the 5-px border; the interior
-             within 0.02 of B1; two planted faults (SAME zeroing, caught
-             on the border; the 0.2 scale dropped) by 3x the bar; timed
-             beside the plain form and B1
+             weights: bf16 on the tensor-core body (5 launches, 0 direct)
+             within 0.02 of the plain form, over the whole image and the
+             5-px border; the interior within 0.02 of B1; two planted
+             faults (SAME zeroing, caught on the border; the 0.2 scale
+             dropped) by 3x the bar; f32 within 1e-4 and a bf16 shape off
+             the route rule (c 36, g 12) within 0.02 on the direct body;
+             timed beside B1, the plain form, the weight packing and the
+             direct body in bf16
  36 blur-kernel     kernel 17 (anti_checkerboard_kernel) at [4,256,256,1]
              balanced, [4,512,512,1] balanced and light, [8,128,128,64]
              strong: f32 within 1e-5, bf16 within 0.01; two planted
@@ -369,6 +376,11 @@ EXP_RATE = 132 * 16 * 1.98e9
 # run whose kernel-8 step passed and which then failed in phase 6 on an
 # error of the script's (PERF.md row 8)
 HAB_OLD = "hat_kernels.cu hab_kernel's first form, CUDA cores"
+# kernel 12's first form (hat_kernels.cu cab_pair_kernel<C>, two pixels a
+# thread, f32 FMA on the CUDA cores) at phase 23's timed maps, timed on
+# the tree before it was taken out (PERF.md row 12)
+K12_OLD = "hat_kernels.cu cab_pair_kernel<C>'s first form, CUDA cores"
+K12_OLD_MS = {"c96": 0.5227, "c120": 1.0218}
 HAB_OLD_MS = {"main": 0.6465, "hab_c96_n256": 1.2444, "hab_c120_n256": 2.2855,
               "hab_c128_nh8_n64": 0.929, "strip_c96_ws8": 0.6682}
 OCA_OLD = "attn_kernels.cu attn_kernel<bf16, hd, n, m, true>, CUDA cores"
@@ -1921,17 +1933,17 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
     return launches
 
 
-# Kernels 16-19 run from their own entry points only: no path of the
-# system calls them. Every path's run adds its counts of them here and
-# fails unless they are 0; the kernels line reports the sums.
-UNROUTED = ("fused_dense_block_valid", "anti_checkerboard_kernel",
-            "pack_conv3x3", "passthrough")
+# Kernels 12 and 16-19 run from their own entry points only: no path of
+# the system calls them. Every path's run adds its counts of them here
+# and fails unless they are 0; the kernels line reports the sums.
+UNROUTED = ("fused_cab_convs_pair", "fused_dense_block_valid",
+            "anti_checkerboard_kernel", "pack_conv3x3", "passthrough")
 UNROUTED_SEEN = {k: 0 for k in UNROUTED}
 UNROUTED_PATHS: list = []
 
 
 def note_unrouted(tag: str, launches: dict) -> None:
-    """Adds a system path's launches of kernels 16-19 to the tally;
+    """Adds a system path's launches of kernels 12 and 16-19 to the tally;
     raises unless each was counted in that run and is 0, or unless B1's
     and B2's launches all took the tensor-core body (expect_tc_bodies)."""
     missing = [k for k in UNROUTED if k not in launches]
@@ -1954,8 +1966,8 @@ def unrouted_ops() -> dict:
 def check_launches(tag: str, launches: dict, expected: dict,
                    system: bool = True) -> None:
     """launches == expected; a system path's run (every caller but the
-    entry points of phases 35-38) also goes into the kernels 16-19
-    tally (note_unrouted)."""
+    entry points of phases 23 and 35-38) also goes into the kernels 12
+    and 16-19 tally (note_unrouted)."""
     if system:
         note_unrouted(tag, launches)
     if launches != expected:
@@ -2134,7 +2146,7 @@ def fp32_fused_step(lr: torch.Tensor, hr: torch.Tensor) -> dict:
         step_s = time.perf_counter() - t0
         launches = {k: op.launches for k, op in ops.items()}
         # not a tensor-core path: system=False keeps it out of the
-        # tc_bodies rule (kernels 16-19 are held at 0 by `expected`)
+        # tc_bodies rule (kernels 12, 16-19 are held at 0 by `expected`)
         check_launches("fp32_step", launches, {
             k: {"fused_dense_block": 3 * nb * 9, "dense_block_backward":
                 3 * nb, "star_weighted_l1_cuda": 2}.get(k, 0) for k in ops},
@@ -4231,57 +4243,105 @@ def check_strip_kernel(gen: torch.Generator) -> dict:
 
 
 def check_cab_pair_kernel(gen: torch.Generator) -> dict:
-    """Phase 23: kernel 12 (fused_cab_convs_pair) against its plain
+    """Phase 23: kernel 12 (fused_cab_convs_pair), one launch of kernel
+    7's tensor-core body with the LN divided by C, against its plain
     version (f32 on the bf16 inputs) within 0.02, kernel 7's bar, at
     [1,256,256,96], [1,256,256,120] and a ragged [2,37,46,96] (partial
     tiles at every edge), with kernel 7's check weights (a large LN bias,
-    so a conv that saw LN(0) outside the image would differ); both faults
-    planted in the kernel (the hidden map not zeroed outside the image,
-    the pixels of a pair swapped) must miss by 3x the bar at the first.
-    Timed at [1,256,256,96] beside kernel 7's three launches and the
-    plain version. Returns the kernels-line entry."""
+    so a conv that saw LN(0) outside the image would differ) packed once.
+    Each call is one cab_tc launch counted on kernel 12's count alone:
+    kernel 7's counts must not move. Both faults planted in the body (the
+    hidden map not zeroed outside the image; each stored column's x XOR
+    1, the pixels of a pair swapped) must miss by 3x the bar at C 96 and
+    120. Timed at C 96 and 120 beside kernel 7 on the same inputs, with
+    the first form's times (K12_OLD_MS) printed. Returns the kernels-line
+    entry."""
     from superresolution_tpu_torch.ops import _build
     from superresolution_tpu_torch.ops import hab
 
     bf = torch.bfloat16
     side = 2 * HYBRID_IN
-    entry = None
+    k7, k12 = hab.fused_cab_convs, hab.fused_cab_convs_pair
+    entry, geometries = None, {}
+    real_cab_tc = _build.cab_tc
+    cab_tc_calls = []
+
+    def spy(*a, **k):
+        cab_tc_calls.append(1)
+        return real_cab_tc(*a, **k)
+
+    spied = {}
     for tag, c, shape in (("c96", 96, (1, side, side)),
                           ("c120", 120, (1, side, side)),
                           ("ragged_c96", 96, (2, 37, 46))):
-        w = cab_check_weights(gen, c, c // 3)
+        w = hab.cab_mma_weights(cab_check_weights(gen, c, c // 3))
         x = rand(gen, *shape, c, dtype=bf)
-        before = hab.fused_cab_convs_pair.launches
-        got = hab.fused_cab_convs_pair(x, w)
-        if hab.fused_cab_convs_pair.launches != before + 1:
-            raise AssertionError("fused_cab_convs_pair: not one counted "
-                                 "launch")
+        if not hab.uses_tensor_cores(x, c // 3):
+            raise AssertionError(f"fused_cab_convs_pair/{tag}: off kernel "
+                                 "7's route rule")
+        before = (k7.launches, k7.tc_launches, k7.direct_launches,
+                  k12.launches)
+        cab_tc_calls.clear()
+        _build.cab_tc = spy
+        try:
+            got = k12(x, w)
+        finally:
+            _build.cab_tc = real_cab_tc
+        after = (k7.launches, k7.tc_launches, k7.direct_launches,
+                 k12.launches)
+        spied[tag] = len(cab_tc_calls)
+        emit({"check": f"fused_cab_convs_pair/{tag}/counts",
+              "cab_tc_launches": len(cab_tc_calls),
+              "kernel7_before": before[:3], "kernel7_after": after[:3],
+              "launches": after[3] - before[3]})
+        if (len(cab_tc_calls) != 1 or after[:3] != before[:3]
+                or after[3] != before[3] + 1):
+            raise AssertionError(f"fused_cab_convs_pair/{tag}: not one "
+                                 f"cab_tc launch on its own count: "
+                                 f"{before} -> {after}, {len(cab_tc_calls)}"
+                                 " cab_tc calls")
         ref = hab.fused_cab_convs_pair_reference(x.float(), w)
         err = compare(f"fused_cab_convs_pair/{tag}", got, ref, TOL_KERNEL)
-        if tag != "c96":
+        if tag == "ragged_c96":
             continue
-        for bit, fault in ((_build.PLANT_HID_BORDER, "hidden_not_zeroed"),
-                           (_build.PLANT_SWAP_PAIR, "pair_swapped")):
-            expect_margin(f"fused_cab_convs_pair:{fault}", planted(
-                "cab_pair", bit, lambda: hab.fused_cab_convs_pair(x, w)),
-                ref, TOL_KERNEL)
+        for bit, fault in ((_build.PLANT_CAB_HID_BORDER, "hidden_not_zeroed"),
+                           (_build.PLANT_CAB_SWAP_PAIR, "pair_swapped")):
+            expect_margin(f"fused_cab_convs_pair:{tag}:{fault}", planted(
+                "cab_tc", bit, lambda: k12(x, w)), ref, TOL_KERNEL)
         px = side * side
-        b_ms, b_by = bound(2 * px * CAB_MACS,
-                           px * c * 2 * 2 + 2 * 9 * c * (c // 3) * 2)
-        w7 = hab.cab_mma_weights(w)  # kernel 7's weights, packed once
-        entry = {
-            "name": "fused_cab_convs_pair", "route": "cuda",
-            "source": HAT_SRC, "sources": [HAT_SRC],
-            "replaces": "superresolution_tpu/ops/pallas_hab.py:613",
-            "shape": list(x.shape), "max_abs_err": err["max_abs_err"],
-            "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
-            "ms": time_ms(lambda: hab.fused_cab_convs_pair(x, w), 20),
-            "plain_ms": time_ms(
-                lambda: hab.fused_cab_convs_pair_reference(x, w), 20),
-            "kernel7_ms": time_ms(lambda: hab.fused_cab_convs(x, w7), 20),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "path": "none: no caller, as in the reference"}
-        emit({"phase": "kernel_time", **entry})
+        mid = c // 3
+        b_ms, b_by = bound(2 * px * 2 * 9 * c * mid,
+                           px * c * 2 * 2 + 2 * 9 * c * mid * 2)
+        t = {"shape": list(x.shape), "max_abs_err": err["max_abs_err"],
+             "max_rel_err": err["max_rel_err"],
+             "ms": time_ms(lambda: k12(x, w), 20),
+             "queued_ms": queued_ms(lambda: k12(x, w), 20),
+             "plain_ms": time_ms(
+                 lambda: hab.fused_cab_convs_pair_reference(x, w), 20),
+             "kernel7_ms": time_ms(lambda: hab.fused_cab_convs(x, w), 20),
+             "kernel7_queued_ms": queued_ms(
+                 lambda: hab.fused_cab_convs(x, w), 20),
+             "first_form_ms": K12_OLD_MS[tag],
+             "bound_ms": b_ms, "bound_by": b_by}
+        old_kernel("fused_cab_convs_pair", K12_OLD, list(x.shape),
+                   K12_OLD_MS[tag], "12", case=tag)
+        geometries[tag] = t
+        emit({"phase": "kernel_time", "name": "fused_cab_convs_pair",
+              "case": tag, **t})
+        if tag == "c96":
+            entry = {
+                "name": "fused_cab_convs_pair", "route": "cuda",
+                "source": CAB_SRC, "sources": [CAB_SRC],
+                "replaces": "superresolution_tpu/ops/pallas_hab.py:613",
+                **{k: t[k] for k in ("shape", "max_abs_err", "max_rel_err",
+                                     "ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+                "tol": TOL_KERNEL, "library_ms": None,
+                "path": "none: no caller, as in the reference"}
+    entry["geometries"] = geometries
+    # cab_tc launches of each checked entry call, by the spy (kernel 12
+    # has one body); its launches on the system paths come from the tally
+    entry["entry_launches_by_body"] = {"tc": spied}
     return entry
 
 
@@ -5502,6 +5562,13 @@ def manifest_path(gen: torch.Generator, card: str) -> dict:
 # public entry point at the full shape of the layer it stands for.
 
 EXTRA_SRC = "superresolution_tpu_torch/ops/csrc/extra_kernels.cu"
+DENSE_VALID_SRC = "superresolution_tpu_torch/ops/csrc/dense_valid_kernels.cu"
+# kernel 16's first form (extra_kernels.cu conv_kernel<DenseStage<bf16>>,
+# f32 FFMA on the CUDA cores; the direct body still serves f32 and the
+# shapes off the route rule) in bf16 at TRUNK_TILE, timed on the tree
+# before the tensor-core route (PERF.md row 16)
+K16_OLD = "extra_kernels.cu conv_kernel<DenseStage<bf16>>, CUDA cores"
+K16_OLD_MS = 55.7485
 PACK_SRC = "superresolution_tpu_torch/ops/csrc/pack_kernels.cu"
 TOL_F32 = 1e-4            # kernels 16 and 18 in f32 against plain f32
 TOL_BLUR = 0.01           # kernel 17 in bf16: f32 sums rounded once
@@ -5554,13 +5621,19 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
     """Phase 35: kernel 16 (fused_dense_block_valid) at B1's timed tile
     [24,376,256,64], c 64, g 32, on B1's check weights (dense_check_weights,
     MSRA x 2) mapped to the projection matrices by models/convert.
-    _fuse_dense: bf16 within 0.02 and f32 within 1e-4 of the plain form
-    in f32 (TF32 off) on the same values, over the whole image and over
-    the 5-px border alone; the interior [5:-5, 5:-5] within 0.02 of B1 on
-    the same weights, the border's distance from B1 printed. Two faults
-    planted in the kernel must miss by 3x the bar: the intermediates
-    zeroed outside the image (SAME semantics, judged on the border) and
-    the 0.2 residual scale dropped. Timed beside the plain form and B1.
+    _fuse_dense, the stages' K-major weights packed once
+    (pack_stage_weights). bf16 on the tensor-core body: 5 launches there
+    and 0 direct, within 0.02 of the plain form in f32 (TF32 off) on the
+    same values over the whole image and over the 5-px border alone; the
+    interior [5:-5, 5:-5] within 0.02 of B1 on the same weights, the
+    border's distance from B1 printed. Two faults planted in the
+    tensor-core body must miss by 3x the bar: the intermediates zeroed
+    outside the image (SAME semantics, judged on the border) and the 0.2
+    residual scale dropped. f32 within 1e-4 on the direct body (5 direct
+    launches); a bf16 shape off the route rule (c 36, g 12, ragged) within
+    0.02 on the direct body. Timed beside B1, the plain form, the packing
+    alone, a call that packs, and the direct body in bf16 at the same
+    shape through its launch helper (the first form, K16_OLD_MS printed).
     Returns the kernels-line entry."""
     from superresolution_tpu_torch.models.convert import _fuse_dense
     from superresolution_tpu_torch.ops import _build
@@ -5568,23 +5641,72 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
     from superresolution_tpu_torch.ops import dense_valid as dv
 
     bf = torch.bfloat16
+    op = dv.fused_dense_block_valid
+
+    def matrices(gen, c, g):
+        ws = dense_check_weights(gen, c, g)
+        tree = _fuse_dense([k.float().cpu().numpy() for k, _ in ws],
+                           [bb.cpu().numpy() for _, bb in ws], c, g)
+        *wm, bias = [torch.from_numpy(m).cuda()
+                     for m in dv.pack_fused_weights(tree, c, g)]
+        return ws, wm, bias
+
+    def on_body(tag, fn, body):
+        zero_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        got = (op.launches, op.tc_launches, op.direct_launches)
+        want = (5, 5 * (body == "tc"), 5 * (body == "direct"))
+        emit({"check": f"fused_dense_block_valid/{tag}/bodies",
+              "launches": got[0], "tc_launches": got[1],
+              "direct_launches": got[2]})
+        if got != want:
+            raise AssertionError(f"fused_dense_block_valid/{tag}: launches "
+                                 f"{got} != {want} ({body} body)")
+        return y
+
+    # a bf16 shape off the route rule, on the direct body (its own
+    # generator, so the phases after this one draw what they drew before)
+    og = torch.Generator().manual_seed(SEED + 13)
+    c, g = 36, 12
+    _, wm, bias = matrices(og, c, g)
+    xs = rand(og, 2, 40, 45, c, scale=0.2).to(bf)
+    if dt.uses_tensor_cores(xs, c, g):
+        raise AssertionError("fused_dense_block_valid: c 36, g 12 on the "
+                             "route rule")
+    with torch.inference_mode():
+        got = on_body("off_rule_c36_g12", lambda: dv.fused_dense_block_valid(
+            xs, *wm, bias), "direct")
+        compare("fused_dense_block_valid/off_rule_c36_g12/bf16/direct", got,
+                dv.fused_dense_block_valid_reference(
+                    xs.float(), *[m.to(bf).float() for m in wm], bias),
+                TOL_KERNEL)
+    del xs, got
+
     c, g = 64, 32
     b, h, w = TRUNK_TILE
-    ws = dense_check_weights(gen, c, g)
-    tree = _fuse_dense([k.float().cpu().numpy() for k, _ in ws],
-                       [bb.cpu().numpy() for _, bb in ws], c, g)
-    *wm, bias = [torch.from_numpy(m).cuda()
-                 for m in dv.pack_fused_weights(tree, c, g)]
+    ws, wm, bias = matrices(gen, c, g)
+    wmb = [m.to(bf) for m in wm]
+    stages = dv.pack_stage_weights(*wmb)
     x32 = rand(gen, b, h, w, c, scale=0.2)
     xb = x32.to(bf)
+    if not dt.uses_tensor_cores(xb, c, g):
+        raise AssertionError("fused_dense_block_valid: bf16 c 64, g 32 off "
+                             "the route rule")
 
     def kern(x=xb):
-        return dv.fused_dense_block_valid(x, *wm, bias)
+        return dv.fused_dense_block_valid(
+            x, *wm, bias, stages=stages if x.dtype == bf else None)
 
     with torch.inference_mode():
         got = entry_path("fused_dense_block_valid", kern, 5)
+        emit({"check": "fused_dense_block_valid/bf16/bodies",
+              **by_body(op)})
+        if op.tc_launches != 5 or op.direct_launches:
+            raise AssertionError(f"fused_dense_block_valid: bf16 not on the "
+                                 f"tensor cores: {by_body(op)}")
         ref = dv.fused_dense_block_valid_reference(
-            xb.float(), *[m.to(bf).float() for m in wm], bias)
+            xb.float(), *[m.float() for m in wmb], bias)
         err = compare("fused_dense_block_valid/bf16", got, ref, TOL_KERNEL,
                       plain_bf16_rel_err=rel_err(
                           dv.fused_dense_block_valid_reference(xb, *wm, bias),
@@ -5596,21 +5718,32 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
         compare("fused_dense_block_valid/interior_vs_B1",
                 got[:, 5:-5, 5:-5], b1[:, 5:-5, 5:-5], TOL_KERNEL,
                 border_rel_err_vs_B1=gap)
-        del b1
+        del b1, got
         for bit, fault, judge in (
                 (_build.PLANT_SAME, "same_padding", border),
                 (_build.PLANT_NO_SCALE, "residual_scale_dropped",
                  lambda t: t)):
-            bad = planted("dense_valid_stage", bit, kern)
+            bad = planted("dense_valid_tc", bit, kern)
             if bit == _build.PLANT_SAME:
                 emit({"planted_fault": fault, "interior_rel_err": rel_err(
                     bad[:, 5:-5, 5:-5], ref[:, 5:-5, 5:-5])})
-            expect_margin(f"fused_dense_block_valid:{fault}", judge(bad),
+            expect_margin(f"fused_dense_block_valid:tc:{fault}", judge(bad),
                           judge(ref), TOL_KERNEL)
             del bad
-        del got, ref
+        # the direct body in bf16 at the same shape, through its helper
+        wsb = torch.empty((b, h + 8, w + 8, 4 * g), dtype=bf, device="cuda")
+        out = torch.empty_like(xb)
+
+        def direct():
+            for j in range(1, 6):
+                _build.dense_valid_stage(xb, wsb, out, wmb, bias, j)
+
+        direct()
+        d_err = compare("fused_dense_block_valid/bf16/direct", out, ref,
+                        TOL_KERNEL)
+        del ref
         torch.cuda.empty_cache()
-        got = kern(x32)
+        got = on_body("f32", lambda: kern(x32), "direct")
         compare("fused_dense_block_valid/f32", got, dv.
                 fused_dense_block_valid_reference(x32, *wm, bias), TOL_F32)
         del got, x32
@@ -5622,7 +5755,8 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
                            + sum(m.numel() for m in wm) * 2 + bias.numel() * 4)
         entry = {
             "name": "fused_dense_block_valid", "route": "cuda",
-            "source": EXTRA_SRC, "sources": [EXTRA_SRC, ENGINE_SRC],
+            "source": DENSE_VALID_SRC, "sources": [DENSE_VALID_SRC,
+                                                   ENGINE_SRC],
             "replaces": "superresolution_tpu/ops/pallas_dense.py:135",
             "shape": [b, h, w, c], "max_abs_err": err["max_abs_err"],
             "max_rel_err": err["max_rel_err"], "tol": TOL_KERNEL,
@@ -5631,9 +5765,19 @@ def check_dense_valid_kernel(gen: torch.Generator) -> dict:
                 lambda: dv.fused_dense_block_valid_reference(xb, *wm, bias),
                 5),
             "b1_ms": time_ms(lambda: dt.fused_dense_block(xb, ws), 5),
+            "packing_ms": time_ms(lambda: dv.pack_stage_weights(*wmb), 5),
+            "packing_each_call_ms": time_ms(
+                lambda: dv.fused_dense_block_valid(xb, *wm, bias), 5),
+            "direct_bf16_ms": time_ms(direct, 3),
+            "direct_bf16_max_rel_err": d_err["max_rel_err"],
+            "first_form_ms": K16_OLD_MS,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "launches": 5,
+            "launches": 5, "tc_launches": 5, "direct_launches": 0,
             "path": "its entry point; no path of the system calls it"}
+        entry["share_of_bound"] = b_ms / entry["ms"]
+        old_kernel("fused_dense_block_valid", K16_OLD, [b, h, w, c],
+                   K16_OLD_MS, "16")
+        del out, wsb
     emit({"phase": "kernel_time", **entry})
     return entry
 
@@ -6210,8 +6354,7 @@ def main() -> int:
     # ---- 22-26: the fused HAT's deploy levers, kernels 11 and 12 ----
     gen = torch.Generator().manual_seed(SEED + 5)
     kernels["strip_hab_block"] = check_strip_kernel(gen)
-    kernels["fused_cab_convs_pair"] = {**check_cab_pair_kernel(gen),
-                                       "launches": 0}
+    kernels["fused_cab_convs_pair"] = check_cab_pair_kernel(gen)
     padded = check_padded_kernels(gen)
     for k, tag in (("fused_cab_convs", "cab_c128_creal96"),
                    ("fused_hab_block", "hab_c128_nh8_n64"),
@@ -6261,6 +6404,8 @@ def main() -> int:
     for k in UNROUTED:
         kernels[k]["launches_system_paths"] = UNROUTED_SEEN[k]
         kernels[k]["system_paths_counted"] = len(UNROUTED_PATHS)
+    kernels["fused_cab_convs_pair"]["launches"] = UNROUTED_SEEN[
+        "fused_cab_convs_pair"]
     emit({"phase": "unrouted", "paths": UNROUTED_PATHS,
           "launches": UNROUTED_SEEN})
     for k in BODY_OPS:

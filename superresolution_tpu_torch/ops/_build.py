@@ -146,8 +146,6 @@ def library() -> ctypes.CDLL:
     lib.hat_hab_block.restype = _I
     lib.hat_strip_hab.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P, _F, _I, _P]
     lib.hat_strip_hab.restype = _I
-    lib.hat_cab_pair.argtypes = [_P, *[_I] * 4, *[_P] * 7, _I, _P]
-    lib.hat_cab_pair.restype = _I
     lib.cab_tc.argtypes = [_P, *[_I] * 6, *[_P] * 8, _I, _P]
     lib.cab_tc.restype = _I
     lib.cab_tc_smem.argtypes = [_I, _I]
@@ -189,9 +187,10 @@ def library() -> ctypes.CDLL:
                                          _I, _P, _I, _P, _I, _I, _P, _I, _I,
                                          _I, _P]
     lib.subpixel_conv3x3_d2s.restype = _I
-    lib.extra_dense_valid_stage.argtypes = [_P, _P, _P, _P, _P, *[_I] * 8,
-                                            _P]
-    lib.extra_dense_valid_stage.restype = _I
+    lib.dense_valid_stage.argtypes = [_P, _P, _P, _P, _P, *[_I] * 8, _P]
+    lib.dense_valid_stage.restype = _I
+    lib.dense_valid_stage_tc.argtypes = [_P, _P, _P, _P, _P, *[_I] * 7, _P]
+    lib.dense_valid_stage_tc.restype = _I
     lib.extra_blur.argtypes = [_P, _P, *[_I] * 5, ctypes.c_double, _I, _I,
                                _P]
     lib.extra_blur.restype = _I
@@ -511,12 +510,10 @@ def hab_block(x: torch.Tensor, cab: torch.Tensor, weights: dict,
     _check(lib, rc, "hat_hab_block")
 
 
-# Faults chip_smoke.py plants in kernels 11 and 12 (`plant`, a bit mask;
-# 0 in use; see hat_kernels.cu): kernel 11's coordinates clamped instead
-# of wrapped, its SE scale not applied, its region mask off; kernel 12's
-# hidden map not zeroed outside the image, the pixels of a pair swapped.
+# Faults chip_smoke.py plants in kernel 11 (`plant`, a bit mask; 0 in
+# use; see hat_kernels.cu): its coordinates clamped instead of wrapped,
+# its SE scale not applied, its region mask off.
 PLANT_CLAMP, PLANT_NO_SE, PLANT_NO_MASK = 1, 2, 4
-PLANT_HID_BORDER, PLANT_SWAP_PAIR = 1, 2
 
 
 def strip_hab(x: torch.Tensor, cab_y: torch.Tensor, se: torch.Tensor,
@@ -535,23 +532,14 @@ def strip_hab(x: torch.Tensor, cab_y: torch.Tensor, se: torch.Tensor,
     _check(lib, rc, "hat_strip_hab")
 
 
-def cab_pair(x: torch.Tensor, weights, out: torch.Tensor,
-             plant: int = 0) -> None:
-    """One launch of kernel 12, cab_pair_kernel (hat_kernels.cu): x, out
-    [B, H, W, C] bf16; weights as kernel 7's (ops/hab.cab_weights)."""
-    lib = library()
-    b, h, w, c = x.shape
-    rc = lib.hat_cab_pair(_ptr(x), b, h, w, c,
-                          *[_ptr(t) for t in weights[:6]],
-                          _ptr(out), plant, _stream(x))
-    _check(lib, rc, "hat_cab_pair")
-
-
-# Faults chip_smoke.py plants in kernel 7's one-launch body (`plant`, a
-# bit mask; 0 in use; see cab_kernels.cu): pixels outside the image
-# staged as LN(0) = ln bias, the hidden map not zeroed outside the image,
-# a 1-pixel halo (the staged tile's outer ring read as zero).
+# Faults chip_smoke.py plants in the one-launch CAB body of kernels 7
+# and 12 (`plant`, a bit mask; 0 in use; see cab_kernels.cu): pixels
+# outside the image staged as LN(0) = ln bias, the hidden map not zeroed
+# outside the image, a 1-pixel halo (the staged tile's outer ring read as
+# zero), each stored column's x XOR 1 (the pixels of a pair swapped;
+# kernel 12's fault).
 PLANT_CAB_LN_BORDER, PLANT_CAB_HID_BORDER, PLANT_CAB_HALO1 = 1, 2, 4
+PLANT_CAB_SWAP_PAIR = 8
 
 
 def cab_tc(x: torch.Tensor, weights, out: torch.Tensor,
@@ -813,8 +801,9 @@ def _wgrad_launch(name: str, in0, cin0, in1, cin1, d, d_off, cout, dw, db,
 
 
 # Faults chip_smoke.py plants in kernels 16-19 (`plant`, a bit mask; 0 in
-# use; see extra_kernels.cu and pack_kernels.cu): 16's intermediates zeroed outside the image
-# (SAME semantics) or its 0.2 residual scale dropped; 17 normalized by
+# use; see dense_valid_kernels.cu, extra_kernels.cu and pack_kernels.cu):
+# 16's intermediates zeroed outside the image (SAME semantics) or its 0.2
+# residual scale dropped (both in either body); 17 normalized by
 # the binomial row's sum or missing its top-left tap; 18's pad packs not
 # zeroed or the left tap across a pack edge dropped (both in either
 # body); 19's last band not stored (stream_kernels.cu).
@@ -827,17 +816,33 @@ PLANT_LAST_BAND = 1
 def dense_valid_stage(x: torch.Tensor, ws: torch.Tensor, out: torch.Tensor,
                       mats, bias: torch.Tensor, j: int,
                       plant: int = 0) -> None:
-    """One launch of kernel 16's stage j (1..5), conv_kernel<DenseStage>
-    (extra_kernels.cu): x, out [B,H,W,c]; ws [B,H+8,W+8,4g]; mats the
-    five tap-major matrices (wx, w1..w4), all in x's type (bf16 or f32);
-    bias [4g+c] f32."""
+    """One launch of kernel 16's stage j (1..5) on the conv engine's
+    direct body, conv_kernel<DenseStage> (dense_valid_kernels.cu): x, out
+    [B,H,W,c]; ws [B,H+8,W+8,4g]; mats the five tap-major matrices (wx,
+    w1..w4), all in x's type (bf16 or f32); bias [4g+c] f32."""
     lib = library()
     b, h, w, c = x.shape
-    rc = lib.extra_dense_valid_stage(
+    rc = lib.dense_valid_stage(
         _ptr(x), _ptr(ws), _ptr(out), _ptrs(mats), _ptr(bias), b, h, w, c,
         ws.shape[-1] // 4, j, int(x.dtype == torch.float32), plant,
         _stream(x))
-    _check(lib, rc, "extra_dense_valid_stage")
+    _check(lib, rc, "dense_valid_stage")
+
+
+def dense_valid_tc(x: torch.Tensor, ws: torch.Tensor, out: torch.Tensor,
+                   wk: torch.Tensor, bias: torch.Tensor, j: int,
+                   plant: int = 0) -> None:
+    """One launch of kernel 16's stage j (1..5) on the conv engine's
+    tensor-core body, conv_tc_kernel<DenseStage<bf16>, BN>
+    (dense_valid_kernels.cu): x, out [B,H,W,c] and ws [B,H+8,W+8,4g]
+    bf16; wk stage j's K-major weights (ops/dense_valid.
+    pack_stage_weights) bf16; bias [4g+c] f32."""
+    lib = library()
+    b, h, w, c = x.shape
+    rc = lib.dense_valid_stage_tc(
+        _ptr(x), _ptr(ws), _ptr(out), _ptr(wk), _ptr(bias), b, h, w, c,
+        ws.shape[-1] // 4, j, plant, _stream(x))
+    _check(lib, rc, "dense_valid_stage_tc")
 
 
 def blur(x: torch.Tensor, size: int, norm: float, out: torch.Tensor,

@@ -1,5 +1,5 @@
-// Kernel 7 on Hopper's tensor cores (sm_90a): the HAT CAB's conv stack,
-// LN -> conv3x3 -> GELU -> conv3x3, in one launch.
+// Kernels 7 and 12 on Hopper's tensor cores (sm_90a): the HAT CAB's conv
+// stack, LN -> conv3x3 -> GELU -> conv3x3, in one launch.
 //
 //   7 fused_cab_convs  (replaces superresolution_tpu/ops/pallas_hab.py:
 //      fused_cab_convs / _cab_kernel). On NHWC bf16 x [B,H,W,C]:
@@ -10,6 +10,13 @@
 //      with SAME zero padding on y and on hid, not on x: outside the
 //      image conv1 sees 0, not LN(0) = ln bias, and conv2 sees 0, not
 //      GELU(b1) (the reference's mask(ln, 0) and mask(acc, k)).
+//  12 fused_cab_convs_pair  (replaces pallas_hab.py:
+//      fused_cab_convs_pair / _cab_pair_kernel): the same function with
+//      the LN divided by C, for an even W. The reference's pair view
+//      [B,H,W/2,2C] and its 12 * cin tap matrices fill the TPU's MXU;
+//      mma.sync needs no such view, so kernel 12 is one launch of this
+//      body with c_real = C (ops/hab.fused_cab_convs_pair), counted
+//      apart from kernel 7.
 //
 // One block a TH x 16 output tile, all C channels (grid: B x tile rows x
 // tile columns). The block
@@ -65,7 +72,9 @@
 // outside the image staged as LN(0) = ln bias, not 0), PLANT_HID_BORDER
 // (hidden pixels outside the image kept as GELU(conv), not 0),
 // PLANT_HALO1 (the staged tile's outer ring, the halo's second pixel,
-// read as 0: a 1-pixel halo).
+// read as 0: a 1-pixel halo), PLANT_SWAP_PAIR (kernel 12's: each output
+// pixel stored at column x XOR 1, the pixels of a pair swapped; a branch
+// in the store only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +98,10 @@ constexpr int SLOTS = 2;       // the weight ring's slots
 static_assert(SLOTS >= 2, "a ring of at least two slots");
 constexpr float kEps = 1e-5f;
 
-enum { PLANT_LN_BORDER = 1, PLANT_HID_BORDER = 2, PLANT_HALO1 = 4 };
+enum {
+  PLANT_LN_BORDER = 1, PLANT_HID_BORDER = 2, PLANT_HALO1 = 4,
+  PLANT_SWAP_PAIR = 8,
+};
 
 struct CabArgs {
   const bf16* x;       // [B, H, W, C]
@@ -420,9 +432,10 @@ __global__ void __launch_bounds__(Layout<TH>::NT, TH == 8 ? 3 : 2)
     }
   }
   __syncthreads();
+  const int swap = (a.plant & PLANT_SWAP_PAIR) ? 1 : 0;
   for (int e = tid; e < TH * TW * cv; e += L::NT) {
     const int pix = e / cv, v = e - pix * cv;
-    const int y = y0 + pix / TW, x = x0 + pix % TW;
+    const int y = y0 + pix / TW, x = (x0 + pix % TW) ^ swap;
     if (y < a.H && x < a.W)
       *reinterpret_cast<uint4*>(
           a.out + (((size_t)b * a.H + y) * a.W + x) * C + v * 8) =

@@ -1,12 +1,15 @@
-// The port's shared 3x3 SAME conv engine (sm_90a): two bodies that take
-// one policy struct, so kernels 15, 16 and 18 share their arithmetic and
-// differ only in how they load their input, read their weights and put
-// their output.
+// The port's shared 3x3 conv engine (sm_90a): two bodies that take one
+// policy struct, so B1, B2, kernels 4-6, 13's transposed convs, 15, 16
+// and 18 share their arithmetic and differ only in how they load their
+// input, read their weights and put their output (a policy's region may
+// be a VALID conv's, as kernel 16's stages are: tc_run and load see the
+// output's frame).
 //
 //   direct::conv_kernel<P, CO_T, DROP>  f32 FFMA on the CUDA cores, for
 //       f32 tensors (kernels 15, 16, 18, and B1 and kernel 13's
 //       transposed convs under precision "fp32") and the shapes the
-//       tensor-core body does not take (kernel 16 always).
+//       tensor-core body does not take (kernel 4's conv_first; bf16
+//       kernel 16 off B1's route rule).
 //   tc::conv_tc_kernel<P, BN>  a bf16 implicit GEMM on the tensor cores
 //       (mma.sync m16n8k16, bf16 in, f32 accumulation), for bf16 tensors
 //       whose input pixels are 16-byte runs of C_in % 8 == 0 channels:

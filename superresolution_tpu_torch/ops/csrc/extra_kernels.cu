@@ -1,25 +1,11 @@
-// Hand-written CUDA kernels of the reference's last Pallas kernels outside
-// benchmarks/ (sm_90a): 16 and 17 (18 is in pack_kernels.cu, 19, the
-// passthrough, in stream_kernels.cu). No path of the system runs them; each is its own
-// public op.
+// Hand-written CUDA kernel 17 of the reference's last Pallas kernels
+// outside benchmarks/ (sm_90a). No path of the system runs it; it is its
+// own public op. (16, the pad-once dense block, is in
+// dense_valid_kernels.cu, on the conv engine's two bodies; 18
+// pack_conv3x3, the engine's PackConv policy, in pack_kernels.cu; 19, the
+// passthrough, in stream_kernels.cu: each its own source, so that nvcc
+// builds them side by side.)
 //
-//   16 fused_dense_block_valid  (replaces superresolution_tpu/ops/
-//      pallas_dense.py:fused_dense_block_pallas, _kernel): one
-//      FusedDenseBlock on an input zero-padded by 5 ONCE, its five convs
-//      chained VALID. Five launches of the shared engine's direct body
-//      (conv_engine.cuh) with the DenseStage policy, stage j
-//      over the padded frame's region [j, H+10-j) x [j, W+10-j), each 2
-//      rows and 2 columns narrower than the one before. Stages 1-4 write
-//      y_j = lrelu(conv_j([x, y_1..y_{j-1}]) + b_j) into a [B, H+8, W+8,
-//      4g] workspace (frame pixel (r, s) at (r-1, s-1)); stage 5 writes
-//      x + 0.2 * (conv_5(...) + b_5) over the image. Outside the image
-//      the intermediates hold lrelu(bias + ...), not zero: a stage reads
-//      x through the zero padding and every y_i where it was computed,
-//      so nothing is masked. (B1's SAME conv would zero them: that
-//      differs within 4 px of the border.) The weights are read in place
-//      from the reference's tap-major projection matrices (wx [9c, 4g+c],
-//      w_i [9g, (4-i)g+c]): conv_j's columns are (j-1)g.. of wx and
-//      (j-1-i)g.. of w_i, its bias (j-1)g.. of the one bias vector.
 //   17 anti_checkerboard  (replaces ops/pallas_blur.py:
 //      anti_checkerboard_pallas, _kernel): the depthwise binomial blur
 //      with SAME zero padding, f32 sums, one rounding. A block stages a
@@ -27,16 +13,11 @@
 //      the image); each thread slides down a run of 16 bytes of output,
 //      separable: a row pass and a column pass with the integer binomial
 //      row, one scale by 1 / norm (see blur_kernel).
-//   (18 pack_conv3x3, the engine's PackConv policy, is in
-//      pack_kernels.cu, so that nvcc builds it beside this file.)
 //
-// Bounds on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): 16 does B1's
-// 239,616 MACs per image pixel (plus the 5-px ring), bound by operations;
-// 17 (k^2 MACs per 2-4 bytes in and out) by bytes: it reads each input
-// byte from HBM about once (the tile's halo rows and columns come again
-// from L2) and does 2k FMAs an output. 16 runs f32 FFMA on the CUDA
-// cores (67 TFLOP/s, ~7% of the bf16 bound at best), as B1's direct body
-// does; 16 moves onto the tensor-core body later.
+// Bound on the H100 (3.35 TB/s): k^2 MACs per 2-4 bytes in and out, so
+// bytes bound it: it reads each input byte from HBM about once (the
+// tile's halo rows and columns come again from L2) and does 2k FMAs an
+// output.
 
 #include <stdint.h>
 
@@ -45,72 +26,14 @@
 namespace {
 
 using conv_engine::bf16;
-using conv_engine::lrelu;
 using conv_engine::store;
 using conv_engine::to_f;
 namespace ce = conv_engine;
 
 // Faults the checks in chip_smoke.py plant (0 in every other launch).
-constexpr int PLANT_SAME = 1;        // 16: intermediates zeroed outside
-                                     //     the image (SAME semantics)
-constexpr int PLANT_NO_SCALE = 2;    // 16: the 0.2 residual scale dropped
 constexpr int PLANT_NORM = 1;        // 17: divided by the row's sum, not
                                      //     the mode's 2-D norm
 constexpr int PLANT_CORNER = 2;      // 17: the top-left tap dropped
-
-// Kernel 16, stage j (1..5), in the frame of x padded by 5.
-template <typename T>
-struct DenseStage {
-  const T* x;           // [B, H, W, c]
-  T* ws;                // [B, H+8, W+8, 4g]: frame pixel (r, s) at (r-1, s-1)
-  T* out;               // [B, H, W, c], stage 5
-  const T* w[5];        // wx [9c][cols[0]], w_i [9g][cols[i]]
-  int cols[5];
-  const float* bias;    // [4g + c]
-  int B, H, W, c, g, j, plant;
-  __host__ __device__ int cin() const { return c + (j - 1) * g; }
-  __host__ __device__ int cout() const { return j < 5 ? g : c; }
-  __host__ __device__ int y0() const { return j; }
-  __host__ __device__ int x0() const { return j; }
-  __host__ __device__ int rows() const { return H + 10 - 2 * j; }
-  __host__ __device__ int cols_out() const { return W + 10 - 2 * j; }
-  __device__ __forceinline__ float load(int b, int r, int s, int ci) const {
-    if (ci < c) {
-      const int y = r - 5, xx = s - 5;
-      if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-      return to_f(x[(((size_t)b * H + y) * W + xx) * c + ci]);
-    }
-    // y_1..y_{j-1}: defined wherever an in-region output reads them;
-    // the guard only keeps a ragged tile's extra reads inside the buffer
-    if (r < 1 || r > H + 8 || s < 1 || s > W + 8) return 0.f;
-    return to_f(ws[(((size_t)b * (H + 8) + r - 1) * (W + 8) + s - 1) *
-                       (4 * g) + (ci - c)]);
-  }
-  __device__ __forceinline__ float weight(int tap, int ci, int o) const {
-    if (ci < c) return to_f(w[0][((size_t)tap * c + ci) * cols[0] +
-                                 (j - 1) * g + o]);
-    const int i = (ci - c) / g + 1;  // source y_i
-    const int ch = (ci - c) - (i - 1) * g;
-    return to_f(w[i][((size_t)tap * g + ch) * cols[i] + (j - 1 - i) * g + o]);
-  }
-  __device__ __forceinline__ void put(int b, int r, int s, int o,
-                                      float acc) const {
-    float v = acc + bias[(j - 1) * g + o];
-    if (j < 5) {
-      v = lrelu(v);
-      if ((plant & PLANT_SAME) &&
-          (r < 5 || r >= H + 5 || s < 5 || s >= W + 5))
-        v = 0.f;
-      store(&ws[(((size_t)b * (H + 8) + r - 1) * (W + 8) + s - 1) * (4 * g) +
-                (j - 1) * g + o], v);
-      return;
-    }
-    const size_t at = (((size_t)b * H + r - 5) * W + s - 5) * c + o;
-    const float scale = (plant & PLANT_NO_SCALE) ? 1.f : 0.2f;
-    store(&out[at], to_f(x[at]) + scale * v);
-  }
-  __device__ __forceinline__ bool dropped(int, int) const { return false; }
-};
 
 // ---- kernel 17 --------------------------------------------------------
 //
@@ -314,37 +237,6 @@ int launch_blur(const BlurArgs& a, int taps, dim3 grid, dim3 block,
 }  // namespace
 
 extern "C" {
-
-// Kernel 16, stage j (1..5). f32: 1 for f32 tensors, 0 for bf16 (x, ws,
-// out and the five weight matrices in that type; bias f32). w: the five
-// matrix pointers. Returns the cudaError_t of the launch.
-int extra_dense_valid_stage(const void* x, void* ws, void* out,
-                            const void* const* w, const float* bias, int B,
-                            int H, int W, int c, int g, int j, int f32,
-                            int plant, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || c < 1 || g < 1 || j < 1 || j > 5)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cols[5] = {4 * g + c, 3 * g + c, 2 * g + c, g + c, c};
-  if (f32) {
-    DenseStage<float> a{static_cast<const float*>(x), static_cast<float*>(ws),
-                        static_cast<float*>(out), {}, {}, bias, B, H, W, c, g,
-                        j, plant};
-    for (int i = 0; i < 5; ++i) {
-      a.w[i] = static_cast<const float*>(w[i]);
-      a.cols[i] = cols[i];
-    }
-    return conv_engine::direct::launch<DenseStage<float>, false>(a, s);
-  }
-  DenseStage<bf16> a{static_cast<const bf16*>(x), static_cast<bf16*>(ws),
-                     static_cast<bf16*>(out), {}, {}, bias, B, H, W, c, g, j,
-                     plant};
-  for (int i = 0; i < 5; ++i) {
-    a.w[i] = static_cast<const bf16*>(w[i]);
-    a.cols[i] = cols[i];
-  }
-  return conv_engine::direct::launch<DenseStage<bf16>, false>(a, s);
-}
 
 // Kernel 17: out = the depthwise SAME blur of x [B, H, W, C] (f32: 1 for
 // f32, 0 for bf16) by the k x k binomial / norm: the binomial row of k

@@ -39,18 +39,9 @@
 //      pixel it came from. What it removes per HAB: two rolls, two
 //      partitions, the merge, the roll back and the SE and conv_scale
 //      passes around kernel 8.
-//  12 fused_cab_convs_pair  (replaces ops/pallas_hab.py:
-//      fused_cab_convs_pair / _cab_pair_kernel): kernel 7's function in
-//      one launch, cab_pair_kernel. A block takes a TH x TW output tile:
-//      LN of the tile and a 2-pixel halo into shared memory as bf16 (zero
-//      outside the image: SAME padding of conv1), conv1 + bias + GELU on
-//      the tile and a 1-pixel halo into a shared hidden tile (zero outside
-//      the image: SAME padding of conv2, the reference's mask(acc, 1)),
-//      conv2 + bias to the output. Each thread computes two horizontally
-//      adjacent pixels of 8 output channels, sharing the four input
-//      columns the pair reads: Hopper's form of the reference's 2-column
-//      phase packing, which exists to fill the MXU. Nothing but x and the
-//      output crosses device memory.
+//   (Kernel 12, fused_cab_convs_pair, is kernel 7's function: it runs
+//      kernel 7's one-launch tensor-core body, cab_kernels.cu
+//      cab_tc_kernel.)
 //   (Kernel 9, the OCAB's gathered attention, is in oca_kernels.cu: it
 //      shares kernel 10's FlashAttention-2 body, flash_tc.cuh, whose
 //      online softmax kernels 8 and 11 take too.)
@@ -100,21 +91,18 @@
 // FLOP/B, and more at n 256; kernel 11 the same; the CAB (kernels 7 and
 // 12) 55,296 MACs per pixel for 384 bytes at C 96, 288 FLOP/B. All sit at
 // or near the ridge, so a fast form needs both the tensor cores and one
-// pass over memory. Kernels 7 and 12 run every product on the CUDA
-// cores in f32 FMA (67 TFLOP/s peak), so they can reach at most ~7% of
-// the operation bound; every form keeps the one pass: kernels 8 and 11
-// read each activation once and write each output once, kernel 12 reads
-// x and writes the output only, and kernel 7 writes LN(x) and its hidden
-// map besides.
+// pass over memory: kernels 8 and 11 read each activation once and write
+// each output once. Kernel 7's three-launch body here (LN, then two
+// conv3x3_kernel launches) runs its products on the CUDA cores in f32 FMA
+// (67 TFLOP/s peak) and writes LN(x) and its hidden map besides: it serves
+// only the shapes its one-launch body does not take.
 //
 // Planted faults (`plant`, a bit mask; 0 in use) let a check show it sees
 // what it holds: kernel 11 PLANT_CLAMP (x and cab_y read at coordinates
 // clamped to the map instead of wrapped), PLANT_NO_SE (cab_y unscaled),
 // PLANT_NO_MASK (no region mask); kernels 8 and 11 PLANT_SKIP_SLAB (the
 // first k-step, 16 input channels, of the q, k and v GEMMs skipped),
-// PLANT_NO_LN2 (fc1 fed x1 in place of LN2(x1)); kernel 12
-// PLANT_HID_BORDER (the hidden map not zeroed outside the image),
-// PLANT_SWAP_PAIR (the two pixels of a pair swapped).
+// PLANT_NO_LN2 (fc1 fed x1 in place of LN2(x1)).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,7 +122,6 @@ constexpr int RT = 64;          // rows per tile of kernel 8
 enum {
   PLANT_CLAMP = 1, PLANT_NO_SE = 2, PLANT_NO_MASK = 4,   // kernel 11
   PLANT_SKIP_SLAB = 8, PLANT_NO_LN2 = 16,                // kernels 8, 11
-  PLANT_HID_BORDER = 1, PLANT_SWAP_PAIR = 2,             // kernel 12
 };
 
 __device__ __forceinline__ float f(bf16 v) { return __bfloat162float(v); }
@@ -602,170 +589,6 @@ HabArgs hab_args(const void* x, const void* cab, void* out,
   return a;
 }
 
-// ---- kernel 12: the CAB's LN -> conv -> GELU -> conv in one launch -----
-constexpr int PT_H = 8;           // output rows of a tile
-constexpr int PT_W = 32;          // output columns of a tile
-constexpr int PO = 8;             // output channels a thread takes
-
-template <int C>
-__host__ __device__ constexpr int ln_ld() { return C + 2; }  // odd words
-template <int C>
-constexpr size_t pair_smem() {
-  return ((size_t)(PT_H + 4) * (PT_W + 4) * ln_ld<C>() +
-          (size_t)(PT_H + 2) * (PT_W + 2) * ln_ld<C / 3>()) *
-         sizeof(bf16);
-}
-
-// Eight bf16 (16 bytes, element 2k the low half of word k) -> f32.
-__device__ __forceinline__ void bf16x8(const uint4 u, float* o) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    o[2 * k] = __uint_as_float(w[k] << 16);
-    o[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-
-// One conv3x3 stage of kernel 12 over an (RO x CO)-pixel region of
-// pairs: in [(RO+2) x (CO+2), LDI] smem bf16, w [3,3,CI,CN] HWIO bf16 in
-// device memory. Item = (pair, group of PO output channels); the pair's
-// two pixels read the same four input columns of each of the three rows.
-// epi(row, col, channel, acc) stores each output.
-template <int CI, int CN, int RO, int CO, typename Epi>
-__device__ __forceinline__ void pair_conv(const bf16* in, int ldi,
-                                          const bf16* __restrict__ w,
-                                          Epi epi) {
-  constexpr int NP = RO * (CO / 2);
-  static_assert(CO % 2 == 0 && CI % 2 == 0 && CN % PO == 0, "pair_conv");
-  for (int item = threadIdx.x; item < NP * (CN / PO); item += NT) {
-    const int p = item % NP, o0 = (item / NP) * PO;
-    const int r = p / (CO / 2), c = (p % (CO / 2)) * 2;
-    float acc[2][PO];
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int o = 0; o < PO; ++o) acc[q][o] = 0.f;
-    for (int ky = 0; ky < 3; ++ky) {
-      const bf16* row = in + ((r + ky) * (CO + 2) + c) * ldi;
-#pragma unroll 2
-      for (int ci = 0; ci < CI; ci += 2) {
-        float2 xv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          xv[j] = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(row + j * ldi + ci));
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const bf16* wt = w + ((size_t)(ky * 3 + kx) * CI + ci) * CN + o0;
-          float w0[PO], w1[PO];
-          bf16x8(__ldg(reinterpret_cast<const uint4*>(wt)), w0);
-          bf16x8(__ldg(reinterpret_cast<const uint4*>(wt + CN)), w1);
-#pragma unroll
-          for (int o = 0; o < PO; ++o) {
-            const float a0 = w0[o], a1 = w1[o];
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              acc[q][o] = fmaf(xv[q + kx].x, a0, acc[q][o]);
-              acc[q][o] = fmaf(xv[q + kx].y, a1, acc[q][o]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int o = 0; o < PO; ++o) epi(r, c + q, o0 + o, acc[q][o]);
-  }
-}
-
-struct PairArgs {
-  const bf16* x;            // [B, H, W, C]
-  const float* ln_s;        // [C]
-  const float* ln_b;
-  const bf16* k1;           // [3, 3, C, C/3] HWIO
-  const float* b1;          // [C/3]
-  const bf16* k2;           // [3, 3, C/3, C]
-  const float* b2;          // [C]
-  bf16* out;                // [B, H, W, C]
-  int H, W, plant;
-};
-
-template <int C>
-__global__ void __launch_bounds__(NT) cab_pair_kernel(const PairArgs a) {
-  constexpr int MID = C / 3;
-  constexpr int LDL = ln_ld<C>(), LDM = ln_ld<MID>();
-  constexpr int LH = PT_H + 4, LW = PT_W + 4;  // LN region (halo 2)
-  constexpr int J = (C + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ln = reinterpret_cast<bf16*>(smem);   // [LH * LW, LDL]
-  bf16* hid = ln + LH * LW * LDL;              // [(PT_H+2) * (PT_W+2), LDM]
-  const int x0 = blockIdx.x * PT_W, y0 = blockIdx.y * PT_H, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // LN of the tile and its 2-pixel halo, zero outside the image
-  for (int p = warp; p < LH * LW; p += NT / 32) {
-    const int gy = y0 - 2 + p / LW, gx = x0 - 2 + p % LW;
-    bf16* dst = ln + p * LDL;
-    if (gy < 0 || gy >= a.H || gx < 0 || gx >= a.W) {
-      for (int c = lane; c < C; c += 32) dst[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const bf16* src = a.x + (((size_t)b * a.H + gy) * a.W + gx) * C;
-    float v[J];
-    float sum = 0.f, sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = lane + 32 * j;
-      v[j] = c < C ? f(src[c]) : 0.f;
-      sum += v[j];
-      sq += v[j] * v[j];
-    }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    const float mu = sum / C;
-    const float rs = rsqrtf(sq / C - mu * mu + kEps);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = lane + 32 * j;
-      if (c < C) dst[c] = __float2bfloat16((v[j] - mu) * rs * a.ln_s[c] + a.ln_b[c]);
-    }
-  }
-  __syncthreads();
-  // conv1 + bias + GELU over the tile and a 1-pixel halo, zero outside
-  // the image (conv2's SAME padding)
-  pair_conv<C, MID, PT_H + 2, PT_W + 2>(
-      ln, LDL, a.k1, [&](int r, int c, int o, float acc) {
-        const int gy = y0 - 1 + r, gx = x0 - 1 + c;
-        const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
-        const float v = in || (a.plant & PLANT_HID_BORDER)
-                            ? gelu_erf(acc + a.b1[o]) : 0.f;
-        hid[(r * (PT_W + 2) + c) * LDM + o] = __float2bfloat16(v);
-      });
-  __syncthreads();
-  // conv2 + bias into the output tile
-  pair_conv<MID, C, PT_H, PT_W>(
-      hid, LDM, a.k2, [&](int r, int c, int o, float acc) {
-        const int gy = y0 + r;
-        int gx = x0 + c;
-        if (a.plant & PLANT_SWAP_PAIR) gx ^= 1;
-        if (gy < a.H && gx < a.W)
-          a.out[(((size_t)b * a.H + gy) * a.W + gx) * C + o] =
-              __float2bfloat16(acc + a.b2[o]);
-      });
-}
-
-template <int C>
-int launch_pair(const PairArgs& a, int B, cudaStream_t s) {
-  constexpr size_t bytes = pair_smem<C>();
-  cudaError_t e = cudaFuncSetAttribute(
-      cab_pair_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.W + PT_W - 1) / PT_W, (a.H + PT_H - 1) / PT_H, B);
-  cab_pair_kernel<C><<<grid, NT, bytes, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -820,30 +643,6 @@ int hat_strip_hab(const void* x, const void* cab, const void* se, void* out,
   a.plant = plant;
   return dispatch_hab<true>(a, B * (H / ws) * (W / ws), C, nh, ws * ws, mlp,
                             static_cast<cudaStream_t>(stream));
-}
-
-// Kernel 12 on x, out [B, H, W, C], C 96 or 120.
-int hat_cab_pair(const void* x, int B, int H, int W, int C, const void* ln_s,
-                 const void* ln_b, const void* k1, const void* b1,
-                 const void* k2, const void* b2, void* out, int plant,
-                 void* stream) {
-  if (B < 1 || H < 1 || W < 2 || W % 2) return (int)cudaErrorInvalidValue;
-  PairArgs a = {};
-  a.x = static_cast<const bf16*>(x);
-  a.ln_s = static_cast<const float*>(ln_s);
-  a.ln_b = static_cast<const float*>(ln_b);
-  a.k1 = static_cast<const bf16*>(k1);
-  a.b1 = static_cast<const float*>(b1);
-  a.k2 = static_cast<const bf16*>(k2);
-  a.b2 = static_cast<const float*>(b2);
-  a.out = static_cast<bf16*>(out);
-  a.H = H;
-  a.W = W;
-  a.plant = plant;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 96) return launch_pair<96>(a, B, s);
-  if (C == 120) return launch_pair<120>(a, B, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

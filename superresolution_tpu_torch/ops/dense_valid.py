@@ -17,12 +17,19 @@ convs after it), bias [4g+c] (every conv's, riding wx), from
 pack_fused_weights (a JAX FusedDenseBlock subtree, as numpy) or
 fused_weights_from_module (the port's FusedDenseBlock or DenseBlock).
 
-On CUDA tensors: five launches of the hand-written conv_kernel
-<DenseStage> (csrc/extra_kernels.cu), stage j over the padded frame's
-region 2 rows and 2 columns narrower than stage j-1's, y_1..y_4 in a
-[B, H+8, W+8, 4g] workspace; f32 sums, each y_j and the output rounded
-once to x's type. On CPU tensors: the plain form, which rounds where the
-reference's kernel rounds (pallas_dense.py:100-123).
+On CUDA tensors: five launches of the shared conv engine under the
+DenseStage policy (csrc/dense_valid_kernels.cu), stage j over the padded
+frame's region 2 rows and 2 columns narrower than stage j-1's, y_1..y_4
+in a [B, H+8, W+8, 4g] workspace; f32 sums, each y_j and the output
+rounded once to x's type. Two bodies, by B1's route rule
+(dense_trunk.uses_tensor_cores): bf16 with c and g multiples of 8 and
+c + 4g <= 256 takes the tensor-core body (mma.sync implicit GEMMs on
+each stage's K-major weights, gathered from the projection matrices by
+pack_stage_weights); f32 and the other bf16 shapes take the direct body
+(f32 FFMA, the matrices read in place). `launches` counts the CUDA
+launches (five a call), `tc_launches` and `direct_launches` those of each
+body. On CPU tensors: the plain form, which rounds where the reference's
+kernel rounds (pallas_dense.py:100-123).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from superresolution_tpu_torch.ops import _build
+from superresolution_tpu_torch.ops import _build, dense_trunk
 
 PAD = 5  # one zero pad covering the five convs
 
@@ -142,13 +149,42 @@ def fused_dense_block_valid_reference(x: torch.Tensor, wx, w1, w2, w3, w4,
     return (x + torch.tensor(0.2, dtype=dt, device=x.device) * acc).to(dt)
 
 
+def pack_stage_weights(wx, w1, w2, w3, w4) -> list[torch.Tensor]:
+    """The five projection matrices -> each stage's weights K-major, as
+    the tensor-core body reads them: stage j's [9 * (c + (j-1)g),
+    cout_j] (cout_j = g for j < 5, c for j = 5), row tap * cin_j + ci,
+    its input channels x's c then y_1..y_{j-1}'s g each. Conv_j's
+    columns are (j-1)g.. of wx and (j-1-i)g.. of w_i, as the direct
+    body reads them in place. Plain indexing: nothing is rounded, the
+    matrices keep their type."""
+    c = wx.shape[0] // 9
+    g = (wx.shape[1] - c) // 4
+    mats = (wx, w1, w2, w3, w4)
+    stages = []
+    for j in range(1, 6):
+        n = g if j < 5 else c
+        parts = [wx.reshape(9, c, -1)[:, :, (j - 1) * g:(j - 1) * g + n]]
+        for i in range(1, j):
+            m = mats[i].reshape(9, g, -1)
+            parts.append(m[:, :, (j - 1 - i) * g:(j - 1 - i) * g + n])
+        stages.append(torch.cat(parts, 1).reshape(-1, n).contiguous())
+    return stages
+
+
 def fused_dense_block_valid(x: torch.Tensor, wx, w1, w2, w3, w4, bias,
-                            th: int = 8) -> torch.Tensor:
+                            th: int = 8, *,
+                            stages: list[torch.Tensor] | None = None
+                            ) -> torch.Tensor:
     """Kernel 16: the pad-once FusedDenseBlock of x [B, H, W, c] (f32 or
     bf16). Raises ValueError when H % th != 0, as the reference does; th
     changes nothing else. CPU tensors run the plain form; CUDA tensors
     launch the kernel (five stages) or raise. The matrices are cast to
-    x's type, the bias to f32."""
+    x's type, the bias to f32. `stages`: pack_stage_weights of the
+    matrices in x's type, made once by a caller that calls again; without
+    it a call on the tensor-core route packs them itself. Given, the
+    stages override wx..w4 on the tensor-core route: only their shapes
+    are checked, so a caller that changes the matrices packs again (the
+    direct route reads the matrices and ignores the stages)."""
     mats = (wx, w1, w2, w3, w4)
     g = _check(x, mats, bias, th)
     if x.device.type == "cpu":
@@ -163,14 +199,42 @@ def fused_dense_block_valid(x: torch.Tensor, wx, w1, w2, w3, w4, bias,
                         name="fused_dense_block_valid")
     _build.require_cuda(bk, dtype=torch.float32,
                         name="fused_dense_block_valid")
-    b, h, w, _ = x.shape
+    return dense_valid_launches(x, mats, bk, g, stages)
+
+
+def dense_valid_launches(x: torch.Tensor, mats, bias: torch.Tensor, g: int,
+                         stages: list[torch.Tensor] | None = None
+                         ) -> torch.Tensor:
+    """Kernel 16's five launches by the route rule, counted: on the
+    tensor-core body with the stages' K-major weights (packed here when
+    not given), else on the direct body with the matrices. Callers have
+    validated x, mats and bias (fused_dense_block_valid)."""
+    b, h, w, c = x.shape
     ws = torch.empty((b, h + 8, w + 8, 4 * g), dtype=x.dtype,
                      device=x.device)
     out = torch.empty_like(x)
+    op = fused_dense_block_valid
+    if not dense_trunk.uses_tensor_cores(x, c, g):
+        for j in range(1, 6):
+            _build.dense_valid_stage(x, ws, out, mats, bias, j)
+            op.launches += 1
+            op.direct_launches += 1
+        return out
+    if stages is None:
+        stages = pack_stage_weights(*mats)
+    want = [(9 * (c + (j - 1) * g), g if j < 5 else c) for j in range(1, 6)]
+    if [tuple(s.shape) for s in stages] != want:
+        raise ValueError(f"fused_dense_block_valid: stages "
+                         f"{[tuple(s.shape) for s in stages]}, expected "
+                         f"{want} (pack_stage_weights)")
+    _build.require_cuda(*stages, dtype=x.dtype, name="fused_dense_block_valid")
     for j in range(1, 6):
-        _build.dense_valid_stage(x, ws, out, mats, bk, j)
-        fused_dense_block_valid.launches += 1
+        _build.dense_valid_tc(x, ws, out, stages[j - 1], bias, j)
+        op.launches += 1
+        op.tc_launches += 1
     return out
 
 
-fused_dense_block_valid.launches = 0
+fused_dense_block_valid.launches = 0         # CUDA launches, five a call
+fused_dense_block_valid.tc_launches = 0      # by body
+fused_dense_block_valid.direct_launches = 0

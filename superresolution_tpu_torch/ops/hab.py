@@ -47,20 +47,21 @@ reference rounds; the plain versions here repeat that rounding, with
 f32 accumulation, and serve the CPU path and the checks on the card.
 
 Kernel 12, fused_cab_convs_pair, replaces ops/pallas_hab.py:
-fused_cab_convs_pair (_cab_pair_kernel): kernel 7's function, for an
-even W, in one launch of cab_pair_kernel, which keeps LN(x) and the
-hidden map of a spatial tile in shared memory and computes two adjacent
-pixels per thread (csrc/hat_kernels.cu). It takes kernel 7's weight list:
-the reference's pair-packed tap matrices (cab_pair_weights) are a layout
-for the MXU. Like the reference's, it has no caller on any path.
+fused_cab_convs_pair (_cab_pair_kernel): kernel 7's function with the LN
+divided by C, for an even W. The reference's pair view and its
+pair-packed tap matrices (cab_pair_weights) fill the TPU's MXU; mma.sync
+needs neither, so kernel 12 is one launch of kernel 7's tensor-core body
+(cab_tc_kernel) on kernel 7's weights packed once (cab_weights or
+cab_mma_weights), at the shapes of kernel 7's route rule only, counted on
+its own `launches`. Like the reference's, it has no caller on any path.
 
 Bounds on the H100 (see csrc/hat_kernels.cu): the CAB (kernels 7 and
 12) does 55,296 MACs per pixel for 384 bytes of x and out, the HAB
 86,016 MACs per token for 576 bytes of x, cab and out. Both sit at the
 bf16 ridge: the CAB is bound by bytes and the HAB by operations, each by
-a few percent. Kernel 7's one-launch body and kernel 8 run their
-products on the tensor cores; kernel 12 and kernel 7's three-launch
-body run on the CUDA cores in f32, so operations bound them.
+a few percent. The one-launch CAB body (kernels 7 and 12) and kernel 8
+run their products on the tensor cores; kernel 7's three-launch body
+runs on the CUDA cores in f32, so operations bound it.
 
 Weights: cab_weights and hab_weights read the port's HAT-keyed state
 dict (models/hat_lite.py), as the reference's cab_weights and
@@ -91,14 +92,12 @@ EPS = 1e-5
 # 16, the MLP hidden unpadded: infer/lane_pad.py)
 HAB_GEOMETRIES = ((96, 6, 64, 192), (96, 6, 256, 192), (120, 6, 256, 240),
                   (128, 8, 64, 192))
-# the channel counts kernel 12 is instantiated for
-CAB_PAIR_CHANNELS = (96, 120)
 # the widest C and hidden width kernel 7's tensor-core body takes (its LN
 # runs a pixel on a half-warp of 8 channels a lane; conv1 keeps hidden / 8
 # fragments a warp)
 CAB_TC_MAX_C, CAB_TC_MAX_MID = 128, 64
 
-__all__ = ["CAB_PAIR_CHANNELS", "HAB_WEIGHTS", "cab_mma_weights",
+__all__ = ["HAB_WEIGHTS", "cab_mma_weights",
            "cab_weights", "fused_cab_convs", "fused_cab_convs_pair",
            "fused_cab_convs_pair_reference", "fused_cab_convs_reference",
            "fused_hab_block", "hab_body_reference", "hab_weights",
@@ -243,6 +242,19 @@ def fused_cab_convs(x: torch.Tensor, weights: list[torch.Tensor],
     return out
 
 
+def _check_packed(name: str, weights: list[torch.Tensor]) -> None:
+    """Raise unless k1 and k2 come packed for the tensor-core body
+    (cab_weights or cab_mma_weights) as CUDA bf16 tensors."""
+    k1, k2 = weights[2], weights[4]
+    if len(weights) != 8 or any(
+            tuple(packed.shape) != (9 * -(-k.shape[2] // 16),
+                                    k.shape[3] // 8, 32, 4)
+            for packed, k in zip(weights[6:], (k1, k2))):
+        raise ValueError(f"{name}: k1, k2 not packed for the tensor-core "
+                         "body (cab_weights or cab_mma_weights)")
+    _build.require_cuda(*weights[6:], name=name)
+
+
 def cab_launches(x: torch.Tensor, weights: list[torch.Tensor],
                  out: torch.Tensor, hidden: torch.Tensor | None = None,
                  c_real: int | None = None) -> None:
@@ -254,14 +266,7 @@ def cab_launches(x: torch.Tensor, weights: list[torch.Tensor],
     b, h, w, c = x.shape
     mid = k1.shape[-1]
     if uses_tensor_cores(x, mid):
-        if len(weights) != 8 or any(
-                tuple(packed.shape) != (9 * -(-k.shape[2] // 16),
-                                        k.shape[3] // 8, 32, 4)
-                for packed, k in zip(weights[6:], (k1, k2))):
-            raise ValueError("fused_cab_convs: k1, k2 not packed for the "
-                             "tensor-core body (cab_weights or "
-                             "cab_mma_weights)")
-        _build.require_cuda(*weights[6:], name="fused_cab_convs")
+        _check_packed("fused_cab_convs", weights)
         _build.cab_tc(x, weights, out, hidden, c_real)
         fused_cab_convs.launches += 1
         fused_cab_convs.tc_launches += 1
@@ -293,21 +298,35 @@ def fused_cab_convs_pair(x: torch.Tensor,
                          weights: list[torch.Tensor]) -> torch.Tensor:
     """Kernel 12 on x [B,H,W,C] with an even W (the reference's rule),
     weights as kernel 7's (cab_weights). CPU tensors run the plain
-    version; CUDA tensors launch the kernel (C in CAB_PAIR_CHANNELS, bf16
-    x and kernels, f32 LN parameters and biases) or raise."""
+    version; CUDA tensors launch kernel 7's tensor-core body once with
+    the LN divided by C (bf16 x and kernels, f32 LN parameters and
+    biases, k1 and k2 packed) or raise: off kernel 7's route rule
+    (uses_tensor_cores) there is no other body. Counts its own launches,
+    not kernel 7's."""
     if x.shape[2] % 2:
         raise ValueError(f"fused_cab_convs_pair: needs an even width, got "
                          f"{x.shape[2]}")
     if x.device.type == "cpu":
         return fused_cab_convs_pair_reference(x, weights)
-    c = x.shape[-1]
-    if c not in CAB_PAIR_CHANNELS or weights[2].shape[-1] != c // 3:
-        raise ValueError(f"fused_cab_convs_pair: the kernel takes C in "
-                         f"{CAB_PAIR_CHANNELS} with C/3 hidden channels, got "
-                         f"C={c}, hidden {weights[2].shape[-1]}")
+    return cab_pair_launch(x, weights)
+
+
+def cab_pair_launch(x: torch.Tensor,
+                    weights: list[torch.Tensor]) -> torch.Tensor:
+    """Kernel 12's one launch, counted on fused_cab_convs_pair.launches
+    alone; raises off kernel 7's route rule, for weights that do not fit
+    x or lie off its device, or without the packing."""
+    mid = weights[2].shape[-1]
+    if not uses_tensor_cores(x, mid):
+        raise ValueError(
+            f"fused_cab_convs_pair: the kernel takes the shapes of kernel "
+            f"7's route rule (bf16 x, C and the hidden width multiples of "
+            f"8, C <= {CAB_TC_MAX_C}, hidden <= {CAB_TC_MAX_MID}), got "
+            f"{x.dtype} C={x.shape[-1]}, hidden {mid}")
     _check_cab_weights("fused_cab_convs_pair", x, weights)
+    _check_packed("fused_cab_convs_pair", weights)
     out = torch.empty_like(x)
-    _build.cab_pair(x, weights, out)
+    _build.cab_tc(x, weights, out)
     fused_cab_convs_pair.launches += 1
     return out
 

@@ -22,7 +22,8 @@ against the reference's Pallas kernel in interpret mode:
 `plant` takes the kernel's fault bits (ops/_build.PLANT_CAB_*): staged
 pixels outside the image as LN(0) = ln bias, the hidden map not zeroed
 outside the image, a 1-pixel halo (the staged tile's outer ring read as
-zero)."""
+zero), each output pixel stored at column x XOR 1 (kernel 12's fault:
+the pixels of a pair swapped; at an even W, its only width)."""
 
 from __future__ import annotations
 
@@ -78,6 +79,8 @@ def cab_tile_form(x: torch.Tensor, weights: list[torch.Tensor], *,
                 tile, hid = _tile(x[b], y0, x0, th, c_real, plant, kp1, kp2,
                                   ln_s, ln_b, blk1, b1, blk2, passes, b2)
                 ty, tx = min(th, h - y0), min(TW, w - x0)
+                if plant & _build.PLANT_CAB_SWAP_PAIR:
+                    tile = tile[:, torch.arange(TW) ^ 1]
                 out[b, y0:y0 + ty, x0:x0 + tx] = tile[:ty, :tx]
                 if hidden is not None:
                     hidden[b, y0:y0 + ty, x0:x0 + tx] = \
