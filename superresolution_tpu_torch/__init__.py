@@ -21,7 +21,11 @@ window attention (kernel 10, ops/csrc/attn_kernels.cu), and loads
 checkpoints for inference (train/checkpoint.load_params_for_inference).
 Slice 5 runs the fused deploy models in both tilers, the HAT kernels at
 window 16 and head dim 20, and the ESRGAN trunk's levers (fold_ends,
-chain_rrdb) through kernels 4-6 (ops/csrc/sr_kernels.cu). Entry points
+chain_rrdb) through kernels 4-6 (ops/csrc/sr_kernels.cu). Later slices
+add the rest of the reference's presets and modules; among them GAN and
+perceptual training (train/gan.py, models/discriminator.py,
+losses/perceptual.py) and the command line, `python -m
+superresolution_tpu_torch` (cli/main.py). Entry points
 default to the `cuda` device and raise without a GPU unless the caller
 passes device="cpu", where every kernel wrapper runs its plain PyTorch
 version instead.

@@ -3,8 +3,9 @@
 Counterpart of superresolution_tpu/losses/combined.py. `star_l1` and
 `star_l1_pallas` run kernel 14 (ops/star_l1.py) on CUDA tensors and its
 plain version on CPU tensors, as the reference runs its Pallas kernel on
-the accelerator (combined.py:43-59). `gan` is skipped (the GAN step adds
-it); `perceptual` needs VGG19 and raises until that is ported.
+the accelerator (combined.py:43-59). `perceptual` is the VGG19
+feature-space L1 at cfg.perceptual_layers[0] (losses/perceptual.py);
+`gan` is skipped (the GAN step, train/gan.py, adds it).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from superresolution_tpu_torch.losses.basic import (
     l1_loss,
     l2_loss,
 )
+from superresolution_tpu_torch.losses.perceptual import perceptual_loss
 from superresolution_tpu_torch.ops.star_l1 import star_weighted_l1_cuda
 from superresolution_tpu_torch.utils.config import LossConfig
 
@@ -46,9 +48,8 @@ class CombinedLoss:
                 v = astro_loss(pred, target, cfg.astro_weight_scale,
                                cfg.charbonnier_eps)
             elif name == "perceptual":
-                raise NotImplementedError(
-                    "the perceptual term needs VGG19 (losses/perceptual.py), "
-                    "which the GAN/perceptual training slice ports")
+                v = perceptual_loss(pred, target,
+                                    tap=cfg.perceptual_layers[0])
             elif name == "gan":
                 continue  # the adversarial term is added by the GAN step
             else:

@@ -28,6 +28,16 @@ def msra_init_(w: torch.Tensor, scale: float = 1.0,
                                      generator=generator)
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default kernel init: variance_scaling(1, 'fan_in',
+    'truncated_normal'), truncated at two standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
 class Conv(nn.Conv2d):
     """SAME conv (3x3 unless `kernel` says otherwise; odd sizes) with MSRA
     x `init_scale` weights and zero bias.

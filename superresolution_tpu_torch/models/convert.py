@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's parameter trees (as numpy) -> this
 port's state dicts: RRDBNet and EDSR BasicSR-keyed, HATLite HAT-keyed,
-HybridSR as both stages, and SRCNN, ESPCN and FSRCNN under the names
-their port modules give.
+HybridSR as both stages, SRCNN, ESPCN, FSRCNN and the GAN discriminator
+under the names their port modules give, and the perceptual loss's
+VGG19 in torchvision's layout.
 
 Counterpart of superresolution_tpu/models/convert.py:32-141,157-257,
 300-425, with its own copies of _fuse_dense, _unfuse_dense and the tree
@@ -338,6 +339,133 @@ def fsrcnn_state_dict_from_jax(params: Mapping) -> dict[str, np.ndarray]:
         sd[f"{dst}.weight"] = np.asarray(
             p[src]["negative_slope"], np.float32).reshape(1)
     return sd
+
+
+def discriminator_state_dict_from_jax(params: Mapping
+                                     ) -> dict[str, np.ndarray]:
+    """JAX VGGStyleDiscriminator tree -> numpy state dict: Conv_{i} ->
+    blocks.{i}.conv (a bias on block 0 only), GroupNorm_{i-1} ->
+    blocks.{i}.norm, Dense_0 / Dense_1 -> fc1 / fc2. The Dense kernels
+    are a plain transpose: the port flattens in flax's NHWC order."""
+    p = params["params"] if "params" in params else params
+    n = sum(1 for k in p if k.startswith("Conv_"))
+    sd: dict[str, np.ndarray] = {}
+    for i in range(n):
+        conv = p[f"Conv_{i}"]
+        sd[f"blocks.{i}.conv.weight"] = np.ascontiguousarray(
+            _hwio_to_oihw(np.asarray(conv["kernel"])))
+        if "bias" in conv:
+            sd[f"blocks.{i}.conv.bias"] = np.asarray(conv["bias"])
+        if i:
+            _put_ln(sd, f"blocks.{i}.norm", p[f"GroupNorm_{i - 1}"])
+    _put_linear(sd, "fc1", p["Dense_0"])
+    _put_linear(sd, "fc2", p["Dense_1"])
+    return sd
+
+
+def vgg19_npz_from_jax(params: Mapping, path: str | None = None
+                       ) -> dict[str, np.ndarray]:
+    """JAX VGG19Features tree (conv1_1 ...) -> torchvision's layout
+    (features.N.weight OIHW, features.N.bias), the layout the port's
+    SRTPU_VGG19_NPZ loader reads; written to `path` as an npz if given."""
+    from superresolution_tpu_torch.losses.perceptual import TORCH_IDX
+
+    p = params["params"] if "params" in params else params
+    out: dict[str, np.ndarray] = {}
+    for name, node in p.items():
+        idx = TORCH_IDX[name]
+        out[f"features.{idx}.weight"] = np.ascontiguousarray(
+            _hwio_to_oihw(np.asarray(node["kernel"], np.float32)))
+        out[f"features.{idx}.bias"] = np.asarray(node["bias"], np.float32)
+    if path is not None:
+        np.savez(path, **out)
+    return out
+
+
+def _count_upsample_convs(sd: Mapping, prefix: str) -> int:
+    j = 0
+    while f"{prefix}upsample.{2 * j}.weight" in sd:
+        j += 1
+    return j
+
+
+def _upsample_scale(sd: Mapping, prefix: str) -> int:
+    """Total scale of a HAT / BasicSR Upsample Sequential: each stage's
+    factor is sqrt(out / in) of its conv (x3 is one conv at 9x)."""
+    total = 1
+    for j in range(_count_upsample_convs(sd, prefix)):
+        w = np.asarray(sd[f"{prefix}upsample.{2 * j}.weight"])
+        total *= int(round((w.shape[0] / w.shape[1]) ** 0.5))
+    return total
+
+
+def _max_index(sd: Mapping, prefix: str, pos: int) -> int:
+    return 1 + max(int(k.split(".")[pos]) for k in sd
+                   if k.startswith(prefix))
+
+
+def _hat_config(sd: Mapping, pre: str) -> dict:
+    """HATLite(hat_compat) kwargs read off a HAT state dict's shapes."""
+    rpb = np.asarray(sd[f"{pre}layers.0.residual_group.blocks.0"
+                        ".attn.relative_position_bias_table"])
+    n_groups = _max_index(sd, f"{pre}layers.", pre.count(".") + 1)
+    depth = _max_index(sd, f"{pre}layers.0.residual_group.blocks.",
+                       pre.count(".") + 4)
+    return {"embed_dim": np.asarray(sd[f"{pre}conv_first.weight"]).shape[0],
+            "depths": (depth,) * n_groups,
+            "num_heads": (rpb.shape[1],) * n_groups,
+            "window_size": (int(round(rpb.shape[0] ** 0.5)) + 1) // 2,
+            "hat_compat": True,
+            "upsample_feat": np.asarray(
+                sd[f"{pre}conv_before_upsample.0.weight"]).shape[0]}
+
+
+def detect_reference_config(sd: Mapping) -> dict:
+    """The model_config (utils.config.ModelConfig fields) of a
+    reference-ecosystem state dict, read off its keys and shapes as
+    superresolution_tpu/models/convert.py:428-527 reads them: the
+    reference hybrid (stage1.* BasicSR RRDBNet x2 on a pixel-unshuffled
+    input + stage2.* HAT), a bare HAT, or a BasicSR ESRGAN RRDBNet (scale
+    4 // u for a conv_first of in * u^2 channels). The port's modules keep
+    these key names, so the weights load as they are."""
+    if any(k.startswith("stage1.") for k in sd):
+        cf = np.asarray(sd["stage1.conv_first.weight"])
+        kw = _hat_config(sd, "stage2.")
+        return {
+            "name": "rrdbnet", "scale": 2, "in_channels": cf.shape[1] // 4,
+            "out_channels": np.asarray(
+                sd["stage1.conv_last.weight"]).shape[0],
+            "kwargs": {"features": cf.shape[0],
+                       "num_blocks": _max_index(sd, "stage1.body.", 2),
+                       "growth": np.asarray(
+                           sd["stage1.body.0.rdb1.conv1.weight"]).shape[0],
+                       "upsampler": "nearest_conv",
+                       "pixel_unshuffle_input": 2},
+            "refiner": "hat_lite",
+            "refiner_kwargs": {"scale": _upsample_scale(sd, "stage2."),
+                               **kw},
+            "smoothing": "balanced"}
+    if any(k.startswith("layers.") and ".residual_group." in k for k in sd):
+        return {"name": "hat_lite", "scale": _upsample_scale(sd, ""),
+                "in_channels": np.asarray(
+                    sd["conv_first.weight"]).shape[1],
+                "out_channels": np.asarray(sd["conv_last.weight"]).shape[0],
+                "kwargs": _hat_config(sd, ""), "refiner": None,
+                "refiner_kwargs": {}, "smoothing": None}
+    cf = np.asarray(sd["conv_first.weight"])
+    # in * u^2 -> (in, u): RGB and grayscale widths are unambiguous
+    u = {12: 2, 48: 4, 4: 2, 16: 4}.get(cf.shape[1], 1)
+    kwargs = {"features": cf.shape[0],
+              "num_blocks": _max_index(sd, "body.", 1),
+              "growth": np.asarray(sd["body.0.rdb1.conv1.weight"]).shape[0],
+              "upsampler": "nearest_conv"}
+    if u > 1:
+        kwargs["pixel_unshuffle_input"] = u
+    return {"name": "rrdbnet", "scale": 4 // u,
+            "in_channels": cf.shape[1] // (u * u),
+            "out_channels": np.asarray(sd["conv_last.weight"]).shape[0],
+            "kwargs": kwargs, "refiner": None, "refiner_kwargs": {},
+            "smoothing": None}
 
 
 def to_torch(sd: Mapping[str, np.ndarray],

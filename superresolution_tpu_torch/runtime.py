@@ -1,8 +1,8 @@
-"""Device resolution for the port's entry points.
+"""Device resolution and the kernel cache for the port's entry points.
 
-Counterpart of superresolution_tpu/utils/runtime.py, device part only:
-the port runs on the card unless the caller asks for the CPU, and never
-falls back to the CPU silently.
+Counterpart of superresolution_tpu/utils/runtime.py: the port runs on
+the card unless the caller asks for the CPU, and never falls back to the
+CPU silently; setup_kernel_cache stands where setup_jax_cache does.
 """
 
 from __future__ import annotations
@@ -29,3 +29,23 @@ def exact_fp32_reference() -> None:
     the reference a kernel is held against."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def setup_kernel_cache(device: str | torch.device | None = None) -> None:
+    """The counterpart of the reference's setup_jax_cache (called at the
+    start of its CLI's main). The port compiles no programs at run time
+    apart from its CUDA kernels, and their cache is already persistent:
+    ops/_build.py builds one shared library with nvcc at first use into
+    superresolution_tpu_torch/_build/, named by a hash of the sources and
+    flags, and every later process loads it from there (a changed source
+    builds a new one). So there is nothing to configure. The CLI's main
+    calls this for a subcommand that takes --device: on the card the
+    library is built (or found) before any work starts, so a missing
+    nvcc or a build error stops the command at once and the build's
+    seconds are not charged to the first frame or step; on the CPU the
+    wrappers run their plain versions and nothing is built."""
+    if resolve_device(device).type == "cuda":
+        from superresolution_tpu_torch.ops import _build
+
+        _build.build()
+        _build.library()

@@ -60,6 +60,39 @@ def make_device_input(data_cfg: DataConfig, scale: int,
     return input_fn
 
 
+def micro_batches(lr: torch.Tensor, hr: torch.Tensor, accum_steps: int
+                  ) -> list:
+    """The k micro-batches of ONE batch, k = min(accum_steps, batch) (more
+    of them than samples would leave empty ones, so k is clamped as in
+    the reference); raises when k does not divide the batch."""
+    b = lr.shape[0]
+    k = max(1, min(accum_steps, b))
+    if b % k:
+        raise ValueError(
+            f"batch {b} is not divisible by accum_steps {k}: {b % k} "
+            "samples per step would be silently dropped — pick "
+            "accum_steps that divides the batch")
+    m = b // k
+    return [(lr[i * m:(i + 1) * m], hr[i * m:(i + 1) * m])
+            for i in range(k)]
+
+
+def accumulate(grad_fn: Callable, micro: list) -> tuple[dict, dict]:
+    """The mean (grads, logs) of grad_fn(lr, hr) over the micro-batches,
+    summed as they come (one micro-batch's graph alive at a time) and
+    scaled by 1/k, as the reference's scan does."""
+    grads, logs = grad_fn(*micro[0])
+    for lr, hr in micro[1:]:
+        g, lg = grad_fn(lr, hr)
+        grads = {n: grads[n] + g[n] for n in grads}
+        logs = {n: logs[n] + lg[n] for n in logs}
+    if len(micro) > 1:
+        inv = 1.0 / len(micro)
+        grads = {n: v * inv for n, v in grads.items()}
+        logs = {n: v * inv for n, v in logs.items()}
+    return grads, logs
+
+
 def make_train_step(model, loss_fn, tx, policy: Policy, input_fn: Callable,
                     accum_steps: int = 1, ema_decay: float | None = None,
                     apply_fn: Callable | None = None) -> Callable:
@@ -84,31 +117,8 @@ def make_train_step(model, loss_fn, tx, policy: Policy, input_fn: Callable,
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None):
         lr, hr = input_fn(batch, generator)
-        b = lr.shape[0]
-        # micro-batches split ONE batch; more of them than samples would
-        # leave empty ones, so the count is clamped as in the reference
-        k = max(1, min(accum_steps, b))
-        if b % k:
-            raise ValueError(
-                f"batch {b} is not divisible by accum_steps {k}: {b % k} "
-                "samples per step would be silently dropped — pick "
-                "accum_steps that divides the batch")
-        if k == 1:
-            grads, logs = grad_fn(state.params, lr, hr)
-        else:
-            micro = b // k
-            grads, logs = None, None
-            for i in range(k):
-                sl = slice(i * micro, (i + 1) * micro)
-                g, lg = grad_fn(state.params, lr[sl], hr[sl])
-                if grads is None:
-                    grads, logs = g, lg
-                else:
-                    grads = {n: grads[n] + g[n] for n in grads}
-                    logs = {n: logs[n] + lg[n] for n in logs}
-            inv = 1.0 / k
-            grads = {n: v * inv for n, v in grads.items()}
-            logs = {n: v * inv for n, v in logs.items()}
+        grads, logs = accumulate(lambda a, b: grad_fn(state.params, a, b),
+                                 micro_batches(lr, hr, accum_steps))
         logs["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads, tx, ema_decay)
         return state, logs

@@ -13,8 +13,14 @@ patches of FUSED_TRUNK_AUTO_MIN_PATCH and more, and below that, where
 the batch is row-packed (seg spacer rows), under SRTPU_PACKED_TRAIN;
 True forces it.
 
+A `gan` term makes it a GAN run (trainer.py:190-209 there): a
+VGGStyleDiscriminator on the HR patch, its own AdamW (disc_lr or lr),
+the step of train/gan.py with the fused apply as the generator's
+forward under the same gate, and D's state saved beside G's under
+checkpoints_disc/ and restored on resume.
+
 Not ported yet, and raising NotImplementedError: multi-device meshes
-(mesh.data or mesh.pipe > 1) and GAN terms.
+(mesh.data, mesh.pipe or mesh.spatial > 1).
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ from superresolution_tpu_torch.data.io import save_png
 from superresolution_tpu_torch.data.loader import Loader, prefetch_to_device
 from superresolution_tpu_torch.losses.combined import CombinedLoss
 from superresolution_tpu_torch.metrics.psnr_ssim import Metrics
+from superresolution_tpu_torch.models.discriminator import (
+    VGGStyleDiscriminator,
+)
 from superresolution_tpu_torch.models.factory import (
     build_from_config,
     total_scale,
@@ -46,6 +55,7 @@ from superresolution_tpu_torch.train.fused_apply import (
     make_fused_train_apply,
     supports_fused_train,
 )
+from superresolution_tpu_torch.train.gan import make_gan_steps
 from superresolution_tpu_torch.train.logging import MetricsLogger
 from superresolution_tpu_torch.train.state import (
     create_train_state,
@@ -71,6 +81,18 @@ def _step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 1_000_003 + step)
 
 
+def _restore_into(mgr: CheckpointManager, state):
+    """The manager's last saved state, its params copied into `state`'s
+    tensors (which a module's parameters share), or None."""
+    restored = mgr.restore(state)
+    if restored is None:
+        return None
+    for name, v in restored.params.items():
+        state.params[name].copy_(v)
+    restored.params = state.params
+    return restored
+
+
 class Trainer:
     def __init__(self, config: Config, workdir: str | None = None,
                  device: str | torch.device | None = None):
@@ -85,10 +107,6 @@ class Trainer:
                 "mesh.spatial > 1) needs the parallel/ port, which is not "
                 "ported yet (ROADMAP item A6)")
         self.is_gan = "gan" in config.loss.terms
-        if self.is_gan:
-            raise NotImplementedError(
-                "GAN training (train/gan.py, models/discriminator.py) comes "
-                "with the GAN/perceptual training slice")
         self.policy = get_policy(config.train.precision)
         self.scale = total_scale(config.model)
 
@@ -147,10 +165,31 @@ class Trainer:
                     and supports_fused_train(self.model)):
                 self.fused_apply = make_fused_train_apply(self.model,
                                                           row_pack=row_pack)
-        self._train_step = make_train_step(
-            self.model, self.loss_fn, self.tx, self.policy, self.input_fn,
-            accum_steps=config.train.accum_steps,
-            ema_decay=config.train.ema_decay, apply_fn=self.fused_apply)
+        if self.is_gan:
+            self.disc = VGGStyleDiscriminator(
+                in_channels=config.model.out_channels,
+                input_size=dc.hr_patch, device=self.device,
+                generator=torch.Generator().manual_seed(
+                    config.train.seed + 1))
+            self.d_tx, _ = make_optimizer(
+                config.train, total_steps,
+                lr=config.train.disc_lr or config.train.lr)
+            self.d_state = create_train_state(
+                {k: p.detach() for k, p in self.disc.named_parameters()},
+                self.d_tx)
+            self._gan_step = make_gan_steps(
+                self.model, self.disc, self.loss_fn, self.tx, self.d_tx,
+                self.policy, self.input_fn,
+                gan_weight=config.loss.terms.get("gan", 0.005),
+                ema_decay=config.train.ema_decay,
+                gan_start_step=config.train.gan_start_step,
+                accum_steps=config.train.accum_steps,
+                gen_apply_fn=self.fused_apply)
+        else:
+            self._train_step = make_train_step(
+                self.model, self.loss_fn, self.tx, self.policy,
+                self.input_fn, accum_steps=config.train.accum_steps,
+                ema_decay=config.train.ema_decay, apply_fn=self.fused_apply)
         self._eval_step = make_eval_step(
             self.model, self.policy, self.eval_input_fn,
             use_ema=config.train.ema_decay is not None)
@@ -162,15 +201,25 @@ class Trainer:
             os.path.join(self.workdir, "checkpoints"),
             keep=config.train.keep_checkpoints, model_config=model_cfg)
         self.logger = MetricsLogger(os.path.join(self.workdir, "logs"))
+        # GAN: D's state (params and moments) resumes too, or a trained G
+        # would meet a fresh random D
+        self.d_ckpt = (CheckpointManager(
+            os.path.join(self.workdir, "checkpoints_disc"),
+            keep=config.train.keep_checkpoints) if self.is_gan else None)
         self.start_epoch = 0
         if config.train.resume:
-            restored = self.ckpt.restore(self.state)
+            restored = _restore_into(self.ckpt, self.state)
             if restored is not None:
-                for name, v in restored.params.items():
-                    self.state.params[name].copy_(v)
-                restored.params = self.state.params
                 self.state = restored
                 self.start_epoch = self.state.step // steps_per_epoch
+                if self.d_ckpt is not None:
+                    d_restored = _restore_into(self.d_ckpt, self.d_state)
+                    if d_restored is not None:
+                        self.d_state = d_restored
+                    else:
+                        logging.getLogger(__name__).warning(
+                            "resuming GAN generator without a saved"
+                            " discriminator state (fresh D)")
 
     @property
     def test_ds(self):
@@ -223,9 +272,14 @@ class Trainer:
             for batch in prefetch_to_device(self.train_loader,
                                             size=self.cfg.data.prefetch,
                                             device=self.device):
+                gen = _step_generator(cfg.seed, step)
                 with torch.autograd.set_detect_anomaly(cfg.debug_nans):
-                    self.state, logs = self._train_step(
-                        self.state, batch, _step_generator(cfg.seed, step))
+                    if self.is_gan:
+                        self.state, self.d_state, logs = self._gan_step(
+                            self.state, self.d_state, batch, gen)
+                    else:
+                        self.state, logs = self._train_step(self.state,
+                                                            batch, gen)
                 step += 1
                 nb += 1
                 # on the card: summed without a sync, read once per epoch
@@ -247,11 +301,13 @@ class Trainer:
                 if self.ckpt.save(self.state, step, psnr=val["psnr"],
                                   block=False):
                     best = dict(val)
+                if self.d_ckpt is not None:
+                    self.d_ckpt.save(self.d_state, step, block=False)
             # previews follow their own cadence (nested in the eval
             # branch they would fall due at the LCM of the two)
             if (epoch + 1) % cfg.preview_every == 0:
                 self._save_preview(epoch)
-        self.ckpt.wait()  # commit the last async save before returning
+        self._wait_saves()  # commit the last async saves
         return {"best": best, "epochs": epochs,
                 "wall_s": time.time() - t_start,
                 "final_step": self.state.step}
@@ -298,10 +354,16 @@ class Trainer:
         return self.ckpt.finalize(os.path.join(self.workdir,
                                                "final_weights"), probe=probe)
 
+    def _wait_saves(self) -> None:
+        """Wait out any in-flight async save of G's and D's managers."""
+        self.ckpt.wait()
+        if self.d_ckpt is not None:
+            self.d_ckpt.wait()
+
     def close(self) -> None:
         """Wait out any in-flight async checkpoint save and close the
         logs."""
-        self.ckpt.wait()
+        self._wait_saves()
         self.logger.close()
 
     def __enter__(self) -> "Trainer":

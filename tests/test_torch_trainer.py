@@ -145,15 +145,17 @@ def test_fp32_fused_step_takes_the_f32_route(tmp_path, monkeypatch):
 
 
 def test_unported_parts_raise(tmp_path):
-    """Meshes and GAN terms still raise; manifests, bicubic degradation,
-    previews and row-packed batches now run."""
+    """Meshes still raise; GAN terms (a discriminator and the GAN step),
+    manifests, bicubic degradation, previews and row-packed batches now
+    run."""
     base = _cfg()
-    bad = [base.replace(mesh=dataclasses.replace(base.mesh, data=2)),
-           base.replace(loss=dataclasses.replace(
-               base.loss, terms={"l1": 1.0, "gan": 0.005}))]
-    for cfg in bad:
-        with pytest.raises(NotImplementedError):
-            Trainer(cfg, str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Trainer(base.replace(mesh=dataclasses.replace(base.mesh, data=2)),
+                str(tmp_path), device="cpu")
+    gan = base.replace(loss=dataclasses.replace(
+        base.loss, terms={"l1": 1.0, "gan": 0.005}))
+    with Trainer(gan, str(tmp_path / "g"), device="cpu") as tr:
+        assert tr.is_gan and tr.d_ckpt is not None
     # a manifest of real pairs: PairedDataset splits
     for i in range(2):
         pair = tmp_path / "pairs" / f"pair_{i}"

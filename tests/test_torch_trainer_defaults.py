@@ -1,8 +1,10 @@
 """The port's Trainer at the reference's defaults, on the CPU at tiny
-widths: every preset without a GAN or perceptual term (srcnn_x2,
-espcn_x4, fsrcnn_x4, edsr_baseline_x4, esrgan_x4_tiled row-packed,
-hybrid_astro) fits 2 epochs with its own data and loop settings, a
-preview due each epoch and an async checkpoint; the preview strip's
+widths: every preset (srcnn_x2, espcn_x4, fsrcnn_x4, edsr_baseline_x4,
+esrgan_x4_tiled row-packed, hybrid_astro; esrgan_gan with its
+discriminator and perceptual term, hybrid_astro_prod and
+hybrid_astro_h200 with theirs) fits 2 epochs with its own data, loss and
+loop settings, a preview due each epoch and an async checkpoint (and
+D's beside it on the GAN preset); the preview strip's
 three panels are the eval step's nearest-upsampled LR, SR and HR (8-bit,
 exactly). Then the checkpoint extras against the JAX package's
 contracts: save(block=False) snapshots before it returns, wait,
@@ -55,6 +57,11 @@ TINY = {
     "esrgan_x4_tiled": ({"features": 8, "num_blocks": 1, "growth": 4}, 32),
     "hybrid_astro": ({"features": 8, "num_blocks": 1, "growth": 4,
                       "remat": True}, 64),
+    "esrgan_gan": ({"features": 8, "num_blocks": 1, "growth": 4}, 32),
+    "hybrid_astro_prod": ({"features": 8, "num_blocks": 1, "growth": 4,
+                           "remat": True}, 64),
+    "hybrid_astro_h200": ({"features": 8, "num_blocks": 1, "growth": 4,
+                           "remat": True}, 64),
 }
 
 
@@ -90,6 +97,10 @@ def test_preset_fits_with_previews_and_async_checkpoints(tmp_path, name):
             "epoch_00001.png", "epoch_00002.png"]
         ck = CheckpointManager(os.path.join(wd, "checkpoints"))
         assert ck.meta["last_step"] == 2 and 2 in ck.all_steps()
+        assert tr.is_gan == (name == "esrgan_gan")
+        if tr.is_gan:
+            dk = CheckpointManager(os.path.join(wd, "checkpoints_disc"))
+            assert dk.meta["last_step"] == 2 and 2 in dk.all_steps()
         # the last preview: the eval step on val_ds[0] at the final state
         batch = {k: torch.from_numpy(np.asarray(v)[None])
                  for k, v in tr.val_ds[0].items()}
