@@ -324,6 +324,31 @@ command line, each a counted system path:
              plain (no kernel) and --fast-attn (B1-B3, exact launches),
              each against api.upscale within 1e-3, the two within 0.03;
              train --preset srcnn_x2 --epochs 1
+Then the last two packages of the reference (astro/ and parallel/), each
+phase printing its wall seconds beside the card:
+ 42 astro-train     a pre-solved synthetic 768^2 master frame and an
+             observatory frame through the CLI's astro-extract (9 pairs
+             of 512^2 / 128^2, stride 128) and astro-normalize (16-bit
+             TIFF pairs) on the host, prepare_splits, then hybrid_astro at
+             full width trains one step on the card on those pairs: B1,
+             kernel 13 and kernel 14 launches exact
+ 43 dp-nccl         esrgan_x4_tiled (row-packed B1 / 13) one step without a
+             process group, then on mesh.data = 1 inside a world-size-1
+             NCCL group (gradients, logs and eval sums through NCCL's
+             all-reduce), cuDNN deterministic: the params and logs the
+             same bits; B1 and 13 counted on the DP run
+ 44 two-rank        two ranks of a gloo process group on the one card (NCCL
+             takes one rank a device): a data-parallel train step of the
+             anchor's RRDBNet (B1, 13), the tiled-mesh ESRGAN x4 upscale
+             (B1, B2, B3), spatial_shard_apply and make_spatial_loss over
+             ESPCN x4 (kernel 15), make_pipeline_loss over the anchor's
+             RRDBNet (B1, 13), each held to the same call at world size 1
+             within its kernels' CHIPEQ bar (0.02; losses 0.01, gradients
+             0.03 a leaf), every call launching its kernels on both ranks;
+             correctness only, no scaling
+ 45 gan-anchor      (C6) phase 39's step check with the committed anchor
+             as G (its pred in [0, 1]) in esrgan_gan's trainer: the whole
+             GAN + perceptual loss's gradients judged by f32_margin too
 Then B1's, B2's, 6's and 13's launches by body over every counted
 system path,
 the kernels line (B1-19 and the seg forms of B1 and kernel 13, launches
@@ -6711,6 +6736,639 @@ def cli_path(card: str) -> dict:
     return res["fast_attn_launches"]
 
 
+# ---- 42-45: the astro ETL, the parallel/ package, C6 ----
+
+ASTRO_DIR = "outputs/chip_smoke_astro"         # .gitignore lists outputs/
+ASTRO_MASTER = 768        # the master frame: 3 x 3 windows of 512 at 128
+DIST_DIR = "outputs/chip_smoke_dist"
+TOL_DIST_LOSS = 0.01      # a 2-rank call against the same call at 1 rank:
+TOL_DIST = 0.02           # CHIPEQ's bar for B1-B3, 15 and 13's value
+TOL_DIST_GRAD = 0.03      # 13's dW / db (dense_train_dw*), per leaf
+DIST_IMAGE = (360, 480)   # 2 tiles of TILE: one a rank
+DIST_OPS = ("fused_dense_block", "dense_block_backward", "up2_hr",
+            "conv_last_phase", "conv3x3_depth_to_space")
+
+
+def phase_wall(phase: str, card: str, t_phase: float) -> None:
+    """The phase's wall seconds on a line of its own, beside the card."""
+    emit({"phase": f"{phase}_wall", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+
+
+def astro_frames(root: str, size: int):
+    """A pre-solved master 'Hubble' frame of size^2 with bright sources
+    everywhere and an observatory frame over the same sky at 4x coarser
+    pixels (tests/test_torch_astro.py's frames, at full patch size)."""
+    from superresolution_tpu_torch.astro import (
+        TanWCS,
+        reproject_bilinear,
+        write_fits,
+    )
+
+    rng = np.random.default_rng(SEED + 10)
+    master = rng.random((size, size)) * 0.5 + 0.5
+    h_wcs = TanWCS(crval=(150.0, 2.0), crpix=(size / 2 + 0.5,) * 2,
+                   cd=((-1.4e-5, 0.0), (0.0, 1.4e-5)))
+    o_wcs = TanWCS(crval=(150.0, 2.0), crpix=(size / 8 + 0.5,) * 2,
+                   cd=((-5.6e-5, 0.0), (0.0, 5.6e-5)))
+    obs, _ = reproject_bilinear(master, h_wcs, o_wcs, (size // 4,) * 2)
+    os.makedirs(f"{root}/obs")
+    write_fits(f"{root}/hubble_master.fits", master.astype(np.float32),
+               h_wcs.to_header())
+    write_fits(f"{root}/obs/obs_0.fits",
+               np.nan_to_num(obs).astype(np.float32), o_wcs.to_header())
+
+
+def astro_train_path(card: str) -> dict:
+    """Phase 42: the astro ETL into training. A synthetic pre-solved
+    master frame (ASTRO_MASTER^2) and an observatory frame through the
+    command line's astro-extract (512^2 / 128^2 pairs, stride 128) and
+    astro-normalize (16-bit TIFF pairs), on the host; prepare_splits;
+    then hybrid_astro (1 channel, star L1: kernel 14) at full width
+    trains one step on the card on those pairs, launches exact (B1,
+    kernels 13 and 14). Returns the fit's launches."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch.data.manifest import prepare_splits
+    from superresolution_tpu_torch.train.trainer import Trainer
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ASTRO_DIR, ignore_errors=True)
+    os.makedirs(ASTRO_DIR)
+    astro_frames(ASTRO_DIR, ASTRO_MASTER)
+    t0 = time.perf_counter()
+    extract = json.loads(run_cli([
+        "astro-extract", "--hubble", f"{ASTRO_DIR}/hubble_master.fits",
+        "--obs-dir", f"{ASTRO_DIR}/obs", "--out", f"{ASTRO_DIR}/pairs",
+        "--stride", "128"]).strip().splitlines()[-1])
+    normalize = json.loads(run_cli([
+        "astro-normalize", "--pairs", f"{ASTRO_DIR}/pairs", "--out",
+        f"{ASTRO_DIR}/tiffs"]).strip().splitlines()[-1])
+    etl_s = time.perf_counter() - t0
+    if extract["pairs"] != 9 or normalize["pairs"] != 9:
+        raise AssertionError(f"astro ETL: {extract}, {normalize}")
+    splits = prepare_splits(f"{ASTRO_DIR}/tiffs", f"{ASTRO_DIR}/splits")
+    cfg = get_preset("hybrid_astro")
+    data = dataclasses.replace(
+        cfg.data, train_manifest=splits["train"],
+        val_manifest=splits["val"], test_manifest=splits["test"],
+        num_workers=4)
+    train = dataclasses.replace(cfg.train, epochs=1, steps_per_epoch=1,
+                                eval_every=1, resume=False)
+    with Trainer(cfg.replace(data=data, train=train),
+                 f"{ASTRO_DIR}/train") as tr:
+        if tr.fused_apply is None or tr.train_ds[0]["lr"].shape != (
+                128, 128, 1):
+            raise AssertionError("astro: not the fused 128 -> 512 trainer")
+        nb = tr.model.stage1.num_blocks
+        res = fit_counted(tr, {"fused_dense_block": 3 * nb * 9,
+                               "dense_block_backward": 3 * nb,
+                               "star_weighted_l1_cuda": 2}, "astro_train")
+    emit({"phase": "astro_train", "card": card, "extract": extract,
+          "normalize": normalize, "etl_s": etl_s, "splits": {
+              k: len(json.load(open(v))) for k, v in splits.items()},
+          **res})
+    phase_wall("astro_train", card, t_phase)
+    return res["launches"]
+
+
+def dp_trainer(workdir: str, mesh=None):
+    """esrgan_x4_tiled (23 RRDBs x 64, batch 8, hr 192, bicubic, bf16),
+    row-packed through B1 and kernel 13 (fused_trunk), one step over one
+    batch and an eval; mesh.data = 1, or the Mesh given."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch.train.trainer import Trainer
+    from superresolution_tpu_torch.utils.config import MeshConfig, get_preset
+
+    cfg = get_preset("esrgan_x4_tiled")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return Trainer(cfg.replace(
+        data=dataclasses.replace(cfg.data, synthetic_len=cfg.data.batch_size,
+                                 num_workers=4),
+        train=dataclasses.replace(cfg.train, epochs=1, steps_per_epoch=1,
+                                  eval_every=1, resume=False,
+                                  fused_trunk=True),
+        mesh=MeshConfig(data=1, spatial=1)), workdir, mesh=mesh)
+
+
+def dp_nccl_path(card: str) -> dict:
+    """Phase 43: data parallelism at world size 1 over NCCL. The same
+    Trainer (dp_trainer) takes one step without a process group, then
+    inside a world-size-1 NCCL group on a one-rank Mesh whose data axis
+    is given that group (create_mesh gives an axis of one rank none), so
+    the gradients, logs and eval sums pass through NCCL's all-reduce;
+    cuDNN deterministic for both. The two runs' params after the step and
+    their logs must be the same bits, and B1 and kernel 13 counted on the
+    DP run. Returns the DP run's launches."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from superresolution_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for tag in ("single", "nccl"):
+            mesh = None
+            if tag == "nccl":
+                torch.cuda.set_device(0)
+                dist.init_process_group(
+                    "nccl", init_method=f"file://{os.path.abspath(DIST_DIR)}"
+                    "/nccl_store", rank=0, world_size=1)
+                mesh = Mesh(("data", "spatial"), (1, 1), 0,
+                            {"data": dist.group.WORLD})
+            with dp_trainer(f"{DIST_DIR}/{tag}", mesh) as tr:
+                groups = {k: dist.get_backend(g) for k, g in
+                          tr.mesh.groups.items()}
+                if (tag == "nccl") != bool(groups):
+                    raise AssertionError(f"dp {tag}: mesh groups {groups}")
+                nb = tr.model.num_blocks
+                k = max(1, min(tr.cfg.train.accum_steps, tr.batch_size))
+                per = {"fused_dense_block": 3 * nb * 9 * k,
+                       "dense_block_backward": 3 * nb * k}
+                per.update(fused_dense_block_seg=per["fused_dense_block"],
+                           dense_block_backward_seg=per[
+                               "dense_block_backward"])
+                res = fit_counted(tr, per, f"dp_{tag}")
+                runs[tag] = (res, {n: v.clone()
+                                   for n, v in tr.state.params.items()},
+                             groups)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = det
+    (single, p1, _), (dp, p2, groups) = runs["single"], runs["nccl"]
+    differ = [n for n in p1 if not torch.equal(p1[n], p2[n])]
+    same_logs = single["train_logs"] == dp["train_logs"] and single[
+        "val_psnr"] == dp["val_psnr"]
+    emit({"check": "dp_nccl/same_bits", "params": len(p1),
+          "params_differing": differ[:5], "logs_equal": same_logs,
+          "groups": groups, "train_logs": dp["train_logs"],
+          "val_psnr": dp["val_psnr"]})
+    if differ or not same_logs:
+        raise AssertionError(f"dp over NCCL at world size 1 is not the "
+                             f"single-device step: {differ[:5]}, logs "
+                             f"{single['train_logs']} vs {dp['train_logs']}")
+    emit({"phase": "dp_nccl", "card": card, **dp})
+    phase_wall("dp_nccl", card, t_phase)
+    return dp["launches"]
+
+
+def anchor_rrdb():
+    """The committed anchor's RRDBNet (x4, 64 features, 2 RRDBs,
+    pixelshuffle) on the card, and its state dict."""
+    from superresolution_tpu_torch.models.factory import get_model
+    from superresolution_tpu_torch.train.checkpoint import (
+        load_params_for_inference)
+
+    sd, cfg = load_params_for_inference(ANCHOR_DIR, with_config=True)
+    model = get_model(cfg["name"], scale=cfg["scale"],
+                      in_channels=cfg["in_channels"],
+                      out_channels=cfg["out_channels"], **cfg["kwargs"])
+    model.load_state_dict(sd)
+    return model, sd
+
+
+def esrgan_bf16(gen: torch.Generator):
+    """Phase 4's ESRGAN x4 (23 RRDBs, pixelshuffle) in bf16 from `gen`,
+    nonzero biases."""
+    from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+
+    model = RRDBNet(scale=4, in_channels=3, out_channels=3, features=64,
+                    num_blocks=23, growth=32, upsampler="pixelshuffle",
+                    generator=gen).to(torch.bfloat16).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model
+
+
+def dist_inputs() -> dict:
+    """The inputs of phase 44's calls, made from a seed on the host."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    return {"dp_hr": torch.rand((4, 128, 128, 3), generator=g),
+            "image": torch.rand((*DIST_IMAGE, 3), generator=g),
+            "sp_lr": torch.rand((1, 128, 96, 1), generator=g),
+            "sp_hr": torch.rand((1, 512, 384, 1), generator=g),
+            "pp_lr": torch.rand((4, 32, 32, 3), generator=g),
+            "pp_hr": torch.rand((4, 128, 128, 3), generator=g)}
+
+
+def dist_calls(meshes: dict) -> dict:
+    """Phase 44's four calls on this process's meshes ('dp', 'sp', 'pp';
+    one rank each, or two on a process group), with every counted
+    kernel's launches of each call. (1) a data-parallel train step of the
+    anchor's RRDBNet through the fused train apply (B1, kernel 13; l1,
+    bf16, AdamW): the loss and the gradients handed to AdamW; (2) the
+    tiled-mesh ESRGAN x4 upscale of a DIST_IMAGE frame through B1 (fused
+    trunk), B2 and B3 (phase tail), tail batch 1; (3) spatial_shard_apply
+    and make_spatial_loss's loss and gradients over ESPCN x4 (kernel 15
+    heads) in bf16, halo 8; (4) make_pipeline_loss over the anchor's
+    RRDBNet in bf16 (2 microbatches, B1 and kernel 13 in each stage), its
+    loss and gradients."""
+    from torch.func import functional_call
+
+    from superresolution_tpu_torch.infer.fused_trunk import make_fused_trunk
+    from superresolution_tpu_torch.infer.phase_tail import make_phase_tail
+    from superresolution_tpu_torch.infer.tiled_device import (
+        make_tiled_infer_staged)
+    from superresolution_tpu_torch.losses.combined import CombinedLoss
+    from superresolution_tpu_torch.models.espcn import ESPCN
+    from superresolution_tpu_torch.parallel.pipeline import make_pipeline_loss
+    from superresolution_tpu_torch.parallel.spatial import (
+        make_spatial_loss, spatial_shard_apply)
+    from superresolution_tpu_torch.train.fused_apply import (
+        make_fused_train_apply)
+    from superresolution_tpu_torch.train.state import (
+        create_train_state, make_optimizer)
+    from superresolution_tpu_torch.train.steps import (
+        make_device_input, make_train_step)
+    from superresolution_tpu_torch.utils.config import (
+        DataConfig, LossConfig, TrainConfig)
+    from superresolution_tpu_torch.utils.precision import get_policy
+
+    x = {k: v.cuda() for k, v in dist_inputs().items()}
+    out, launches = {}, {}
+
+    def counted(name, fn):
+        ops = zero_counts()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: ops[k].launches for k in DIST_OPS
+                          if ops[k].launches}
+
+    model, sd = anchor_rrdb()
+
+    def dp_step():
+        tx, _ = make_optimizer(TrainConfig(lr=1e-4), 10)
+        step = make_train_step(
+            model, CombinedLoss(LossConfig()), tx, get_policy("bf16"),
+            make_device_input(DataConfig(degradation="bicubic",
+                                         augment=False), 4),
+            apply_fn=make_fused_train_apply(model), mesh=meshes["dp"])
+        state = create_train_state({k: v.detach().clone() for k, v in
+                                    model.named_parameters()}, tx)
+        seen = {}
+        update = tx.update_
+
+        def spy(grads, opt_state, params):
+            seen.update({k: v.detach().float().clone()
+                         for k, v in grads.items()})
+            return update(grads, opt_state, params)
+
+        tx.update_ = spy
+        _, logs = step(state, {"hr": x["dp_hr"]}, None)
+        return {"loss": logs["total"].float(), "grads": seen}
+
+    counted("dp_step", dp_step)
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    big = esrgan_bf16(gen)
+    params = big.state_dict()
+    fused = make_fused_trunk(params, big)
+    run = make_tiled_infer_staged(
+        lambda t: fused(t.to(torch.bfloat16)), make_phase_tail(params), 4,
+        TILE, HALO, tail_batch=1, h=DIST_IMAGE[0], w=DIST_IMAGE[1],
+        channels=3, mesh=meshes["dp"])
+    counted("tiled_mesh", lambda: run(x["image"]))
+    del big, fused, run, params
+
+    espcn = ESPCN(scale=4, in_channels=1, out_channels=1,
+                  generator=torch.Generator().manual_seed(SEED + 13))
+    ep = {k: v.detach().to(torch.bfloat16)
+          for k, v in espcn.named_parameters()}
+
+    def espcn_fn(p, t):
+        return functional_call(espcn, p, (t.to(torch.bfloat16),)).float()
+
+    counted("spatial_apply", lambda: spatial_shard_apply(
+        meshes["sp"], lambda t: espcn_fn(ep, t), x["sp_lr"], 8, 4))
+
+    def l1_sum(pred, t):
+        return (pred.float() - t).abs().sum()
+
+    def loss_grads(loss_fn, params, lr, hr):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        loss = loss_fn(leaves, lr, hr)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {"loss": loss.detach().float(),
+                "grads": {k: g.float() for k, g in zip(leaves, grads)}}
+
+    counted("spatial_loss", lambda: loss_grads(make_spatial_loss(
+        meshes["sp"], espcn_fn, l1_sum, 8, 4), ep, x["sp_lr"], x["sp_hr"]))
+    mp = {k: v.detach().to(torch.bfloat16)
+          for k, v in model.named_parameters()}
+    counted("pipeline_loss", lambda: loss_grads(make_pipeline_loss(
+        meshes["pp"], model, l1_sum, n_micro=2), mp,
+        x["pp_lr"].to(torch.bfloat16), x["pp_hr"]))
+    return {"out": out, "launches": launches}
+
+
+def two_rank_main(rank: int, ref_path: str) -> dict:
+    """One of phase 44's two ranks (gloo, both on cuda:0): dist_calls on
+    2-rank meshes, each result held here against the world-size-1 call's
+    (saved at ref_path by the parent); -> the errors and launches."""
+    from superresolution_tpu_torch.ops import _build
+    from superresolution_tpu_torch.parallel.mesh import create_mesh
+    from superresolution_tpu_torch.runtime import exact_fp32_reference
+    from superresolution_tpu_torch.utils.config import MeshConfig
+
+    torch.cuda.set_device(0)
+    exact_fp32_reference()
+    _build.library()
+    meshes = {"dp": create_mesh(MeshConfig(data=2, spatial=1)),
+              "sp": create_mesh(MeshConfig(data=1, spatial=2)),
+              "pp": create_mesh(MeshConfig(data=1, pipe=2))}
+    got = dist_calls(meshes)
+    ref = torch.load(ref_path, map_location="cuda", weights_only=False)
+    errs = {}
+    for name in ref:
+        a, b = got["out"][name], ref[name]
+        if name == "spatial_apply":  # the replicate edge: interior only
+            a, b = a[:, 32:-32], b[:, 32:-32]
+        if isinstance(a, dict):
+            errs[f"{name}/loss"] = rel_err(a["loss"], b["loss"])
+            errs[f"{name}/grads"] = max(rel_err(a["grads"][k], b["grads"][k])
+                                        for k in b["grads"])
+            errs[f"{name}/grad_norm"] = rel_err(
+                torch.stack([g.norm() for g in a["grads"].values()]).norm(),
+                torch.stack([g.norm() for g in b["grads"].values()]).norm())
+        else:
+            errs[name] = rel_err(a, b)
+            errs[f"{name}/finite"] = float(bool(torch.isfinite(a).all()))
+    return {"rank": rank, "errs": errs, "launches": got["launches"],
+            "groups": {k: sorted(m.groups) for k, m in meshes.items()}}
+
+
+def two_rank_path(card: str) -> dict:
+    """Phase 44: two ranks of a gloo process group on the one card (NCCL
+    refuses two ranks on one device, so the backend is named gloo here;
+    the compute stays on the card, the collectives cross through host
+    memory). dist_calls runs first at world size 1 in this process (the
+    references, saved), then in both ranks, where each result is held to
+    the reference within the CHIPEQ tolerance of the kernels it runs
+    (TOL_DIST for outputs, TOL_DIST_LOSS for losses, TOL_DIST_GRAD for
+    each leaf's gradient); every call must have launched its kernels on
+    both ranks. Checks correctness; no scaling is measured. Returns the
+    ranks' launches summed by call."""
+    import shutil
+
+    from superresolution_tpu_torch.parallel.launch import run_ranks
+    from superresolution_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    work = os.path.abspath(f"{DIST_DIR}/two_rank")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    one = {"dp": Mesh(("data", "spatial"), (1, 1)),
+           "sp": Mesh(("data", "spatial"), (1, 1)),
+           "pp": Mesh(("data", "pipe"), (1, 1))}
+    t0 = time.perf_counter()
+    ref = dist_calls(one)
+    one_s = time.perf_counter() - t0
+    ref_path = f"{work}/ref.pt"
+    torch.save(ref["out"], ref_path)
+    del ref["out"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(two_rank_main, 2, "gloo", f"{work}/pg",
+                      args=(ref_path,), timeout=600.0)
+    two_s = time.perf_counter() - t0
+    want = {"dp_step": ("fused_dense_block", "dense_block_backward"),
+            "tiled_mesh": ("fused_dense_block", "up2_hr", "conv_last_phase"),
+            "spatial_apply": ("conv3x3_depth_to_space",),
+            "spatial_loss": ("conv3x3_depth_to_space",),
+            "pipeline_loss": ("fused_dense_block", "dense_block_backward")}
+    bars = {"dp_step/loss": TOL_DIST_LOSS, "spatial_loss/loss": TOL_DIST_LOSS,
+            "pipeline_loss/loss": TOL_DIST_LOSS}
+    total = {}
+    for r in ranks:
+        emit({"check": f"two_rank/rank{r['rank']}", "errs": r["errs"],
+              "launches": r["launches"], "groups": r["groups"]})
+        for name, ks in want.items():
+            for k in ks:
+                if not r["launches"].get(name, {}).get(k):
+                    raise AssertionError(f"two_rank rank {r['rank']}: "
+                                         f"{name} launched no {k}")
+            for k, v in r["launches"].get(name, {}).items():
+                total.setdefault(name, {})
+                total[name][k] = total[name].get(k, 0) + v
+        for name, err in r["errs"].items():
+            if name.endswith("/finite"):
+                if err != 1.0:
+                    raise AssertionError(f"two_rank: {name} not finite")
+                continue
+            bar = bars.get(name, TOL_DIST_GRAD if "grad" in name
+                           else TOL_DIST)
+            if err > bar:
+                raise AssertionError(f"two_rank rank {r['rank']}: {name} "
+                                     f"{err} > {bar}")
+    emit({"phase": "two_rank", "card": card, "backend": "gloo",
+          "world_size": 2, "world1_s": one_s, "two_rank_s": two_s,
+          "world1_launches": ref["launches"], "launches": total})
+    phase_wall("two_rank", card, t_phase)
+    return total
+
+
+BF16_PATHS = ("kernel", "plain", "second")
+
+
+def judge_leaves(tag: str, paths: dict, tol: float, prefixes=None) -> int:
+    """The kernel path's values against the plain f32 path's, leaf by
+    leaf, where paths maps "kernel", "plain" (bf16), "second" (a second
+    plain bf16 path, cuDNN off) and "f32" to a tensor or to a dict of
+    leaves. For each leaf, e_x = rel_err(x, f32) (of max |f32|); a bf16
+    path x breaks the two-path bar at a leaf where e_x exceeds the other
+    two bf16 paths' e, plus tol (a non-finite kernel value is a fault).
+    Every leaf is judged, in groups under `prefixes` (every leaf lies in
+    one). The kernel path's breaks in a group are faults, one a leaf,
+    unless a plain bf16 path put in the kernel's place breaks the bar at
+    as many leaves of the group or more: then the group's values lie in
+    bf16's own spread (the l1 step at a trained G, whose cotangent
+    sign(pred - hr) flips with each path's rounding) and the rule cannot
+    tell the paths apart there. A kernel path that computes another
+    function breaks the bar where the plain paths do not. One line per
+    group, with the counts and the kernel's leaf with the least room
+    under its bar. -> the number of faults."""
+    if isinstance(paths["f32"], torch.Tensor):
+        paths, prefixes = {k: {"": v} for k, v in paths.items()}, ("",)
+    ref = paths["f32"]
+    rows = {}
+    for k in ref:
+        e = {x: rel_err(paths[x][k], ref[k]) for x in BF16_PATHS}
+        e = {x: v if math.isfinite(v) else math.inf for x, v in e.items()}
+        over = {x: e[x] > max(e[y] for y in BF16_PATHS if y != x) + tol
+                for x in BF16_PATHS}
+        over["kernel"] |= e["kernel"] == math.inf
+        pre = next((p for p in prefixes if k.startswith(p)), None)
+        if pre is None:
+            raise ValueError(f"{tag}: leaf {k} lies in no group")
+        rows.setdefault(pre, []).append((k, e, over))
+    faults = 0
+    for pre in prefixes:
+        breaks = {x: sum(r[2][x] for r in rows[pre]) for x in BF16_PATHS}
+        n = breaks["kernel"] if breaks["kernel"] > max(
+            breaks["plain"], breaks["second"]) else 0
+        n = max(n, sum(r[1]["kernel"] == math.inf for r in rows[pre]))
+        faults += n
+        k, e, _ = max(rows[pre], key=lambda r: (
+            r[1]["kernel"] == math.inf,
+            r[1]["kernel"] - max(r[1]["plain"], r[1]["second"])))
+        emit({"check": f"{tag}/{pre}*" if pre else tag,
+              "leaves": len(rows[pre]), "worst_leaf": k or None,
+              "rel_err_vs_f32": e["kernel"],
+              "plain_rel_err_vs_f32": e["plain"],
+              "second_rel_err_vs_f32": e["second"],
+              "bar": max(e["plain"], e["second"]) + tol,
+              "f32_margin_breaks": sum(
+                  not r[1]["kernel"] <= r[1]["plain"] + tol
+                  for r in rows[pre]),
+              "two_path_breaks": breaks, "faults": n,
+              "against": "f32_two_paths"})
+    return faults
+
+
+def judge_grads(tag: str, paths: dict, prefixes) -> int:
+    """judge_leaves of the global grad norm (TOL_STEP_GNORM) and of every
+    gradient leaf (TOL_LEAF) of the four paths' gradient dicts."""
+    from superresolution_tpu_torch.train.state import global_norm
+
+    return (judge_leaves(f"{tag}/grad_norm",
+                         {x: global_norm(g) for x, g in paths.items()},
+                         TOL_STEP_GNORM)
+            + judge_leaves(f"{tag}/grad", paths, TOL_LEAF, prefixes))
+
+
+def check_gan_anchor_step(tr, lr, hr, prefixes) -> int:
+    """Phase 45's step check: four paths on one batch at the trainer's
+    masters, the kernel path (the fused apply in bf16), the plain bf16
+    path, a second plain bf16 path (cuDNN off) and the plain f32 path.
+    The pred; for the l1 term's step and for the whole GAN + perceptual
+    loss (gan_g_loss) the loss, the grad norm and every gradient leaf;
+    and G's backward of each of those losses' cotangent at the f32 pred
+    (the same backward without the l1 sign's flips): each judged by
+    judge_leaves. -> the number of faults."""
+    from torch.func import functional_call
+
+    from superresolution_tpu_torch.losses.basic import l1_loss
+    from superresolution_tpu_torch.utils.precision import get_policy
+
+    bf16, f32 = get_policy("bf16"), get_policy("fp32")
+
+    def plain(p, x):
+        return functional_call(tr.model, p, (x,))
+
+    def four(fn):
+        """fn(apply, policy, kernel) on the four paths."""
+        out = {"kernel": fn(tr.fused_apply, bf16, True),
+               "plain": fn(plain, bf16, False), "f32": fn(plain, f32, False)}
+        cudnn = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            out["second"] = fn(plain, bf16, False)
+        finally:
+            torch.backends.cudnn.enabled = cudnn
+        return out
+
+    with torch.no_grad():
+        preds = four(lambda apply, pol, _: apply(
+            pol.cast_to_compute(tr.state.params),
+            lr.to(pol.compute_dtype)).float())
+    emit({"check": "gan_anchor/pred_range",
+          "max_abs_pred": float(preds["f32"].abs().max())})
+    faults = judge_leaves("gan_anchor/pred", preds, TOL_LEAF)
+    gan_loss = gan_g_loss(tr)
+    for name, loss_fn in (
+            ("l1", lambda pred, hr_, policy: l1_loss(pred, hr_)),
+            ("gan_loss", gan_loss)):
+        tag = f"train_step/gan_anchor/{name}"
+        res = four(lambda apply, pol, kernel: step_grads(
+            tr, apply, pol, lr, hr, kernel, loss_fn))
+        faults += judge_leaves(f"{tag}/loss",
+                               {x: r[0] for x, r in res.items()},
+                               TOL_STEP_LOSS)
+        faults += judge_grads(tag, {x: r[1] for x, r in res.items()},
+                              prefixes)
+    with torch.no_grad():
+        p32 = plain(tr.state.params, lr.float()).float()
+    p32.requires_grad_()
+    for name, loss_fn in (("l1", l1_loss),
+                          ("gan", lambda pred, t: gan_loss(pred, t, f32))):
+        cot = torch.autograd.grad(loss_fn(p32, hr.float()), [p32])[0]
+
+        def vjp(apply, policy, _):
+            leaves = {k: v.detach().requires_grad_()
+                      for k, v in tr.state.params.items()}
+            pred = apply(policy.cast_to_compute(leaves),
+                         lr.to(policy.compute_dtype)).float()
+            return dict(zip(leaves, torch.autograd.grad(
+                pred, list(leaves.values()), grad_outputs=cot)))
+
+        faults += judge_grads(f"train_step/gan_anchor/{name}_cotangent",
+                              four(vjp), prefixes)
+    return faults
+
+
+def gan_anchor_check(card: str) -> dict:
+    """Phase 45 (C6): phase 39's step check with the committed anchor as
+    G (RRDBNet x4, 64 features, 2 RRDBs, pixelshuffle: B1 and kernel 13
+    like the preset's trunk, row-packed; its pred lies in [0, 1]), in
+    esrgan_gan's trainer (fused_trunk, hr 128, batch 16; VGG19 and the
+    discriminator at their seeded inits), on the first training batch:
+    check_gan_anchor_step, every value judged leaf by leaf (judge_leaves).
+    Fails on a fault: values of the kernel path farther from the plain f32
+    path than both plain bf16 paths' values, plus the bar, at more leaves
+    of a group than either plain path breaks that bar in its place."""
+    import dataclasses
+    import shutil
+
+    from superresolution_tpu_torch.data.loader import prefetch_to_device
+    from superresolution_tpu_torch.train.trainer import Trainer
+    from superresolution_tpu_torch.utils.config import get_preset
+
+    t_phase = time.perf_counter()
+    _, sd = anchor_rrdb()
+    cfg = get_preset("esrgan_gan")
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, kwargs={
+            "features": 64, "num_blocks": 2, "growth": 32,
+            "upsampler": "pixelshuffle"}),
+        data=dataclasses.replace(cfg.data, synthetic_len=cfg.data.batch_size,
+                                 num_workers=4),
+        train=dataclasses.replace(cfg.train, epochs=1, resume=False,
+                                  fused_trunk=True, gan_start_step=0))
+    wd = f"{GAN_DIR}_anchor"
+    shutil.rmtree(wd, ignore_errors=True)
+    with Trainer(cfg, wd) as tr:
+        with torch.no_grad():
+            for k, v in tr.state.params.items():
+                v.copy_(sd[k].to(v.device, v.dtype))
+        lr, hr = tr.eval_input_fn(
+            next(iter(prefetch_to_device(tr.train_loader))), None)
+        nb = tr.model.num_blocks
+        faults = check_gan_anchor_step(tr, lr, hr, prefixes=(
+            "conv_first.", "body.0.", f"body.{nb - 1}.", "conv_body.",
+            "conv_up1.", "conv_up2.", "conv_hr.", "conv_last."))
+    emit({"phase": "gan_anchor", "card": card, "faults": faults})
+    phase_wall("gan_anchor", card, t_phase)
+    if faults:
+        raise AssertionError(f"C6: {faults} values of the kernel path lie "
+                             f"farther from f32 than both plain bf16 "
+                             f"paths' plus the bar, where the plain paths "
+                             f"do not")
+    return {}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6985,6 +7643,25 @@ def main() -> int:
     cli = cli_path(card)
     for k in ("fused_dense_block", "up2_hr", "conv_last_phase"):
         kernels[k]["launches_cli_fast_attn"] = cli[k]
+    torch.cuda.empty_cache()
+
+    # ---- 42-45: the astro ETL, data / spatial / pipeline parallelism,
+    # ---- C6 (the GAN step's whole-loss gradients, the anchor as G) ----
+    astro = astro_train_path(card)
+    torch.cuda.empty_cache()
+    dp = dp_nccl_path(card)
+    torch.cuda.empty_cache()
+    for k in ("fused_dense_block", "dense_block_backward",
+              "star_weighted_l1_cuda"):
+        kernels[k]["launches_astro_train"] = astro.get(k, 0)
+    for k in ("fused_dense_block", "dense_block_backward"):
+        kernels[k]["launches_dp_nccl"] = dp.get(k, 0)
+    two = two_rank_path(card)
+    torch.cuda.empty_cache()
+    for k in DIST_OPS:
+        kernels[k]["launches_two_rank"] = {
+            name: v[k] for name, v in two.items() if k in v}
+    gan_anchor_check(card)
     torch.cuda.empty_cache()
     for k in UNROUTED:
         kernels[k]["launches_system_paths"] = UNROUTED_SEEN[k]

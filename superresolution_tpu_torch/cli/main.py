@@ -12,14 +12,26 @@ same subcommands and flags:
   benchmark         run chip_smoke.py (the repository root's)
   show-result       labelled comparison collage
   import-reference  a reference .pth -> the port's checkpoint directory
+  astro-register    ETL step 1: plate-solve + register onto a common TAN
+  astro-qc          ETL step 2: green/magenta alignment overlay PNG
+  astro-extract     ETL step 3: WCS-aligned LR/HR patch pairs (FITS)
+  astro-normalize   ETL step 4: global log-stretch -> 16-bit TIFF pairs
   presets           list the named configs
 
 and one flag the port's device rule needs: --device (default cuda; the
 CPU only when asked for). `upscale --fast-attn` runs a trained RRDBNet's
 trunk through B1 and its x4 tail through B2/B3 (fused_rrdb_model), a
 hybrid through kernels 7-10 (fused_hybrid_model); EDSR and ESPCN heads
-are kernel 15 on the card. Multi-device runs (--mesh-data or --mesh-pipe
-above 1) raise until `parallel` is ported.
+are kernel 15 on the card. The astro-* steps run on the host.
+
+Multi-process runs: under torchrun (RANK, WORLD_SIZE and LOCAL_RANK in
+the environment, WORLD_SIZE > 1) a command that takes --device joins a
+process group first, NCCL for --device cuda (rank r on cuda:LOCAL_RANK)
+and gloo for --device cpu; then
+`train --mesh-data N / --mesh-pipe N` trains on that mesh and `upscale
+--mesh-data N` spreads the tiles over N ranks (parallel/). A mesh larger
+than the world raises, with the reference's message. Rank 0 alone writes
+files and prints results.
 """
 
 from __future__ import annotations
@@ -29,11 +41,6 @@ import dataclasses
 import json
 import os
 import sys
-
-_NO_MESH = ("{flag} {n} needs multi-device training and inference (the "
-            "parallel/ modules), which the port does not have yet "
-            "(ROADMAP item A6); use {flag} 1")
-
 
 def _add_device(p):
     p.add_argument("--device", default="cuda",
@@ -56,17 +63,35 @@ def _add_common(p):
     _add_device(p)
 
 
-def _refuse_mesh(args) -> None:
-    for flag, n in (("--mesh-data", getattr(args, "mesh_data", None)),
-                    ("--mesh-pipe", getattr(args, "mesh_pipe", None))):
-        if n is not None and n > 1:
-            raise NotImplementedError(_NO_MESH.format(flag=flag, n=n))
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _init_distributed(args) -> bool:
+    """Join the process group torchrun describes in the environment
+    (WORLD_SIZE > 1); -> whether this call initialized one. --device cuda
+    becomes this rank's card, cuda:LOCAL_RANK."""
+    import torch
+    import torch.distributed as dist
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world < 2 or dist.is_initialized():
+        return False
+    device = torch.device(args.device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    dist.init_process_group(backend, init_method="env://")
+    return True
 
 
 def _config_from_args(args):
     from superresolution_tpu_torch.utils.config import get_preset
 
-    _refuse_mesh(args)
     cfg = get_preset(args.preset)
     data, train, mesh = cfg.data, cfg.train, cfg.mesh
     if args.manifest_dir:
@@ -111,7 +136,8 @@ def cmd_train(args):
     cfg = _config_from_args(args)
     with Trainer(cfg, workdir=args.workdir, device=args.device) as trainer:
         result = trainer.fit()
-    print(json.dumps(result))
+    if _rank() == 0:
+        print(json.dumps(result))
 
 
 def cmd_finalize(args):
@@ -128,7 +154,8 @@ def cmd_test(args):
     cfg = _config_from_args(args)
     with Trainer(cfg, workdir=args.workdir, device=args.device) as trainer:
         result = run_test(trainer, labeled=args.labeled)
-    print(json.dumps(result))
+    if _rank() == 0:
+        print(json.dumps(result))
 
 
 def _load_checkpoint(ckpt: str, device: str, fast_attn: bool = False):
@@ -220,7 +247,6 @@ def cmd_upscale(args):
     if not os.path.exists(args.input):
         print(f"error: input image not found: {args.input}", file=sys.stderr)
         return 2
-    _refuse_mesh(args)
     img = load_image(args.input)
     params, model, scale = None, args.model, args.scale
     if args.ckpt:
@@ -232,14 +258,64 @@ def cmd_upscale(args):
                                             fast_attn=args.fast_attn)
         if built is not None:
             model, scale = built, s
-    out = upscale(img, scale=scale, model=model, params=params,
-                  tile=args.tile, halo=args.halo, blend=args.blend,
-                  device=args.device)
+    if args.mesh_data and args.mesh_data > 1:
+        if args.blend != "crop":
+            # the staged tiler always crop-blends
+            print(f"error: --blend {args.blend} is not supported with"
+                  " --mesh-data > 1 (the staged tiler crop-blends);"
+                  " use --blend crop", file=sys.stderr)
+            return 2
+        out = _upscale_mesh(args, img, scale, model, params)
+        if out is None:
+            return 2
+    else:
+        out = upscale(img, scale=scale, model=model, params=params,
+                      tile=args.tile, halo=args.halo, blend=args.blend,
+                      device=args.device)
+    if _rank() != 0:
+        return None
     if args.output.endswith((".tif", ".tiff")) and out.shape[-1] == 1:
         save_tiff16(out, args.output)
     else:
         save_png(np.asarray(out), args.output)
     print(f"{img.shape} -> {out.shape} saved to {args.output}")
+
+
+def _upscale_mesh(args, img, scale, model, params):
+    """Tile-parallel upscale over the --mesh-data ranks (the staged tiler
+    with a mesh: infer/tiled_device.py), the reference's cli/main.py:
+    218-254: a trunk/tail model (the rrdbnet family) only; None after
+    printing the refusal."""
+    import numpy as np
+    import torch
+
+    from superresolution_tpu_torch.infer.tiled import _default_model_params
+    from superresolution_tpu_torch.infer.tiled_device import (
+        make_tiled_infer_staged,
+    )
+    from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+    from superresolution_tpu_torch.parallel.mesh import create_mesh
+    from superresolution_tpu_torch.utils.config import MeshConfig
+
+    arr = img if img.ndim == 3 else img[..., None]
+    model, params = _default_model_params(arr, scale, model, params,
+                                          device=args.device)
+    if not isinstance(model, RRDBNet):
+        print("error: --mesh-data upscaling needs a trunk/tail"
+              " model (the rrdbnet family) without --fast-attn",
+              file=sys.stderr)
+        return None
+    mesh = create_mesh(MeshConfig(data=args.mesh_data, spatial=1))
+    model.load_state_dict(params)
+    dtype = next(model.parameters()).dtype
+    h, w, c = arr.shape
+    runner = make_tiled_infer_staged(
+        lambda t: model.trunk(t.to(dtype)), model.tail, scale, args.tile,
+        args.halo, tail_batch=4, h=h, w=w, channels=c, mesh=mesh,
+        device=args.device)
+    out = runner(torch.from_numpy(np.ascontiguousarray(arr)))
+    out = out.float().cpu().numpy()
+    return out[..., 0] if img.ndim == 2 else out
 
 
 def cmd_benchmark(args):
@@ -318,6 +394,60 @@ def cmd_import_reference(args):
                       "refiner": cfg["refiner"]}))
 
 
+def _glob_fits(d):
+    import glob
+
+    return sorted(
+        f for pat in ("*.fits", "*.fit", "*.fts")
+        for f in glob.glob(os.path.join(d, pat))
+        if not os.path.basename(f).startswith("reg_"))
+
+
+def cmd_astro_register(args):
+    from superresolution_tpu_torch.astro.pipeline import register_images
+
+    out = register_images(_glob_fits(args.hubble_dir),
+                          _glob_fits(args.obs_dir), args.out,
+                          workers=args.workers, fov_deg=args.fov)
+    print(json.dumps({k: len(v) for k, v in out.items()} | {"dir": args.out}))
+
+
+def cmd_astro_qc(args):
+    import glob
+
+    from superresolution_tpu_torch.astro.pipeline import qc_overlay
+
+    reg = sorted(glob.glob(os.path.join(args.registered_dir, "reg_*.fits")))
+    hub = [f for f in reg if args.hubble_tag in os.path.basename(f)]
+    obs = [f for f in reg if args.hubble_tag not in os.path.basename(f)]
+    out = qc_overlay(hub or reg, obs or reg, args.out, max_obs=args.max_obs)
+    print(f"QC overlay -> {out}")
+
+
+def cmd_astro_extract(args):
+    import glob
+
+    from superresolution_tpu_torch.astro.pipeline import extract_patches
+
+    # registered (reg_*) frames are valid inputs here; exclude the master
+    obs = sorted(
+        f for pat in ("*.fits", "*.fit", "*.fts")
+        for f in glob.glob(os.path.join(args.obs_dir, pat))
+        if os.path.abspath(f) != os.path.abspath(args.hubble))
+    n = extract_patches(args.hubble, obs, args.out,
+                        hr_size=args.hr_size, stride=args.stride,
+                        factor=args.factor, workers=args.workers)
+    print(json.dumps({"pairs": n, "dir": args.out}))
+
+
+def cmd_astro_normalize(args):
+    from superresolution_tpu_torch.astro.pipeline import normalize_pairs
+
+    n = normalize_pairs(args.pairs, args.out, black_p=args.black_p,
+                        white_p=args.white_p)
+    print(json.dumps({"pairs": n, "dir": args.out}))
+
+
 def cmd_presets(args):
     from superresolution_tpu_torch.models.factory import total_scale
     from superresolution_tpu_torch.utils.config import presets
@@ -369,8 +499,8 @@ def build_parser():
     s.add_argument("--halo", type=int, default=16)
     s.add_argument("--blend", default="crop", choices=["crop", "hann"])
     s.add_argument("--mesh-data", type=int, default=None,
-                   help="shard the tile batch over N devices (not ported:"
-                        " N > 1 raises)")
+                   help="shard the tile batch over N ranks (under"
+                        " torchrun; N > 1 needs an rrdbnet-family model)")
     _add_device(s)
     s.set_defaults(fn=cmd_upscale)
 
@@ -405,6 +535,46 @@ def build_parser():
     s.add_argument("--out", required=True)
     s.set_defaults(fn=cmd_import_reference)
 
+    # the reference's 4 numbered ETL stages (Dataset_step1..4) as
+    # non-interactive subcommands, on the host
+    s = sub.add_parser("astro-register",
+                       help="step 1: plate-solve + register onto common TAN")
+    s.add_argument("--hubble-dir", required=True)
+    s.add_argument("--obs-dir", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--workers", type=int, default=2)
+    s.add_argument("--fov", type=float, default=None,
+                   help="blind-solve FOV override in degrees")
+    s.set_defaults(fn=cmd_astro_register)
+
+    s = sub.add_parser("astro-qc",
+                       help="step 2: green/magenta alignment overlay PNG")
+    s.add_argument("--registered-dir", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--hubble-tag", default="hst",
+                   help="substring marking Hubble frames among reg_*.fits")
+    s.add_argument("--max-obs", type=int, default=10)
+    s.set_defaults(fn=cmd_astro_qc)
+
+    s = sub.add_parser("astro-extract",
+                       help="step 3: WCS-aligned LR/HR patch pair extraction")
+    s.add_argument("--hubble", required=True, help="master Hubble FITS")
+    s.add_argument("--obs-dir", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--hr-size", type=int, default=512)
+    s.add_argument("--stride", type=int, default=75)
+    s.add_argument("--factor", type=int, default=4)
+    s.add_argument("--workers", type=int, default=4)
+    s.set_defaults(fn=cmd_astro_extract)
+
+    s = sub.add_parser("astro-normalize",
+                       help="step 4: global log-stretch -> 16-bit TIFF pairs")
+    s.add_argument("--pairs", required=True)
+    s.add_argument("--out", required=True)
+    s.add_argument("--black-p", type=float, default=3.0)
+    s.add_argument("--white-p", type=float, default=99.99)
+    s.set_defaults(fn=cmd_astro_normalize)
+
     s = sub.add_parser("presets")
     s.set_defaults(fn=cmd_presets)
     return p
@@ -414,9 +584,17 @@ def main(argv=None):
     from superresolution_tpu_torch.runtime import setup_kernel_cache
 
     args = build_parser().parse_args(argv)
-    if getattr(args, "device", None) is not None:
+    if getattr(args, "device", None) is None:
+        return args.fn(args)
+    joined = _init_distributed(args)
+    try:
         setup_kernel_cache(args.device)
-    return args.fn(args)
+        return args.fn(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,6 +16,12 @@ reference replays them. With `row_pack`, a batch of more than one image
 runs the trunk as one tall map (pack_batch_rows: one zero spacer row
 after each image) with every dense block's `seg` = (h + 1, h), as the
 reference's row-packed training does (fused_apply.py:61-103 there).
+
+Under data parallelism each rank runs this apply on its share of the
+batch and the step sums the gradients (parallel/data.py), which stands
+for the reference's make_fused_train_apply_dp (fused_apply.py:151).
+The pipelined trunk (parallel/pipeline.py) runs rrdb_head, rrdb_block
+and rrdb_tail over the pipe ranks.
 """
 
 from __future__ import annotations
@@ -79,30 +85,53 @@ def unpack_batch_rows(xp: torch.Tensor, b: int, h: int,
     return xp.reshape(b, h + spacer, *xp.shape[2:])[:, :h]
 
 
-def _make_rrdb_apply(model: RRDBNet, row_pack: bool = False) -> Callable:
+def rrdb_block(p: Params, i: int, x: torch.Tensor,
+               seg: tuple | None = None) -> torch.Tensor:
+    """RRDB i of the trunk on NHWC x through kernel 13's op: three dense
+    blocks, the third folding the RRDB residual in."""
+    ws = [[(hwio(p[f"body.{i}.rdb{k}.conv{j}.weight"]),
+            p[f"body.{i}.rdb{k}.conv{j}.bias"].float())
+           for j in range(1, 6)] for k in range(1, 4)]
+    y = fused_dense_block_train(x, ws[0], seg=seg)
+    y = fused_dense_block_train(y, ws[1], seg=seg)
+    return fused_dense_block_train(y, ws[2], residual=x, seg=seg)
+
+
+def rrdb_head(model: RRDBNet, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """conv_first (after the pixel unshuffle, if any) on NHWC x."""
+    if model.pixel_unshuffle_input > 1:
+        x = space_to_depth(x, model.pixel_unshuffle_input)
+    return conv_nhwc(x, p["conv_first.weight"], p["conv_first.bias"])
+
+
+def rrdb_tail(model: RRDBNet) -> Callable:
+    """-> tail(p, body_out, head): trunk_conv + head, then the upsampler
+    and the last convs, on the given parameters."""
     tail = _Tail(model)
 
+    def run(p: Params, x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+        feat = conv_nhwc(x, p["conv_body.weight"], p["conv_body.bias"]) + head
+        return functional_call(tail, {f"model.{k}": v for k, v in p.items()
+                                      if not k.startswith("body.")}, (feat,))
+
+    return run
+
+
+def _make_rrdb_apply(model: RRDBNet, row_pack: bool = False) -> Callable:
+    tail = rrdb_tail(model)
+
     def apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-        if model.pixel_unshuffle_input > 1:
-            x = space_to_depth(x, model.pixel_unshuffle_input)
-        x = head = conv_nhwc(x, p["conv_first.weight"], p["conv_first.bias"])
+        x = head = rrdb_head(model, p, x)
         b, h = x.shape[0], x.shape[1]
         seg = None
         if row_pack and b > 1:
             seg = (h + 1, h)
             x = pack_batch_rows(x)
         for i in range(model.num_blocks):
-            ws = [[(hwio(p[f"body.{i}.rdb{k}.conv{j}.weight"]),
-                    p[f"body.{i}.rdb{k}.conv{j}.bias"].float())
-                   for j in range(1, 6)] for k in range(1, 4)]
-            y = fused_dense_block_train(x, ws[0], seg=seg)
-            y = fused_dense_block_train(y, ws[1], seg=seg)
-            x = fused_dense_block_train(y, ws[2], residual=x, seg=seg)
+            x = rrdb_block(p, i, x, seg)
         if seg is not None:
             x = unpack_batch_rows(x, b, h)
-        feat = conv_nhwc(x, p["conv_body.weight"], p["conv_body.bias"]) + head
-        return functional_call(tail, {f"model.{k}": v for k, v in p.items()
-                                      if not k.startswith("body.")}, (feat,))
+        return tail(p, x, head)
 
     return apply
 

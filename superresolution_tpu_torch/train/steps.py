@@ -8,6 +8,13 @@ the loss on pred.float(), and autograd takes the gradient to the f32
 masters through the cast. Accumulation sums the micro-batch gradients
 and logs and scales them by 1/k, as the reference's scan does. Nothing
 in a step reads a value back to the host: the logs stay on the card.
+
+With a `mesh` whose data axis has more than one rank (or a process
+group), the steps are data-parallel (parallel/data.py): every rank runs
+the input stage over the whole global batch, takes its share of each
+micro-batch, and one all-reduce over the data ranks sums the weighted
+gradients and logs (the eval step's sums), so the update is the
+single-device step's.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from superresolution_tpu_torch.ops.degradation import (
     MODES,
     degradation_pipeline,
 )
+from superresolution_tpu_torch.parallel.data import DataSplit
 from superresolution_tpu_torch.train.state import TrainState, global_norm
 from superresolution_tpu_torch.utils.config import DataConfig
 from superresolution_tpu_torch.utils.precision import Policy
@@ -93,32 +101,43 @@ def accumulate(grad_fn: Callable, micro: list) -> tuple[dict, dict]:
     return grads, logs
 
 
+def split_micro(micro: list, mesh) -> tuple[list, DataSplit]:
+    """This rank's share of each micro-batch on the mesh's data axis."""
+    split = DataSplit(mesh, micro[0][0].shape[0])
+    return [(split.take(a), split.take(b)) for a, b in micro], split
+
+
 def make_train_step(model, loss_fn, tx, policy: Policy, input_fn: Callable,
                     accum_steps: int = 1, ema_decay: float | None = None,
-                    apply_fn: Callable | None = None) -> Callable:
+                    apply_fn: Callable | None = None,
+                    mesh=None) -> Callable:
     """-> train_step(state, batch, generator) -> (state, logs); the state
     is updated in place. apply_fn(params, lr) -> pred replaces the plain
-    forward (same math)."""
+    forward (same math). With `mesh` (parallel/mesh.Mesh) the step is
+    data-parallel over its data axis."""
     def apply(p, x):
         if apply_fn is not None:
             return apply_fn(p, x)
         return functional_call(model, p, (x,))
 
-    def grad_fn(params, lr, hr):
+    def grad_fn(params, lr, hr, weight: float):
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad():
             pred = apply(policy.cast_to_compute(leaves),
                          lr.to(policy.compute_dtype))
             total, logs = loss_fn(pred.float(), hr.float())
-            grads = torch.autograd.grad(total, list(leaves.values()))
+            grads = torch.autograd.grad(total * weight,
+                                        list(leaves.values()))
         return (dict(zip(leaves, grads)),
-                {k: v.detach() for k, v in logs.items()})
+                {k: v.detach() * weight for k, v in logs.items()})
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None):
         lr, hr = input_fn(batch, generator)
-        grads, logs = accumulate(lambda a, b: grad_fn(state.params, a, b),
-                                 micro_batches(lr, hr, accum_steps))
+        micro, split = split_micro(micro_batches(lr, hr, accum_steps), mesh)
+        grads, logs = accumulate(
+            lambda a, b: grad_fn(state.params, a, b, split.weight), micro)
+        grads, logs = split.reduce(grads), split.reduce(logs)
         logs["grad_norm"] = global_norm(grads)
         state.apply_gradients(grads, tx, ema_decay)
         return state, logs
@@ -127,10 +146,13 @@ def make_train_step(model, loss_fn, tx, policy: Policy, input_fn: Callable,
 
 
 def make_eval_step(model, policy: Policy, input_fn: Callable | None = None,
-                   use_ema: bool = False) -> Callable:
+                   use_ema: bool = False, mesh=None) -> Callable:
     """-> eval_step(state, batch, generator) -> metrics dict (f32): the
     plain model's forward, PSNR/SSIM sums masked by the loader's `_valid`
-    (padded rows count for nothing), their means, and pred / lr / hr."""
+    (padded rows count for nothing), their means, and pred / lr / hr.
+    With `mesh`, each data rank evaluates its rows of the batch and the
+    sums (and means) are over all ranks; pred / lr / hr are this rank's
+    rows."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict,
@@ -139,22 +161,28 @@ def make_eval_step(model, policy: Policy, input_fn: Callable | None = None,
             lr, hr = input_fn(batch, generator)
         else:
             lr, hr = batch["lr"], batch["hr"]
+        valid = batch.get("_valid")
+        valid = (torch.ones(hr.shape[0], device=hr.device) if valid is None
+                 else valid.float())
+        split = DataSplit(mesh, hr.shape[0])
+        lr, hr, valid = split.take(lr), split.take(hr), split.take(valid)
         params = (state.ema_params if use_ema and state.ema_params
                   is not None else state.params)
         pred = functional_call(model, policy.cast_to_compute(params),
                                (lr.to(policy.compute_dtype),))
         pred = pred.float().clamp(0.0, 1.0)
         hrf = hr.float()
-        valid = batch.get("_valid")
-        valid = (torch.ones(hrf.shape[0], device=hrf.device) if valid is None
-                 else valid.float())
         psnr_i = psnr(pred, hrf)
         ssim_i = ssim(pred, hrf.clamp(0.0, 1.0))
-        n = valid.sum()
-        return {"psnr_sum": (psnr_i * valid).sum(),
-                "ssim_sum": (ssim_i * valid).sum(), "n": n,
-                "psnr": (psnr_i * valid).sum() / n.clamp(min=1.0),
-                "ssim": (ssim_i * valid).sum() / n.clamp(min=1.0),
+        if not split.sharded:  # a replicated batch counts once
+            valid = valid * split.weight
+        sums = split.reduce({"psnr_sum": (psnr_i * valid).sum(),
+                             "ssim_sum": (ssim_i * valid).sum(),
+                             "n": valid.sum()})
+        n = sums["n"]
+        return {**sums,
+                "psnr": sums["psnr_sum"] / n.clamp(min=1.0),
+                "ssim": sums["ssim_sum"] / n.clamp(min=1.0),
                 "pred": pred, "lr": lr, "hr": hrf}
 
     return eval_step

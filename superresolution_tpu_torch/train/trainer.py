@@ -19,8 +19,19 @@ the step of train/gan.py with the fused apply as the generator's
 forward under the same gate, and D's state saved beside G's under
 checkpoints_disc/ and restored on resume.
 
-Not ported yet, and raising NotImplementedError: multi-device meshes
-(mesh.data, mesh.pipe or mesh.spatial > 1).
+A multi-process run (trainer.py:64-147, 161-185 there) takes its mesh
+from config.mesh over the initialized process group (parallel/mesh.py),
+or the one passed in. mesh.data > 1: the global batch is rounded to a
+multiple of the data ranks (the too-small error kept), every rank loads
+it whole and takes its share of each micro-batch in the step, and the
+gradients (G's and D's) and logs are summed over the data ranks before
+each update (parallel/data.py); the validation batch is padded to a
+multiple of the data ranks and its PSNR/SSIM sums are over all of them.
+mesh.pipe > 1: the RRDB trunk body runs pipelined over the pipe ranks
+(parallel/pipeline.make_pipeline_forward), with the reference's
+refusals (GAN training; an arch that is not an RRDBNet with
+scan_blocks; a per-step batch that pipe_microbatches does not divide).
+Checkpoints, previews and logs are written by rank 0 only.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from superresolution_tpu_torch.models.factory import (
     total_scale,
 )
 from superresolution_tpu_torch.ops.resize import resize_nearest
+from superresolution_tpu_torch.parallel.mesh import create_mesh
 from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.train.checkpoint import CheckpointManager
 from superresolution_tpu_torch.train.fused_apply import (
@@ -93,19 +105,33 @@ def _restore_into(mgr: CheckpointManager, state):
     return restored
 
 
+class _NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def scalars(self, *args, **kwargs) -> None:
+        pass
+
+    def image(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     def __init__(self, config: Config, workdir: str | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.cfg = config
         self.device = resolve_device(device)
         self.workdir = workdir or os.path.join("outputs", config.name)
+        self.mesh = mesh if mesh is not None else create_mesh(config.mesh)
+        if self.mesh.coords is None:
+            raise ValueError(
+                f"rank {self.mesh.rank} lies outside the "
+                f"{self.mesh.sizes[0]}x{self.mesh.sizes[1]} mesh; start "
+                f"{self.mesh.size} processes")
+        self.is_main = self.mesh.rank == 0
         os.makedirs(self.workdir, exist_ok=True)
-        if config.mesh.data > 1 or config.mesh.pipe > 1 \
-                or config.mesh.spatial > 1:
-            raise NotImplementedError(
-                "multi-device training (mesh.data / mesh.pipe / "
-                "mesh.spatial > 1) needs the parallel/ port, which is not "
-                "ported yet (ROADMAP item A6)")
         self.is_gan = "gan" in config.loss.terms
         self.policy = get_policy(config.train.precision)
         self.scale = total_scale(config.model)
@@ -113,15 +139,22 @@ class Trainer:
         # --- data ---
         dc = config.data
         self.train_ds, self.val_ds = self._build_datasets()
-        bs = max(1, dc.batch_size)
-        if len(self.train_ds) < bs:  # shrink to the dataset
-            bs = len(self.train_ds)
+        bs = dc.batch_size
+        ndata = self.mesh.shape["data"]
+        bs = max(ndata, (bs // ndata) * ndata)
+        if len(self.train_ds) < bs:  # smart shrink (trainer.py:80-85 there)
+            bs = max(ndata, (len(self.train_ds) // ndata) * ndata)
         self.batch_size = bs
+        if bs < ndata or len(self.train_ds) < ndata:
+            raise ValueError(
+                f"dataset ({len(self.train_ds)}) / batch ({dc.batch_size}) too"
+                f" small for the {ndata}-way data mesh; shrink mesh.data")
         self.train_loader = Loader(self.train_ds, bs, shuffle=True,
                                    seed=config.train.seed,
                                    num_workers=dc.num_workers)
         # every val image enters PSNR/SSIM; padded rows are masked out
-        self.val_loader = Loader(self.val_ds, min(bs, len(self.val_ds)),
+        val_bs = max(ndata, (min(bs, len(self.val_ds)) // ndata) * ndata)
+        self.val_loader = Loader(self.val_ds, val_bs,
                                  shuffle=False, num_workers=dc.num_workers,
                                  drop_last=False, pad_to_batch=True)
 
@@ -147,8 +180,34 @@ class Trainer:
         self.eval_input_fn = make_device_input(dc, self.scale, augment=False)
 
         lr_patch = dc.hr_patch // self.scale
+        # the pipelined trunk (mesh.pipe > 1): same math, the body's
+        # blocks over the pipe ranks
+        pp_apply = None
+        npipe = self.mesh.shape.get("pipe", 1)
+        if npipe > 1:
+            from superresolution_tpu_torch.models.rrdbnet import RRDBNet
+            from superresolution_tpu_torch.parallel.pipeline import (
+                make_pipeline_forward,
+            )
+
+            if self.is_gan:
+                raise ValueError(
+                    "mesh.pipe > 1 does not support GAN training")
+            if not isinstance(self.model, RRDBNet) or \
+                    not self.model.scan_blocks:
+                raise ValueError(
+                    "mesh.pipe > 1 requires an RRDBNet arch with"
+                    " scan_blocks (the pipelined trunk body)")
+            n_micro = config.mesh.pipe_microbatches or npipe
+            accum = max(1, min(config.train.accum_steps, self.batch_size))
+            per_call = self.batch_size // accum
+            if per_call % n_micro:
+                raise ValueError(
+                    f"per-step batch {per_call} not divisible by"
+                    f" pipe_microbatches {n_micro}")
+            pp_apply = make_pipeline_forward(self.mesh, self.model, n_micro)
         self.fused_apply = None
-        if config.train.fused_trunk is not False:
+        if npipe == 1 and config.train.fused_trunk is not False:
             accum = max(1, min(config.train.accum_steps, self.batch_size))
             micro = self.batch_size // accum  # images per apply call
             on_cuda = self.device.type == "cuda"
@@ -184,23 +243,32 @@ class Trainer:
                 ema_decay=config.train.ema_decay,
                 gan_start_step=config.train.gan_start_step,
                 accum_steps=config.train.accum_steps,
-                gen_apply_fn=self.fused_apply)
+                gen_apply_fn=self.fused_apply, mesh=self.mesh)
         else:
+            # under pipe the pipelined forward spreads the batch itself and
+            # hands every rank the whole gradient: no data split here
             self._train_step = make_train_step(
                 self.model, self.loss_fn, self.tx, self.policy,
                 self.input_fn, accum_steps=config.train.accum_steps,
-                ema_decay=config.train.ema_decay, apply_fn=self.fused_apply)
+                ema_decay=config.train.ema_decay,
+                apply_fn=pp_apply or self.fused_apply,
+                mesh=None if pp_apply else self.mesh)
+        use_ema = config.train.ema_decay is not None
         self._eval_step = make_eval_step(
-            self.model, self.policy, self.eval_input_fn,
-            use_ema=config.train.ema_decay is not None)
+            self.model, self.policy, self.eval_input_fn, use_ema=use_ema,
+            mesh=self.mesh)
+        self._preview_step = make_eval_step(
+            self.model, self.policy, self.eval_input_fn, use_ema=use_ema)
 
-        # --- checkpoints / logs ---
+        # --- checkpoints / logs (written by rank 0) ---
         model_cfg = dict(dataclasses.asdict(config.model),
                          output_size=output_size)
         self.ckpt = CheckpointManager(
             os.path.join(self.workdir, "checkpoints"),
-            keep=config.train.keep_checkpoints, model_config=model_cfg)
-        self.logger = MetricsLogger(os.path.join(self.workdir, "logs"))
+            keep=config.train.keep_checkpoints,
+            model_config=model_cfg if self.is_main else None)
+        self.logger = (MetricsLogger(os.path.join(self.workdir, "logs"))
+                       if self.is_main else _NullLogger())
         # GAN: D's state (params and moments) resumes too, or a trained G
         # would meet a fresh random D
         self.d_ckpt = (CheckpointManager(
@@ -297,15 +365,18 @@ class Trainer:
             if (epoch + 1) % cfg.eval_every == 0 or epoch == epochs - 1:
                 val = self.evaluate()
                 self.logger.scalars(step, val, prefix="val/")
+                if not self.is_main:
+                    if val["psnr"] > best["psnr"]:
+                        best = dict(val)
                 # async: the disk write overlaps the next epoch
-                if self.ckpt.save(self.state, step, psnr=val["psnr"],
-                                  block=False):
+                elif self.ckpt.save(self.state, step, psnr=val["psnr"],
+                                    block=False):
                     best = dict(val)
-                if self.d_ckpt is not None:
+                if self.d_ckpt is not None and self.is_main:
                     self.d_ckpt.save(self.d_state, step, block=False)
             # previews follow their own cadence (nested in the eval
             # branch they would fall due at the LCM of the two)
-            if (epoch + 1) % cfg.preview_every == 0:
+            if (epoch + 1) % cfg.preview_every == 0 and self.is_main:
                 self._save_preview(epoch)
         self._wait_saves()  # commit the last async saves
         return {"best": best, "epochs": epochs,
@@ -337,9 +408,9 @@ class Trainer:
         carries no LR, so the stage degrades it)."""
         batch = {k: torch.from_numpy(np.asarray(v)[None]).to(self.device)
                  for k, v in self.val_ds[0].items()}
-        out = self._eval_step(self.state, batch,
-                              _step_generator(self.cfg.train.seed,
-                                              2 ** 31 - 1))
+        out = self._preview_step(self.state, batch,
+                                 _step_generator(self.cfg.train.seed,
+                                                 2 ** 31 - 1))
         hr0 = out["hr"][0]
         lr_up = resize_nearest(out["lr"][0].float(), tuple(hr0.shape[:2]))
         strip = torch.cat([lr_up, out["pred"][0], hr0], 1).cpu().numpy()

@@ -3,11 +3,14 @@ remaining utils (utils/profiling.py, runtime.setup_kernel_cache), in
 process on the CPU (--device cpu), the way tests/test_cli.py drives the
 JAX package's: presets, prepare-data, upscale (ESPCN, host tiler), a
 tiny train, the friendly error on a missing input, eval-folder,
-finalize, show-result, --mesh-data 2 raising; import-reference of a
-synthetic BasicSR RRDBNet .pth into `upscale --ckpt`; `upscale --ckpt
-assets/quality/port` against api.upscale with the same weights (1e-3,
-the tilers' bar). Against the JAX package: the presets listing, the
-subcommands and their flags, and finite_check's message."""
+finalize, show-result, a --mesh-data / --mesh-pipe larger than the world
+raising with the reference's message (the multi-process runs themselves:
+tests/test_torch_parallel.py); import-reference of a synthetic BasicSR
+RRDBNet .pth into `upscale --ckpt`; `upscale --ckpt assets/quality/port`
+against api.upscale with the same weights (1e-3, the tilers' bar).
+Against the JAX package: the presets listing, the subcommands and their
+flags, finite_check's message, and the astro-* subcommands' JSON lines
+and files on the same synthetic frames."""
 
 import json
 import os
@@ -87,10 +90,9 @@ def _flags(parser) -> dict:
 
 
 def test_subcommands_and_flags_match_jax():
-    """Every subcommand of the reference but the astro ETL's, with its
+    """Every subcommand of the reference, the astro ETL's too, with its
     flags, plus --device where a command runs a model."""
-    want = {k: v for k, v in _flags(jax_parser()).items()
-            if not k.startswith("astro-")}
+    want = _flags(jax_parser())
     got = _flags(build_parser())
     assert sorted(got) == sorted(want)
     for name, flags in want.items():
@@ -137,17 +139,95 @@ def test_upscale_missing_input_friendly_error(tmp_path, capsys):
     assert "not found" in capsys.readouterr().err
 
 
-def test_mesh_flags_above_one_raise(tmp_path):
+def test_mesh_flags_above_one_raise(tmp_path, capsys):
+    """In one process (a world of one), --mesh-data or --mesh-pipe 2 asks
+    for a mesh larger than the world and raises with the reference's
+    message; upscale --mesh-data refuses a --blend other than crop and a
+    model outside the rrdbnet family first, as the reference does."""
     src = str(tmp_path / "in.png")
     save_png(np.zeros((8, 8), np.float32), src)
-    with pytest.raises(NotImplementedError, match="A6"):
-        main(["upscale", "--input", src, "--output", str(tmp_path / "o.png"),
-              "--model", "espcn", "--scale", "2", "--mesh-data", "2",
-              "--device", "cpu"])
-    for flag in ("--mesh-data", "--mesh-pipe"):
-        with pytest.raises(NotImplementedError, match="A6"):
+    up = ["upscale", "--input", src, "--output", str(tmp_path / "o.png"),
+          "--scale", "2", "--mesh-data", "2", "--device", "cpu"]
+    assert main(up + ["--model", "espcn", "--blend", "hann"]) == 2
+    assert "--blend hann is not supported" in capsys.readouterr().err
+    assert main(up + ["--model", "espcn"]) == 2
+    assert "rrdbnet family" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        main(up + ["--model", "rrdbnet", "--tile", "8", "--halo", "2"])
+    for flag, msg in (("--mesh-data", "mesh 2x1 needs 2 devices, have 1"),
+                      ("--mesh-pipe", "mesh 1x2 needs 2 devices, have 1")):
+        with pytest.raises(ValueError, match=msg):
             main(["train", "--preset", "srcnn_x2", "--workdir",
                   str(tmp_path / "t"), flag, "2", "--device", "cpu"])
+
+
+def _astro_frames(root):
+    """A pre-solved master frame and one observatory frame over it (the
+    ETL's inputs; no plate solver needed)."""
+    from superresolution_tpu_torch.astro import (
+        TanWCS,
+        reproject_bilinear,
+        write_fits,
+    )
+
+    rng = np.random.default_rng(4)
+    master = rng.random((64, 64)) * 0.5 + 0.5
+    h_wcs = TanWCS(crval=(150.0, 2.0), crpix=(32.5, 32.5),
+                   cd=((-1.4e-5, 0.0), (0.0, 1.4e-5)))
+    o_wcs = TanWCS(crval=(150.0, 2.0), crpix=(8.5, 8.5),
+                   cd=((-5.6e-5, 0.0), (0.0, 5.6e-5)))
+    obs, _ = reproject_bilinear(master, h_wcs, o_wcs, (16, 16))
+    for d in ("hst", "obs"):
+        os.makedirs(os.path.join(root, d))
+    write_fits(os.path.join(root, "hst", "hst_master.fits"),
+               master.astype(np.float32), h_wcs.to_header())
+    write_fits(os.path.join(root, "obs", "obs_0.fits"),
+               np.nan_to_num(obs).astype(np.float32), o_wcs.to_header())
+
+
+def test_astro_subcommands_match_jax(tmp_path, capsys, monkeypatch):
+    """astro-register, astro-qc, astro-extract and astro-normalize on the
+    same synthetic frames print the reference's JSON lines (its output
+    directory swapped for the port's) and write the same FITS and TIFF
+    bytes."""
+    import filecmp
+
+    monkeypatch.setenv("SRTPU_ASTAP", str(tmp_path / "no_astap"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    _astro_frames(str(tmp_path))
+    outs = {}
+    for who, fn in (("port", main), ("ref", jax_main)):
+        d = str(tmp_path / who)
+        steps = [
+            ["astro-register", "--hubble-dir", str(tmp_path / "hst"),
+             "--obs-dir", str(tmp_path / "obs"), "--out", f"{d}/reg",
+             "--workers", "1"],
+            ["astro-qc", "--registered-dir", f"{d}/reg", "--out",
+             f"{d}/qc.png"],
+            ["astro-extract", "--hubble", str(tmp_path / "hst" /
+                                              "hst_master.fits"),
+             "--obs-dir", str(tmp_path / "obs"), "--out", f"{d}/pairs",
+             "--hr-size", "32", "--stride", "32", "--workers", "1"],
+            ["astro-normalize", "--pairs", f"{d}/pairs", "--out",
+             f"{d}/tiffs"]]
+        lines = []
+        for argv in steps:
+            fn(argv)
+            lines.append(capsys.readouterr().out.strip().replace(d, "D"))
+        outs[who] = lines
+    assert outs["port"] == outs["ref"]
+    assert json.loads(outs["port"][0]) == {"hubble": 1, "observatory": 1,
+                                           "dir": "D/reg"}
+    assert outs["port"][1] == "QC overlay -> D/qc.png"
+    assert json.loads(outs["port"][2])["pairs"] >= 1
+    for sub in ("reg", "pairs", "tiffs"):
+        for root, _, files in os.walk(tmp_path / "port" / sub):
+            for f in files:
+                if f.endswith((".fits", ".tiff")):
+                    other = os.path.join(str(tmp_path / "ref"), os.path.relpath(
+                        os.path.join(root, f), str(tmp_path / "port")))
+                    assert filecmp.cmp(os.path.join(root, f), other,
+                                       shallow=False), f
 
 
 def test_train_tiny_then_finalize_and_show_result(tmp_path, capsys):

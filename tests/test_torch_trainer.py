@@ -1,7 +1,9 @@
 """The port's Trainer (superresolution_tpu_torch/train/trainer.py) on the
 CPU at a tiny hybrid_astro-shaped config: fit runs, evaluates to a finite
-PSNR, keeps best/last checkpoints, finalizes and resumes; the parts not
-ported yet raise, and those ported since run."""
+PSNR, keeps best/last checkpoints, finalizes and resumes; a mesh larger
+than the world raises (the multi-process runs: tests/test_torch_parallel.py
+and test_torch_dp_pp.py), and the parts ported since the first slice
+run."""
 
 import dataclasses
 import json
@@ -145,13 +147,20 @@ def test_fp32_fused_step_takes_the_f32_route(tmp_path, monkeypatch):
 
 
 def test_unported_parts_raise(tmp_path):
-    """Meshes still raise; GAN terms (a discriminator and the GAN step),
-    manifests, bicubic degradation, previews and row-packed batches now
-    run."""
+    """A data mesh of 2 in a world of one process raises the reference's
+    error, and one of 1 trains on the mesh path (the batch rule, the
+    data-parallel step and evaluation at one rank); GAN terms (a
+    discriminator and the GAN step), manifests, bicubic degradation,
+    previews and row-packed batches run."""
     base = _cfg()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         Trainer(base.replace(mesh=dataclasses.replace(base.mesh, data=2)),
                 str(tmp_path), device="cpu")
+    one = base.replace(mesh=dataclasses.replace(base.mesh, data=1))
+    with Trainer(one, str(tmp_path / "one"), device="cpu") as tr:
+        assert tr.mesh.shape == {"data": 1, "spatial": 1}
+        assert tr.batch_size == 2 and tr.val_loader.bs == 2
+        assert tr.fit(1)["final_step"] == 1
     gan = base.replace(loss=dataclasses.replace(
         base.loss, terms={"l1": 1.0, "gan": 0.005}))
     with Trainer(gan, str(tmp_path / "g"), device="cpu") as tr:
