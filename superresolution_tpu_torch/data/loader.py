@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import time
 from typing import Iterator
 
 import numpy as np
@@ -35,6 +36,10 @@ class Loader:
         self.drop_last = drop_last
         self.pad_to_batch = pad_to_batch
         self.epoch = 0
+        # host ns spent blocked on a batch's decode in __iter__, and the
+        # batches waited for
+        self.wait_ns = 0
+        self.waits = 0
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -80,7 +85,11 @@ class Loader:
                 fut = pending.popleft()
                 if idxs is not None:
                     pending.append(pool.submit(self._fetch, idxs))
-                yield fut.result()
+                t0 = time.perf_counter_ns()
+                batch = fut.result()
+                self.wait_ns += time.perf_counter_ns() - t0
+                self.waits += 1
+                yield batch
 
 
 def prefetch_to_device(iterator, size: int = 2,

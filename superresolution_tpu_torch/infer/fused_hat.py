@@ -86,6 +86,7 @@ from superresolution_tpu_torch.ops.window_attention import (
     reference_window_attention,
 )
 from superresolution_tpu_torch.runtime import resolve_device
+from superresolution_tpu_torch.utils.profiling import span
 
 
 def _ln(x: torch.Tensor, p: Mapping, name: str,
@@ -300,9 +301,14 @@ def fused_hybrid_model(params: Mapping, model,
     smoothing = model.smoothing
 
     def apply_fn(x: torch.Tensor) -> torch.Tensor:
-        y = anti_checkerboard(s1(x), smoothing)
-        y = resize_to_output(anti_checkerboard(s2(y), smoothing),
-                             model.output_size)
-        return anti_checkerboard(y, "light" if smoothing else None)
+        with span("hybrid"):
+            with span("hybrid.stage1"):
+                y = s1(x)
+            y = anti_checkerboard(y, smoothing)
+            with span("hybrid.stage2"):
+                y = s2(y)
+            y = resize_to_output(anti_checkerboard(y, smoothing),
+                                 model.output_size)
+            return anti_checkerboard(y, "light" if smoothing else None)
 
     return PreboundModel(apply_fn)

@@ -25,6 +25,7 @@ import torch
 
 from superresolution_tpu_torch.infer.tiled import model_fn
 from superresolution_tpu_torch.runtime import resolve_device
+from superresolution_tpu_torch.utils.profiling import span
 
 
 def _edge_index(halo: int, n: int, size: int, device) -> torch.Tensor:
@@ -52,22 +53,26 @@ def make_tiled_infer(fn, scale: int, tile: int, halo: int, batch: int,
 
     @torch.inference_mode()
     def run(img) -> torch.Tensor:
-        img = torch.as_tensor(img, device=dev)
-        if tuple(img.shape) != (h, w, channels):
-            raise ValueError(f"image {tuple(img.shape)} != {(h, w, channels)}")
-        padded = img[rows][:, cols]
-        tiles = torch.stack([padded[y:y + t_in, x:x + t_in]
-                             for y, x in coords])
-        out = None
-        for s in range(0, n, batch):
-            o = fn(tiles[s:s + batch])
-            if out is None:
-                out = o.new_empty((ny * ts, nx * ts, o.shape[-1]))
-            for t in range(min(batch, n - s)):
-                iy, ix = divmod(s + t, nx)
-                out[iy * ts:(iy + 1) * ts, ix * ts:(ix + 1) * ts] = \
-                    o[t, hs:hs + ts, hs:hs + ts]
-        return out[:h * scale, :w * scale]
+        with span("tiler"):
+            img = torch.as_tensor(img, device=dev)
+            if tuple(img.shape) != (h, w, channels):
+                raise ValueError(
+                    f"image {tuple(img.shape)} != {(h, w, channels)}")
+            with span("tiler.gather"):
+                padded = img[rows][:, cols]
+                tiles = torch.stack([padded[y:y + t_in, x:x + t_in]
+                                     for y, x in coords])
+            out = None
+            for s in range(0, n, batch):
+                o = fn(tiles[s:s + batch])
+                with span("tiler.scatter"):
+                    if out is None:
+                        out = o.new_empty((ny * ts, nx * ts, o.shape[-1]))
+                    for t in range(min(batch, n - s)):
+                        iy, ix = divmod(s + t, nx)
+                        out[iy * ts:(iy + 1) * ts, ix * ts:(ix + 1) * ts] = \
+                            o[t, hs:hs + ts, hs:hs + ts]
+            return out[:h * scale, :w * scale]
 
     return run
 
@@ -139,9 +144,10 @@ def make_tiled_infer_staged(trunk_fn, tail_fn, scale: int, tile, halo: int,
         img = torch.as_tensor(img, device=dev)
         if tuple(img.shape) != (h, w, channels):
             raise ValueError(f"image {tuple(img.shape)} != {(h, w, channels)}")
-        padded = img[rows][:, cols]
-        tiles = torch.stack([padded[y:y + ti_h, x:x + ti_w]
-                             for y, x in (coords[i] for i in mine)])
+        with span("tiler.gather"):
+            padded = img[rows][:, cols]
+            tiles = torch.stack([padded[y:y + ti_h, x:x + ti_w]
+                                 for y, x in (coords[i] for i in mine)])
         feats = torch.cat([trunk_fn(t) for t in tiles.split(kb_local)])
         return feats if mesh is not None else feats[:n]
 
@@ -158,28 +164,33 @@ def make_tiled_infer_staged(trunk_fn, tail_fn, scale: int, tile, halo: int,
             from superresolution_tpu_torch.parallel.mesh import all_gather
 
             crops = torch.cat(all_gather(crops, mesh.group("data")))
-            out = crops.new_empty((ny * ts_h, nx * ts_w, crops.shape[-1]))
-            for t in range(n):
-                place(out, t, crops[t])
+            with span("tiler.scatter"):
+                out = crops.new_empty((ny * ts_h, nx * ts_w,
+                                       crops.shape[-1]))
+                for t in range(n):
+                    place(out, t, crops[t])
             return out[:h * scale, :w * scale]
         out = None
         for s in range(0, n, tail_batch):
             chunk = feats[s:s + tail_batch]
             k = chunk.shape[0]
             if k < tail_batch:
-                chunk = torch.cat([chunk, chunk.new_zeros(
-                    (tail_batch - k, *chunk.shape[1:]))])
+                with span("tiler.scatter"):
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (tail_batch - k, *chunk.shape[1:]))])
             o = tail_fn(chunk)
-            if out is None:
-                out = o.new_empty((ny * ts_h, nx * ts_w, o.shape[-1]))
-            for t in range(k):
-                place(out, s + t, o[t, hs:hs + ts_h, hs:hs + ts_w])
+            with span("tiler.scatter"):
+                if out is None:
+                    out = o.new_empty((ny * ts_h, nx * ts_w, o.shape[-1]))
+                for t in range(k):
+                    place(out, s + t, o[t, hs:hs + ts_h, hs:hs + ts_w])
         return out[:h * scale, :w * scale]
 
     if split_stages:
         return run_trunk, run_tail
 
     def run(img) -> torch.Tensor:
-        return run_tail(run_trunk(img))
+        with span("tiler"):
+            return run_tail(run_trunk(img))
 
     return run

@@ -12,6 +12,7 @@ import torch.nn as nn
 
 from superresolution_tpu_torch.ops.blur import anti_checkerboard
 from superresolution_tpu_torch.ops.resize import resize_bicubic
+from superresolution_tpu_torch.utils.profiling import span
 
 
 def resize_to_output(x: torch.Tensor, output_size: int | None
@@ -35,14 +36,17 @@ class HybridSR(nn.Module):
         self.output_size, self.smoothing = output_size, smoothing
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stage1(x)
-        if self.smoothing:
-            x = anti_checkerboard(x, self.smoothing)
-        if self.stage2 is not None:
-            x = self.stage2(x)
+        with span("hybrid"):
+            with span("hybrid.stage1"):
+                x = self.stage1(x)
             if self.smoothing:
                 x = anti_checkerboard(x, self.smoothing)
-        x = resize_to_output(x, self.output_size)
-        if self.smoothing:
-            x = anti_checkerboard(x, "light")
-        return x
+            if self.stage2 is not None:
+                with span("hybrid.stage2"):
+                    x = self.stage2(x)
+                if self.smoothing:
+                    x = anti_checkerboard(x, self.smoothing)
+            x = resize_to_output(x, self.output_size)
+            if self.smoothing:
+                x = anti_checkerboard(x, "light")
+            return x

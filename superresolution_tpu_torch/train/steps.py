@@ -34,6 +34,7 @@ from superresolution_tpu_torch.parallel.data import DataSplit
 from superresolution_tpu_torch.train.state import TrainState, global_norm
 from superresolution_tpu_torch.utils.config import DataConfig
 from superresolution_tpu_torch.utils.precision import Policy
+from superresolution_tpu_torch.utils.profiling import span
 
 
 def make_device_input(data_cfg: DataConfig, scale: int,
@@ -123,24 +124,29 @@ def make_train_step(model, loss_fn, tx, policy: Policy, input_fn: Callable,
     def grad_fn(params, lr, hr, weight: float):
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad():
-            pred = apply(policy.cast_to_compute(leaves),
-                         lr.to(policy.compute_dtype))
-            total, logs = loss_fn(pred.float(), hr.float())
-            grads = torch.autograd.grad(total * weight,
-                                        list(leaves.values()))
+            with span("train.forward"):
+                pred = apply(policy.cast_to_compute(leaves),
+                             lr.to(policy.compute_dtype))
+                total, logs = loss_fn(pred.float(), hr.float())
+            with span("train.backward"):
+                grads = torch.autograd.grad(total * weight,
+                                            list(leaves.values()))
         return (dict(zip(leaves, grads)),
                 {k: v.detach() * weight for k, v in logs.items()})
 
     def train_step(state: TrainState, batch: dict,
                    generator: torch.Generator | None):
-        lr, hr = input_fn(batch, generator)
-        micro, split = split_micro(micro_batches(lr, hr, accum_steps), mesh)
-        grads, logs = accumulate(
-            lambda a, b: grad_fn(state.params, a, b, split.weight), micro)
-        grads, logs = split.reduce(grads), split.reduce(logs)
-        logs["grad_norm"] = global_norm(grads)
-        state.apply_gradients(grads, tx, ema_decay)
-        return state, logs
+        with span("train.step"):
+            lr, hr = input_fn(batch, generator)
+            micro, split = split_micro(micro_batches(lr, hr, accum_steps),
+                                       mesh)
+            grads, logs = accumulate(
+                lambda a, b: grad_fn(state.params, a, b, split.weight), micro)
+            grads, logs = split.reduce(grads), split.reduce(logs)
+            with span("train.optimizer"):
+                logs["grad_norm"] = global_norm(grads)
+                state.apply_gradients(grads, tx, ema_decay)
+            return state, logs
 
     return train_step
 

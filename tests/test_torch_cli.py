@@ -32,11 +32,7 @@ from superresolution_tpu_torch.runtime import setup_kernel_cache
 from superresolution_tpu_torch.train.checkpoint import (
     load_params_for_inference,
 )
-from superresolution_tpu_torch.utils.profiling import (
-    StepTimer,
-    finite_check,
-    trace,
-)
+from superresolution_tpu_torch.utils.profiling import finite_check, trace
 
 ANCHOR = os.path.join(os.path.dirname(__file__), "..", "assets", "quality",
                       "port")
@@ -415,16 +411,6 @@ def test_setup_kernel_cache_builds_nothing_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(_build, "build", lambda: pytest.fail("built"))
     setup_kernel_cache("cpu")
-
-
-def test_step_timer():
-    t = StepTimer(warmup=1)
-    for _ in range(3):
-        t.tick()
-        t.tock()
-    assert t.mean >= 0 and t.best <= t.mean + 1e-12
-    assert t.throughput(4) > 0
-    assert np.isnan(StepTimer(warmup=5).mean)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
