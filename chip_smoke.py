@@ -56,11 +56,15 @@ a second seed:
   6b cab-widths     kernel 7 at C 120 (hidden 40), C 128 with c_real 96
              and a ragged [2,100,70,96] the same way, each timed
   7 hybrid-path     one frame through fused_hybrid_model, launches counted
-             (exact); shape and finiteness; stage 1, stage 2 and the
-             frame after it (both fed the kernel path's own stage-2
-             input) against the plain HybridSR on the same bf16 weights
-             within 0.03; both paths' distances from the plain model in
-             f32, and the whole frame's, printed
+             (exact; here and in phases 14, 19, 25 and 26 its first
+             call captures both stages as CUDA graphs, which launches
+             their kernels twice on the host, and its replay launches
+             none and gives the same frame); shape and finiteness;
+             stage 1, stage 2 and the frame after it (both fed the
+             kernel path's own stage-2 input) against the plain
+             HybridSR on the same bf16 weights within 0.03; both
+             paths' distances from the plain model in f32, and the
+             whole frame's, printed
   8 hybrid-times    ms/frame and MP/s (input MP), stage 1 and 2 ms, the
              plain model's frame, B1 at stage 1's shape, the device time
              of a frame (torch.profiler) and its busy share, peak memory
@@ -1861,8 +1865,9 @@ def hybrid_model(gen: torch.Generator, output_size: int | None = 4 * HYBRID_IN,
 
 def hybrid_path(gen: torch.Generator, card: str) -> dict:
     """Phases 7 and 8: one frame through fused_hybrid_model with every
-    launch counted, checked against the plain HybridSR; then times.
-    Returns the launches per frame."""
+    launch counted (the capturing call: twice a frame's, captured), its
+    replay, checked against the plain HybridSR; then times. Returns the
+    launches per frame."""
     from superresolution_tpu_torch.infer.fused_hat import (
         fused_hybrid_model, make_fused_hat)
     from superresolution_tpu_torch.infer.common import hwio
@@ -1903,7 +1908,8 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
                     "flash_oca_gathered": len(model.stage2.depths),
                     "conv3x3_depth_to_space": 0,
                     **{k: 0 for k in UNROUTED}}
-        check_launches("hybrid", launches, expected)
+        check_launches("hybrid", launches, captured(expected))
+        check_replay("hybrid", fused, x, y, ops)
         expect_attn_bodies("hybrid")
         side = 4 * HYBRID_IN
         if tuple(y.shape) != (1, side, side, 1):
@@ -1912,7 +1918,8 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
             raise AssertionError("hybrid: non-finite output")
         emit({"phase": "hybrid_path", "output_shape": list(y.shape),
               "dtype": str(y.dtype), "first_run_s": first_s,
-              "launches_per_frame": launches,
+              "launches_per_frame": expected,
+              "launches_capturing_call": launches,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
         # Each stage, and the frame, against the plain HybridSR on the
@@ -1994,7 +2001,7 @@ def hybrid_path(gen: torch.Generator, card: str) -> dict:
                                 if device_us else None),
           "top_device_kernels": top,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return launches
+    return expected
 
 
 # Kernels 12 and 16-19 run from their own entry points only: no path of
@@ -2037,6 +2044,35 @@ def check_launches(tag: str, launches: dict, expected: dict,
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} != expected "
                              f"{expected}")
+
+
+def captured(frame: dict) -> dict:
+    """The launches of fused_hybrid_model's first call on the card with
+    autograd off, for a frame's `frame`: each stage is captured then as
+    a CUDA graph (infer/common.Graphed) and runs its host code twice, an
+    eager warm-up and the capture pass, so every kernel inside the
+    stages is launched twice at its wrapper. A replay launches none
+    (check_replay)."""
+    return {k: 2 * v for k, v in frame.items()}
+
+
+def check_replay(tag: str, fused, x: torch.Tensor, y: torch.Tensor,
+                 ops: dict) -> None:
+    """fused(x) again after the capturing call that gave y: each stage
+    replays its graph (one more `replays`), no counted kernel is
+    launched on the host, and the output is y, bit for bit."""
+    before = {k: op.launches for k, op in ops.items()}
+    replays = [g.replays for g in fused.graphed]
+    again = fused(x)
+    torch.cuda.synchronize()
+    moved = {k: op.launches - before[k] for k, op in ops.items()
+             if op.launches != before[k]}
+    got = [g.replays - r for g, r in zip(fused.graphed, replays)]
+    emit({"check": f"{tag}/replay", "replays": got, "host_launches": moved})
+    if moved or got != [1, 1] or not torch.equal(again, y):
+        raise AssertionError(f"{tag}: the second call replayed {got}, "
+                             f"launched {moved} on the host, or changed "
+                             "the output")
 
 
 # B1's, B2's, kernel 6's and kernel 13's launches by body on each counted
@@ -3240,10 +3276,11 @@ def no_gather_path(gen: torch.Generator) -> None:
             y = fused(x)
             torch.cuda.synchronize()
             check_launches("no_gather", {k: op.launches
-                                         for k, op in ops.items()}, {
+                                         for k, op in ops.items()},
+                           captured({
                 **{k: 0 for k in ops}, "fused_dense_block": 69 * 5,
                 "fused_cab_convs": n_hab, "fused_hab_block": n_hab,
-                "flash_window_attention": len(model.stage2.depths)})
+                "flash_window_attention": len(model.stage2.depths)}))
             expect_attn_bodies("no_gather", 0)
             sub = {k: {n[len(k) + 1:]: v for n, v in params.items()
                        if n.startswith(k + ".")} for k in ("stage1", "stage2")}
@@ -4086,9 +4123,12 @@ def h200_path(gen: torch.Generator, card: str) -> dict:
             ops = zero_counts()
             y = run(x)
             torch.cuda.synchronize()
-            launches[tag] = {k: op.launches for k, op in ops.items()}
-            check_launches(f"h200/{tag}", launches[tag],
-                           {**{k: 0 for k in ops}, **want})
+            frame = {**{k: 0 for k in ops}, **want}
+            check_launches(f"h200/{tag}", {k: op.launches
+                                           for k, op in ops.items()},
+                           frame if tag == "flash_hatlite"
+                           else captured(frame))
+            launches[tag] = frame
             expect_attn_bodies(f"h200/{tag}",
                                n_hab if tag == "flash_hatlite" else 0)
             if tuple(y.shape) != (1, 4 * H200_IN, 4 * H200_IN, 1) or not \
@@ -4656,9 +4696,10 @@ def lever_frame(model, params, x, z, lever: str, want: dict,
         ops = zero_counts()
         y, seen = launch_channels(lambda: fused(x))
         torch.cuda.synchronize()
-        launches = {k: op.launches for k, op in ops.items()}
-        check_launches(f"{tag}/{lever}", launches,
-                       {**{k: 0 for k in ops}, **want})
+        launches = {**{k: 0 for k in ops}, **want}
+        check_launches(f"{tag}/{lever}", {k: op.launches
+                                          for k, op in ops.items()},
+                       captured(launches))
         expect_attn_bodies(f"{tag}/{lever}")
         for k, c in channels.items():
             if set(seen[k]) != {c}:

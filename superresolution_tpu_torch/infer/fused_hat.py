@@ -3,8 +3,8 @@
 Counterpart of superresolution_tpu/infer/fused_hat.py. Every HAB runs its
 CAB conv stack as kernel 7 (ops/hab.fused_cab_convs) and its window body
 as kernel 8 (ops/hab.fused_hab_block). Every group-end OCAB takes one of
-the reference's three attention paths, read from the environment at each
-call as the reference reads it at trace time:
+the reference's three attention paths, read from the environment when
+make_fused_hat builds the stage (the reference reads it at trace time):
   * kernel 9 (ops/flash_oca.flash_oca_gathered), fed the padded key and
     value maps, where oca_gather_supported holds (an even ows - ws) and
     SRTPU_GATHER_OCA is not "" or "0";
@@ -23,30 +23,49 @@ bridges the JAX trees) and are cast per input dtype, as the reference
 casts its params at the call: bf16 on the card, f32 in the CPU tests.
 
 The reference's three deploy levers, all off by default, are read from
-the environment where the reference reads them:
-  * SRTPU_LANE_PAD (with SRTPU_LANE_PAD_TO, default 128), once in
-    make_fused_hat: where infer/lane_pad.lane_pad_supported holds, the
-    weights are zero-padded to that many channels (pad_hat_params) and
+the environment once, when make_fused_hat builds the stage (the
+reference reads them at trace time), so a stage keeps the levers it was
+built with and a graph of it holds them:
+  * SRTPU_LANE_PAD (with SRTPU_LANE_PAD_TO, default 128): where
+    infer/lane_pad.lane_pad_supported holds, the weights are
+    zero-padded to that many channels (pad_hat_params) and
     the stage runs there, kernels 7-9 at C 128 with 8 heads for embed 96,
     every LayerNorm dividing by the real C (c_real); elsewhere (C 120 at
     head dim 20, say) the model runs unpadded, as the reference's does;
-  * SRTPU_STRIP_HAB (with SRTPU_STRIP_RB), at each HAB call and only
-    unpadded: kernel 7, the squeeze-excite vector from its output (f32,
-    conv_scale folded in), then kernel 11 (ops/hab_strip.strip_hab_block)
+  * SRTPU_STRIP_HAB (with SRTPU_STRIP_RB), only unpadded: kernel 7, the
+    squeeze-excite vector from its output (f32, conv_scale folded in),
+    then kernel 11 (ops/hab_strip.strip_hab_block)
     on the spatial maps, with no roll, partition or merge around it;
-  * SRTPU_XLA_CAB, at each HAB call: the plain CAB (LN, convs, GELU, SE)
-    in PyTorch in place of kernel 7.
+  * SRTPU_XLA_CAB: the plain CAB (LN, convs, GELU, SE) in PyTorch in
+    place of kernel 7.
+
+fused_hybrid_model runs each of its two stages through an
+infer/common.Graphed wrapper: a CUDA input with autograd off (no_grad
+or inference_mode) replays a CUDA graph of the stage, so the card runs
+its ~1300 launches a patch without waiting on the host for each;
+CPU tensors, or autograd on, run the stages eagerly, as before. A graph
+is kept for one key (the input's shape, dtype and device, and inference
+mode) and captured anew when the key changes; the levers are the
+stage's own, fixed when it was built. A call's output is its own copy,
+never the graph's buffer. The kernels' `.launches` counters count
+launches on the host, at their wrappers: a capturing call launches each
+stage's kernels twice (its eager warm-up and the capture pass), a
+replay launches none there (the counters `captures` and `replays` of
+the model's `graphed` count those). The blurs and the resize between
+and after the stages stay eager: the blur copies its taps from the host
+at each call, which a graph cannot hold.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from superresolution_tpu_torch.infer.common import (
+    Graphed,
     PreboundModel,
     param_conv,
     state_tensors,
@@ -89,6 +108,28 @@ from superresolution_tpu_torch.runtime import resolve_device
 from superresolution_tpu_torch.utils.profiling import span
 
 
+class _Levers(NamedTuple):
+    """The HAB and OCAB levers of a stage (module docstring), read once
+    by _read_levers when make_fused_hat builds it."""
+    strip: bool            # SRTPU_STRIP_HAB, on an unpadded stage
+    strip_rb: int | None   # SRTPU_STRIP_RB
+    xla_cab: bool          # SRTPU_XLA_CAB
+    gather: bool           # SRTPU_GATHER_OCA not "" or "0", and no einsum
+    einsum: bool           # SRTPU_EINSUM_OCA
+
+
+def _read_levers(padded: bool) -> _Levers:
+    env = os.environ
+    rb, einsum = env.get("SRTPU_STRIP_RB"), bool(env.get("SRTPU_EINSUM_OCA"))
+    return _Levers(
+        strip=bool(env.get("SRTPU_STRIP_HAB")) and not padded,
+        strip_rb=int(rb) if rb else None,
+        xla_cab=bool(env.get("SRTPU_XLA_CAB")),
+        gather=not einsum
+        and env.get("SRTPU_GATHER_OCA", "1") not in ("", "0"),
+        einsum=einsum)
+
+
 def _ln(x: torch.Tensor, p: Mapping, name: str,
         c_real: int | None = None) -> torch.Tensor:
     return layer_norm(x, p[f"{name}.weight"], p[f"{name}.bias"], c_real)
@@ -124,21 +165,19 @@ def _cab_plain(x: torch.Tensor, p: Mapping, pre: str,
 
 def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
          ws: int, nh: int, conv_scale: float, ids: torch.Tensor | None,
-         c_real: int | None = None) -> torch.Tensor:
+         lv: _Levers, c_real: int | None = None) -> torch.Tensor:
     """One HABlock: the CAB branch (kernel 7 + SE, or the plain CAB
-    under SRTPU_XLA_CAB), then the window body (kernel 8) on the rolled,
-    partitioned x and cab; or, under SRTPU_STRIP_HAB on an unpadded
-    stage, kernel 7 and kernel 11 on the maps."""
+    under lv.xla_cab), then the window body (kernel 8) on the rolled,
+    partitioned x and cab; or, under lv.strip, kernel 7 and kernel 11 on
+    the maps."""
     b, h, w, c = x.shape
     cw, hw = weights
-    if os.environ.get("SRTPU_STRIP_HAB") and c_real is None:
+    if lv.strip:
         y_cab = fused_cab_convs(x, cw)
         se = (_se(y_cab, p, pre).float() * conv_scale).reshape(b, 1, c)
-        rb = os.environ.get("SRTPU_STRIP_RB")
         return strip_hab_block(x, y_cab, se, hw, num_heads=nh,
-                               window_size=ws, shift=shift,
-                               rb=int(rb) if rb else None)
-    if os.environ.get("SRTPU_XLA_CAB"):
+                               window_size=ws, shift=shift, rb=lv.strip_rb)
+    if lv.xla_cab:
         cab = _cab_plain(x, p, pre, c_real)
     else:
         y = fused_cab_convs(x, cw, c_real=c_real)
@@ -158,7 +197,7 @@ def _hab(x: torch.Tensor, p: Mapping, pre: str, weights, *, shift: int,
 
 def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
           nh: int, bias: torch.Tensor, fragments: torch.Tensor,
-          c_real: int | None = None) -> torch.Tensor:
+          lv: _Levers, c_real: int | None = None) -> torch.Tensor:
     """OverlappingCrossAttention: LN, q and kv denses, the kv maps
     zero-padded after the dense (asymmetric tail pad for odd ows - ws),
     attention through kernel 9 (the bias re-laid once, as `fragments`),
@@ -169,10 +208,7 @@ def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
     qkv = _dense(y, p, f"{pre}.qkv")  # q | k | v, as HAT packs them
     q = window_partition(qkv[..., :c], ws).contiguous()
     kv = F.pad(qkv[..., c:], (0, 0, pad, ows - ws - pad, pad, ows - ws - pad))
-    einsum = bool(os.environ.get("SRTPU_EINSUM_OCA"))
-    if (not einsum
-            and os.environ.get("SRTPU_GATHER_OCA", "1") not in ("", "0")
-            and oca_gather_supported(ws, ows, h, w)):
+    if lv.gather and oca_gather_supported(ws, ows, h, w):
         k_map, v_map = (kv[..., i * c:(i + 1) * c].contiguous()
                         for i in (0, 1))
         out = flash_oca_gathered(q, k_map, v_map, bias, nh, ws, ows,
@@ -180,7 +216,7 @@ def _ocab(x: torch.Tensor, p: Mapping, pre: str, *, ws: int, ows: int,
     else:
         k, v = extract_overlapping_windows(kv, ws, ows, h // ws,
                                            w // ws).split(c, dim=-1)
-        out = (reference_window_attention(q, k, v, bias, nh) if einsum
+        out = (reference_window_attention(q, k, v, bias, nh) if lv.einsum
                else flash_window_attention(q, k, v, bias, nh))
     x = x + window_merge(_dense(out, p, f"{pre}.proj"), ws, (h, w))
     z = F.gelu(_dense(_ln(x, p, f"{pre}.norm2", c_real), p,
@@ -195,8 +231,8 @@ def make_fused_hat(params: Mapping, model: HATLite,
     with the weights of `params`, a HAT-keyed state dict, with its HABs
     and OCABs through kernels 7-10. Sides that are not multiples of the
     window are edge-padded and the output cropped, as in the model.
-    Under SRTPU_LANE_PAD the weights are lane-padded here, once (see the
-    module docstring)."""
+    The levers are read here, once (see the module docstring): under
+    SRTPU_LANE_PAD the weights are lane-padded here."""
     dev = resolve_device(device)
     p = state_tensors(params, dev)
     ws, scale = model.window_size, model.scale
@@ -210,6 +246,7 @@ def make_fused_hat(params: Mapping, model: HATLite,
                                                        c_pad):
             p, nhp = pad_hat_params(p, model, c_pad)
             heads, c_real = (nhp,) * len(heads), c_model
+    lv = _read_levers(padded=c_real is not None)
     c_q = p["conv_first.weight"].shape[0]  # the attention's channels
     layers = []
     for g, (depth, nh) in enumerate(zip(model.depths, heads)):
@@ -261,9 +298,10 @@ def make_fused_hat(params: Mapping, model: HATLite,
                 shift = 0 if i % 2 == 0 else ws // 2
                 y = _hab(y, p, pre, wts[pre], shift=shift, ws=ws, nh=nh,
                          conv_scale=model.conv_scale,
-                         ids=ids if shift else None, c_real=c_real)
+                         ids=ids if shift else None, lv=lv, c_real=c_real)
             y = _ocab(y, p, f"layers.{g}.overlap_attn", ws=ws, ows=ows,
-                      nh=nh, bias=bias, fragments=frag, c_real=c_real)
+                      nh=nh, bias=bias, fragments=frag, lv=lv,
+                      c_real=c_real)
             y = y0 + param_conv(y, p, f"layers.{g}.conv")
         if model.hat_compat:
             y = _ln(y, p, "norm", c_real)
@@ -291,13 +329,23 @@ def fused_hybrid_model(params: Mapping, model,
     smooth, stage 2 through make_fused_hat (kernels 7-10), smooth, the
     bicubic resize to output_size where the stage output differs from
     it, and the light smooth. `params` holds stage1.* and stage2.* keys
-    (convert.hybrid_state_dict_from_jax)."""
+    (convert.hybrid_state_dict_from_jax).
+
+    Each stage runs through a Graphed wrapper (the model's .graphed,
+    with their `captures`, `replays` and `eager` counters), sharing one
+    memory pool: on a CUDA input with autograd off, a call whose key
+    (shape, dtype, device, inference mode) differs from the last runs
+    the stage once eagerly, captures it and replays it; later calls with
+    that key replay it. Every other call runs eagerly. The levers are
+    stage 2's, read when it is built here. Outputs are the caller's own;
+    the kernels' `.launches` count host launches only (see the module
+    docstring)."""
     if not isinstance(model.stage2, HATLite):
         raise ValueError("fused hybrid requires a HATLite stage 2")
-    s1 = fused_rrdb_model(_stage(params, "stage1."), model.stage1,
-                          device=device)
-    s2 = make_fused_hat(_stage(params, "stage2."), model.stage2,
-                        device=device)
+    s1 = Graphed(fused_rrdb_model(_stage(params, "stage1."), model.stage1,
+                                  device=device))
+    s2 = Graphed(make_fused_hat(_stage(params, "stage2."), model.stage2,
+                                device=device), share=s1)
     smoothing = model.smoothing
 
     def apply_fn(x: torch.Tensor) -> torch.Tensor:
@@ -311,4 +359,4 @@ def fused_hybrid_model(params: Mapping, model,
                                  model.output_size)
             return anti_checkerboard(y, "light" if smoothing else None)
 
-    return PreboundModel(apply_fn)
+    return PreboundModel(apply_fn, graphed=(s1, s2))

@@ -80,13 +80,13 @@ def test_make_fused_hat_odd_overlap_matches_jax():
 def test_make_fused_hat_oca_paths_match_jax(env, monkeypatch):
     """SRTPU_GATHER_OCA '0' or '' turns kernel 9 off for kernel 10 on
     the gathered windows; SRTPU_EINSUM_OCA takes the plain attention.
-    Both sides read the environment at the call."""
+    The port reads the environment when it builds the stage, the
+    reference at the call."""
     from superresolution_tpu_torch.infer import fused_hat
 
     jm, variables, sd, tm = _hat(True)
     x = np.random.default_rng(6).standard_normal((1, 12, 16, 1)).astype(
         np.float32)
-    apply = make_fused_hat(sd, tm, device="cpu")
     calls = []
     for name in ("flash_window_attention", "reference_window_attention"):
         real = getattr(fused_hat, name)
@@ -94,6 +94,7 @@ def test_make_fused_hat_oca_paths_match_jax(env, monkeypatch):
                             **k: calls.append(_n) or _r(*a, **k))
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    apply = make_fused_hat(sd, tm, device="cpu")
     ref = jfused.make_fused_hat(variables, jm)(jnp.asarray(x))
     _close(apply(torch.from_numpy(x)).numpy(), ref)
     path = ("reference_window_attention" if "SRTPU_EINSUM_OCA" in env
